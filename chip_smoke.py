@@ -1,0 +1,377 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py          # from the root of a checkout; one card, nvcc
+
+Builds the CUDA kernels from the checkout's sources, holds each against its
+plain PyTorch version on the card, then drives the serving path:
+
+1. environment: versions, ``nvidia-smi`` name and power limit, kernel build;
+2. flash-attention kernel vs its plain version at every shape the later
+   phases give it (reference bounds: 2e-3 fp32, 2e-2 bf16, plus a per-row
+   bound relative to the row's size) with kernel / plain / library (SDPA) /
+   bound times;
+3. granite-3-8b at full width and depth, bf16, seeded init: prefill step at
+   B=4 x S=2048 (exactly one kernel launch per layer), then the launcher's
+   flow (batch 4, prompt 64, 32 greedy tokens), and one decode step counted
+   (operations dispatched) and traced (device busy time);
+4. prefill vs token-by-token decode logits, granite-3-8b full width cut to 4
+   layers, fp32 with TF32 off: the kernel against the model's independent
+   decode attention;
+5. gemma2-9b full width cut to 2 layers (one local, one global): prefill at
+   S=8192 so the 4096 window bites, then 8 decode steps.
+
+Any failed check raises and the script exits non-zero without a result.  The
+last line is ``{"ok": true, "device": {...}}``; the line before it is a JSON
+object listing every ported kernel with its launches on the main path (the
+phase-3 prefill) and its times.  Imports nothing of JAX or of ``repro``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+SRC = REPO / "src"
+
+BF16_PEAK_FLOPS = 989e12      # H100 SXM dense bf16 tensor cores (data sheet)
+FP32_PEAK_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+
+# (name, B, H, KV, S, hd, causal, window, softcap, dtype)
+FA_CASES = [
+    ("fa_case0", 2, 4, 2, 256, 64, True, 0, 0.0, "float32"),
+    ("fa_case1", 1, 4, 1, 256, 128, True, 0, 50.0, "float32"),
+    ("fa_case2", 2, 2, 2, 384, 64, True, 128, 0.0, "float32"),
+    ("fa_case3", 1, 8, 4, 512, 64, False, 0, 0.0, "float32"),
+    ("fa_case4", 1, 2, 2, 256, 64, True, 0, 0.0, "bfloat16"),
+    ("fa_case5", 1, 16, 2, 128, 128, True, 64, 30.0, "float32"),
+    ("ragged_s1000", 1, 8, 2, 1000, 128, True, 0, 0.0, "bfloat16"),
+    ("granite_prefill", 4, 32, 8, 2048, 128, True, 0, 0.0, "bfloat16"),
+    ("phase4_fp32", 2, 32, 8, 100, 128, True, 0, 0.0, "float32"),
+    ("gemma2_local", 1, 16, 8, 8192, 256, True, 4096, 50.0, "bfloat16"),
+    ("gemma2_global", 1, 16, 8, 8192, 256, True, 0, 50.0, "bfloat16"),
+]
+# Per-row bound on max|kernel - plain| / rms(plain row).  The absolute 2e-2
+# is about half a typical output in rows that see thousands of keys (their
+# outputs are ~1/sqrt(keys)); rounding alone leaves ~1e-2 here, while a
+# dropped or doubled 32-key tile in such a row leaves ~0.3.
+ROW_REL_TOL = 0.1
+MAIN_PATH_CASE = "granite_prefill"
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip()
+
+
+def visible_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(q, k) pairs the causal / window masks leave visible."""
+    total = 0
+    for q in range(Sq):
+        hi = min(q, Skv - 1) if causal else Skv - 1
+        lo = max(q - window + 1, 0) if window > 0 else 0
+        total += max(hi - lo + 1, 0)
+    return total
+
+
+def row_rel_err(out, ref) -> float:
+    """max over rows of max|out - ref| / rms(ref) within the row."""
+    d = (out.float() - ref.float()).abs().amax(dim=-1)
+    rms = ref.float().pow(2).mean(dim=-1).sqrt().clamp_min(1e-30)
+    return (d / rms).max().item()
+
+
+def main() -> int:
+    if not (SRC / "repro_torch").is_dir():
+        print(f"no src/repro_torch beside {Path(__file__).name}: run from a checkout",
+              file=sys.stderr)
+        return 2
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("torch.cuda.is_available() is False: this smoke run needs a GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import init_kv_cache, init_params
+    from repro_torch.runtime.planner import plan_for_cell
+    from repro_torch.runtime.serve import (
+        build_decode_step, build_prefill_step, greedy_generate,
+    )
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+
+    def cuda_ms(fn, iters: int) -> float:
+        fn()                                    # warm-up (and first-use build)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    # ------------------------------------------------------------ phase 1
+    smi = nvidia_smi_line()
+    card = f"[{smi}]"
+    print(f"phase 1: python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    print(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    took = _build.build("flash_attention.cu")
+    print(f"kernel build: flash_attention.cu {took:.3f} s "
+          f"(wall {time.perf_counter() - t0:.3f} s)")
+    log = _build.library_path("flash_attention.cu").with_suffix(".log")
+    if log.exists():
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line and " 0 bytes spill" not in line:
+                print("  ptxas:", line.strip())
+
+    # ------------------------------------------------------------ phase 2
+    print("phase 2: flash_attention kernel vs plain version on the card")
+    results = {}
+    for name, B, H, KV, S, hd, causal, window, cap, dt in FA_CASES:
+        dtype = getattr(torch, dt)
+        g = torch.Generator(device=dev).manual_seed(0)
+        q = torch.randn(B, H, S, hd, generator=g, device=dev).to(dtype)
+        k = torch.randn(B, KV, S, hd, generator=g, device=dev).to(dtype)
+        v = torch.randn(B, KV, S, hd, generator=g, device=dev).to(dtype)
+        out = flash_attention_kernel(q, k, v, causal=causal, window=window, softcap=cap)
+        ref = attention_ref(q, k, v, causal, window, cap)
+        sync()
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+        err = (out.float() - ref.float()).abs().max().item()
+        rel = row_rel_err(out, ref)
+        check(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
+              f"{name}: kernel vs plain max abs err {err} (tol {tol})")
+        check(rel <= ROW_REL_TOL,
+              f"{name}: kernel vs plain per-row error {rel} / rms (tol {ROW_REL_TOL})")
+        del out, ref
+        big = B * H * S * S > 2 ** 28
+        ms = cuda_ms(lambda: flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                                    softcap=cap), 10 if big else 50)
+        plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal, window, cap), 2 if big else 10)
+        library_ms = None
+        if cap == 0.0:      # SDPA has no softcap; windows go in as a boolean mask
+            mask = None
+            if window > 0:
+                pos = torch.arange(S, device=dev)
+                mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=H != KV), 10 if big else 50)
+        flops = 4 * B * H * hd * visible_pairs(S, S, causal, window)
+        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+        t_ops = flops / (BF16_PEAK_FLOPS if dtype == torch.bfloat16 else FP32_PEAK_FLOPS)
+        t_mem = nbytes / HBM_BYTES_PER_S
+        results[name] = {
+            "max_abs_err": err, "row_rel_err": rel, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": 1e3 * max(t_ops, t_mem),
+            "bound_by": "operations" if t_ops >= t_mem else "bytes",
+        }
+        print(f"  {name}: B={B} H={H} KV={KV} S={S} hd={hd} causal={causal} "
+              f"window={window} softcap={cap} {dt}: tol {tol}, row tol {ROW_REL_TOL} {json.dumps(results[name])} "
+              f"{card}")
+        del q, k, v
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ phase 3
+    cfg = get_config("granite-3-8b")
+    print(f"phase 3: {cfg.name} full width and depth ({cfg.n_layers} layers), bf16")
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  init {n_params / 1e9:.3f} B params in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    B, S = 4, 2048
+    plan = plan_for_cell(cfg, S, B, ("data", "model"), 1, kind="prefill", use_dse=False)
+    prefill = build_prefill_step(cfg, plan, dev)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=torch.Generator().manual_seed(1))
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_kernel.launches = 0
+    logits = prefill(model, tokens)
+    sync()
+    launches = flash_attention_kernel.launches
+    check(launches == cfg.n_layers,
+          f"{launches} flash-attention launches in one prefill, expected {cfg.n_layers}")
+    check(tuple(logits.shape) == (B, S, cfg.padded_vocab), f"logits shape {logits.shape}")
+    check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+    del logits
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill(model, tokens)
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    check(flash_attention_kernel.launches == 4 * cfg.n_layers, "launches over 4 prefills")
+    print(f"  prefill B={B} S={S}: {statistics.median(times):.3f} ms (median of 3), "
+          f"{launches} kernel launches per call, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+    torch.cuda.reset_peak_memory_stats()
+    res = serve(cfg, model, batch=4, prompt_len=64, tokens=32, cache_dtype=torch.bfloat16)
+    out = res["tokens"]
+    check(tuple(out.shape) == (4, 32), f"generated {tuple(out.shape)}")
+    check(int(out.min()) >= 0 and int(out.max()) < cfg.padded_vocab, "token out of range")
+    print(f"  launcher flow (batch 4, prompt 64, 32 tokens): prompt ingest "
+          f"{1e3 * res['prompt_s']:.3f} ms, decode {res['decode_tok_s']:.1f} tok/s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+    # One step of the same decode flow, counted and traced: the operations the
+    # eager step dispatches (views included), its wall time unprofiled, and
+    # the device's busy time under the profiler (sum of kernel durations).
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpCount(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    plan = plan_for_cell(cfg, 96, 4, ("data", "model"), 1, kind="decode")
+    dstep = build_decode_step(cfg, plan, batch=4, max_len=96, device=dev)
+    caches = init_kv_cache(cfg, 4, 96, torch.bfloat16, dev)
+    tok = torch.zeros(4, 1, dtype=torch.int64, device=dev)
+    pos = torch.full((4,), 64, dtype=torch.int64, device=dev)
+    for _ in range(3):
+        dstep(model, tok, pos, caches)
+    sync()
+    times = []
+    for _ in range(9):
+        t0 = time.perf_counter()
+        dstep(model, tok, pos, caches)
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    step_ms = statistics.median(times)
+    ops = OpCount()
+    with ops:
+        dstep(model, tok, pos, caches)
+    sync()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        dstep(model, tok, pos, caches)
+        sync()
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = (f"{len(kern)} device kernels busy "
+            f"{sum(e.time_range.elapsed_us() for e in kern) / 1e3:.3f} ms"
+            if kern else "device busy time not measured (the profiler saw no kernels)")
+    print(f"  decode step (batch 4, position 64): {step_ms:.3f} ms wall (median of 9, "
+          f"{min(times):.3f}-{max(times):.3f}), {ops.n} operations dispatched "
+          f"({ops.n / cfg.n_layers:.1f} per layer), {busy} {card}")
+    del model, caches
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ phase 4
+    cfg4 = dataclasses.replace(cfg, n_layers=4, param_dtype="float32")
+    print(f"phase 4: prefill vs decode, {cfg.name} full width, fp32, TF32 off")
+    print(f"  reduced: n_layers {cfg.n_layers}→{cfg4.n_layers}")
+    model = init_params(cfg4, torch.Generator(device=dev).manual_seed(2), dev)
+    B, S = 2, 100
+    tokens = torch.randint(0, cfg4.vocab, (B, S), generator=torch.Generator().manual_seed(3))
+    plan = plan_for_cell(cfg4, S, B, ("data", "model"), 1, kind="prefill", use_dse=False)
+    flash_attention_kernel.launches = 0
+    logits_p = build_prefill_step(cfg4, plan, dev)(model, tokens)
+    check(flash_attention_kernel.launches == cfg4.n_layers, "fp32 prefill launches")
+    dstep = build_decode_step(cfg4, plan, batch=B, max_len=S, device=dev)
+    caches = init_kv_cache(cfg4, B, S, torch.float32, dev)
+    logits_d = []
+    for t in range(S):
+        lg, caches = dstep(model, tokens[:, t:t + 1], torch.full((B,), t), caches)
+        logits_d.append(lg)
+    logits_d = torch.cat(logits_d, dim=1)
+    scale = logits_p.abs().max().item()
+    err = (logits_p - logits_d).abs().max().item()
+    # fp32 throughout: the two paths differ only in summation order (flash
+    # tiles vs one softmax over the cache; cuBLAS at M=B*S vs M=B), which
+    # leaves ~1e-6 relative; 1e-3 of the logit scale flags any wrong mask,
+    # position or cache entry, which moves logits by O(1).
+    tol = 1e-3 * scale
+    check(err <= tol, f"prefill vs decode logits: max abs err {err} > {tol}")
+    print(f"  B={B} S={S}: max |prefill - decode| {err:.3e} (tol 1e-3 x max|logit| "
+          f"= {tol:.3e})")
+    del model, caches, logits_p, logits_d
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ phase 5
+    gcfg = get_config("gemma2-9b")
+    cfg5 = dataclasses.replace(gcfg, n_layers=2)
+    print(f"phase 5: {gcfg.name} full width, bf16, layers {cfg5.block_kinds()}")
+    print(f"  reduced: n_layers {gcfg.n_layers}→{cfg5.n_layers}")
+    model = init_params(cfg5, torch.Generator(device=dev).manual_seed(4), dev)
+    B, S, steps = 1, 8192, 8
+    tokens = torch.randint(0, cfg5.vocab, (B, S), generator=torch.Generator().manual_seed(5))
+    flash_attention_kernel.launches = 0
+    with torch.inference_mode():
+        logits, pre_caches = model(tokens.to(dev), collect_cache=True)
+    check(flash_attention_kernel.launches == cfg5.n_layers, "gemma2 prefill launches")
+    check(bool(torch.isfinite(logits).all()), "non-finite gemma2 prefill logits")
+    last = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    del logits
+    plan = plan_for_cell(cfg5, S + steps, B, ("data", "model"), 1, kind="decode")
+    dstep = build_decode_step(cfg5, plan, batch=B, max_len=S + steps, device=dev)
+    caches = init_kv_cache(cfg5, B, S + steps, torch.bfloat16, dev)
+    with torch.inference_mode():
+        for full, pre in zip(caches, pre_caches):
+            full["k"][:, :, :S] = pre["k"]
+            full["v"][:, :, :S] = pre["v"]
+    del pre_caches
+    captured = []
+
+    def logged_step(m, tok, pos, c):
+        lg, c = dstep(m, tok, pos, c)
+        captured.append(lg)
+        return lg, c
+
+    out, _ = greedy_generate(cfg5, model, logged_step, caches, last, S, steps)
+    sync()
+    check(tuple(out.shape) == (B, steps), f"gemma2 generated {tuple(out.shape)}")
+    check(all(bool(torch.isfinite(lg).all()) for lg in captured), "non-finite decode logits")
+    print(f"  prefill S={S} ({flash_attention_kernel.launches} kernel launches), "
+          f"{steps} decode steps: tokens {out[0].tolist()}")
+    del model, caches
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ result
+    main_case = results[MAIN_PATH_CASE]
+    kernels = [{
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
+        "launches": launches,
+        **{k: main_case[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+    }]
+    print(json.dumps({"kernels": kernels}))
+    print(nvidia_smi_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,15 @@
+"""granite-20b [dense]: 52L d_model=6144 48H (MQA kv=1) d_ff=24576
+vocab=49152, code model [arXiv:2405.04324; hf]."""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-20b",
+    n_layers=52,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=1,
+    d_ff=24576,
+    vocab=49152,
+    ffn_gated=False,
+    rope_theta=10_000.0,
+)

@@ -1,0 +1,200 @@
+"""Decoder LM: embed -> blocks -> final norm -> logits (port of ``repro/models/model.py``).
+
+Layers run in a Python loop (the reference scans over pattern repeats with
+stacked params).  Layer ``l`` is pattern slot ``l % P`` of repeat ``l // P``;
+KV caches keep the reference's stacked layout, one ``{"k", "v"}`` pair of
+``[R, B, T, KV, hd]`` tensors per pattern slot.  One card has no sharding, so
+the reference's ``constrain`` / ``transition_repeat`` hooks have no
+counterpart here.
+
+This slice covers the dense decoders: ``attn`` and ``local`` blocks with a
+dense FFN.  MoE, mamba, rwkv and the frontend stubs raise
+``NotImplementedError`` naming their ROADMAP entry.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from .attention import attention_decode, attention_prefill
+from .config import ModelConfig
+from .layers import dense, embed, ffn, rmsnorm, softcap
+
+_NOT_PORTED = {
+    "mamba": "mamba blocks (jamba): ROADMAP A9",
+    "rwkv": "rwkv blocks: ROADMAP A7",
+}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what this slice of the port lacks."""
+    if cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name}: MoE FFN: ROADMAP A8")
+    if cfg.frontend != "none":
+        raise NotImplementedError(f"{cfg.name}: {cfg.frontend} frontend: ROADMAP A4")
+    for kind in cfg.block_pattern:
+        if kind in _NOT_PORTED:
+            raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
+        if kind not in ("attn", "local"):
+            raise ValueError(kind)
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Block(nn.Module):
+    """Pre-norm attention block with a dense FFN."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.window = cfg.window if kind == "local" else 0
+        self.ln1 = _frozen(params["ln1"])
+        self.ln2 = _frozen(params["ln2"])
+        self.attn = nn.ParameterDict({n: _frozen(t) for n, t in params["attn"].items()})
+        self.ffn = nn.ParameterDict({n: _frozen(t) for n, t in params["ffn"].items()})
+
+    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+        h2 = rmsnorm(x, self.ln2, self.cfg.norm_eps)
+        return x + ffn(self.ffn, h2, self.cfg.ffn_gated)
+
+    def prefill(self, x, positions):
+        h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
+        a, (k, v) = attention_prefill(self.attn, h, self.cfg, positions, self.window)
+        return self._ffn(x + a), {"k": k, "v": v}
+
+    def decode(self, x, position, cache_k, cache_v):
+        h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
+        a, _ = attention_decode(self.attn, h, self.cfg, cache_k, cache_v, position, self.window)
+        return self._ffn(x + a)
+
+
+class DecoderLM(nn.Module):
+    """Parameters in the reference's leaf layout (``[d_in, d_out]`` weights)."""
+
+    def __init__(self, cfg: ModelConfig, params: dict):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        kinds = cfg.block_kinds()
+        self.embed = _frozen(params["embed"])
+        self.blocks = nn.ModuleList(
+            Block(cfg, kind, bp) for kind, bp in zip(kinds, params["blocks"], strict=True)
+        )
+        self.final_ln = _frozen(params["final_ln"])
+        self.lm_head = None if cfg.tie_embeddings else _frozen(params["lm_head"])
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = rmsnorm(x, self.final_ln, self.cfg.norm_eps)
+        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        return softcap(dense(x, head).float(), self.cfg.logit_softcap)
+
+    def forward(self, tokens: torch.Tensor, collect_cache: bool = False,
+                positions: torch.Tensor | None = None):
+        """tokens [B,S] -> (logits [B,S,padded_vocab] fp32, caches or None).
+
+        ``positions=None`` is ``0..S-1`` per row; explicit positions run on
+        the CPU only (see :func:`attention_prefill`).
+        """
+        P = len(self.cfg.expanded_pattern)
+        x = embed(tokens, self.embed)
+        per_slot = [[] for _ in range(P)]
+        for layer, blk in enumerate(self.blocks):
+            x, cache = blk.prefill(x, positions)
+            if collect_cache:
+                per_slot[layer % P].append(cache)
+        caches = None
+        if collect_cache:
+            caches = tuple(
+                {n: torch.stack([c[n] for c in slot]) for n in ("k", "v")}
+                for slot in per_slot
+            )
+        return self._logits(x), caches
+
+    def init_kv_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
+        return init_kv_cache(self.cfg, batch, max_len, dtype, self.device)
+
+    def decode_step(self, token: torch.Tensor, position: torch.Tensor, caches: tuple):
+        """One autoregressive step: token [B,1], position [B] write index.
+
+        Returns (logits [B,1,padded_vocab], caches); ``caches`` is updated in
+        place and returned (the reference returns new, donated buffers).
+        """
+        P = len(self.cfg.expanded_pattern)
+        x = embed(token, self.embed)
+        for layer, blk in enumerate(self.blocks):
+            r, pi = divmod(layer, P)
+            x = blk.decode(x, position, caches[pi]["k"][r], caches[pi]["v"][r])
+        return self._logits(x), caches
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: str | torch.device = "cuda") -> DecoderLM:
+    """Random model with the reference's init scales, drawn from ``generator``
+    (on its own device) and stored on ``device`` in ``cfg.param_dtype``."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.param_dtype)
+    d, H, KV, hd, ff = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+
+    def normal(shape, scale):
+        t = torch.randn(shape, generator=generator, device=generator.device)
+        return (t * scale).to(dev, dtype)
+
+    def zeros():
+        return torch.zeros(d, dtype=torch.float32, device=dev)
+
+    blocks = []
+    for _ in range(cfg.n_layers):
+        ffn_p = {"w1": normal((d, ff), d ** -0.5), "w2": normal((ff, d), ff ** -0.5)}
+        if cfg.ffn_gated:
+            ffn_p["w3"] = normal((d, ff), d ** -0.5)
+        blocks.append({
+            "ln1": zeros(), "ln2": zeros(),
+            "attn": {"wq": normal((d, H * hd), d ** -0.5),
+                     "wk": normal((d, KV * hd), d ** -0.5),
+                     "wv": normal((d, KV * hd), d ** -0.5),
+                     "wo": normal((H * hd, d), (H * hd) ** -0.5)},
+            "ffn": ffn_p,
+        })
+    params = {"embed": normal((cfg.padded_vocab, d), d ** -0.5), "blocks": blocks,
+              "final_ln": zeros()}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((d, cfg.padded_vocab), d ** -0.5)
+    return DecoderLM(cfg, params)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                  device: str | torch.device = "cuda") -> tuple:
+    dev = resolve_device(device)
+    R = cfg.pattern_repeats
+    shape = (R, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return tuple(
+        {"k": torch.zeros(shape, dtype=dtype, device=dev),
+         "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        for _ in cfg.expanded_pattern
+    )
+
+
+def forward(model: DecoderLM, tokens, collect_cache: bool = False, positions=None):
+    """Functional spelling of :meth:`DecoderLM.forward` (the reference's name)."""
+    return model(tokens, collect_cache=collect_cache, positions=positions)
+
+
+def decode_step(model: DecoderLM, token, position, caches):
+    """Functional spelling of :meth:`DecoderLM.decode_step`."""
+    return model.decode_step(token, position, caches)
+
+
+def loss_fn(model: DecoderLM, tokens: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token NLL over the final ``labels.shape[1]`` positions."""
+    logits, _ = model(tokens)
+    logits = logits[:, -labels.shape[1]:]
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, labels[..., None])[..., 0].mean()

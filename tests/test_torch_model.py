@@ -1,0 +1,161 @@
+"""repro_torch attention and model against the JAX reference on the CPU.
+
+Same weights in both (the JAX init converted by ``repro_torch.convert``),
+float32 smoke configs.  Tolerance 1e-4: the same math summed in another
+order (the port's prefill attention is the flash kernel's plain version, the
+reference's the einsum path).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.models import attention as jatt
+from repro.models import decode_step as jax_decode_step
+from repro.models import forward as jax_forward
+from repro.models import init_kv_cache as jax_init_kv_cache
+from repro.models import init_params as jax_init_params
+from repro.models import loss_fn as jax_loss_fn
+from repro_torch.configs import get_smoke_config
+from repro_torch.convert import params_from_jax, to_torch
+from repro_torch.models import attention as tatt
+from repro_torch.models import decode_step, forward, init_kv_cache, init_params, loss_fn
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+ARCHS = ["granite-3-8b", "gemma2-9b"]
+
+
+def _close(t, j):
+    np.testing.assert_allclose(t.detach().float().numpy(), np.asarray(j, np.float32), **TOL)
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
+    """(arch, JAX cfg, JAX params, port cfg, port model) on the same weights."""
+    jcfg = jax_smoke_config(request.param)
+    tcfg = get_smoke_config(request.param)
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    return request.param, jcfg, jparams, tcfg, params_from_jax(tcfg, _np_tree(jparams), "cpu")
+
+
+def _tokens(cfg, B=2, S=12, seed=3):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, (B, S))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("explicit_positions", [False, True])
+def test_attention_prefill_matches(arch, explicit_positions):
+    jcfg, tcfg = jax_smoke_config(arch), get_smoke_config(arch)
+    window = jcfg.window
+    jp = jatt.init_attn(jax.random.PRNGKey(1), jcfg, jnp.float32)
+    tp = {n: to_torch(np.asarray(a), "cpu") for n, a in jp.items()}
+    B, S = 2, 20
+    x = np.random.default_rng(0).standard_normal((B, S, jcfg.d_model)).astype(np.float32)
+    start = 5 if explicit_positions else 0
+    pos = np.broadcast_to(np.arange(start, start + S), (B, S))
+    j_out, (jk, jv) = jatt.attention_prefill(jp, jnp.asarray(x), jcfg, jnp.asarray(pos), window)
+    t_out, (tk, tv) = tatt.attention_prefill(
+        tp, torch.from_numpy(x), tcfg,
+        torch.from_numpy(pos.copy()) if explicit_positions else None, window)
+    _close(t_out, j_out)
+    _close(tk, jk)
+    _close(tv, jv)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_attention_decode_matches(arch):
+    jcfg, tcfg = jax_smoke_config(arch), get_smoke_config(arch)
+    jp = jatt.init_attn(jax.random.PRNGKey(2), jcfg, jnp.float32)
+    tp = {n: to_torch(np.asarray(a), "cpu") for n, a in jp.items()}
+    B, T = 2, 24
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((B, 1, jcfg.d_model)).astype(np.float32)
+    ck = rng.standard_normal((B, T, jcfg.n_kv_heads, jcfg.head_dim)).astype(np.float32)
+    cv = rng.standard_normal((B, T, jcfg.n_kv_heads, jcfg.head_dim)).astype(np.float32)
+    pos = np.array([5, 17])
+    j_out, (jk, jv) = jatt.attention_decode(jp, jnp.asarray(x), jcfg, jnp.asarray(ck),
+                                            jnp.asarray(cv), jnp.asarray(pos), jcfg.window)
+    tk, tv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
+    t_out, (tk2, tv2) = tatt.attention_decode(tp, torch.from_numpy(x), tcfg, tk, tv,
+                                              torch.from_numpy(pos), tcfg.window)
+    assert tk2 is tk and tv2 is tv          # updated in place
+    _close(t_out, j_out)
+    _close(tk, jk)
+    _close(tv, jv)
+
+
+def test_forward_logits_and_caches_match(pair):
+    _, jcfg, jparams, tcfg, model = pair
+    toks = _tokens(jcfg)
+    j_logits, j_caches = jax_forward(jparams, jcfg, jnp.asarray(toks), collect_cache=True)
+    t_logits, t_caches = forward(model, torch.from_numpy(toks), collect_cache=True)
+    assert t_logits.shape == (2, 12, tcfg.padded_vocab) and t_logits.dtype == torch.float32
+    _close(t_logits, j_logits)
+    assert len(t_caches) == len(j_caches)
+    for tc, jc in zip(t_caches, j_caches):
+        _close(tc["k"], jc["k"])
+        _close(tc["v"], jc["v"])
+
+
+def test_forward_explicit_positions_match(pair):
+    _, jcfg, jparams, _, model = pair
+    toks = _tokens(jcfg, seed=4)
+    pos = np.broadcast_to(np.arange(3, 15), toks.shape).copy()
+    j_logits, _ = jax_forward(jparams, jcfg, jnp.asarray(toks), positions=jnp.asarray(pos))
+    t_logits, _ = forward(model, torch.from_numpy(toks), positions=torch.from_numpy(pos))
+    _close(t_logits, j_logits)
+
+
+def test_decode_steps_match(pair):
+    _, jcfg, jparams, tcfg, model = pair
+    B, T = 2, 16
+    toks = _tokens(jcfg, B=B, S=10, seed=5)
+    j_caches = jax_init_kv_cache(jcfg, B, T, jnp.float32)
+    t_caches = init_kv_cache(tcfg, B, T, torch.float32, "cpu")
+    j_step = jax.jit(jax_decode_step, static_argnums=1)
+    for t in range(toks.shape[1]):
+        pos = np.full((B,), t)
+        j_logits, j_caches = j_step(jparams, jcfg, jnp.asarray(toks[:, t:t + 1]),
+                                    jnp.asarray(pos), j_caches)
+        t_logits, t_caches = decode_step(model, torch.from_numpy(toks[:, t:t + 1]),
+                                         torch.from_numpy(pos), t_caches)
+        _close(t_logits, j_logits)
+    for tc, jc in zip(t_caches, j_caches):
+        _close(tc["k"], jc["k"])
+        _close(tc["v"], jc["v"])
+
+
+def test_loss_matches(pair):
+    _, jcfg, jparams, _, model = pair
+    toks = _tokens(jcfg, seed=6)
+    labels = _tokens(jcfg, S=8, seed=7)
+    j_loss = jax_loss_fn(jparams, jcfg, jnp.asarray(toks), jnp.asarray(labels))
+    _close(loss_fn(model, torch.from_numpy(toks), torch.from_numpy(labels)), j_loss)
+
+
+def test_init_params_shapes_and_scales():
+    cfg = get_smoke_config("gemma2-9b")
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert model.lm_head is None                       # tied head
+    assert len(model.blocks) == cfg.n_layers
+    assert [b.window for b in model.blocks] == [cfg.window, 0] * (cfg.n_layers // 2)
+    assert model.embed.shape == (cfg.padded_vocab, cfg.d_model)
+    wq = model.blocks[0].attn["wq"]
+    assert wq.shape == (cfg.d_model, cfg.n_heads * cfg.head_dim)
+    assert abs(wq.std().item() - cfg.d_model ** -0.5) < 0.02
+    assert not any(p.requires_grad for p in model.parameters())
+
+
+@pytest.mark.parametrize("arch, entry", [
+    ("granite-moe-1b-a400m", "A8"), ("rwkv6-3b", "A7"), ("jamba-v0.1-52b", "A"),
+    ("paligemma-3b", "A4"), ("musicgen-medium", "A4"),
+])
+def test_unported_families_raise(arch, entry):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {entry}"):
+        init_params(get_smoke_config(arch), torch.Generator(), "cpu")
