@@ -19,12 +19,25 @@ plain PyTorch version on the card, then drives the serving path:
    layers, fp32 with TF32 off: the kernel against the model's independent
    decode attention;
 5. gemma2-9b full width cut to 2 layers (one local, one global): prefill at
-   S=8192 so the 4096 window bites, then 8 decode steps.
+   S=8192 so the 4096 window bites, then 8 decode steps;
+6. WKV-6 kernel vs its plain version at every shape the later phases give it
+   (the reference's bound 2e-4, plus a per-row bound relative to the row's
+   size), with kernel / plain / bound times; no single PyTorch call computes
+   WKV-6, so it has no library time;
+7. rwkv6-3b at full width and depth, bf16, seeded init: prefill step at
+   B=4 x S=2048 (exactly one kernel launch per layer), prefill with the state
+   collected then 8 decode steps from it, the launcher's flow (batch 4,
+   prompt 64, 32 greedy tokens), and one decode step counted and traced;
+8. prefill vs token-by-token decode, rwkv6-3b full width cut to 4 layers,
+   fp32 with TF32 off: logits and the final S / shift / shift_ffn state, the
+   kernel against the model's plain one-step scan.
 
 Any failed check raises and the script exits non-zero without a result.  The
-last line is ``{"ok": true, "device": {...}}``; the line before it is a JSON
-object listing every ported kernel with its launches on the main path (the
-phase-3 prefill) and its times.  Imports nothing of JAX or of ``repro``.
+last line is ``{"ok": true, "device": {...}}``; the line before it is the
+card's name and power limit, and the line before that a JSON object listing
+every ported kernel with its launches on its own main path (flash attention:
+the phase-3 granite-3-8b prefill; WKV-6: the phase-7 rwkv6-3b prefill) and
+its times.  Imports nothing of JAX or of ``repro``.
 """
 from __future__ import annotations
 
@@ -34,6 +47,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -64,6 +78,26 @@ FA_CASES = [
 ROW_REL_TOL = 0.1
 MAIN_PATH_CASE = "granite_prefill"
 
+# (name, B, H, S, hd): tests/test_kernels.py WKV_CASES, the rwkv6-3b prefill
+# shape (phase 7) and the ragged phase-8 shape.
+WKV_CASES = [
+    ("wkv_case0", 2, 2, 64, 16),
+    ("wkv_case1", 1, 4, 128, 64),
+    ("wkv_case2", 2, 1, 96, 32),
+    ("wkv_case3", 1, 2, 256, 64),
+    ("rwkv_prefill", 4, 40, 2048, 64),
+    ("phase8_ragged", 2, 40, 100, 64),
+]
+WKV_TOL = 2e-4             # the reference's bound (tests/test_kernels.py)
+# Per-row bound on max|kernel - plain| / rms(plain row): fp32 rounding in
+# another summation order leaves up to ~4e-4 of a row's size in rows whose
+# sums cancel (the fp32 plain version is as far from a float64 run), ~1e-6
+# elsewhere; a dropped or doubled chunk, or a wrong decay, moves a row by O(1).
+WKV_ROW_REL_TOL = 1e-3
+WKV_CHUNK = 32             # the reference's chunk, for the operation count
+WKV_MAIN_PATH_CASE = "rwkv_prefill"
+KERNEL_SOURCES = ("flash_attention.cu", "wkv6.cu")
+
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -89,10 +123,92 @@ def visible_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
 
 
 def row_rel_err(out, ref) -> float:
-    """max over rows of max|out - ref| / rms(ref) within the row."""
-    d = (out.float() - ref.float()).abs().amax(dim=-1)
-    rms = ref.float().pow(2).mean(dim=-1).sqrt().clamp_min(1e-30)
+    """max over rows of max|out - ref| / rms(ref) within the row, in fp32
+    (fp64 where either is fp64)."""
+    import torch
+
+    dt = torch.promote_types(torch.promote_types(out.dtype, ref.dtype), torch.float32)
+    d = (out.to(dt) - ref.to(dt)).abs().amax(dim=-1)
+    rms = ref.to(dt).pow(2).mean(dim=-1).sqrt().clamp_min(1e-30)
     return (d / rms).max().item()
+
+
+def wkv_inputs(dev, B, H, S, hd, seed=0):
+    """The reference's test distribution: r, k, v normal, decay uniform in
+    (0.7, 0.999) as log w, u * 0.3."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = (torch.randn(B, H, S, hd, generator=g, device=dev) for _ in range(3))
+    w = 0.7 + 0.299 * torch.rand(B, H, S, hd, generator=g, device=dev)
+    u = 0.3 * torch.randn(H, hd, generator=g, device=dev)
+    return r, k, v, torch.log(w), u
+
+
+def decode_step_profile(dstep, model, tok, pos, caches, n_layers: int, sync) -> str:
+    """One decode step counted and traced: the operations the eager step
+    dispatches (views included), its wall time unprofiled (median of 9), and
+    the device's busy time under the profiler (sum of kernel durations)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpCount(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    for _ in range(3):
+        dstep(model, tok, pos, caches)
+    sync()
+    times = []
+    for _ in range(9):
+        t0 = time.perf_counter()
+        dstep(model, tok, pos, caches)
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    ops = OpCount()
+    with ops:
+        dstep(model, tok, pos, caches)
+    sync()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        dstep(model, tok, pos, caches)
+        sync()
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = (f"{len(kern)} device kernels busy "
+            f"{sum(e.time_range.elapsed_us() for e in kern) / 1e3:.3f} ms"
+            if kern else "device busy time not measured (the profiler saw no kernels)")
+    return (f"{statistics.median(times):.3f} ms wall (median of 9, "
+            f"{min(times):.3f}-{max(times):.3f}), {ops.n} operations dispatched "
+            f"({ops.n / n_layers:.1f} per layer), {busy}")
+
+
+def prefill_breakdown(prefill, model, tokens, kernel_tag: str, sync) -> str:
+    """One prefill step under the profiler: device time summed over the hand-
+    written kernel (its symbol contains ``kernel_tag``), the dense products
+    (cuBLAS / CUTLASS symbols) and everything else (elementwise passes,
+    reductions, copies)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        prefill(model, tokens)
+        sync()
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        return "device time by kind not measured (the profiler saw no kernels)"
+    groups = {"hand kernel": [0, 0.0], "dense products": [0, 0.0], "other": [0, 0.0]}
+    for e in kern:
+        name = e.name.lower()
+        kind = ("hand kernel" if kernel_tag in name else "dense products"
+                if any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma")) else "other")
+        groups[kind][0] += 1
+        groups[kind][1] += e.time_range.elapsed_us() / 1e3
+    total = sum(ms for _, ms in groups.values())
+    return f"{len(kern)} device kernels busy {total:.3f} ms: " + ", ".join(
+        f"{kind} {ms:.3f} ms ({n} kernels)" for kind, (n, ms) in groups.items())
 
 
 def main() -> int:
@@ -112,6 +228,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rwkv6.kernel import wkv6_kernel
+    from repro_torch.kernels.rwkv6.ref import wkv6_ref
     from repro_torch.launch.serve import serve
     from repro_torch.models import init_kv_cache, init_params
     from repro_torch.runtime.planner import plan_for_cell
@@ -142,14 +260,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    took = _build.build("flash_attention.cu")
-    print(f"kernel build: flash_attention.cu {took:.3f} s "
-          f"(wall {time.perf_counter() - t0:.3f} s)")
-    log = _build.library_path("flash_attention.cu").with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line and " 0 bytes spill" not in line:
-                print("  ptxas:", line.strip())
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:     # one nvcc per source
+        took = dict(zip(KERNEL_SOURCES, pool.map(_build.build, KERNEL_SOURCES)))
+    print("kernel build: " + ", ".join(f"{src} {t:.3f} s" for src, t in took.items())
+          + f" (wall {time.perf_counter() - t0:.3f} s, in parallel)")
+    for src in KERNEL_SOURCES:
+        log = _build.library_path(src).with_suffix(".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line and " 0 bytes spill" not in line:
+                    print(f"  ptxas {src}:", line.strip())
 
     # ------------------------------------------------------------ phase 2
     print("phase 2: flash_attention kernel vs plain version on the card")
@@ -213,12 +333,13 @@ def main() -> int:
     prefill = build_prefill_step(cfg, plan, dev)
     tokens = torch.randint(0, cfg.vocab, (B, S), generator=torch.Generator().manual_seed(1))
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_kernel.launches = 0
+    flash_attention_kernel.launches = wkv6_kernel.launches = 0
     logits = prefill(model, tokens)
     sync()
     launches = flash_attention_kernel.launches
     check(launches == cfg.n_layers,
           f"{launches} flash-attention launches in one prefill, expected {cfg.n_layers}")
+    check(wkv6_kernel.launches == 0, "wkv6 launched in a granite prefill")
     check(tuple(logits.shape) == (B, S, cfg.padded_vocab), f"logits shape {logits.shape}")
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
     del logits
@@ -232,6 +353,7 @@ def main() -> int:
     print(f"  prefill B={B} S={S}: {statistics.median(times):.3f} ms (median of 3), "
           f"{launches} kernel launches per call, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+    print(f"  prefill traced: {prefill_breakdown(prefill, model, tokens, 'fa_fwd', sync)} {card}")
     torch.cuda.reset_peak_memory_stats()
     res = serve(cfg, model, batch=4, prompt_len=64, tokens=32, cache_dtype=torch.bfloat16)
     out = res["tokens"]
@@ -240,48 +362,14 @@ def main() -> int:
     print(f"  launcher flow (batch 4, prompt 64, 32 tokens): prompt ingest "
           f"{1e3 * res['prompt_s']:.3f} ms, decode {res['decode_tok_s']:.1f} tok/s, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
-    # One step of the same decode flow, counted and traced: the operations the
-    # eager step dispatches (views included), its wall time unprofiled, and
-    # the device's busy time under the profiler (sum of kernel durations).
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class OpCount(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.n += 1
-            return func(*args, **(kwargs or {}))
-
+    # One step of the same decode flow, counted and traced.
     plan = plan_for_cell(cfg, 96, 4, ("data", "model"), 1, kind="decode")
     dstep = build_decode_step(cfg, plan, batch=4, max_len=96, device=dev)
     caches = init_kv_cache(cfg, 4, 96, torch.bfloat16, dev)
     tok = torch.zeros(4, 1, dtype=torch.int64, device=dev)
     pos = torch.full((4,), 64, dtype=torch.int64, device=dev)
-    for _ in range(3):
-        dstep(model, tok, pos, caches)
-    sync()
-    times = []
-    for _ in range(9):
-        t0 = time.perf_counter()
-        dstep(model, tok, pos, caches)
-        sync()
-        times.append(1e3 * (time.perf_counter() - t0))
-    step_ms = statistics.median(times)
-    ops = OpCount()
-    with ops:
-        dstep(model, tok, pos, caches)
-    sync()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        dstep(model, tok, pos, caches)
-        sync()
-    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = (f"{len(kern)} device kernels busy "
-            f"{sum(e.time_range.elapsed_us() for e in kern) / 1e3:.3f} ms"
-            if kern else "device busy time not measured (the profiler saw no kernels)")
-    print(f"  decode step (batch 4, position 64): {step_ms:.3f} ms wall (median of 9, "
-          f"{min(times):.3f}-{max(times):.3f}), {ops.n} operations dispatched "
-          f"({ops.n / cfg.n_layers:.1f} per layer), {busy} {card}")
+    prof = decode_step_profile(dstep, model, tok, pos, caches, cfg.n_layers, sync)
+    print(f"  decode step (batch 4, position 64): {prof} {card}")
     del model, caches
     torch.cuda.empty_cache()
 
@@ -355,15 +443,201 @@ def main() -> int:
     del model, caches
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------ phase 6
+    print("phase 6: wkv6 kernel vs plain version on the card (fp32)")
+    wkv_results = {}
+    for name, B, H, S, hd in WKV_CASES:
+        args = wkv_inputs(dev, B, H, S, hd)
+        out = wkv6_kernel(*args)
+        ref = wkv6_ref(*args)
+        sync()
+        errs, rels = [], []
+        for what, o, rf in (("out", out[0], ref[0]), ("S_last", out[1], ref[1])):
+            err = (o - rf).abs().max().item()
+            rel = row_rel_err(o, rf)
+            check(torch.allclose(o, rf, rtol=WKV_TOL, atol=WKV_TOL),
+                  f"{name}: kernel vs plain {what} max abs err {err} (tol {WKV_TOL})")
+            check(rel <= WKV_ROW_REL_TOL,
+                  f"{name}: kernel vs plain {what} per-row error {rel} / rms "
+                  f"(tol {WKV_ROW_REL_TOL})")
+            errs.append(err)
+            rels.append(rel)
+        rounding = ""
+        if name == WKV_MAIN_PATH_CASE:
+            # How far fp32 rounding alone moves the plain version: the same
+            # recurrence in float64 as the yardstick for both (max abs error;
+            # worst row error / row rms).
+            ref64 = wkv6_ref(*(a.double() for a in args))
+            rounding = "; vs the fp64 plain version: " + ", ".join(
+                f"{who} {what} {(o.double() - r64).abs().max().item():.3e} / "
+                f"{row_rel_err(o, r64):.3e}"
+                for who, got in (("fp32 plain", ref), ("kernel", out))
+                for what, o, r64 in (("out", got[0], ref64[0]), ("S_last", got[1], ref64[1])))
+            del ref64
+        del out, ref
+        big = B * H * S > 2 ** 16
+        ms = cuda_ms(lambda: wkv6_kernel(*args), 20 if big else 50)
+        plain_ms = cuda_ms(lambda: wkv6_ref(*args), 2 if big else 5)
+        T = min(WKV_CHUNK, S)
+        flops = B * H * S * (4 * T * hd + 4 * hd * hd)          # chunk form at chunk T
+        nbytes = 4 * (5 * B * H * S * hd + H * hd + B * H * hd * hd)
+        t_ops, t_mem = flops / FP32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+        wkv_results[name] = {
+            "max_abs_err": max(errs), "row_rel_err": max(rels), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": 1e3 * max(t_ops, t_mem),
+            "bound_by": "operations" if t_ops >= t_mem else "bytes",
+        }
+        print(f"  {name}: B={B} H={H} S={S} hd={hd}: tol {WKV_TOL}, row tol "
+              f"{WKV_ROW_REL_TOL} (out, S_last) {json.dumps(wkv_results[name])}{rounding} {card}")
+        del args
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ phase 7
+    rcfg = get_config("rwkv6-3b")
+    print(f"phase 7: {rcfg.name} full width and depth ({rcfg.n_layers} layers), bf16")
+    t0 = time.perf_counter()
+    model = init_params(rcfg, torch.Generator(device=dev).manual_seed(6), dev)
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  init {n_params / 1e9:.3f} B params in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    B, S = 4, 2048
+    plan = plan_for_cell(rcfg, S, B, ("data", "model"), 1, kind="prefill", use_dse=False)
+    prefill = build_prefill_step(rcfg, plan, dev)
+    tokens = torch.randint(0, rcfg.vocab, (B, S), generator=torch.Generator().manual_seed(7))
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_kernel.launches = wkv6_kernel.launches = 0
+    logits = prefill(model, tokens)
+    sync()
+    wkv_launches = wkv6_kernel.launches
+    check(wkv_launches == rcfg.n_layers,
+          f"{wkv_launches} wkv6 launches in one prefill, expected {rcfg.n_layers}")
+    check(flash_attention_kernel.launches == 0, "flash attention launched in an rwkv prefill")
+    check(tuple(logits.shape) == (B, S, rcfg.padded_vocab), f"logits shape {logits.shape}")
+    check(bool(torch.isfinite(logits).all()), "non-finite rwkv prefill logits")
+    del logits
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill(model, tokens)
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    check(wkv6_kernel.launches == 4 * rcfg.n_layers, "wkv6 launches over 4 prefills")
+    print(f"  prefill B={B} S={S}: {statistics.median(times):.3f} ms (median of 3, "
+          f"{min(times):.3f}-{max(times):.3f}), {wkv_launches} kernel launches per call, "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+    print(f"  prefill traced: {prefill_breakdown(prefill, model, tokens, 'wkv6_fwd', sync)} "
+          f"{card}")
+
+    # the prefill's collected state, then 8 decode steps from it
+    P, steps = 512, 8
+    prompt = tokens[:, :P].to(dev)
+    wkv6_kernel.launches = 0
+    with torch.inference_mode():
+        logits, pre_caches = model(prompt, collect_cache=True)
+    check(wkv6_kernel.launches == rcfg.n_layers, "rwkv collect-cache prefill launches")
+    check(bool(torch.isfinite(logits).all()), "non-finite rwkv prefill logits")
+    last = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    del logits
+    plan = plan_for_cell(rcfg, P + steps, B, ("data", "model"), 1, kind="decode")
+    dstep = build_decode_step(rcfg, plan, batch=B, max_len=P + steps, device=dev)
+    caches = init_kv_cache(rcfg, B, P + steps, torch.bfloat16, dev)
+    with torch.inference_mode():
+        for full, pre in zip(caches, pre_caches):
+            check(set(full) == set(pre) == {"S", "shift", "shift_ffn"}, "rwkv state keys")
+            for n in full:
+                full[n].copy_(pre[n])
+    del pre_caches
+    captured = []
+
+    def logged_step(m, tok, pos, c):
+        lg, c = dstep(m, tok, pos, c)
+        captured.append(lg)
+        return lg, c
+
+    out, _ = greedy_generate(rcfg, model, logged_step, caches, last, P, steps)
+    sync()
+    check(tuple(out.shape) == (B, steps), f"rwkv generated {tuple(out.shape)}")
+    check(all(bool(torch.isfinite(lg).all()) for lg in captured), "non-finite decode logits")
+    check(bool(torch.isfinite(caches[0]["S"]).all()), "non-finite rwkv state")
+    print(f"  prefill S={P} with the state collected, {steps} decode steps from it: "
+          f"tokens {out[0].tolist()}")
+    del caches, captured
+
+    torch.cuda.reset_peak_memory_stats()
+    res = serve(rcfg, model, batch=4, prompt_len=64, tokens=32, cache_dtype=torch.bfloat16)
+    out = res["tokens"]
+    check(tuple(out.shape) == (4, 32), f"generated {tuple(out.shape)}")
+    check(int(out.min()) >= 0 and int(out.max()) < rcfg.padded_vocab, "token out of range")
+    print(f"  launcher flow (batch 4, prompt 64, 32 tokens): prompt ingest "
+          f"{1e3 * res['prompt_s']:.3f} ms, decode {res['decode_tok_s']:.1f} tok/s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+    plan = plan_for_cell(rcfg, 96, 4, ("data", "model"), 1, kind="decode")
+    dstep = build_decode_step(rcfg, plan, batch=4, max_len=96, device=dev)
+    caches = init_kv_cache(rcfg, 4, 96, torch.bfloat16, dev)
+    tok = torch.zeros(4, 1, dtype=torch.int64, device=dev)
+    pos = torch.full((4,), 64, dtype=torch.int64, device=dev)
+    prof = decode_step_profile(dstep, model, tok, pos, caches, rcfg.n_layers, sync)
+    print(f"  decode step (batch 4): {prof} {card}")
+    del model, caches
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ phase 8
+    cfg8 = dataclasses.replace(rcfg, n_layers=4, param_dtype="float32")
+    print(f"phase 8: prefill vs decode, {rcfg.name} full width, fp32, TF32 off")
+    print(f"  reduced: n_layers {rcfg.n_layers}→{cfg8.n_layers}")
+    model = init_params(cfg8, torch.Generator(device=dev).manual_seed(8), dev)
+    B, S = 2, 100
+    tokens = torch.randint(0, cfg8.vocab, (B, S), generator=torch.Generator().manual_seed(9))
+    wkv6_kernel.launches = 0
+    with torch.inference_mode():
+        logits_p, pre_caches = model(tokens.to(dev), collect_cache=True)
+    check(wkv6_kernel.launches == cfg8.n_layers, "fp32 rwkv prefill launches")
+    plan = plan_for_cell(cfg8, S, B, ("data", "model"), 1, kind="decode")
+    dstep = build_decode_step(cfg8, plan, batch=B, max_len=S, device=dev)
+    caches = init_kv_cache(cfg8, B, S, torch.float32, dev)
+    logits_d = []
+    for t in range(S):
+        lg, caches = dstep(model, tokens[:, t:t + 1], torch.full((B,), t), caches)
+        logits_d.append(lg)
+    logits_d = torch.cat(logits_d, dim=1)
+    check(wkv6_kernel.launches == cfg8.n_layers, "decode launched the wkv6 kernel")
+    # fp32 throughout: the two paths differ in summation order (the kernel's
+    # chunk form vs the one-step recurrence; cuBLAS at M=B*S vs M=B), which
+    # leaves ~1e-6 relative; 1e-3 of each tensor's scale flags a wrong decay,
+    # state handoff or token shift, which moves results by O(1).
+    report = []
+    pairs = [("logits", logits_p, logits_d)] + [
+        (n, pre_caches[0][n], caches[0][n]) for n in ("S", "shift", "shift_ffn")]
+    for n, a, b in pairs:
+        scale = a.abs().max().item()
+        err = (a - b).abs().max().item()
+        check(err <= 1e-3 * scale, f"prefill vs decode {n}: max abs err {err} > "
+                                   f"1e-3 x {scale}")
+        report.append(f"{n} {err:.3e} (tol {1e-3 * scale:.3e})")
+    worst_t = int((logits_p - logits_d).abs().amax(dim=(0, 2)).argmax())
+    print(f"  B={B} S={S}: max |prefill - decode| " + ", ".join(report)
+          + f" (tol 1e-3 x max|x|); worst logit at position {worst_t}")
+    del model, caches, pre_caches, logits_p, logits_d
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------ result
     main_case = results[MAIN_PATH_CASE]
+    wkv_case = wkv_results[WKV_MAIN_PATH_CASE]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
         "launches": launches,
-        **{k: main_case[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")},
+        **{k: main_case[k] for k in keys},
+    }, {
+        "name": "wkv6", "route": "cuda",
+        "source": "src/repro_torch/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/rwkv6/kernel.py:82",
+        "launches": wkv_launches,
+        **{k: wkv_case[k] for k in keys},
     }]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

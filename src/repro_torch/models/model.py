@@ -2,14 +2,15 @@
 
 Layers run in a Python loop (the reference scans over pattern repeats with
 stacked params).  Layer ``l`` is pattern slot ``l % P`` of repeat ``l // P``;
-KV caches keep the reference's stacked layout, one ``{"k", "v"}`` pair of
-``[R, B, T, KV, hd]`` tensors per pattern slot.  One card has no sharding, so
-the reference's ``constrain`` / ``transition_repeat`` hooks have no
-counterpart here.
+caches keep the reference's stacked layout, one dict of ``[R, ...]`` tensors
+per pattern slot: ``{"k", "v"}`` of ``[R, B, T, KV, hd]`` for attention,
+``{"S", "shift", "shift_ffn"}`` for rwkv.  One card has no sharding, so the
+reference's ``constrain`` / ``transition_repeat`` hooks have no counterpart
+here.
 
-This slice covers the dense decoders: ``attn`` and ``local`` blocks with a
-dense FFN.  MoE, mamba, rwkv and the frontend stubs raise
-``NotImplementedError`` naming their ROADMAP entry.
+This slice covers ``attn`` and ``local`` blocks with a dense FFN and ``rwkv``
+blocks.  MoE, mamba and the frontend stubs raise ``NotImplementedError``
+naming their ROADMAP entry.
 """
 from __future__ import annotations
 
@@ -20,23 +21,19 @@ from ..device import resolve_device
 from .attention import attention_decode, attention_prefill
 from .config import ModelConfig
 from .layers import dense, embed, ffn, rmsnorm, softcap
-
-_NOT_PORTED = {
-    "mamba": "mamba blocks (jamba): ROADMAP A9",
-    "rwkv": "rwkv blocks: ROADMAP A7",
-}
+from .rwkv import rwkv_channel_mix, rwkv_time_mix
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice of the port lacks."""
+    """Raise ``NotImplementedError`` for what the port lacks so far."""
     if cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: MoE FFN: ROADMAP A8")
     if cfg.frontend != "none":
         raise NotImplementedError(f"{cfg.name}: {cfg.frontend} frontend: ROADMAP A4")
     for kind in cfg.block_pattern:
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
-        if kind not in ("attn", "local"):
+        if kind == "mamba":
+            raise NotImplementedError(f"{cfg.name}: mamba blocks (jamba): ROADMAP A9")
+        if kind not in _BLOCKS:
             raise ValueError(kind)
 
 
@@ -44,7 +41,11 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-class Block(nn.Module):
+def _frozen_dict(params: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({n: _frozen(t) for n, t in params.items()})
+
+
+class AttnBlock(nn.Module):
     """Pre-norm attention block with a dense FFN."""
 
     def __init__(self, cfg: ModelConfig, kind: str, params: dict):
@@ -53,8 +54,8 @@ class Block(nn.Module):
         self.window = cfg.window if kind == "local" else 0
         self.ln1 = _frozen(params["ln1"])
         self.ln2 = _frozen(params["ln2"])
-        self.attn = nn.ParameterDict({n: _frozen(t) for n, t in params["attn"].items()})
-        self.ffn = nn.ParameterDict({n: _frozen(t) for n, t in params["ffn"].items()})
+        self.attn = _frozen_dict(params["attn"])
+        self.ffn = _frozen_dict(params["ffn"])
 
     def _ffn(self, x: torch.Tensor) -> torch.Tensor:
         h2 = rmsnorm(x, self.ln2, self.cfg.norm_eps)
@@ -65,10 +66,44 @@ class Block(nn.Module):
         a, (k, v) = attention_prefill(self.attn, h, self.cfg, positions, self.window)
         return self._ffn(x + a), {"k": k, "v": v}
 
-    def decode(self, x, position, cache_k, cache_v):
+    def decode(self, x, position, cache):
+        """``cache``: this layer's ``{"k", "v"}`` [B, T, KV, hd], written in place."""
         h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
-        a, _ = attention_decode(self.attn, h, self.cfg, cache_k, cache_v, position, self.window)
+        a, _ = attention_decode(self.attn, h, self.cfg, cache["k"], cache["v"], position,
+                                self.window)
         return self._ffn(x + a)
+
+
+class RwkvBlock(nn.Module):
+    """Pre-norm RWKV-6 block: time mix, then channel mix (both in ``rwkv``)."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = _frozen(params["ln1"])
+        self.ln2 = _frozen(params["ln2"])
+        self.rwkv = _frozen_dict(params["rwkv"])
+
+    def _run(self, x, state):
+        h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
+        a, st = rwkv_time_mix(self.rwkv, h, self.cfg, state)
+        x = x + a
+        h2 = rmsnorm(x, self.ln2, self.cfg.norm_eps)
+        f, st2 = rwkv_channel_mix(self.rwkv, h2, state)
+        return x + f, {**st, **st2}
+
+    def prefill(self, x, positions):
+        return self._run(x, None)          # position-free, as in the reference
+
+    def decode(self, x, position, cache):
+        """``cache``: this layer's ``{"S", "shift", "shift_ffn"}``, written in place."""
+        x, st = self._run(x, cache)
+        for n, t in st.items():
+            cache[n].copy_(t)
+        return x
+
+
+_BLOCKS = {"attn": AttnBlock, "local": AttnBlock, "rwkv": RwkvBlock}
 
 
 class DecoderLM(nn.Module):
@@ -81,7 +116,7 @@ class DecoderLM(nn.Module):
         kinds = cfg.block_kinds()
         self.embed = _frozen(params["embed"])
         self.blocks = nn.ModuleList(
-            Block(cfg, kind, bp) for kind, bp in zip(kinds, params["blocks"], strict=True)
+            _BLOCKS[kind](cfg, kind, bp) for kind, bp in zip(kinds, params["blocks"], strict=True)
         )
         self.final_ln = _frozen(params["final_ln"])
         self.lm_head = None if cfg.tie_embeddings else _frozen(params["lm_head"])
@@ -100,7 +135,8 @@ class DecoderLM(nn.Module):
         """tokens [B,S] -> (logits [B,S,padded_vocab] fp32, caches or None).
 
         ``positions=None`` is ``0..S-1`` per row; explicit positions run on
-        the CPU only (see :func:`attention_prefill`).
+        the CPU only (see :func:`attention_prefill`).  rwkv blocks take no
+        positions, as in the reference.
         """
         P = len(self.cfg.expanded_pattern)
         x = embed(tokens, self.embed)
@@ -112,7 +148,7 @@ class DecoderLM(nn.Module):
         caches = None
         if collect_cache:
             caches = tuple(
-                {n: torch.stack([c[n] for c in slot]) for n in ("k", "v")}
+                {n: torch.stack([c[n] for c in slot]) for n in slot[0]}
                 for slot in per_slot
             )
         return self._logits(x), caches
@@ -124,47 +160,64 @@ class DecoderLM(nn.Module):
         """One autoregressive step: token [B,1], position [B] write index.
 
         Returns (logits [B,1,padded_vocab], caches); ``caches`` is updated in
-        place and returned (the reference returns new, donated buffers).
+        place and returned (the reference returns new, donated buffers).  Each
+        layer gets its own slice ``[r]`` of its slot's stacked state.
         """
         P = len(self.cfg.expanded_pattern)
         x = embed(token, self.embed)
         for layer, blk in enumerate(self.blocks):
             r, pi = divmod(layer, P)
-            x = blk.decode(x, position, caches[pi]["k"][r], caches[pi]["v"][r])
+            x = blk.decode(x, position, {n: t[r] for n, t in caches[pi].items()})
         return self._logits(x), caches
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: str | torch.device = "cuda") -> DecoderLM:
     """Random model with the reference's init scales, drawn from ``generator``
-    (on its own device) and stored on ``device`` in ``cfg.param_dtype``."""
+    (on its own device) and stored on ``device`` in ``cfg.param_dtype``
+    (``w0``, ``u`` and the norm weights in fp32, as in the reference)."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
     d, H, KV, hd, ff = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
 
-    def normal(shape, scale):
+    def normal(shape, scale, dt=dtype):
         t = torch.randn(shape, generator=generator, device=generator.device)
-        return (t * scale).to(dev, dtype)
+        return (t * scale).to(dev, dt)
 
-    def zeros():
-        return torch.zeros(d, dtype=torch.float32, device=dev)
+    def full(shape, value):
+        return torch.full(shape, value, dtype=torch.float32, device=dev)
 
-    blocks = []
-    for _ in range(cfg.n_layers):
+    def attn_block():
         ffn_p = {"w1": normal((d, ff), d ** -0.5), "w2": normal((ff, d), ff ** -0.5)}
         if cfg.ffn_gated:
             ffn_p["w3"] = normal((d, ff), d ** -0.5)
-        blocks.append({
-            "ln1": zeros(), "ln2": zeros(),
-            "attn": {"wq": normal((d, H * hd), d ** -0.5),
-                     "wk": normal((d, KV * hd), d ** -0.5),
-                     "wv": normal((d, KV * hd), d ** -0.5),
-                     "wo": normal((H * hd, d), (H * hd) ** -0.5)},
-            "ffn": ffn_p,
-        })
+        return {"attn": {"wq": normal((d, H * hd), d ** -0.5),
+                         "wk": normal((d, KV * hd), d ** -0.5),
+                         "wv": normal((d, KV * hd), d ** -0.5),
+                         "wo": normal((H * hd, d), (H * hd) ** -0.5)},
+                "ffn": ffn_p}
+
+    def rwkv_block():                      # scales of the reference's init_rwkv
+        rhd, lora, s = cfg.rwkv_head_dim, 64, d ** -0.5
+        mu = torch.rand((5, d), generator=generator, device=generator.device)
+        return {"rwkv": {
+            "mu": mu.to(dev, dtype),
+            "wr": normal((d, d), s), "wk": normal((d, d), s), "wv": normal((d, d), s),
+            "wg": normal((d, d), s), "wo": normal((d, d), s),
+            "w0": full((d,), -2.0),
+            "w_lora_a": normal((d, lora), s), "w_lora_b": normal((lora, d), lora ** -0.5),
+            "u": normal((d // rhd, rhd), 0.1, torch.float32),
+            "ln_x": full((d,), 0.0),
+            "cm_r": normal((d, d), s), "cm_k": normal((d, ff), s),
+            "cm_v": normal((ff, d), ff ** -0.5),
+        }}
+
+    blocks = [{"ln1": full((d,), 0.0), "ln2": full((d,), 0.0),
+               **(rwkv_block() if kind == "rwkv" else attn_block())}
+              for kind in cfg.block_kinds()]
     params = {"embed": normal((cfg.padded_vocab, d), d ** -0.5), "blocks": blocks,
-              "final_ln": zeros()}
+              "final_ln": full((d,), 0.0)}
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, cfg.padded_vocab), d ** -0.5)
     return DecoderLM(cfg, params)
@@ -172,14 +225,27 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                   device: str | torch.device = "cuda") -> tuple:
+    """Zero caches, one dict per pattern slot: attention ``{"k", "v"}`` of
+    ``[R, batch, max_len, KV, hd]`` in ``dtype``; rwkv ``{"S"}`` of
+    ``[R, batch, H, hd, hd]`` in fp32 and ``{"shift", "shift_ffn"}`` of
+    ``[R, batch, 1, d]`` in ``dtype``."""
     dev = resolve_device(device)
     R = cfg.pattern_repeats
-    shape = (R, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return tuple(
-        {"k": torch.zeros(shape, dtype=dtype, device=dev),
-         "v": torch.zeros(shape, dtype=dtype, device=dev)}
-        for _ in cfg.expanded_pattern
-    )
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros((R, batch, *shape), dtype=dt, device=dev)
+
+    caches = []
+    for kind in cfg.expanded_pattern:
+        if kind == "rwkv":
+            hd = cfg.rwkv_head_dim
+            caches.append({"S": zeros(cfg.d_model // hd, hd, hd, dt=torch.float32),
+                           "shift": zeros(1, cfg.d_model),
+                           "shift_ffn": zeros(1, cfg.d_model)})
+        else:
+            kv_shape = (max_len, cfg.n_kv_heads, cfg.head_dim)
+            caches.append({"k": zeros(*kv_shape), "v": zeros(*kv_shape)})
+    return tuple(caches)
 
 
 def forward(model: DecoderLM, tokens, collect_cache: bool = False, positions=None):

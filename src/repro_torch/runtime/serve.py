@@ -28,7 +28,9 @@ def _check_model(model: DecoderLM, cfg: ModelConfig, dev: torch.device) -> None:
 def build_prefill_step(cfg: ModelConfig, plan: ShardPlan, device: str | torch.device = "cuda"):
     """``prefill(model, tokens [B,S]) -> logits [B,S,padded_vocab]`` (fp32).
 
-    Every attention layer's prefill goes through the flash kernel on the card.
+    On the card every attention layer's prefill goes through the flash
+    attention kernel and every rwkv layer's through the WKV-6 kernel, one
+    launch per layer.
     """
     check_supported(cfg)
     dev = resolve_device(device)
@@ -45,11 +47,12 @@ def build_prefill_step(cfg: ModelConfig, plan: ShardPlan, device: str | torch.de
 def build_decode_step(cfg: ModelConfig, plan: ShardPlan, batch: int | None = None,
                       max_len: int | None = None, device: str | torch.device = "cuda"):
     """``serve_step(model, token [B,1], position [B], caches) -> (logits, caches)``:
-    one new token against a resident KV cache.
+    one new token against resident caches (KV cache, or rwkv state).
 
-    The cache is updated IN PLACE and returned (the reference donates it to
-    its jitted step).  ``batch`` / ``max_len``, when given, are checked
-    against the cache the step is called with.
+    The caches are updated IN PLACE and returned (the reference donates them
+    to its jitted step).  ``batch``, when given, is checked against every
+    cache; ``max_len`` against the caches with a sequence axis (attention's
+    k/v; an rwkv state has none).
     """
     check_supported(cfg)
     dev = resolve_device(device)
@@ -57,10 +60,13 @@ def build_decode_step(cfg: ModelConfig, plan: ShardPlan, batch: int | None = Non
     @torch.inference_mode()
     def serve_step(model: DecoderLM, token, position, caches):
         _check_model(model, cfg, dev)
-        B, T = caches[0]["k"].shape[1:3]
-        if (batch is not None and B != batch) or (max_len is not None and T != max_len):
-            raise ValueError(f"cache is batch {B} x {T} positions; step built for "
-                             f"batch {batch} x {max_len}")
+        for slot in caches:
+            for name, t in slot.items():
+                B = t.shape[1]
+                T = t.shape[2] if name in ("k", "v") else max_len
+                if (batch is not None and B != batch) or (max_len is not None and T != max_len):
+                    raise ValueError(f"cache {name!r} is batch {B} x {T} positions; step "
+                                     f"built for batch {batch} x {max_len}")
         return model.decode_step(token.to(dev), position.to(dev), caches)
 
     return serve_step

@@ -11,6 +11,8 @@ import torch
 
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.rwkv6.kernel import wkv6_kernel
+from repro_torch.kernels.rwkv6.ref import wkv6_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -85,3 +87,62 @@ def test_flash_attention_kernel_counts_launches(cuda_device):
     before = flash_attention_kernel.launches
     flash_attention_kernel(q, q, q)
     assert flash_attention_kernel.launches == before + 1
+
+
+# (B, H, S, hd): tests/test_kernels.py WKV_CASES, then ragged lengths (no
+# multiple of the 32-token chunk), one chunk or less, and a longer sequence.
+WKV_GPU_CASES = [
+    (2, 2, 64, 16), (1, 4, 128, 64), (2, 1, 96, 32), (1, 2, 256, 64),
+    (2, 40, 100, 64), (1, 3, 7, 16), (2, 2, 33, 32), (1, 1, 1, 64), (2, 4, 1000, 64),
+]
+# Per-row bound on max|kernel - plain| / rms(plain row): fp32 rounding in
+# another summation order leaves up to ~4e-4 of a row's size in rows whose
+# sums cancel (the fp32 plain version is as far from a float64 run), ~1e-6
+# elsewhere; a dropped or doubled chunk, or a wrong decay, moves a row by O(1).
+WKV_ROW_REL_TOL = 1e-3
+
+
+def _wkv_inputs(device, B, H, S, hd, seed=0):
+    """r, k, v normal; decay uniform in (0.7, 0.999) as log w; u * 0.3 (the
+    reference's test distribution)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    r, k, v = (torch.randn(B, H, S, hd, generator=g, device=device) for _ in range(3))
+    w = 0.7 + 0.299 * torch.rand(B, H, S, hd, generator=g, device=device)
+    u = 0.3 * torch.randn(H, hd, generator=g, device=device)
+    return r, k, v, torch.log(w), u
+
+
+def _assert_wkv_close(got, want):
+    for o, ref in zip(got, want):
+        torch.testing.assert_close(o, ref, rtol=2e-4, atol=2e-4)   # the reference's bound
+        row_err = (o - ref).abs().amax(-1)
+        row_rms = ref.pow(2).mean(-1).sqrt()
+        assert (row_err <= WKV_ROW_REL_TOL * row_rms).all(), (row_err / row_rms).max().item()
+
+
+@pytest.mark.parametrize("case", WKV_GPU_CASES)
+def test_wkv6_kernel_matches_plain(cuda_device, case):
+    args = _wkv_inputs(cuda_device, *case)
+    got = wkv6_kernel(*args)
+    want = wkv6_ref(*args)
+    torch.cuda.synchronize()
+    _assert_wkv_close(got, want)
+
+
+def test_wkv6_kernel_takes_model_layout(cuda_device):
+    """Transposed [B,S,H,hd] views go in without a copy; out keeps that layout."""
+    B, S, H, hd = 2, 70, 6, 64
+    r, k, v, logw, u = _wkv_inputs(cuda_device, B, H, S, hd, seed=1)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (r, k, v, logw)]
+    assert not views[0].is_contiguous()
+    out, s_last = wkv6_kernel(*views, u)
+    assert out.stride() == views[0].stride()
+    assert out.transpose(1, 2).is_contiguous()
+    _assert_wkv_close((out, s_last), wkv6_ref(r, k, v, logw, u))
+
+
+def test_wkv6_kernel_counts_launches(cuda_device):
+    args = _wkv_inputs(cuda_device, 1, 2, 40, 32)
+    before = wkv6_kernel.launches
+    wkv6_kernel(*args)
+    assert wkv6_kernel.launches == before + 1

@@ -3,7 +3,8 @@
 Same weights in both (the JAX init converted by ``repro_torch.convert``),
 float32 smoke configs.  Tolerance 1e-4: the same math summed in another
 order (the port's prefill attention is the flash kernel's plain version, the
-reference's the einsum path).
+reference's the einsum path; the port's rwkv prefill scan is the wkv6
+kernel's plain version).
 """
 import jax
 import jax.numpy as jnp
@@ -24,7 +25,8 @@ from repro_torch.models import attention as tatt
 from repro_torch.models import decode_step, forward, init_kv_cache, init_params, loss_fn
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ["granite-3-8b", "gemma2-9b"]
+ARCHS = ["granite-3-8b", "gemma2-9b"]          # attention models
+MODEL_ARCHS = ARCHS + ["rwkv6-3b"]
 
 
 def _close(t, j):
@@ -35,13 +37,22 @@ def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-@pytest.fixture(scope="module", params=ARCHS)
+@pytest.fixture(scope="module", params=MODEL_ARCHS)
 def pair(request):
     """(arch, JAX cfg, JAX params, port cfg, port model) on the same weights."""
     jcfg = jax_smoke_config(request.param)
     tcfg = get_smoke_config(request.param)
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(0))
     return request.param, jcfg, jparams, tcfg, params_from_jax(tcfg, _np_tree(jparams), "cpu")
+
+
+def _close_caches(t_caches, j_caches):
+    """Every leaf of every pattern slot: k/v, or the rwkv S/shift/shift_ffn."""
+    assert len(t_caches) == len(j_caches)
+    for tc, jc in zip(t_caches, j_caches):
+        assert set(tc) == set(jc)
+        for n in jc:
+            _close(tc[n], jc[n])
 
 
 def _tokens(cfg, B=2, S=12, seed=3):
@@ -97,10 +108,7 @@ def test_forward_logits_and_caches_match(pair):
     t_logits, t_caches = forward(model, torch.from_numpy(toks), collect_cache=True)
     assert t_logits.shape == (2, 12, tcfg.padded_vocab) and t_logits.dtype == torch.float32
     _close(t_logits, j_logits)
-    assert len(t_caches) == len(j_caches)
-    for tc, jc in zip(t_caches, j_caches):
-        _close(tc["k"], jc["k"])
-        _close(tc["v"], jc["v"])
+    _close_caches(t_caches, j_caches)
 
 
 def test_forward_explicit_positions_match(pair):
@@ -126,9 +134,7 @@ def test_decode_steps_match(pair):
         t_logits, t_caches = decode_step(model, torch.from_numpy(toks[:, t:t + 1]),
                                          torch.from_numpy(pos), t_caches)
         _close(t_logits, j_logits)
-    for tc, jc in zip(t_caches, j_caches):
-        _close(tc["k"], jc["k"])
-        _close(tc["v"], jc["v"])
+    _close_caches(t_caches, j_caches)
 
 
 def test_loss_matches(pair):
@@ -153,9 +159,30 @@ def test_init_params_shapes_and_scales():
 
 
 @pytest.mark.parametrize("arch, entry", [
-    ("granite-moe-1b-a400m", "A8"), ("rwkv6-3b", "A7"), ("jamba-v0.1-52b", "A"),
+    ("granite-moe-1b-a400m", "A8"), ("jamba-v0.1-52b", "A"),
     ("paligemma-3b", "A4"), ("musicgen-medium", "A4"),
 ])
 def test_unported_families_raise(arch, entry):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {entry}"):
         init_params(get_smoke_config(arch), torch.Generator(), "cpu")
+
+
+@pytest.mark.parametrize("arch", MODEL_ARCHS)
+def test_prefill_then_decode_consistency(arch):
+    """Token-by-token decode reproduces the prefill logits and, for rwkv, the
+    collected state (tests/test_arch_smoke.py's check, on the port)."""
+    cfg = get_smoke_config(arch)
+    model = init_params(cfg, torch.Generator().manual_seed(6), "cpu")
+    B, S = 2, 6
+    toks = torch.from_numpy(_tokens(cfg, B=B, S=S, seed=7))
+    full_logits, pre_caches = forward(model, toks, collect_cache=True)
+    caches = init_kv_cache(cfg, B, 8, torch.float32, "cpu")
+    outs = []
+    for t in range(S):
+        lg, caches = decode_step(model, toks[:, t:t + 1], torch.full((B,), t), caches)
+        outs.append(lg[:, 0])
+    tol = dict(rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(torch.stack(outs, dim=1), full_logits, **tol)
+    if arch == "rwkv6-3b":
+        for n in ("S", "shift", "shift_ffn"):
+            torch.testing.assert_close(caches[0][n], pre_caches[0][n], **tol)

@@ -58,7 +58,7 @@ def _torch_greedy(cfg, model, prompt, steps):
     return toks.numpy()
 
 
-@pytest.mark.parametrize("arch", ["granite-3-8b", "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["granite-3-8b", "gemma2-9b", "rwkv6-3b"])
 def test_prefill_and_greedy_decode_match_jax(arch):
     jcfg, tcfg = jax_smoke_config(arch), get_smoke_config(arch)
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(1))
@@ -113,6 +113,32 @@ def test_launcher_runs_on_cpu():
     )
     assert res.returncode == 0, res.stderr
     assert "generated (4, 4)" in res.stdout
+
+
+def test_launcher_runs_rwkv_on_cpu():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "rwkv6-3b",
+         "--smoke", "--device", "cpu", "--tokens", "4"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert "generated (4, 4)" in res.stdout
+
+
+def test_rwkv_decode_step_checks_batch_not_length():
+    """An rwkv state has no sequence axis: the step checks its batch only."""
+    cfg = get_smoke_config("rwkv6-3b")
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    plan = plan_for_cell(cfg, 16, 2, ("data", "model"), 1, kind="decode")
+    step = tserve.build_decode_step(cfg, plan, batch=2, max_len=16, device="cpu")
+    tok, pos = torch.zeros(2, 1, dtype=torch.int64), torch.zeros(2, dtype=torch.int64)
+    caches = init_kv_cache(cfg, 2, 5, torch.float32, "cpu")
+    logits, out = step(model, tok, pos, caches)
+    assert out is caches and logits.shape == (2, 1, cfg.padded_vocab)
+    assert caches[0]["S"].abs().sum() > 0              # state written in place
+    with pytest.raises(ValueError, match="batch"):
+        step(model, tok, pos, init_kv_cache(cfg, 3, 16, torch.float32, "cpu"))
 
 
 def test_launcher_flow_in_process():
