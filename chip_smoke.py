@@ -30,19 +30,41 @@ plain PyTorch version on the card, then drives the serving path:
    prompt 64, 32 greedy tokens), and one decode step counted and traced;
 8. prefill vs token-by-token decode, rwkv6-3b full width cut to 4 layers,
    fp32 with TF32 off: logits and the final S / shift / shift_ffn state, the
-   kernel against the model's plain one-step scan.
+   kernel against the model's plain one-step scan;
+9. selective-scan (mamba) kernel vs its plain version at every shape the
+   later phases give it (the reference's bound 2e-4, plus a per-row bound
+   relative to the row's size), with kernel / plain / bound times; no single
+   PyTorch call computes the selective scan, so it has no library time;
+10. jamba-v0.1-52b at full width cut to 16 layers (two periods of 7 mamba +
+    1 attention layer, MoE on every second layer), bf16, seeded init:
+    prefill step at B=4 x S=2048 (exactly 14 selective-scan and 2 flash
+    launches; a second call's logits bit-identical to the first's), prefill
+    with the state collected then 8 decode steps from it,
+    the launcher's flow (batch 4, prompt 64, 32 greedy tokens), and one
+    decode step counted and traced;
+11. prefill vs token-by-token decode, jamba full width cut to 8 layers, fp32
+    with TF32 off, B=2 x S=100 (no MoE drops at this size): logits and the
+    final k / v / h / conv state, the kernel against the model's plain
+    one-step update;
+12. granite-moe-1b-a400m at full width and depth, bf16, seeded init: prefill
+    step at B=4 x S=2048 (exactly one flash launch per layer; a second
+    call's logits bit-identical to the first's), the launcher's
+    flow and one decode step traced, then ``python -m
+    repro_torch.launch.serve --arch granite-moe-1b-a400m`` as a process.
 
 Any failed check raises and the script exits non-zero without a result.  The
 last line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the line before that a JSON object listing
 every ported kernel with its launches on its own main path (flash attention:
-the phase-3 granite-3-8b prefill; WKV-6: the phase-7 rwkv6-3b prefill) and
-its times.  Imports nothing of JAX or of ``repro``.
+the phase-3 granite-3-8b prefill; WKV-6: the phase-7 rwkv6-3b prefill;
+selective scan: the phase-10 jamba prefill) and its times.  Imports nothing
+of JAX or of ``repro``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -70,6 +92,7 @@ FA_CASES = [
     ("phase4_fp32", 2, 32, 8, 100, 128, True, 0, 0.0, "float32"),
     ("gemma2_local", 1, 16, 8, 8192, 256, True, 4096, 50.0, "bfloat16"),
     ("gemma2_global", 1, 16, 8, 8192, 256, True, 0, 50.0, "bfloat16"),
+    ("granite_moe_prefill", 4, 16, 8, 2048, 64, True, 0, 0.0, "bfloat16"),
 ]
 # Per-row bound on max|kernel - plain| / rms(plain row).  The absolute 2e-2
 # is about half a typical output in rows that see thousands of keys (their
@@ -96,7 +119,24 @@ WKV_TOL = 2e-4             # the reference's bound (tests/test_kernels.py)
 WKV_ROW_REL_TOL = 1e-3
 WKV_CHUNK = 32             # the reference's chunk, for the operation count
 WKV_MAIN_PATH_CASE = "rwkv_prefill"
-KERNEL_SOURCES = ("flash_attention.cu", "wkv6.cu")
+# (name, B, S, di, N, dtype, model layout): tests/test_kernels.py MAMBA_CASES,
+# the jamba prefill shape (phase 10) and the phase-11 shape.  In the model
+# layout x is as given and B / C are column slices of one [B, S, R + 2N]
+# tensor (R = 256, jamba's dt rank), as the model passes them.
+MAMBA_CASES = [
+    ("mamba_case0", 2, 64, 128, 8, "float32", False),
+    ("mamba_case1", 1, 128, 256, 16, "float32", False),
+    ("mamba_case2", 1, 96, 64, 4, "float32", False),
+    ("jamba_prefill", 4, 2048, 8192, 16, "bfloat16", True),
+    ("phase11_fp32", 2, 100, 8192, 16, "float32", True),
+]
+MAMBA_TOL = 2e-4           # the reference's bound (tests/test_kernels.py)
+# Per-row bound on max|kernel - plain| / rms(plain row): the two differ only
+# in fp32 rounding (expf, fused multiply-adds, the order of the N-term sum);
+# a dropped, repeated or misplaced token moves a row by O(1).
+MAMBA_ROW_REL_TOL = 1e-3
+MAMBA_MAIN_PATH_CASE = "jamba_prefill"
+KERNEL_SOURCES = ("flash_attention.cu", "wkv6.cu", "mamba_scan.cu")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -145,12 +185,40 @@ def wkv_inputs(dev, B, H, S, hd, seed=0):
     return r, k, v, torch.log(w), u
 
 
-def decode_step_profile(dstep, model, tok, pos, caches, n_layers: int, sync) -> str:
-    """One decode step counted and traced: the operations the eager step
+def mamba_inputs(dev, B, S, di, N, dtype, model_layout, seed=0):
+    """The reference's test distribution: dt = softplus(normal), x, B, C
+    normal, A = -exp(0.5 normal), D = 1; x, B and C in ``dtype``."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, di, generator=g, device=dev))
+    x = torch.randn(B, S, di, generator=g, device=dev).to(dtype)
+    A = -torch.exp(0.5 * torch.randn(di, N, generator=g, device=dev))
+    if model_layout:
+        dbc = torch.randn(B, S, 256 + 2 * N, generator=g, device=dev).to(dtype)
+        _, Bc, Cc = dbc.split([256, N, N], dim=-1)
+    else:
+        Bc, Cc = (torch.randn(B, S, N, generator=g, device=dev).to(dtype) for _ in range(2))
+    return dt, x, A, Bc, Cc, torch.ones(di, device=dev)
+
+
+def decode_step_profile(cfg, model, dev, sync) -> str:
+    """One decode step of the launcher's flow (batch 4, position 64 of a
+    96-position cache) counted and traced: the operations the eager step
     dispatches (views included), its wall time unprofiled (median of 9), and
     the device's busy time under the profiler (sum of kernel durations)."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.models import init_kv_cache
+    from repro_torch.runtime.planner import plan_for_cell
+    from repro_torch.runtime.serve import build_decode_step
+
+    plan = plan_for_cell(cfg, 96, 4, ("data", "model"), 1, kind="decode")
+    dstep = build_decode_step(cfg, plan, batch=4, max_len=96, device=dev)
+    caches = init_kv_cache(cfg, 4, 96, torch.bfloat16, dev)
+    tok = torch.zeros(4, 1, dtype=torch.int64, device=dev)
+    pos = torch.full((4,), 64, dtype=torch.int64, device=dev)
+    n_layers = cfg.n_layers
 
     class OpCount(TorchDispatchMode):
         n = 0
@@ -185,11 +253,13 @@ def decode_step_profile(dstep, model, tok, pos, caches, n_layers: int, sync) -> 
             f"({ops.n / n_layers:.1f} per layer), {busy}")
 
 
-def prefill_breakdown(prefill, model, tokens, kernel_tag: str, sync) -> str:
-    """One prefill step under the profiler: device time summed over the hand-
-    written kernel (its symbol contains ``kernel_tag``), the dense products
-    (cuBLAS / CUTLASS symbols) and everything else (elementwise passes,
-    reductions, copies)."""
+def prefill_breakdown(prefill, model, tokens, kernel_tags: tuple[str, ...], sync,
+                      top: int = 8) -> str:
+    """One prefill step under the profiler: device time summed over each
+    hand-written kernel (its symbol contains one of ``kernel_tags``), the
+    dense products (cuBLAS / CUTLASS symbols) and everything else
+    (elementwise passes, reductions, copies); then the ``top`` PyTorch
+    operators by the device time of the kernels they launched themselves."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -199,16 +269,120 @@ def prefill_breakdown(prefill, model, tokens, kernel_tag: str, sync) -> str:
     kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kern:
         return "device time by kind not measured (the profiler saw no kernels)"
-    groups = {"hand kernel": [0, 0.0], "dense products": [0, 0.0], "other": [0, 0.0]}
+    groups = {tag: [0, 0.0] for tag in kernel_tags}
+    groups.update({"dense products": [0, 0.0], "other": [0, 0.0]})
     for e in kern:
         name = e.name.lower()
-        kind = ("hand kernel" if kernel_tag in name else "dense products"
-                if any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma")) else "other")
+        kind = next((tag for tag in kernel_tags if tag in name), None) or (
+            "dense products" if any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma"))
+            else "other")
         groups[kind][0] += 1
         groups[kind][1] += e.time_range.elapsed_us() / 1e3
     total = sum(ms for _, ms in groups.values())
-    return f"{len(kern)} device kernels busy {total:.3f} ms: " + ", ".join(
+    ops = sorted(((a.key, a.count, a.self_device_time_total / 1e3) for a in prof.key_averages()
+                  if a.key.startswith("aten::") and a.self_device_time_total > 0),
+                 key=lambda r: -r[2])
+    return (f"{len(kern)} device kernels busy {total:.3f} ms: " + ", ".join(
         f"{kind} {ms:.3f} ms ({n} kernels)" for kind, (n, ms) in groups.items())
+        + "; top aten operators by device time: "
+        + ", ".join(f"{key} {ms:.3f} ms ({n} calls)" for key, n, ms in ops[:top]))
+
+
+def timed_prefills(prefill, model, tokens, sync) -> list[float]:
+    """Wall times (ms) of three prefill steps, each ending in a synchronise."""
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill(model, tokens)
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times
+
+
+def check_reproducible(prefill, model, tokens, first, name: str) -> None:
+    """Fails unless one more prefill of ``tokens`` gives logits bit-identical
+    to ``first``, an earlier call's logits at every 64th position."""
+    again = prefill(model, tokens)[:, ::64]
+    check(again.equal(first), f"two {name} prefills of the same tokens differ: "
+          f"max |diff| {(again.float() - first.float()).abs().max().item()}")
+
+
+def decode_from_prefill(cfg, model, prompt, steps: int, dev, sync):
+    """Prefill ``prompt`` with the state collected, move that state into
+    full-length caches (k / v into the first positions; recurrent states as
+    they are), then ``steps`` greedy decode steps; checks every logit is
+    finite and returns the tokens [B, steps]."""
+    import torch
+    from repro_torch.models import init_kv_cache
+    from repro_torch.runtime.planner import plan_for_cell
+    from repro_torch.runtime.serve import build_decode_step, greedy_generate
+
+    B, P = prompt.shape
+    with torch.inference_mode():
+        logits, pre_caches = model(prompt.to(dev), collect_cache=True)
+    check(bool(torch.isfinite(logits).all()), f"non-finite {cfg.name} prefill logits")
+    last = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    del logits
+    plan = plan_for_cell(cfg, P + steps, B, ("data", "model"), 1, kind="decode")
+    dstep = build_decode_step(cfg, plan, batch=B, max_len=P + steps, device=dev)
+    caches = init_kv_cache(cfg, B, P + steps, torch.bfloat16, dev)
+    with torch.inference_mode():
+        for full, pre in zip(caches, pre_caches):
+            check(set(full) == set(pre), f"state keys {set(full)} vs {set(pre)}")
+            for n in full:
+                if n in ("k", "v"):
+                    full[n][:, :, :P] = pre[n]
+                else:
+                    full[n].copy_(pre[n])
+    del pre_caches
+    captured = []
+
+    def logged_step(m, tok, pos, c):
+        lg, c = dstep(m, tok, pos, c)
+        captured.append(lg)
+        return lg, c
+
+    out, caches = greedy_generate(cfg, model, logged_step, caches, last, P, steps)
+    sync()
+    check(tuple(out.shape) == (B, steps), f"{cfg.name} generated {tuple(out.shape)}")
+    check(all(bool(torch.isfinite(lg).all()) for lg in captured), "non-finite decode logits")
+    check(all(bool(torch.isfinite(t).all()) for c in caches for t in c.values()),
+          "non-finite decode state")
+    return out
+
+
+def decode_token_by_token(cfg, model, tokens, dev):
+    """Feed ``tokens`` [B, S] one at a time through the decode step from zero
+    fp32 caches of S positions; returns (logits [B, S, vocab], caches)."""
+    import torch
+    from repro_torch.models import init_kv_cache
+    from repro_torch.runtime.planner import plan_for_cell
+    from repro_torch.runtime.serve import build_decode_step
+
+    B, S = tokens.shape
+    plan = plan_for_cell(cfg, S, B, ("data", "model"), 1, kind="decode")
+    dstep = build_decode_step(cfg, plan, batch=B, max_len=S, device=dev)
+    caches = init_kv_cache(cfg, B, S, torch.float32, dev)
+    logits = []
+    for t in range(S):
+        lg, caches = dstep(model, tokens[:, t:t + 1], torch.full((B,), t), caches)
+        logits.append(lg)
+    return torch.cat(logits, dim=1), caches
+
+
+def launcher_flow(serve, cfg, model, card: str) -> None:
+    """The launcher's flow: batch 4, prompt 64 ingested through the decode
+    step, 32 greedy tokens; prints its times and peak memory."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    res = serve(cfg, model, batch=4, prompt_len=64, tokens=32, cache_dtype=torch.bfloat16)
+    out = res["tokens"]
+    check(tuple(out.shape) == (4, 32), f"generated {tuple(out.shape)}")
+    check(int(out.min()) >= 0 and int(out.max()) < cfg.padded_vocab, "token out of range")
+    print(f"  launcher flow (batch 4, prompt 64, 32 tokens): prompt ingest "
+          f"{1e3 * res['prompt_s']:.3f} ms, decode {res['decode_tok_s']:.1f} tok/s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
 
 
 def main() -> int:
@@ -228,14 +402,14 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.mamba.kernel import mamba_scan_kernel
+    from repro_torch.kernels.mamba.ref import mamba_scan_ref
     from repro_torch.kernels.rwkv6.kernel import wkv6_kernel
     from repro_torch.kernels.rwkv6.ref import wkv6_ref
     from repro_torch.launch.serve import serve
-    from repro_torch.models import init_kv_cache, init_params
+    from repro_torch.models import init_params
     from repro_torch.runtime.planner import plan_for_cell
-    from repro_torch.runtime.serve import (
-        build_decode_step, build_prefill_step, greedy_generate,
-    )
+    from repro_torch.runtime.serve import build_prefill_step
 
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
@@ -333,44 +507,28 @@ def main() -> int:
     prefill = build_prefill_step(cfg, plan, dev)
     tokens = torch.randint(0, cfg.vocab, (B, S), generator=torch.Generator().manual_seed(1))
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_kernel.launches = wkv6_kernel.launches = 0
+    flash_attention_kernel.launches = wkv6_kernel.launches = mamba_scan_kernel.launches = 0
     logits = prefill(model, tokens)
     sync()
     launches = flash_attention_kernel.launches
     check(launches == cfg.n_layers,
           f"{launches} flash-attention launches in one prefill, expected {cfg.n_layers}")
-    check(wkv6_kernel.launches == 0, "wkv6 launched in a granite prefill")
+    check(wkv6_kernel.launches == mamba_scan_kernel.launches == 0,
+          "wkv6 / mamba_scan launched in a granite prefill")
     check(tuple(logits.shape) == (B, S, cfg.padded_vocab), f"logits shape {logits.shape}")
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
     del logits
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        prefill(model, tokens)
-        sync()
-        times.append(1e3 * (time.perf_counter() - t0))
+    times = timed_prefills(prefill, model, tokens, sync)
     check(flash_attention_kernel.launches == 4 * cfg.n_layers, "launches over 4 prefills")
     print(f"  prefill B={B} S={S}: {statistics.median(times):.3f} ms (median of 3), "
           f"{launches} kernel launches per call, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
-    print(f"  prefill traced: {prefill_breakdown(prefill, model, tokens, 'fa_fwd', sync)} {card}")
-    torch.cuda.reset_peak_memory_stats()
-    res = serve(cfg, model, batch=4, prompt_len=64, tokens=32, cache_dtype=torch.bfloat16)
-    out = res["tokens"]
-    check(tuple(out.shape) == (4, 32), f"generated {tuple(out.shape)}")
-    check(int(out.min()) >= 0 and int(out.max()) < cfg.padded_vocab, "token out of range")
-    print(f"  launcher flow (batch 4, prompt 64, 32 tokens): prompt ingest "
-          f"{1e3 * res['prompt_s']:.3f} ms, decode {res['decode_tok_s']:.1f} tok/s, peak "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+    print(f"  prefill traced: {prefill_breakdown(prefill, model, tokens, ('fa_fwd',), sync)} {card}")
+    launcher_flow(serve, cfg, model, card)
     # One step of the same decode flow, counted and traced.
-    plan = plan_for_cell(cfg, 96, 4, ("data", "model"), 1, kind="decode")
-    dstep = build_decode_step(cfg, plan, batch=4, max_len=96, device=dev)
-    caches = init_kv_cache(cfg, 4, 96, torch.bfloat16, dev)
-    tok = torch.zeros(4, 1, dtype=torch.int64, device=dev)
-    pos = torch.full((4,), 64, dtype=torch.int64, device=dev)
-    prof = decode_step_profile(dstep, model, tok, pos, caches, cfg.n_layers, sync)
+    prof = decode_step_profile(cfg, model, dev, sync)
     print(f"  decode step (batch 4, position 64): {prof} {card}")
-    del model, caches
+    del model
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phase 4
@@ -384,13 +542,7 @@ def main() -> int:
     flash_attention_kernel.launches = 0
     logits_p = build_prefill_step(cfg4, plan, dev)(model, tokens)
     check(flash_attention_kernel.launches == cfg4.n_layers, "fp32 prefill launches")
-    dstep = build_decode_step(cfg4, plan, batch=B, max_len=S, device=dev)
-    caches = init_kv_cache(cfg4, B, S, torch.float32, dev)
-    logits_d = []
-    for t in range(S):
-        lg, caches = dstep(model, tokens[:, t:t + 1], torch.full((B,), t), caches)
-        logits_d.append(lg)
-    logits_d = torch.cat(logits_d, dim=1)
+    logits_d, caches = decode_token_by_token(cfg4, model, tokens, dev)
     scale = logits_p.abs().max().item()
     err = (logits_p - logits_d).abs().max().item()
     # fp32 throughout: the two paths differ only in summation order (flash
@@ -413,34 +565,11 @@ def main() -> int:
     B, S, steps = 1, 8192, 8
     tokens = torch.randint(0, cfg5.vocab, (B, S), generator=torch.Generator().manual_seed(5))
     flash_attention_kernel.launches = 0
-    with torch.inference_mode():
-        logits, pre_caches = model(tokens.to(dev), collect_cache=True)
+    out = decode_from_prefill(cfg5, model, tokens, steps, dev, sync)
     check(flash_attention_kernel.launches == cfg5.n_layers, "gemma2 prefill launches")
-    check(bool(torch.isfinite(logits).all()), "non-finite gemma2 prefill logits")
-    last = torch.argmax(logits[:, -1], dim=-1)[:, None]
-    del logits
-    plan = plan_for_cell(cfg5, S + steps, B, ("data", "model"), 1, kind="decode")
-    dstep = build_decode_step(cfg5, plan, batch=B, max_len=S + steps, device=dev)
-    caches = init_kv_cache(cfg5, B, S + steps, torch.bfloat16, dev)
-    with torch.inference_mode():
-        for full, pre in zip(caches, pre_caches):
-            full["k"][:, :, :S] = pre["k"]
-            full["v"][:, :, :S] = pre["v"]
-    del pre_caches
-    captured = []
-
-    def logged_step(m, tok, pos, c):
-        lg, c = dstep(m, tok, pos, c)
-        captured.append(lg)
-        return lg, c
-
-    out, _ = greedy_generate(cfg5, model, logged_step, caches, last, S, steps)
-    sync()
-    check(tuple(out.shape) == (B, steps), f"gemma2 generated {tuple(out.shape)}")
-    check(all(bool(torch.isfinite(lg).all()) for lg in captured), "non-finite decode logits")
     print(f"  prefill S={S} ({flash_attention_kernel.launches} kernel launches), "
           f"{steps} decode steps: tokens {out[0].tolist()}")
-    del model, caches
+    del model
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phase 6
@@ -507,80 +636,36 @@ def main() -> int:
     prefill = build_prefill_step(rcfg, plan, dev)
     tokens = torch.randint(0, rcfg.vocab, (B, S), generator=torch.Generator().manual_seed(7))
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_kernel.launches = wkv6_kernel.launches = 0
+    flash_attention_kernel.launches = wkv6_kernel.launches = mamba_scan_kernel.launches = 0
     logits = prefill(model, tokens)
     sync()
     wkv_launches = wkv6_kernel.launches
     check(wkv_launches == rcfg.n_layers,
           f"{wkv_launches} wkv6 launches in one prefill, expected {rcfg.n_layers}")
-    check(flash_attention_kernel.launches == 0, "flash attention launched in an rwkv prefill")
+    check(flash_attention_kernel.launches == mamba_scan_kernel.launches == 0,
+          "flash attention / mamba_scan launched in an rwkv prefill")
     check(tuple(logits.shape) == (B, S, rcfg.padded_vocab), f"logits shape {logits.shape}")
     check(bool(torch.isfinite(logits).all()), "non-finite rwkv prefill logits")
     del logits
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        prefill(model, tokens)
-        sync()
-        times.append(1e3 * (time.perf_counter() - t0))
+    times = timed_prefills(prefill, model, tokens, sync)
     check(wkv6_kernel.launches == 4 * rcfg.n_layers, "wkv6 launches over 4 prefills")
     print(f"  prefill B={B} S={S}: {statistics.median(times):.3f} ms (median of 3, "
           f"{min(times):.3f}-{max(times):.3f}), {wkv_launches} kernel launches per call, "
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
-    print(f"  prefill traced: {prefill_breakdown(prefill, model, tokens, 'wkv6_fwd', sync)} "
+    print(f"  prefill traced: {prefill_breakdown(prefill, model, tokens, ('wkv6_fwd',), sync)} "
           f"{card}")
 
     # the prefill's collected state, then 8 decode steps from it
     P, steps = 512, 8
-    prompt = tokens[:, :P].to(dev)
     wkv6_kernel.launches = 0
-    with torch.inference_mode():
-        logits, pre_caches = model(prompt, collect_cache=True)
+    out = decode_from_prefill(rcfg, model, tokens[:, :P], steps, dev, sync)
     check(wkv6_kernel.launches == rcfg.n_layers, "rwkv collect-cache prefill launches")
-    check(bool(torch.isfinite(logits).all()), "non-finite rwkv prefill logits")
-    last = torch.argmax(logits[:, -1], dim=-1)[:, None]
-    del logits
-    plan = plan_for_cell(rcfg, P + steps, B, ("data", "model"), 1, kind="decode")
-    dstep = build_decode_step(rcfg, plan, batch=B, max_len=P + steps, device=dev)
-    caches = init_kv_cache(rcfg, B, P + steps, torch.bfloat16, dev)
-    with torch.inference_mode():
-        for full, pre in zip(caches, pre_caches):
-            check(set(full) == set(pre) == {"S", "shift", "shift_ffn"}, "rwkv state keys")
-            for n in full:
-                full[n].copy_(pre[n])
-    del pre_caches
-    captured = []
-
-    def logged_step(m, tok, pos, c):
-        lg, c = dstep(m, tok, pos, c)
-        captured.append(lg)
-        return lg, c
-
-    out, _ = greedy_generate(rcfg, model, logged_step, caches, last, P, steps)
-    sync()
-    check(tuple(out.shape) == (B, steps), f"rwkv generated {tuple(out.shape)}")
-    check(all(bool(torch.isfinite(lg).all()) for lg in captured), "non-finite decode logits")
-    check(bool(torch.isfinite(caches[0]["S"]).all()), "non-finite rwkv state")
     print(f"  prefill S={P} with the state collected, {steps} decode steps from it: "
           f"tokens {out[0].tolist()}")
-    del caches, captured
-
-    torch.cuda.reset_peak_memory_stats()
-    res = serve(rcfg, model, batch=4, prompt_len=64, tokens=32, cache_dtype=torch.bfloat16)
-    out = res["tokens"]
-    check(tuple(out.shape) == (4, 32), f"generated {tuple(out.shape)}")
-    check(int(out.min()) >= 0 and int(out.max()) < rcfg.padded_vocab, "token out of range")
-    print(f"  launcher flow (batch 4, prompt 64, 32 tokens): prompt ingest "
-          f"{1e3 * res['prompt_s']:.3f} ms, decode {res['decode_tok_s']:.1f} tok/s, peak "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
-    plan = plan_for_cell(rcfg, 96, 4, ("data", "model"), 1, kind="decode")
-    dstep = build_decode_step(rcfg, plan, batch=4, max_len=96, device=dev)
-    caches = init_kv_cache(rcfg, 4, 96, torch.bfloat16, dev)
-    tok = torch.zeros(4, 1, dtype=torch.int64, device=dev)
-    pos = torch.full((4,), 64, dtype=torch.int64, device=dev)
-    prof = decode_step_profile(dstep, model, tok, pos, caches, rcfg.n_layers, sync)
-    print(f"  decode step (batch 4): {prof} {card}")
-    del model, caches
+    launcher_flow(serve, rcfg, model, card)
+    prof = decode_step_profile(rcfg, model, dev, sync)
+    print(f"  decode step (batch 4, position 64): {prof} {card}")
+    del model
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phase 8
@@ -594,14 +679,7 @@ def main() -> int:
     with torch.inference_mode():
         logits_p, pre_caches = model(tokens.to(dev), collect_cache=True)
     check(wkv6_kernel.launches == cfg8.n_layers, "fp32 rwkv prefill launches")
-    plan = plan_for_cell(cfg8, S, B, ("data", "model"), 1, kind="decode")
-    dstep = build_decode_step(cfg8, plan, batch=B, max_len=S, device=dev)
-    caches = init_kv_cache(cfg8, B, S, torch.float32, dev)
-    logits_d = []
-    for t in range(S):
-        lg, caches = dstep(model, tokens[:, t:t + 1], torch.full((B,), t), caches)
-        logits_d.append(lg)
-    logits_d = torch.cat(logits_d, dim=1)
+    logits_d, caches = decode_token_by_token(cfg8, model, tokens, dev)
     check(wkv6_kernel.launches == cfg8.n_layers, "decode launched the wkv6 kernel")
     # fp32 throughout: the two paths differ in summation order (the kernel's
     # chunk form vs the one-step recurrence; cuBLAS at M=B*S vs M=B), which
@@ -622,9 +700,198 @@ def main() -> int:
     del model, caches, pre_caches, logits_p, logits_d
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------ phase 9
+    print("phase 9: mamba_scan kernel vs plain version on the card")
+    mamba_results = {}
+    for name, B, S, di, N, dt_name, model_layout in MAMBA_CASES:
+        dtype = getattr(torch, dt_name)
+        args = mamba_inputs(dev, B, S, di, N, dtype, model_layout)
+        out = mamba_scan_kernel(*args)
+        ref = mamba_scan_ref(*args)
+        sync()
+        errs, rels = [], []
+        for what, o, rf in (("y", out[0], ref[0]), ("h_last", out[1], ref[1])):
+            err = (o - rf).abs().max().item()
+            rel = row_rel_err(o, rf)
+            check(torch.allclose(o, rf, rtol=MAMBA_TOL, atol=MAMBA_TOL),
+                  f"{name}: kernel vs plain {what} max abs err {err} (tol {MAMBA_TOL})")
+            check(rel <= MAMBA_ROW_REL_TOL,
+                  f"{name}: kernel vs plain {what} per-row error {rel} / rms "
+                  f"(tol {MAMBA_ROW_REL_TOL})")
+            errs.append(err)
+            rels.append(rel)
+        rounding = ""
+        if name == MAMBA_MAIN_PATH_CASE:
+            # How far fp32 rounding alone moves the plain version: the same
+            # recurrence in float64 as the yardstick for both.
+            ref64 = mamba_scan_ref(*(a.double() for a in args))
+            rounding = "; vs the fp64 plain version: " + ", ".join(
+                f"{who} {what} {(o.double() - r64).abs().max().item():.3e} / "
+                f"{row_rel_err(o, r64):.3e}"
+                for who, got in (("fp32 plain", ref), ("kernel", out))
+                for what, o, r64 in (("y", got[0], ref64[0]), ("h_last", got[1], ref64[1])))
+            del ref64
+        del out, ref
+        big = B * S * di > 2 ** 22
+        ms = cuda_ms(lambda: mamba_scan_kernel(*args), 20 if big else 50)
+        plain_ms = cuda_ms(lambda: mamba_scan_ref(*args), 2 if big else 5)
+        # per state update: dt*A, exp, a*h + bx, (dt x)*B, y += C h; per
+        # (token, channel): dt*x, y + D x
+        flops = B * S * di * (7 * N + 3)
+        nbytes = (sum(t.element_size() * t.numel() for t in args)     # B, C: views' own elements
+                  + 4 * (B * S * di + B * di * N))                    # y, h_last
+        t_ops, t_mem = flops / FP32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+        mamba_results[name] = {
+            "max_abs_err": max(errs), "row_rel_err": max(rels), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": 1e3 * max(t_ops, t_mem),
+            "bound_by": "operations" if t_ops >= t_mem else "bytes",
+        }
+        print(f"  {name}: B={B} S={S} di={di} N={N} x {dt_name}"
+              f"{', B/C strided views' if model_layout else ''}: tol {MAMBA_TOL}, row tol "
+              f"{MAMBA_ROW_REL_TOL} (y, h_last) {json.dumps(mamba_results[name])}{rounding} "
+              f"{card}")
+        del args
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ phase 10
+    jcfg = get_config("jamba-v0.1-52b")
+    cfg10 = dataclasses.replace(jcfg, n_layers=16)
+    n_mamba = cfg10.block_kinds().count("mamba")
+    n_attn = cfg10.n_layers - n_mamba
+    print(f"phase 10: {jcfg.name} full width, bf16, {cfg10.n_layers} layers "
+          f"({n_mamba} mamba, {n_attn} attention, MoE on every second layer)")
+    print(f"  reduced: n_layers {jcfg.n_layers}→{cfg10.n_layers}")
+    t0 = time.perf_counter()
+    model = init_params(cfg10, torch.Generator(device=dev).manual_seed(10), dev)
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  init {n_params / 1e9:.3f} B params in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    B, S = 4, 2048
+    plan = plan_for_cell(cfg10, S, B, ("data", "model"), 1, kind="prefill", use_dse=False)
+    prefill = build_prefill_step(cfg10, plan, dev)
+    tokens = torch.randint(0, cfg10.vocab, (B, S), generator=torch.Generator().manual_seed(11))
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_kernel.launches = wkv6_kernel.launches = mamba_scan_kernel.launches = 0
+    logits = prefill(model, tokens)
+    sync()
+    mamba_launches = mamba_scan_kernel.launches
+    check(mamba_launches == n_mamba == 14,
+          f"{mamba_launches} mamba_scan launches in one prefill, expected 14")
+    check(flash_attention_kernel.launches == n_attn == 2,
+          f"{flash_attention_kernel.launches} flash launches in one prefill, expected 2")
+    check(wkv6_kernel.launches == 0, "wkv6 launched in a jamba prefill")
+    check(tuple(logits.shape) == (B, S, cfg10.padded_vocab), f"logits shape {logits.shape}")
+    check(bool(torch.isfinite(logits).all()), "non-finite jamba prefill logits")
+    first = logits[:, ::64].clone()
+    del logits
+    times = timed_prefills(prefill, model, tokens, sync)
+    check(mamba_scan_kernel.launches == 4 * n_mamba, "mamba_scan launches over 4 prefills")
+    print(f"  prefill B={B} S={S}: {statistics.median(times):.3f} ms (median of 3, "
+          f"{min(times):.3f}-{max(times):.3f}), {mamba_launches} mamba_scan and "
+          f"{n_attn} flash launches per call, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+    check_reproducible(prefill, model, tokens, first, "jamba")
+    print("  prefill traced: "
+          f"{prefill_breakdown(prefill, model, tokens, ('mamba_scan_fwd', 'fa_fwd'), sync)} "
+          f"{card}")
+    out = decode_from_prefill(cfg10, model, tokens[:, :512], 8, dev, sync)
+    print(f"  prefill S=512 with the state collected, 8 decode steps from it: "
+          f"tokens {out[0].tolist()}")
+    launcher_flow(serve, cfg10, model, card)
+    prof = decode_step_profile(cfg10, model, dev, sync)
+    print(f"  decode step (batch 4, position 64): {prof} {card}")
+    del model
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ phase 11
+    cfg11 = dataclasses.replace(jcfg, n_layers=8, param_dtype="float32")
+    print(f"phase 11: prefill vs decode, {jcfg.name} full width, fp32, TF32 off")
+    print(f"  reduced: n_layers {jcfg.n_layers}→{cfg11.n_layers}")
+    model = init_params(cfg11, torch.Generator(device=dev).manual_seed(12), dev)
+    B, S = 2, 100
+    tokens = torch.randint(0, cfg11.vocab, (B, S), generator=torch.Generator().manual_seed(13))
+    mamba_scan_kernel.launches = flash_attention_kernel.launches = 0
+    with torch.inference_mode():
+        logits_p, pre_caches = model(tokens.to(dev), collect_cache=True)
+    check(mamba_scan_kernel.launches == 7 and flash_attention_kernel.launches == 1,
+          "fp32 jamba prefill launches")
+    logits_d, caches = decode_token_by_token(cfg11, model, tokens, dev)
+    check(mamba_scan_kernel.launches == 7, "decode launched the mamba_scan kernel")
+    # fp32 throughout, and at B*S = 200 <= 512 tokens every dispatch group
+    # holds one token, so neither path drops an MoE choice: the two differ in
+    # summation order only (the kernel vs the plain one-step update; cuBLAS at
+    # M=B*S vs M=B), ~1e-6 relative; 1e-3 of each tensor's scale flags a
+    # wrong decay, state handoff, conv window or routing, which moves results
+    # by O(1).
+    report = []
+    pairs = [("logits", logits_p, logits_d)]
+    for pi, (pre, full) in enumerate(zip(pre_caches, caches)):
+        pairs += [(f"{n}[{pi}]", pre[n], full[n]) for n in sorted(pre)]
+    worst = {}
+    for n, a, b in pairs:
+        scale = a.abs().max().item()
+        err = (a - b).abs().max().item()
+        check(err <= 1e-3 * scale, f"prefill vs decode {n}: max abs err {err} > "
+                                   f"1e-3 x {scale}")
+        kind = n.split("[")[0]
+        if err / scale >= worst.get(kind, (0.0, 0.0, ""))[0]:
+            worst[kind] = (err / scale, err, n)
+    report = [f"{n} {err:.3e} ({rel:.3e} of max|x|)" for rel, err, n in worst.values()]
+    worst_t = int((logits_p - logits_d).abs().amax(dim=(0, 2)).argmax())
+    print(f"  B={B} S={S}: max |prefill - decode|, worst slot of each state: "
+          + ", ".join(report) + f" (tol 1e-3 x max|x|); worst logit at position {worst_t}")
+    del model, caches, pre_caches, logits_p, logits_d
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ phase 12
+    gcfg = get_config("granite-moe-1b-a400m")
+    print(f"phase 12: {gcfg.name} full width and depth ({gcfg.n_layers} layers, "
+          f"{gcfg.moe.n_experts} experts top-{gcfg.moe.top_k}), bf16")
+    model = init_params(gcfg, torch.Generator(device=dev).manual_seed(14), dev)
+    sync()
+    print(f"  init {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    B, S = 4, 2048
+    plan = plan_for_cell(gcfg, S, B, ("data", "model"), 1, kind="prefill", use_dse=False)
+    prefill = build_prefill_step(gcfg, plan, dev)
+    tokens = torch.randint(0, gcfg.vocab, (B, S), generator=torch.Generator().manual_seed(15))
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_kernel.launches = wkv6_kernel.launches = mamba_scan_kernel.launches = 0
+    logits = prefill(model, tokens)
+    sync()
+    check(flash_attention_kernel.launches == gcfg.n_layers == 24,
+          f"{flash_attention_kernel.launches} flash launches in one prefill, expected 24")
+    check(wkv6_kernel.launches == mamba_scan_kernel.launches == 0,
+          "wkv6 / mamba_scan launched in a granite-moe prefill")
+    check(bool(torch.isfinite(logits).all()), "non-finite granite-moe prefill logits")
+    first = logits[:, ::64].clone()
+    del logits
+    times = timed_prefills(prefill, model, tokens, sync)
+    print(f"  prefill B={B} S={S}: {statistics.median(times):.3f} ms (median of 3, "
+          f"{min(times):.3f}-{max(times):.3f}), {gcfg.n_layers} flash launches per call, "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+    check_reproducible(prefill, model, tokens, first, "granite-moe")
+    print(f"  prefill traced: {prefill_breakdown(prefill, model, tokens, ('fa_fwd',), sync)} "
+          f"{card}")
+    launcher_flow(serve, gcfg, model, card)
+    prof = decode_step_profile(gcfg, model, dev, sync)
+    print(f"  decode step (batch 4, position 64): {prof} {card}")
+    del model
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", gcfg.name]
+    proc = subprocess.run(cmd, cwd=REPO, env=dict(os.environ, PYTHONPATH=str(SRC)),
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0 and "generated (4, 32)" in proc.stdout,
+          f"{' '.join(cmd[1:])} exited {proc.returncode}: {proc.stdout}{proc.stderr}")
+    print(f"  python {' '.join(cmd[1:])}: " + " | ".join(proc.stdout.strip().splitlines())
+          + f" {card}")
+
     # ------------------------------------------------------------ result
     main_case = results[MAIN_PATH_CASE]
     wkv_case = wkv_results[WKV_MAIN_PATH_CASE]
+    mamba_case = mamba_results[MAMBA_MAIN_PATH_CASE]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{
         "name": "flash_attention", "route": "cuda",
@@ -638,6 +905,12 @@ def main() -> int:
         "replaces": "src/repro/kernels/rwkv6/kernel.py:82",
         "launches": wkv_launches,
         **{k: wkv_case[k] for k in keys},
+    }, {
+        "name": "mamba_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba/kernel.py:61",
+        "launches": mamba_launches,
+        **{k: mamba_case[k] for k in keys},
     }]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

@@ -57,6 +57,18 @@ def serve(cfg: ModelConfig, model: DecoderLM, batch: int, prompt_len: int, token
             "decode_tok_s": batch * tokens / (t2 - t1)}
 
 
+def check_weights_fit(cfg: ModelConfig, device_bytes: int) -> None:
+    """Raise before allocating when the weights alone (``cfg.n_params`` in
+    ``cfg.param_dtype``, a lower bound) exceed the card's memory."""
+    need = cfg.n_params * torch.finfo(getattr(torch, cfg.param_dtype)).bits // 8
+    if need > device_bytes:
+        raise RuntimeError(
+            f"{cfg.name}: its {cfg.param_dtype} weights need at least {need / 2**30:.1f} GiB, "
+            f"more than the card's {device_bytes / 2**30:.1f} GiB "
+            "(torch.cuda.get_device_properties(dev).total_memory); serve it with fewer "
+            "layers or on more cards")
+
+
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=sorted(ARCHS), required=True)
@@ -69,6 +81,8 @@ def main(argv: list[str] | None = None) -> dict:
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if device.type == "cuda":
+        check_weights_fit(cfg, torch.cuda.get_device_properties(device).total_memory)
     model = init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
     res = serve(cfg, model, args.batch, args.prompt_len, args.tokens,
                 torch.float32 if args.smoke else torch.bfloat16)

@@ -4,13 +4,14 @@ Layers run in a Python loop (the reference scans over pattern repeats with
 stacked params).  Layer ``l`` is pattern slot ``l % P`` of repeat ``l // P``;
 caches keep the reference's stacked layout, one dict of ``[R, ...]`` tensors
 per pattern slot: ``{"k", "v"}`` of ``[R, B, T, KV, hd]`` for attention,
-``{"S", "shift", "shift_ffn"}`` for rwkv.  One card has no sharding, so the
-reference's ``constrain`` / ``transition_repeat`` hooks have no counterpart
-here.
+``{"S", "shift", "shift_ffn"}`` for rwkv, ``{"h", "conv"}`` for mamba.  One
+card has no sharding, so the reference's ``constrain`` /
+``transition_repeat`` hooks have no counterpart here.
 
-This slice covers ``attn`` and ``local`` blocks with a dense FFN and ``rwkv``
-blocks.  MoE, mamba and the frontend stubs raise ``NotImplementedError``
-naming their ROADMAP entry.
+``attn``, ``local`` and ``mamba`` blocks take a dense or an MoE FFN (MoE on
+the layers ``cfg.is_moe_block`` names); ``rwkv`` blocks carry their own
+channel mix.  The frontend stubs raise ``NotImplementedError`` naming their
+ROADMAP entry.
 """
 from __future__ import annotations
 
@@ -21,18 +22,16 @@ from ..device import resolve_device
 from .attention import attention_decode, attention_prefill
 from .config import ModelConfig
 from .layers import dense, embed, ffn, rmsnorm, softcap
+from .moe import moe_ffn
 from .rwkv import rwkv_channel_mix, rwkv_time_mix
+from .ssm import mamba_decode, mamba_prefill
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port lacks so far."""
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE FFN: ROADMAP A8")
     if cfg.frontend != "none":
         raise NotImplementedError(f"{cfg.name}: {cfg.frontend} frontend: ROADMAP A4")
     for kind in cfg.block_pattern:
-        if kind == "mamba":
-            raise NotImplementedError(f"{cfg.name}: mamba blocks (jamba): ROADMAP A9")
         if kind not in _BLOCKS:
             raise ValueError(kind)
 
@@ -45,21 +44,32 @@ def _frozen_dict(params: dict) -> nn.ParameterDict:
     return nn.ParameterDict({n: _frozen(t) for n, t in params.items()})
 
 
-class AttnBlock(nn.Module):
-    """Pre-norm attention block with a dense FFN."""
+class _FfnBlock(nn.Module):
+    """Pre-norm mixer (the subclass's) then a dense or MoE FFN, chosen by
+    which leaf the block's params hold (``"ffn"`` or ``"moe"``)."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, params: dict):
+    def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
         self.cfg = cfg
-        self.window = cfg.window if kind == "local" else 0
         self.ln1 = _frozen(params["ln1"])
         self.ln2 = _frozen(params["ln2"])
-        self.attn = _frozen_dict(params["attn"])
-        self.ffn = _frozen_dict(params["ffn"])
+        self.moe = _frozen_dict(params["moe"]) if "moe" in params else None
+        self.ffn = None if self.moe is not None else _frozen_dict(params["ffn"])
 
     def _ffn(self, x: torch.Tensor) -> torch.Tensor:
         h2 = rmsnorm(x, self.ln2, self.cfg.norm_eps)
+        if self.moe is not None:
+            return x + moe_ffn(self.moe, h2, self.cfg)
         return x + ffn(self.ffn, h2, self.cfg.ffn_gated)
+
+
+class AttnBlock(_FfnBlock):
+    """Pre-norm attention block."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, params: dict):
+        super().__init__(cfg, params)
+        self.window = cfg.window if kind == "local" else 0
+        self.attn = _frozen_dict(params["attn"])
 
     def prefill(self, x, positions):
         h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
@@ -103,7 +113,28 @@ class RwkvBlock(nn.Module):
         return x
 
 
-_BLOCKS = {"attn": AttnBlock, "local": AttnBlock, "rwkv": RwkvBlock}
+class MambaBlock(_FfnBlock):
+    """Pre-norm Mamba-1 block (``ssm``)."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, params: dict):
+        super().__init__(cfg, params)
+        self.mamba = _frozen_dict(params["mamba"])
+
+    def prefill(self, x, positions):
+        h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
+        a, st = mamba_prefill(self.mamba, h, self.cfg)     # position-free
+        return self._ffn(x + a), st
+
+    def decode(self, x, position, cache):
+        """``cache``: this layer's ``{"h", "conv"}``, written in place."""
+        h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
+        a, st = mamba_decode(self.mamba, h, self.cfg, cache)
+        for n, t in st.items():
+            cache[n].copy_(t)
+        return self._ffn(x + a)
+
+
+_BLOCKS = {"attn": AttnBlock, "local": AttnBlock, "rwkv": RwkvBlock, "mamba": MambaBlock}
 
 
 class DecoderLM(nn.Module):
@@ -175,7 +206,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: str | torch.device = "cuda") -> DecoderLM:
     """Random model with the reference's init scales, drawn from ``generator``
     (on its own device) and stored on ``device`` in ``cfg.param_dtype``
-    (``w0``, ``u`` and the norm weights in fp32, as in the reference)."""
+    (``w0``, ``u``, ``A_log``, ``D``, the MoE router and the norm weights in
+    fp32, as in the reference)."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
@@ -188,15 +220,40 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def full(shape, value):
         return torch.full(shape, value, dtype=torch.float32, device=dev)
 
-    def attn_block():
+    def ffn_block(layer):                  # scales of init_ffn / init_moe
+        if cfg.is_moe_block(layer):
+            E, eff = cfg.moe.n_experts, cfg.moe.d_ff or ff
+            moe = {"router": normal((d, E), d ** -0.5, torch.float32),
+                   "w1": normal((E, d, eff), d ** -0.5), "w2": normal((E, eff, d), eff ** -0.5)}
+            if cfg.ffn_gated:
+                moe["w3"] = normal((E, d, eff), d ** -0.5)
+            return {"moe": moe}
         ffn_p = {"w1": normal((d, ff), d ** -0.5), "w2": normal((ff, d), ff ** -0.5)}
         if cfg.ffn_gated:
             ffn_p["w3"] = normal((d, ff), d ** -0.5)
+        return {"ffn": ffn_p}
+
+    def attn_block():
         return {"attn": {"wq": normal((d, H * hd), d ** -0.5),
                          "wk": normal((d, KV * hd), d ** -0.5),
                          "wv": normal((d, KV * hd), d ** -0.5),
-                         "wo": normal((H * hd, d), (H * hd) ** -0.5)},
-                "ffn": ffn_p}
+                         "wo": normal((H * hd, d), (H * hd) ** -0.5)}}
+
+    def mamba_block():                     # scales of the reference's init_mamba
+        di, N, dc = cfg.mamba_expand * d, cfg.mamba_d_state, cfg.mamba_d_conv
+        R = max(1, d // 16)                # dt_rank
+        return {"mamba": {
+            "in_proj": normal((d, 2 * di), d ** -0.5),
+            "conv_w": normal((dc, di), 0.2),
+            "conv_b": torch.zeros((di,), dtype=dtype, device=dev),
+            "x_proj": normal((di, R + 2 * N), di ** -0.5),
+            "dt_proj": normal((R, di), R ** -0.5),
+            "dt_bias": torch.full((di,), -4.6, dtype=dtype, device=dev),  # softplus^-1(0.01)
+            "A_log": torch.log(torch.arange(1, N + 1, dtype=torch.float32, device=dev)
+                               ).repeat(di, 1),
+            "D": full((di,), 1.0),
+            "out_proj": normal((di, d), di ** -0.5),
+        }}
 
     def rwkv_block():                      # scales of the reference's init_rwkv
         rhd, lora, s = cfg.rwkv_head_dim, 64, d ** -0.5
@@ -213,9 +270,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             "cm_v": normal((ff, d), ff ** -0.5),
         }}
 
-    blocks = [{"ln1": full((d,), 0.0), "ln2": full((d,), 0.0),
-               **(rwkv_block() if kind == "rwkv" else attn_block())}
-              for kind in cfg.block_kinds()]
+    mixers = {"attn": attn_block, "local": attn_block, "mamba": mamba_block,
+              "rwkv": rwkv_block}
+    blocks = [{"ln1": full((d,), 0.0), "ln2": full((d,), 0.0), **mixers[kind](),
+               **({} if kind == "rwkv" else ffn_block(layer))}
+              for layer, kind in enumerate(cfg.block_kinds())]
     params = {"embed": normal((cfg.padded_vocab, d), d ** -0.5), "blocks": blocks,
               "final_ln": full((d,), 0.0)}
     if not cfg.tie_embeddings:
@@ -228,7 +287,9 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat
     """Zero caches, one dict per pattern slot: attention ``{"k", "v"}`` of
     ``[R, batch, max_len, KV, hd]`` in ``dtype``; rwkv ``{"S"}`` of
     ``[R, batch, H, hd, hd]`` in fp32 and ``{"shift", "shift_ffn"}`` of
-    ``[R, batch, 1, d]`` in ``dtype``."""
+    ``[R, batch, 1, d]`` in ``dtype``; mamba ``{"h"}`` of ``[R, batch,
+    d_inner, N]`` in fp32 and ``{"conv"}`` of ``[R, batch, d_conv - 1,
+    d_inner]`` in ``dtype``."""
     dev = resolve_device(device)
     R = cfg.pattern_repeats
 
@@ -242,6 +303,10 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat
             caches.append({"S": zeros(cfg.d_model // hd, hd, hd, dt=torch.float32),
                            "shift": zeros(1, cfg.d_model),
                            "shift_ffn": zeros(1, cfg.d_model)})
+        elif kind == "mamba":
+            di = cfg.mamba_expand * cfg.d_model
+            caches.append({"h": zeros(di, cfg.mamba_d_state, dt=torch.float32),
+                           "conv": zeros(cfg.mamba_d_conv - 1, di)})
         else:
             kv_shape = (max_len, cfg.n_kv_heads, cfg.head_dim)
             caches.append({"k": zeros(*kv_shape), "v": zeros(*kv_shape)})

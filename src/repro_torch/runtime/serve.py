@@ -29,8 +29,8 @@ def build_prefill_step(cfg: ModelConfig, plan: ShardPlan, device: str | torch.de
     """``prefill(model, tokens [B,S]) -> logits [B,S,padded_vocab]`` (fp32).
 
     On the card every attention layer's prefill goes through the flash
-    attention kernel and every rwkv layer's through the WKV-6 kernel, one
-    launch per layer.
+    attention kernel, every rwkv layer's through the WKV-6 kernel and every
+    mamba layer's through the selective-scan kernel, one launch per layer.
     """
     check_supported(cfg)
     dev = resolve_device(device)
@@ -47,12 +47,13 @@ def build_prefill_step(cfg: ModelConfig, plan: ShardPlan, device: str | torch.de
 def build_decode_step(cfg: ModelConfig, plan: ShardPlan, batch: int | None = None,
                       max_len: int | None = None, device: str | torch.device = "cuda"):
     """``serve_step(model, token [B,1], position [B], caches) -> (logits, caches)``:
-    one new token against resident caches (KV cache, or rwkv state).
+    one new token against resident caches (KV cache, rwkv or mamba state).
 
     The caches are updated IN PLACE and returned (the reference donates them
     to its jitted step).  ``batch``, when given, is checked against every
-    cache; ``max_len`` against the caches with a sequence axis (attention's
-    k/v; an rwkv state has none).
+    cache (each has its batch on dim 1); ``max_len`` against the caches with
+    a sequence axis (attention's k/v; the rwkv ``S``/``shift`` and the mamba
+    ``h``/``conv`` states have none).
     """
     check_supported(cfg)
     dev = resolve_device(device)

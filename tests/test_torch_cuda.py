@@ -11,6 +11,8 @@ import torch
 
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.mamba.kernel import mamba_scan_kernel
+from repro_torch.kernels.mamba.ref import mamba_scan_ref
 from repro_torch.kernels.rwkv6.kernel import wkv6_kernel
 from repro_torch.kernels.rwkv6.ref import wkv6_ref
 
@@ -35,6 +37,7 @@ FA_GPU_CASES = [
     (1, 4, 2, 777, 256, True, 256, 50.0, torch.bfloat16),
     (1, 4, 2, 333, 256, False, 0, 50.0, torch.float32),
     (1, 4, 2, 1024, 256, True, 0, 50.0, torch.bfloat16),
+    (4, 16, 8, 2048, 64, True, 0, 0.0, torch.bfloat16),     # granite-moe prefill
 ]
 
 
@@ -146,3 +149,70 @@ def test_wkv6_kernel_counts_launches(cuda_device):
     before = wkv6_kernel.launches
     wkv6_kernel(*args)
     assert wkv6_kernel.launches == before + 1
+
+
+# (B, S, di, N): tests/test_kernels.py MAMBA_CASES, then ragged lengths (no
+# multiple of the 32-token chunk), one token, d_inner no multiple of the
+# 128-channel block, and a longer sequence.
+MAMBA_GPU_CASES = [
+    (2, 64, 128, 8), (1, 128, 256, 16), (1, 96, 64, 4),
+    (2, 100, 256, 16), (1, 7, 128, 8), (1, 1, 128, 4), (2, 50, 200, 16), (3, 33, 320, 4),
+    (2, 1000, 512, 16),
+]
+# Per-row bound on max|kernel - plain| / rms(plain row) over a token's
+# channels: the two differ only in fp32 rounding (expf, fused multiply-adds,
+# the order of the N-term sum); a dropped, repeated or misplaced token moves
+# a row by O(1).
+MAMBA_ROW_REL_TOL = 1e-3
+
+
+def _mamba_inputs(device, B, S, di, N, dtype=torch.float32, seed=0):
+    """The reference's test distribution: dt = softplus(normal), x, B, C
+    normal, A = -exp(0.5 normal), D = 1.  x, B and C in ``dtype``; B and C
+    are column slices of one [B, S, R + 2N] tensor, as the model passes them
+    (R = 256, jamba's dt rank)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, di, generator=g, device=device))
+    x = torch.randn(B, S, di, generator=g, device=device).to(dtype)
+    A = -torch.exp(0.5 * torch.randn(di, N, generator=g, device=device))
+    dbc = torch.randn(B, S, 256 + 2 * N, generator=g, device=device).to(dtype)
+    _, Bc, Cc = dbc.split([256, N, N], dim=-1)
+    return dt, x, A, Bc, Cc, torch.ones(di, device=device)
+
+
+def _assert_mamba_close(got, want):
+    for o, ref in zip(got, want):
+        torch.testing.assert_close(o, ref, rtol=2e-4, atol=2e-4)   # the reference's bound
+        row_err = (o - ref).abs().amax(-1)
+        row_rms = ref.pow(2).mean(-1).sqrt()
+        assert (row_err <= MAMBA_ROW_REL_TOL * row_rms).all(), (row_err / row_rms).max().item()
+
+
+@pytest.mark.parametrize("case", MAMBA_GPU_CASES)
+def test_mamba_scan_kernel_matches_plain(cuda_device, case):
+    args = _mamba_inputs(cuda_device, *case)
+    got = mamba_scan_kernel(*args)
+    want = mamba_scan_ref(*args)
+    torch.cuda.synchronize()
+    _assert_mamba_close(got, want)
+
+
+@pytest.mark.parametrize("case", [(2, 100, 256, 16), (1, 70, 200, 4)])
+def test_mamba_scan_kernel_takes_model_layout(cuda_device, case):
+    """bf16 x with B and C as strided bf16 views (row stride R + 2N), as the
+    model passes them: no copy, the same result as the plain version on the
+    same bf16 values."""
+    args = _mamba_inputs(cuda_device, *case, dtype=torch.bfloat16, seed=1)
+    Bc = args[3]
+    assert not Bc.is_contiguous() and Bc.stride(1) == 256 + 2 * case[3]
+    got = mamba_scan_kernel(*args)
+    want = mamba_scan_ref(*args)
+    torch.cuda.synchronize()
+    _assert_mamba_close(got, want)
+
+
+def test_mamba_scan_kernel_counts_launches(cuda_device):
+    args = _mamba_inputs(cuda_device, 1, 40, 128, 16)
+    before = mamba_scan_kernel.launches
+    mamba_scan_kernel(*args)
+    assert mamba_scan_kernel.launches == before + 1

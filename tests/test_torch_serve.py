@@ -4,6 +4,7 @@ Prefill step, prompt ingest through the decode step and 8 greedy tokens on
 the same converted weights, the reference on a 1x1 mesh.  Prefill logits at
 1e-4 (same math, another summation order); greedy tokens identical.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -20,7 +21,7 @@ from repro.models import init_kv_cache as jax_init_kv_cache
 from repro.models import init_params as jax_init_params
 from repro.runtime import serve as jserve
 from repro.runtime.planner import plan_for_cell as jax_plan_for_cell
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import init_kv_cache, init_params
@@ -58,7 +59,8 @@ def _torch_greedy(cfg, model, prompt, steps):
     return toks.numpy()
 
 
-@pytest.mark.parametrize("arch", ["granite-3-8b", "gemma2-9b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["granite-3-8b", "gemma2-9b", "rwkv6-3b", "jamba-v0.1-52b",
+                                  "granite-moe-1b-a400m"])
 def test_prefill_and_greedy_decode_match_jax(arch):
     jcfg, tcfg = jax_smoke_config(arch), get_smoke_config(arch)
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(1))
@@ -139,6 +141,58 @@ def test_rwkv_decode_step_checks_batch_not_length():
     assert caches[0]["S"].abs().sum() > 0              # state written in place
     with pytest.raises(ValueError, match="batch"):
         step(model, tok, pos, init_kv_cache(cfg, 3, 16, torch.float32, "cpu"))
+
+
+def test_launcher_runs_jamba_on_cpu():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "jamba-v0.1-52b",
+         "--smoke", "--device", "cpu", "--tokens", "4"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert "generated (4, 4)" in res.stdout
+
+
+def test_mamba_decode_step_checks_batch_not_length():
+    """A mamba state (h, conv) has no sequence axis: the step checks its
+    batch only, and writes the state in place."""
+    cfg = get_smoke_config("jamba-v0.1-52b")
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    plan = plan_for_cell(cfg, 16, 2, ("data", "model"), 1, kind="decode")
+    step = tserve.build_decode_step(cfg, plan, batch=2, max_len=16, device="cpu")
+    tok, pos = torch.zeros(2, 1, dtype=torch.int64), torch.zeros(2, dtype=torch.int64)
+    caches = init_kv_cache(cfg, 2, 16, torch.float32, "cpu")
+    mamba = [c for c in caches if "h" in c]
+    assert len(mamba) == 7 and all(set(c) == {"h", "conv"} for c in mamba)
+    assert mamba[0]["h"].shape == (cfg.pattern_repeats, 2, 2 * cfg.d_model, cfg.mamba_d_state)
+    assert mamba[0]["conv"].shape == (cfg.pattern_repeats, 2, cfg.mamba_d_conv - 1,
+                                      2 * cfg.d_model)
+    logits, out = step(model, tok, pos, caches)
+    assert out is caches and logits.shape == (2, 1, cfg.padded_vocab)
+    assert all(c["h"].abs().sum() > 0 and c["conv"].abs().sum() > 0 for c in mamba)
+    with pytest.raises(ValueError, match="batch"):
+        step(model, tok, pos, init_kv_cache(cfg, 3, 16, torch.float32, "cpu"))
+
+
+def test_launcher_refuses_weights_larger_than_the_card(monkeypatch):
+    """jamba-v0.1-52b at full depth (95.8 GiB of bf16 weights) is refused
+    before anything is allocated, naming its bytes against the card's."""
+    class Props:
+        total_memory = 80 * 10 ** 9
+
+    def no_alloc(*args, **kwargs):
+        raise AssertionError("weights allocated before the fit check")
+
+    monkeypatch.setattr(launch_serve, "resolve_device", lambda d: torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda d: Props())
+    monkeypatch.setattr(launch_serve, "init_params", no_alloc)
+    with pytest.raises(RuntimeError, match=r"95\.8 GiB.*74\.5 GiB"):
+        launch_serve.main(["--arch", "jamba-v0.1-52b"])
+    cut = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=16)
+    launch_serve.check_weights_fit(cut, Props.total_memory)          # 48.4 GiB fits
+    with pytest.raises(RuntimeError, match="granite-moe"):
+        launch_serve.check_weights_fit(get_config("granite-moe-1b-a400m"), 2 * 2 ** 30)
 
 
 def test_launcher_flow_in_process():
