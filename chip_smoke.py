@@ -11,10 +11,12 @@ plain PyTorch version on the card, then drives the serving path:
    phases give it (reference bounds: 2e-3 fp32, 2e-2 bf16, plus a per-row
    bound relative to the row's size) with kernel / plain / library (SDPA) /
    bound times;
-3. granite-3-8b at full width and depth, bf16, seeded init: prefill step at
-   B=4 x S=2048 (exactly one kernel launch per layer), then the launcher's
-   flow (batch 4, prompt 64, 32 greedy tokens), and one decode step counted
-   (operations dispatched) and traced (device busy time);
+3. granite-3-8b at full width and depth, bf16, seeded init: the prefill
+   planned by the DSE branch of ``plan_for_cell`` (one-chip model axis, the
+   reference's TPU v5e cost model), prefill step at B=4 x S=2048 (exactly
+   one kernel launch per layer), then the launcher's flow (batch 4, prompt
+   64, 32 greedy tokens), and one decode step counted (operations
+   dispatched) and traced (device busy time);
 4. prefill vs token-by-token decode logits, granite-3-8b full width cut to 4
    layers, fp32 with TF32 off: the kernel against the model's independent
    decode attention;
@@ -50,15 +52,23 @@ plain PyTorch version on the card, then drives the serving path:
     step at B=4 x S=2048 (exactly one flash launch per layer; a second
     call's logits bit-identical to the first's), the launcher's
     flow and one decode step traced, then ``python -m
-    repro_torch.launch.serve --arch granite-moe-1b-a400m`` as a process.
+    repro_torch.launch.serve --arch granite-moe-1b-a400m`` as a process;
+13. int8 ``qmatmul``: the op on its main path, granite-3-8b's FFN
+    up-projection at its B=4 x S=2048 prefill (M=8192, K=4096, N=12800), a
+    bf16 activation and weight quantized per row and per column (exactly one
+    kernel launch; within the reference's 0.02 of the bf16 product), then the
+    kernel vs its plain version, bit-equal (``torch.equal``), at the
+    reference's test shapes with random scales, kernel_bench's, ragged
+    shapes, bf16 output and the main-path shape, with kernel / plain /
+    library (``torch._int_mm`` and the dequantizing multiply) / bound times.
 
 Any failed check raises and the script exits non-zero without a result.  The
 last line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the line before that a JSON object listing
 every ported kernel with its launches on its own main path (flash attention:
 the phase-3 granite-3-8b prefill; WKV-6: the phase-7 rwkv6-3b prefill;
-selective scan: the phase-10 jamba prefill) and its times.  Imports nothing
-of JAX or of ``repro``.
+selective scan: the phase-10 jamba prefill; qmatmul: the phase-13 op call)
+and its times.  Imports nothing of JAX or of ``repro``.
 """
 from __future__ import annotations
 
@@ -76,6 +86,7 @@ REPO = Path(__file__).resolve().parent
 SRC = REPO / "src"
 
 BF16_PEAK_FLOPS = 989e12      # H100 SXM dense bf16 tensor cores (data sheet)
+INT8_PEAK_OPS = 1979e12       # H100 SXM dense int8 tensor cores
 FP32_PEAK_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 
@@ -136,7 +147,22 @@ MAMBA_TOL = 2e-4           # the reference's bound (tests/test_kernels.py)
 # a dropped, repeated or misplaced token moves a row by O(1).
 MAMBA_ROW_REL_TOL = 1e-3
 MAMBA_MAIN_PATH_CASE = "jamba_prefill"
-KERNEL_SOURCES = ("flash_attention.cu", "wkv6.cu", "mamba_scan.cu")
+# (name, M, N, K, out dtype): tests/test_kernels.py's qmatmul shapes,
+# benchmarks/kernel_bench.py's 256 x 512 x 256, ragged shapes (the byte-staged
+# instantiation: K % 16, N % 4 nonzero), bf16 output, and the main path's.
+QMM_CASES = [
+    ("qmm_case0", 128, 128, 128, "float32"),
+    ("qmm_case1", 256, 128, 384, "float32"),
+    ("qmm_case2", 128, 256, 256, "float32"),
+    ("kernel_bench", 256, 256, 512, "float32"),
+    ("ragged_small", 1, 40, 100, "float32"),
+    ("ragged_large", 8193, 12801, 4100, "float32"),
+    ("bf16_out", 300, 200, 160, "bfloat16"),
+    ("bf16_out_ragged", 1, 40, 100, "bfloat16"),
+]
+QMM_MAIN = (8192, 12800, 4096)    # granite-3-8b FFN up-projection, B=4 x S=2048
+QMM_CLOSE_TOL = 0.02              # the reference's bound (test_qmatmul_quantized_close_to_fp)
+KERNEL_SOURCES = ("flash_attention.cu", "wkv6.cu", "mamba_scan.cu", "qmatmul.cu")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -404,6 +430,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.mamba.kernel import mamba_scan_kernel
     from repro_torch.kernels.mamba.ref import mamba_scan_ref
+    from repro_torch.kernels.qmatmul.kernel import qmatmul_kernel
+    from repro_torch.kernels.qmatmul.ops import qmatmul
+    from repro_torch.kernels.qmatmul.ref import qmatmul_ref, quantize_cols, quantize_rows
     from repro_torch.kernels.rwkv6.kernel import wkv6_kernel
     from repro_torch.kernels.rwkv6.ref import wkv6_ref
     from repro_torch.launch.serve import serve
@@ -424,6 +453,22 @@ def main() -> int:
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / iters
+
+    def cuda_ms_median(fn, reps: int) -> float:
+        """Median over ``reps`` launches, each between its own two events."""
+        fn()
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(reps)]
+        for start, end in events:
+            start.record()
+            fn()
+            end.record()
+        sync()
+        return statistics.median(start.elapsed_time(end) for start, end in events)
+
+    def reset_launches() -> None:
+        flash_attention_kernel.launches = wkv6_kernel.launches = 0
+        mamba_scan_kernel.launches = qmatmul_kernel.launches = 0
 
     # ------------------------------------------------------------ phase 1
     smi = nvidia_smi_line()
@@ -503,18 +548,25 @@ def main() -> int:
     print(f"  init {n_params / 1e9:.3f} B params in {time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     B, S = 4, 2048
-    plan = plan_for_cell(cfg, S, B, ("data", "model"), 1, kind="prefill", use_dse=False)
+    # The DSE branch, as Solution.deploy plans a one-chip package: the model
+    # axis is one chip, priced with the reference's TPU v5e cost model.
+    plan = plan_for_cell(cfg, S, B, ("data", "model"), 1, kind="prefill")
+    check(plan.meta["dse"] and (plan.p1, plan.p2) == ("ISP", "ISP"),
+          f"DSE plan {plan.p1}/{plan.p2} meta {plan.meta}")
+    print(f"  DSE plan (model_axis 1): p1 {plan.p1}, p2 {plan.p2}, t_layers "
+          f"{plan.meta['t_layers']}, cost-model latency {plan.meta['latency']} s "
+          f"(TPU v5e constants, not this card), dse_s {plan.meta['dse_s']:.6f} s (host)")
     prefill = build_prefill_step(cfg, plan, dev)
     tokens = torch.randint(0, cfg.vocab, (B, S), generator=torch.Generator().manual_seed(1))
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_kernel.launches = wkv6_kernel.launches = mamba_scan_kernel.launches = 0
+    reset_launches()
     logits = prefill(model, tokens)
     sync()
     launches = flash_attention_kernel.launches
     check(launches == cfg.n_layers,
           f"{launches} flash-attention launches in one prefill, expected {cfg.n_layers}")
-    check(wkv6_kernel.launches == mamba_scan_kernel.launches == 0,
-          "wkv6 / mamba_scan launched in a granite prefill")
+    check(wkv6_kernel.launches == mamba_scan_kernel.launches == qmatmul_kernel.launches == 0,
+          "wkv6 / mamba_scan / qmatmul launched in a granite prefill")
     check(tuple(logits.shape) == (B, S, cfg.padded_vocab), f"logits shape {logits.shape}")
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
     del logits
@@ -636,14 +688,15 @@ def main() -> int:
     prefill = build_prefill_step(rcfg, plan, dev)
     tokens = torch.randint(0, rcfg.vocab, (B, S), generator=torch.Generator().manual_seed(7))
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_kernel.launches = wkv6_kernel.launches = mamba_scan_kernel.launches = 0
+    reset_launches()
     logits = prefill(model, tokens)
     sync()
     wkv_launches = wkv6_kernel.launches
     check(wkv_launches == rcfg.n_layers,
           f"{wkv_launches} wkv6 launches in one prefill, expected {rcfg.n_layers}")
-    check(flash_attention_kernel.launches == mamba_scan_kernel.launches == 0,
-          "flash attention / mamba_scan launched in an rwkv prefill")
+    check(flash_attention_kernel.launches == mamba_scan_kernel.launches
+          == qmatmul_kernel.launches == 0,
+          "flash attention / mamba_scan / qmatmul launched in an rwkv prefill")
     check(tuple(logits.shape) == (B, S, rcfg.padded_vocab), f"logits shape {logits.shape}")
     check(bool(torch.isfinite(logits).all()), "non-finite rwkv prefill logits")
     del logits
@@ -773,7 +826,7 @@ def main() -> int:
     prefill = build_prefill_step(cfg10, plan, dev)
     tokens = torch.randint(0, cfg10.vocab, (B, S), generator=torch.Generator().manual_seed(11))
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_kernel.launches = wkv6_kernel.launches = mamba_scan_kernel.launches = 0
+    reset_launches()
     logits = prefill(model, tokens)
     sync()
     mamba_launches = mamba_scan_kernel.launches
@@ -781,7 +834,8 @@ def main() -> int:
           f"{mamba_launches} mamba_scan launches in one prefill, expected 14")
     check(flash_attention_kernel.launches == n_attn == 2,
           f"{flash_attention_kernel.launches} flash launches in one prefill, expected 2")
-    check(wkv6_kernel.launches == 0, "wkv6 launched in a jamba prefill")
+    check(wkv6_kernel.launches == qmatmul_kernel.launches == 0,
+          "wkv6 / qmatmul launched in a jamba prefill")
     check(tuple(logits.shape) == (B, S, cfg10.padded_vocab), f"logits shape {logits.shape}")
     check(bool(torch.isfinite(logits).all()), "non-finite jamba prefill logits")
     first = logits[:, ::64].clone()
@@ -858,13 +912,13 @@ def main() -> int:
     prefill = build_prefill_step(gcfg, plan, dev)
     tokens = torch.randint(0, gcfg.vocab, (B, S), generator=torch.Generator().manual_seed(15))
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_kernel.launches = wkv6_kernel.launches = mamba_scan_kernel.launches = 0
+    reset_launches()
     logits = prefill(model, tokens)
     sync()
     check(flash_attention_kernel.launches == gcfg.n_layers == 24,
           f"{flash_attention_kernel.launches} flash launches in one prefill, expected 24")
-    check(wkv6_kernel.launches == mamba_scan_kernel.launches == 0,
-          "wkv6 / mamba_scan launched in a granite-moe prefill")
+    check(wkv6_kernel.launches == mamba_scan_kernel.launches == qmatmul_kernel.launches == 0,
+          "wkv6 / mamba_scan / qmatmul launched in a granite-moe prefill")
     check(bool(torch.isfinite(logits).all()), "non-finite granite-moe prefill logits")
     first = logits[:, ::64].clone()
     del logits
@@ -887,6 +941,71 @@ def main() -> int:
           f"{' '.join(cmd[1:])} exited {proc.returncode}: {proc.stdout}{proc.stderr}")
     print(f"  python {' '.join(cmd[1:])}: " + " | ".join(proc.stdout.strip().splitlines())
           + f" {card}")
+
+    # ------------------------------------------------------------ phase 13
+    M, N, K = QMM_MAIN
+    print(f"phase 13: qmatmul, granite-3-8b FFN up-projection M={M} K={K} N={N} "
+          "(B=4 x S=2048 prefill), bf16 activation and weight quantized per row and column")
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randn(M, K, generator=g, device=dev).bfloat16()
+    w = (0.02 * torch.randn(K, N, generator=g, device=dev)).bfloat16()
+    reset_launches()
+    xq, xs = quantize_rows(x)
+    wq, ws = quantize_cols(w)
+    out = qmatmul(xq, wq, xs, ws)
+    sync()
+    qmm_launches = qmatmul_kernel.launches
+    check(qmm_launches == 1, f"{qmm_launches} qmatmul launches in one op call, expected 1")
+    check(flash_attention_kernel.launches == wkv6_kernel.launches
+          == mamba_scan_kernel.launches == 0, "another kernel launched in the qmatmul op")
+    check(tuple(out.shape) == (M, N) and out.dtype == torch.float32, f"out {out.shape} {out.dtype}")
+    check(bool(torch.isfinite(out).all()), "non-finite qmatmul output")
+    ref_bf16 = (x @ w).float()
+    rel = ((out - ref_bf16).norm() / ref_bf16.norm()).item()
+    check(rel < QMM_CLOSE_TOL, f"int8 product vs bf16 product: rel {rel} (tol {QMM_CLOSE_TOL})")
+    plain = qmatmul_ref(xq, wq, xs, ws)
+    check(torch.equal(out, plain), "main-path kernel output differs from the plain version: "
+          f"max abs err {(out - plain).abs().max().item()}")
+    print(f"  op on the main path: {qmm_launches} kernel launch, |int8 - bf16| / |bf16| "
+          f"{rel:.6f} (tol {QMM_CLOSE_TOL}), bit-equal to the plain version")
+    del x, w, out, ref_bf16, plain
+    qmm_results = {}
+    g = torch.Generator(device=dev).manual_seed(17)
+    for name, m, n, k, dt_name in QMM_CASES + [("main_path", M, N, K, "float32")]:
+        out_dtype = getattr(torch, dt_name)
+        if name == "main_path":
+            args = (xq, wq, xs, ws)
+        else:
+            args = (torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8),
+                    torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8),
+                    0.5 + torch.rand(m, generator=g, device=dev),
+                    0.5 + torch.rand(n, generator=g, device=dev))
+        got = qmatmul_kernel(*args, out_dtype=out_dtype)
+        want = qmatmul_ref(*args, out_dtype=out_dtype)
+        sync()
+        err = (got.float() - want.float()).abs().max().item()
+        check(torch.equal(got, want), f"{name}: kernel vs plain not bit-equal, max abs err {err}")
+        res = {"max_abs_err": err}
+        if name == "main_path":
+            res["ms"] = cuda_ms_median(lambda: qmatmul_kernel(*args), 21)
+            res["plain_ms"] = cuda_ms_median(lambda: qmatmul_ref(*args), 5)
+            res["library_ms"] = cuda_ms_median(
+                lambda: torch._int_mm(args[0], args[1]).float() * args[2][:, None]
+                * args[3][None, :], 11)
+            xb, wb = args[0].bfloat16(), args[1].bfloat16()
+            bf16_ms = cuda_ms_median(lambda: xb @ wb, 21)
+            int_mm_ms = cuda_ms_median(lambda: torch._int_mm(args[0], args[1]), 11)
+            del xb, wb
+            t_ops = 2 * m * n * k / INT8_PEAK_OPS
+            t_mem = (m * k + k * n + 4 * (m + n) + got.element_size() * m * n) / HBM_BYTES_PER_S
+            res["bound_ms"] = 1e3 * max(t_ops, t_mem)
+            res["bound_by"] = "operations" if t_ops >= t_mem else "bytes"
+            res["context"] = {"bf16_matmul_ms": bf16_ms, "int_mm_only_ms": int_mm_ms}
+        qmm_results[name] = res
+        print(f"  {name}: M={m} N={n} K={k} out {dt_name}: bit-equal {json.dumps(res)} {card}")
+        del got, want, args
+    del xq, wq, xs, ws
+    torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ result
     main_case = results[MAIN_PATH_CASE]
@@ -911,6 +1030,12 @@ def main() -> int:
         "replaces": "src/repro/kernels/mamba/kernel.py:61",
         "launches": mamba_launches,
         **{k: mamba_case[k] for k in keys},
+    }, {
+        "name": "qmatmul", "route": "cuda",
+        "source": "src/repro_torch/csrc/qmatmul.cu",
+        "replaces": "src/repro/kernels/qmatmul/kernel.py:43",
+        "launches": qmm_launches,
+        **{k: qmm_results["main_path"][k] for k in keys},
     }]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

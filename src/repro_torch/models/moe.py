@@ -8,12 +8,9 @@ first ``Cg`` of each expert into a dense ``[E, Cg]`` buffer; the rest go to
 an overflow row and are dropped (standard capacity-factor semantics).  The
 reference ``vmap``s one group; here every step is one batched tensor
 operation over ``[G, ...]`` (no Python loop over groups).  The expert
-products are batched ``torch.matmul`` over ``[E, ...]``, as the reference
-leaves them to XLA.
-
-One rounding differs in bf16: the reference keeps the first-layer products
-``h`` in fp32 (``preferred_element_type``); ``torch.matmul`` rounds them to
-bf16 before the fp32 silu and product.  In fp32 the two are the same.
+products are batched matrix products over ``[E, ...]``, as the reference
+leaves them to XLA; the first-layer products are fp32 from bf16 operands, as
+the reference's ``preferred_element_type`` keeps them.
 """
 from __future__ import annotations
 
@@ -41,14 +38,28 @@ def _route(params, xf: torch.Tensor, cfg: ModelConfig):
     return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), sel
 
 
+def _products_fp32(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """xe [E, M, d] @ w [E, d, f] -> [E, M, f] fp32, from operands in their own
+    dtype.  On the card a bf16 product accumulates and returns fp32 on the
+    tensor cores (``bmm`` with ``out_dtype``, which exists only for CUDA); the
+    CPU multiplies the operands cast to fp32, the same function up to the
+    order of the sum."""
+    if xe.device.type == "cpu":
+        return torch.matmul(xe.float(), w.float())
+    return torch.bmm(xe, w, out_dtype=torch.float32)
+
+
+def _expert_hidden(params, xe: torch.Tensor, gated: bool) -> torch.Tensor:
+    """xe [E, M, d] -> the fp32 hidden activations [E, M, f] of every expert."""
+    h = _products_fp32(xe, params["w1"])
+    if gated:
+        return F.silu(h) * _products_fp32(xe, params["w3"])
+    return F.gelu(h, approximate="tanh")
+
+
 def _expert_ffn(params, xe: torch.Tensor, gated: bool) -> torch.Tensor:
     """xe [E, M, d] -> [E, M, d]: every expert on its own rows."""
-    h = torch.matmul(xe, params["w1"]).float()
-    if gated:
-        h = F.silu(h) * torch.matmul(xe, params["w3"]).float()
-    else:
-        h = F.gelu(h, approximate="tanh")
-    return torch.matmul(h.to(xe.dtype), params["w2"])
+    return torch.matmul(_expert_hidden(params, xe, gated).to(xe.dtype), params["w2"])
 
 
 def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -13,8 +13,12 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.mamba.kernel import mamba_scan_kernel
 from repro_torch.kernels.mamba.ref import mamba_scan_ref
+from repro_torch.kernels.qmatmul.kernel import qmatmul_kernel
+from repro_torch.kernels.qmatmul.ops import qmatmul
+from repro_torch.kernels.qmatmul.ref import qmatmul_ref, quantize_cols, quantize_rows
 from repro_torch.kernels.rwkv6.kernel import wkv6_kernel
 from repro_torch.kernels.rwkv6.ref import wkv6_ref
+from repro_torch.models import moe as tmoe
 
 pytestmark = pytest.mark.cuda
 
@@ -216,3 +220,80 @@ def test_mamba_scan_kernel_counts_launches(cuda_device):
     before = mamba_scan_kernel.launches
     mamba_scan_kernel(*args)
     assert mamba_scan_kernel.launches == before + 1
+
+
+# (M, N, K, out dtype): tests/test_kernels.py's shapes, benchmarks/
+# kernel_bench.py's 256 x 512 x 256, ragged M / N / K (no multiple of the
+# 128 x 128 tile or the 64-deep step; K % 16 and N % 4 nonzero take the
+# byte-staged instantiation), bf16 output, and the granite-3-8b FFN
+# up-projection of a B=4 x S=2048 prefill.
+QMM_GPU_CASES = [
+    (128, 128, 128, torch.float32), (256, 128, 384, torch.float32),
+    (128, 256, 256, torch.float32), (256, 256, 512, torch.float32),
+    (1, 40, 100, torch.float32), (100, 40, 96, torch.float32),
+    (8193, 12801, 4100, torch.float32), (300, 200, 160, torch.bfloat16),
+    (1, 40, 100, torch.bfloat16), (8192, 12800, 4096, torch.float32),
+]
+
+
+def _qmm_inputs(device, M, N, K, seed=0):
+    """int8 operands uniform in [-127, 127], scales uniform in (0.5, 1.5)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(-127, 128, (M, K), generator=g, device=device, dtype=torch.int8)
+    w = torch.randint(-127, 128, (K, N), generator=g, device=device, dtype=torch.int8)
+    xs = 0.5 + torch.rand(M, generator=g, device=device)
+    ws = 0.5 + torch.rand(N, generator=g, device=device)
+    return x, w, xs, ws
+
+
+@pytest.mark.parametrize("case", QMM_GPU_CASES)
+def test_qmatmul_kernel_matches_plain(cuda_device, case):
+    """Bit-equal: the int32 sum is exact in both, and both dequantize as
+    (float(acc) * x_scale) * w_scale, each step rounded to nearest."""
+    M, N, K, out_dtype = case
+    args = _qmm_inputs(cuda_device, M, N, K)
+    got = qmatmul_kernel(*args, out_dtype=out_dtype)
+    want = qmatmul_ref(*args, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == out_dtype
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+
+
+def test_qmatmul_quantized_close_to_bf16_product(cuda_device):
+    """The granite FFN up-projection shape: quantize a bf16 activation per row
+    and a weight per column; the op's int8 product is within the reference's
+    0.02 of the bf16 product."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(8192, 4096, generator=g, device=cuda_device).bfloat16()
+    w = (0.02 * torch.randn(4096, 12800, generator=g, device=cuda_device)).bfloat16()
+    xq, xs = quantize_rows(x)
+    wq, ws = quantize_cols(w)
+    before = qmatmul_kernel.launches
+    out = qmatmul(xq, wq, xs, ws)
+    assert qmatmul_kernel.launches == before + 1
+    ref = (x @ w).float()
+    assert ((out - ref).norm() / ref.norm()).item() < 0.02
+
+
+def test_qmatmul_op_launches_the_kernel(cuda_device):
+    args = _qmm_inputs(cuda_device, 64, 32, 96)
+    before = qmatmul_kernel.launches
+    got = qmatmul(*args)
+    assert qmatmul_kernel.launches == before + 1
+    assert torch.equal(got, qmatmul(*args, impl="ref"))
+    assert qmatmul_kernel.launches == before + 1
+
+
+def test_moe_first_layer_products_fp32_on_the_card(cuda_device):
+    """The bf16 expert products come back fp32 from the tensor cores
+    (``bmm`` with ``out_dtype``): within fp32 summation of the fp32 product
+    of the same bf16 operands, where a bf16 product is 2^-9 off."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    xe = torch.randn(4, 256, 1024, generator=g, device=cuda_device).bfloat16()
+    w = torch.randn(4, 1024, 512, generator=g, device=cuda_device).bfloat16()
+    got = tmoe._products_fp32(xe, w)
+    want = torch.bmm(xe.double(), w.double())
+    assert got.dtype == torch.float32
+    scale = want.abs().max()
+    assert ((got.double() - want).abs().max() / scale).item() < 1e-5
+    assert ((torch.bmm(xe, w).double() - want).abs().max() / scale).item() > 1e-4

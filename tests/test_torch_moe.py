@@ -73,3 +73,61 @@ def test_moe_ffn_drops_match_reference_token_for_token():
     np.testing.assert_array_equal(~out.any(-1), ~jout.any(-1))
     np.testing.assert_array_equal(dropped, ~np.isclose(jout, fb, rtol=1e-4, atol=1e-4).all(-1))
     np.testing.assert_allclose(out, jout, **TOL)
+
+
+def _max_rel(a, b):
+    """max |a - b| over max |b|, in float64."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+# The first-layer products of bf16 operands in fp32 differ from their exact
+# value (float64) only by fp32 summation, ~1e-7 of their scale; rounding them
+# to bf16 first, as a bf16 matmul does, moves them by up to 2^-9 ~ 2e-3.
+HIDDEN_FP32_TOL = 1e-5
+
+
+@pytest.mark.parametrize("gated", [True, False])
+def test_expert_hidden_keeps_first_layer_products_fp32_in_bf16(gated):
+    """In bf16 the experts' first-layer products stay fp32, as the
+    reference's ``einsum(..., preferred_element_type=f32)`` keeps them: the
+    hidden activations are held against the float64 product of the same
+    bf16 operands and against JAX's; a bf16 product cast to fp32 after the
+    fact misses the same bound."""
+    rng = np.random.default_rng(9)
+    E, M, d, f = 4, 24, 64, 48
+    xe, w1, w3 = (rng.standard_normal(s).astype(np.float32)
+                  for s in ((E, M, d), (E, d, f), (E, d, f)))
+    tx, t1, t3 = (torch.from_numpy(a).bfloat16() for a in (xe, w1, w3))
+    jx, j1, j3 = (jnp.asarray(a).astype(jnp.bfloat16) for a in (xe, w1, w3))
+
+    got = tmoe._expert_hidden({"w1": t1, "w3": t3}, tx, gated)
+    assert got.dtype == torch.float32
+
+    x64, w1_64, w3_64 = (t.double() for t in (tx, t1, t3))
+    h = x64 @ w1_64
+    exact = (torch.nn.functional.silu(h) * (x64 @ w3_64) if gated
+             else torch.nn.functional.gelu(h, approximate="tanh"))
+    einsum = lambda a, b: jnp.einsum("emd,edf->emf", a, b, preferred_element_type=jnp.float32)
+    jh = einsum(jx, j1)
+    jref = jax.nn.silu(jh) * einsum(jx, j3) if gated else jax.nn.gelu(jh)
+    assert _max_rel(got, exact) < HIDDEN_FP32_TOL
+    assert _max_rel(got, np.asarray(jref)) < HIDDEN_FP32_TOL
+
+    # the old code: bf16 products rounded, then cast to fp32
+    h16 = torch.matmul(tx, t1).float()
+    old = (torch.nn.functional.silu(h16) * torch.matmul(tx, t3).float() if gated
+           else torch.nn.functional.gelu(h16, approximate="tanh"))
+    assert _max_rel(old, exact) > 10 * HIDDEN_FP32_TOL
+
+
+def test_expert_ffn_bf16_feeds_fp32_hidden_to_the_second_product():
+    """``_expert_ffn`` is the fp32 hidden activations cast once to the
+    operands' dtype, then the second product."""
+    rng = np.random.default_rng(10)
+    xe, w1, w2, w3 = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).bfloat16()
+                      for s in ((2, 8, 32), (2, 32, 16), (2, 16, 32), (2, 32, 16)))
+    params = {"w1": w1, "w2": w2, "w3": w3}
+    out = tmoe._expert_ffn(params, xe, True)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, torch.matmul(tmoe._expert_hidden(params, xe, True).bfloat16(), w2))

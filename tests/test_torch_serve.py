@@ -100,12 +100,6 @@ def test_multimodel_steps_cover_each_model():
                                       init_kv_cache(cfg, 2, 8, torch.float32, "cpu"))
 
 
-def test_planner_dse_branch_not_ported():
-    cfg = get_smoke_config("granite-3-8b")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        plan_for_cell(cfg, 32, 2, ("data", "model"), 1, kind="prefill")
-
-
 def test_launcher_runs_on_cpu():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     res = subprocess.run(
