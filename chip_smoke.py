@@ -6,7 +6,11 @@
 Builds the CUDA kernels from the checkout's sources, holds each against its
 plain PyTorch version on the card, then drives the serving path:
 
-1. environment: versions, ``nvidia-smi`` name and power limit, kernel build;
+1. environment: versions, ``nvidia-smi`` name and power limit, kernel build
+   (one ``nvcc`` per source, in parallel), each kernel's registers, spills
+   and dynamic shared memory from ptxas, and ``cuobjdump -sass`` of the flash
+   library: the run fails unless every bf16 flash kernel holds wgmma
+   (``HGMMA``) and TMA (``UTMALDG``) instructions;
 2. flash-attention kernel vs its plain version at every shape the later
    phases give it (reference bounds: 2e-3 fp32, 2e-2 bf16, plus a per-row
    bound relative to the row's size) with kernel / plain / library (SDPA) /
@@ -72,9 +76,12 @@ and its times.  Imports nothing of JAX or of ``repro``.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -186,6 +193,55 @@ def visible_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
         lo = max(q - window + 1, 0) if window > 0 else 0
         total += max(hi - lo + 1, 0)
     return total
+
+
+def kernel_name(mangled: str) -> str:
+    """``fa_fwd_bf16<128>`` from a mangled kernel symbol of the port: the
+    length-prefixed name followed by template arguments (``I...E``)."""
+    for run in re.finditer(r"\d+", mangled):
+        for i in range(len(run.group())):
+            n, start = int(run.group()[i:]), run.end()
+            name = mangled[start:start + n]
+            tail = re.match(r"I((?:L[ib]\d+E)+)E", mangled[start + n:])
+            if n and tail and re.fullmatch(r"[A-Za-z_]\w*", name):
+                args = re.findall(r"L([ib])(\d+)E", tail.group(1))
+                return name + "<" + ", ".join(
+                    ("true" if v == "1" else "false") if kind == "b" else v
+                    for kind, v in args) + ">"
+    return mangled
+
+
+def ptxas_report(log: str) -> list[tuple[str, str, str]]:
+    """(kernel, registers line, spill line) for each kernel in a ptxas -v log."""
+    rows, name, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = kernel_name(line.split("'")[1]), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            rows.append((name, line.split("info    :")[-1].strip(), spill))
+            name = None
+    return rows
+
+
+def sass_counts(lib: Path) -> dict[str, tuple[int, int]]:
+    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in each kernel of a
+    built library, from ``cuobjdump -sass``."""
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = kernel_name(line.split("Function :")[1].strip())
+            counts[name] = (0, 0)
+        elif name:
+            h, t = counts[name]
+            counts[name] = (h + ("HGMMA" in line), t + ("UTMALDG" in line))
+    return counts
 
 
 def row_rel_err(out, ref) -> float:
@@ -483,12 +539,28 @@ def main() -> int:
         took = dict(zip(KERNEL_SOURCES, pool.map(_build.build, KERNEL_SOURCES)))
     print("kernel build: " + ", ".join(f"{src} {t:.3f} s" for src, t in took.items())
           + f" (wall {time.perf_counter() - t0:.3f} s, in parallel)")
+    smem = {"fa_fwd_bf16": _build.load_library("flash_attention.cu").repro_flash_attention_smem_bytes,
+            "wkv6_segment": _build.load_library("wkv6.cu").repro_wkv6_smem_bytes}
+    for fn in smem.values():
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
     for src in KERNEL_SOURCES:
         log = _build.library_path(src).with_suffix(".log")
         if log.exists():
+            for name, regs, spill in ptxas_report(log.read_text()):
+                base = name.split("<")[0]
+                dyn = (f", {smem[base](int(name.split('<')[1].split(',')[0].rstrip('>')))} bytes "
+                       "dynamic shared memory" if base in smem else "")
+                print(f"  ptxas {src} {name}: {regs}{dyn}; {spill or 'no spill report'}")
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line and " 0 bytes spill" not in line:
-                    print(f"  ptxas {src}:", line.strip())
+                if "Potential Performance Loss" in line:
+                    print(f"  ptxas {src}: {line.split('info    :')[-1].strip()[:160]}")
+    # The bf16 flash kernel must run on wgmma and TMA: count both in its SASS.
+    counts = sass_counts(_build.library_path("flash_attention.cu"))
+    bf16 = {k: v for k, v in counts.items() if k.startswith("fa_fwd_bf16")}
+    print("  SASS of flash_attention.cu (HGMMA, UTMALDG): " + ", ".join(
+        f"{k} {v[0]}, {v[1]}" for k, v in sorted(bf16.items())))
+    check(len(bf16) == 3 and all(h > 0 and t > 0 for h, t in bf16.values()),
+          f"bf16 flash kernels without wgmma (HGMMA) or TMA (UTMALDG) in their SASS: {bf16}")
 
     # ------------------------------------------------------------ phase 2
     print("phase 2: flash_attention kernel vs plain version on the card")
@@ -705,7 +777,7 @@ def main() -> int:
     print(f"  prefill B={B} S={S}: {statistics.median(times):.3f} ms (median of 3, "
           f"{min(times):.3f}-{max(times):.3f}), {wkv_launches} kernel launches per call, "
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
-    print(f"  prefill traced: {prefill_breakdown(prefill, model, tokens, ('wkv6_fwd',), sync)} "
+    print(f"  prefill traced: {prefill_breakdown(prefill, model, tokens, ('wkv6_',), sync)} "
           f"{card}")
 
     # the prefill's collected state, then 8 decode steps from it

@@ -9,37 +9,59 @@
 // What bounds it on this card: at the prefill shapes of the serving path
 // (granite-3-8b B=4 S=2048 hd=128; gemma2-9b S=8192 hd=256) the work is
 // ~4*B*H*hd*(visible q.k pairs) FLOPs against 2*(|q|+|k|+|v|+|o|) bytes,
-// i.e. hundreds of FLOPs per byte: compute-bound (989 TFLOP/s bf16 tensor
-// cores vs 3.35 TB/s HBM).  So the design keeps the S/P tiles out of device
-// memory and puts both products on the tensor cores:
-//   * one 128-thread block per (q tile, head, batch); each warp owns 16 rows;
-//   * a loop inside the block over only the kv tiles the causal/window masks
-//     leave visible (the range is computed, not tested tile by tile);
-//   * K and V tiles double-buffered in shared memory with cp.async (the
-//     next tile loads while this one is computed); q k^T and p v are bf16
-//     mma.sync.m16n8k16 with fp32 accumulators; P never leaves registers
-//     (the C fragment of q k^T is the A fragment of p v);
-//   * the mask is evaluated only on tiles some row does not see in full;
-//   * ragged Sq / Skv are masked, so no length needs to be a tile multiple.
-// Measured, this mma.sync design stays far from that bound: it is latency-
-// bound (too few warps in flight per SM), which is why the key tile is sized
-// for occupancy below.  wgmma, TMA and warp specialisation are later work.
-// fp32 inputs take a CUDA-core kernel with the same tiling of the work, since
-// the tensor cores would round fp32 to TF32.
+// i.e. hundreds of FLOPs per byte: bound by operations (989 TFLOP/s bf16
+// tensor cores vs 3.35 TB/s HBM).  Only wgmma reaches that rate, so the bf16
+// kernel is built around it, in the FA3 shape:
+//   * a persistent grid, one block per SM, of three warpgroups: two
+//     consumer warpgroups own 64 query rows each of a 128-row work tile and
+//     take 240 registers (setmaxnreg.inc; 232 at hd 256), one producer
+//     warpgroup gives its registers away (setmaxnreg.dec) and one of its
+//     threads issues every load;
+//   * the work list is (q tile, batch, head), heads of one KV head next to
+//     each other (their K/V tiles come from L2) and causal q tiles heaviest
+//     first, dealt to the blocks in a snake order that evens out the work;
+//   * loads are TMA copies through tensor maps encoded on the host per call
+//     over the 4-D strided view (hd, S, heads, batch), so the model's
+//     [B,S,H,hd] tensors come in as they lie and a ragged S reads TMA's zero
+//     fill, never the next head's rows; 128-byte swizzle, one 64-column box
+//     per 128 bytes of head dim, tiles 1024-byte aligned;
+//   * K and V tiles go through a ring of stages (as many as the 227 KB of
+//     shared memory hold: 6 at hd 64, 3 at hd 128, 2 at hd 256), each tile
+//     on its own mbarrier, so q.k^T of a tile starts while its V is still
+//     landing; an `empty` mbarrier per stage hands it back to the producer,
+//     and one for Q lets the next work tile's Q load while P V finishes;
+//   * S = Q K^T is wgmma m64nBKk16 with Q and K K-major in shared memory;
+//     O += P V takes P from registers (the fp32 accumulator of S, packed to
+//     bf16, is the A fragment) and V MN-major through the transpose bit, so
+//     neither P nor a transposed V is ever written;
+//   * each warpgroup overlaps its softmax of tile i with P V of tile i - 1
+//     (issue S_i, rescale O, issue P V, wait for S_i only), and the two
+//     warpgroups take turns at the tensor cores (named barriers 1 and 2), so
+//     one's softmax runs under the other's products;
+//   * the online softmax runs on the accumulator layout (rows g, g+8 of a
+//     warp's 16; columns 2t, 2t+1 + 8j) in base 2 with the scale folded into
+//     the exponent's FMA; the mask is evaluated only on tiles some row of the
+//     warpgroup does not see in full, and the key range is computed, so fully
+//     masked tiles are never loaded.
+// Key tile: 128 at hd 64/128; 64 at hd 256, where O alone is 128 fp32
+// registers a thread.  The registers are the constraint: S (BK/2), P (BK/4)
+// and O (hd/2) of a consumer thread are live at once.  ptxas gives the
+// consumer path the setmaxnreg count only when no exit (a trap) sits inside
+// it; otherwise it allocates the launch's 168 and serializes the wgmmas.
+// fp32 inputs take a CUDA-core kernel with the tiling of the first version,
+// since the tensor cores would round fp32 to TF32.
 
+#include <cuda.h>            // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>              // INFINITY
 #include <stdint.h>
 
 namespace {
 
 constexpr float kNegInf = -1.0e30f;   // same masked logit as the TPU kernel
-constexpr int kThreads = 128;
-// Keys per tile of the bf16 kernel.  The kernel is latency-bound, so the tile
-// is sized for occupancy: 32 keys keep hd 128 at ~125 registers and 52 KB of
-// double-buffered shared memory, 4 blocks (16 warps) per SM; 64 keys need
-// ~160 registers and 87 KB, 2 blocks per SM, and run slower (PERF.md).
-constexpr int kBlockKBf16 = 32;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kThreads = 128;         // fp32 kernel; one warpgroup
 
 struct Params {
   const void* q;
@@ -73,24 +95,101 @@ __device__ __forceinline__ float logit(const Params& p, float s) {
   return x;
 }
 
-// ------------------------------------------------------------- bf16: mma.sync
+// ------------------------------------------------- bf16: wgmma, TMA, mbarrier
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// B fragment of a [16 keys x 8 dims] block of row-major V, transposed on load.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
-                                                  const __nv_bfloat16* row_ptr) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row_ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(addr));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Returns once the barrier's phase of the given parity has completed.  (No
+// trap on a long wait: an exit inside the consumer path stops ptxas from
+// giving it the registers of setmaxnreg.)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle (layout type 1).  Byte
+// offsets: `lbo` between 64-element column blocks of an MN-major operand
+// (unused for K-major), `sbo` between groups of 8 rows (1024 bytes here).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {   // at most N groups still in flight
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Named barriers 1 and 2 order the two consumer warpgroups' turns at the
+// tensor cores: a warpgroup syncs on its own barrier before it issues its
+// products, and arrives on the other's after (256 threads each).
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// Keeps the compiler from moving accesses of accumulator registers across
+// the asynchronous wgmma (issued before, completed at the wait).
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for the bf16 A fragments of an in-flight register-A wgmma.
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -98,184 +197,443 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// wgmma wrappers, one per N: `ss` (N = the key tile, 64 or 128) takes A and
+// B from shared memory, both K-major; `rs` (N = the head dim) takes A from
+// registers and B MN-major.  The accumulator is N/2 fp32 registers a thread.
+template <int N> struct Wgmma;
 
-__device__ __forceinline__ void cp_async_16(void* smem_dst, const void* gmem_src,
-                                            bool valid) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
-  const int src_bytes = valid ? 16 : 0;   // 0: read nothing, zero-fill
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem_src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Start copying rows [row0, row0 + ROWS) of a [S, HD] bf16 slab into shared
-// memory (row stride LD), 16 bytes per thread per step; rows >= S are
-// zero-filled.  Completes at a later cp_async_wait.
-template <int ROWS, int HD, int LD>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                long long row_stride, int row0, int S) {
-  constexpr int CHUNKS = HD / 8;
-  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += kThreads) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-    const bool valid = row0 + r < S;
-    cp_async_16(dst + r * LD + c, valid ? src + (row0 + r) * row_stride + c : src, valid);
+template <> struct Wgmma<64> {
+  // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared memory.
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{" 
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
   }
-}
+  // D[64 x 64] += A[64 x 16] . B[16 x 64], A in registers (bf16 pairs),
+  // B MN-major in shared memory (the transpose bit).
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{" 
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+  }
+};
+
+template <> struct Wgmma<128> {
+  // D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B K-major in shared memory.
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{" 
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+  // D[64 x 128] += A[64 x 16] . B[16 x 128], A in registers (bf16 pairs),
+  // B MN-major in shared memory (the transpose bit).
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{" 
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+  }
+};
+
+template <> struct Wgmma<256> {
+  // D[64 x 256] += A[64 x 16] . B[16 x 256], A in registers (bf16 pairs),
+  // B MN-major in shared memory (the transpose bit).
+  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{" 
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+  }
+};
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads) fa_fwd_bf16(Params p) {
-  constexpr int BQ = 64;          // 4 warps x 16 query rows
-  constexpr int BK = kBlockKBf16;
-  constexpr int LD = HD + 8;      // 16-byte row pad: conflict-free fragment loads
-  constexpr int NT = BK / 8;      // 8-key column tiles of S per warp
-  constexpr int DT = HD / 8;      // 8-dim column tiles of O per warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // [BQ][LD] q tile, then K buffers 0 and 1, then V buffers 0 and 1, [BK][LD] each
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + BQ * LD;
-  __nv_bfloat16* sV = sK + 2 * BK * LD;
+struct Bf16Tiles {
+  static constexpr int BQ = 128;                  // two consumer warpgroups x 64 rows
+  // Keys per tile: S (BK/2 fp32), its bf16 P (BK/4) and O (HD/2 fp32) of a
+  // consumer thread live together in its 240 (hd 256: 232) registers.
+  static constexpr int BK = HD == 256 ? 64 : 128;
+  // K/V stages: as many as the 227 KB of shared memory hold.
+  static constexpr int STAGES = HD == 128 ? 3 : (HD == 64 ? 6 : 2);
+  // setmaxnreg: 2 x 128 x CONSUMER + 128 x PRODUCER <= 64K registers
+  static constexpr int CONSUMER_REGS = HD == 256 ? 232 : 240;
+  static constexpr int PRODUCER_REGS = HD == 256 ? 40 : 24;
+  static constexpr int BOXES = HD / 64;           // 128-byte column boxes per row
+  static constexpr uint32_t Q_BYTES = BQ * HD * 2;
+  static constexpr uint32_t KV_BYTES = BK * HD * 2;   // one K or one V tile
+  static constexpr uint32_t BAR_OFFSET = Q_BYTES + 2 * STAGES * KV_BYTES;
+  // + 1024: the dynamic buffer is realigned to 1024 bytes; then the
+  // mbarriers: full_q, full_k / full_v / empty per stage, empty_q
+  static constexpr size_t SMEM = 1024 + BAR_OFFSET + 8 * (2 + 3 * STAGES);
+};
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int q_lo = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (p.H / p.KV);
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+constexpr int kBf16Threads = 384;   // consumer warpgroups 0 and 1, producer 2
 
-  // This thread's two rows: r0 = 16*warp + g and r0 + 8 of the q tile.
-  const int qr0 = q_lo + warp * 16 + g, qr1 = qr0 + 8;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;   // l: this thread's columns
-  float o[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+template <int HD>
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    fa_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const Params p) {
+  using T = Bf16Tiles<HD>;
+  constexpr int BQ = T::BQ, BK = T::BK, STAGES = T::STAGES;
+  constexpr int NT = BK / 8;      // 8-key column tiles of S per thread
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzle atoms are 8 rows x 128 bytes: tiles start 1024-aligned.
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  // Q: BOXES column boxes of [BQ rows][64]; each K / V stage: BOXES boxes of [BK][64]
+  const uint32_t sQ = base;
+  const uint32_t sKV = base + T::Q_BYTES;            // K stages, then V stages
+  const uint32_t bars = base + T::BAR_OFFSET;
+  const uint32_t full_q = bars, empty_q = bars + 8u * (1 + 3 * STAGES);
+  auto full_k = [&](int s) { return bars + 8u * (1 + s); };
+  auto full_v = [&](int s) { return bars + 8u * (1 + STAGES + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + 2 * STAGES + s); };
 
-  int k_begin, k_end;
-  key_range(p, q_lo, min(q_lo + BQ, p.Sq) - 1, k_begin, k_end);
-  const int k_first = (k_begin / BK) * BK;
-  // Pipeline: the q tile and the first K/V tile form one copy group; every
-  // iteration starts the next tile's copy before it computes on this one.
-  load_tile_async<BQ, HD, LD>(sQ, qg, p.q_ss, q_lo, p.Sq);
-  if (k_first < k_end) {
-    load_tile_async<BK, HD, LD>(sK, kg, p.k_ss, k_first, p.Skv);
-    load_tile_async<BK, HD, LD>(sV, vg, p.v_ss, k_first, p.Skv);
-  }
-  cp_async_commit();
-  int buf = 0;
-  for (int k0 = k_first; k0 < k_end; k0 += BK, buf ^= 1) {
-    if (k0 + BK < k_end) {   // this buffer was last read before the trailing sync
-      load_tile_async<BK, HD, LD>(sK + (buf ^ 1) * BK * LD, kg, p.k_ss, k0 + BK, p.Skv);
-      load_tile_async<BK, HD, LD>(sV + (buf ^ 1) * BK * LD, vg, p.v_ss, k0 + BK, p.Skv);
+  // Persistent: the work list is (q tile, batch, head) with the head
+  // fastest, so heads of one KV head are neighbours, and causal q tiles in
+  // descending order, so the longest key ranges go first.  Round n hands
+  // work n*G .. n*G + G-1 to the G blocks, in reverse order every second
+  // round (a snake), which evens out the descending work per block.  The K/V
+  // ring runs on across a block's work tiles.
+  const int q_tiles = (p.Sq + BQ - 1) / BQ;
+  const int n_work = q_tiles * p.B * p.H;
+  struct Work {
+    int h, b, q0, kvh, k_first, n_tiles;
+  };
+  auto work_index = [&](int n) {   // this block's work of round n
+    const int G = gridDim.x;
+    return n * G + ((n & 1) ? G - 1 - static_cast<int>(blockIdx.x) : static_cast<int>(blockIdx.x));
+  };
+  auto work = [&](int w) {
+    Work x;
+    x.h = w % p.H;
+    x.b = (w / p.H) % p.B;
+    const int z = w / (p.H * p.B);
+    x.q0 = (p.causal ? q_tiles - 1 - z : z) * BQ;
+    x.kvh = x.h / (p.H / p.KV);
+    int k_begin, k_end;
+    key_range(p, x.q0, min(x.q0 + BQ, p.Sq) - 1, k_begin, k_end);
+    x.k_first = (k_begin / BK) * BK;
+    x.n_tiles = k_end > x.k_first ? (k_end - x.k_first + BK - 1) / BK : 0;
+    return x;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    mbar_init(empty_q, 2 * 128);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty(s), 2 * 128);   // every consumer thread releases the stage
     }
-    cp_async_commit();
-    cp_async_wait<1>();      // everything but the copy just started has landed
-    __syncthreads();
-    const __nv_bfloat16* tK = sK + buf * BK * LD;
-    const __nv_bfloat16* tV = sV + buf * BK * LD;
-    // A tile every row of the block sees in full needs no mask.
-    const bool full = k0 + BK <= p.Skv && (!p.causal || k0 + BK - 1 <= q_lo) &&
-                      (p.window <= 0 || k0 > q_lo + BQ - 1 - p.window);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    float s[NT][4];
+  // The role is read through a shuffle so the compiler knows it is uniform
+  // in the warp: wgmma under a branch it cannot prove uniform is serialized.
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(T::PRODUCER_REGS));
+    if (threadIdx.x == 256) {
+      int it = 0;   // K/V tiles loaded so far: the ring's position
+#pragma unroll 1
+      for (int n = 0, w = work_index(0); w < n_work; w = work_index(++n)) {
+        const Work x = work(w);
+        if (n > 0) mbar_wait(empty_q, (n - 1) & 1);   // the last tile's Q is done with
+        mbar_expect_tx(full_q, T::Q_BYTES);
+#pragma unroll 1
+        for (int c = 0; c < T::BOXES; ++c)
+          tma_load_4d(sQ + c * BQ * 128, &tq, full_q, c * 64, x.q0, x.h, x.b);
+#pragma unroll 1
+        for (int i = 0; i < x.n_tiles; ++i, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(empty(s), ((it / STAGES) - 1) & 1);
+          const int k0 = x.k_first + i * BK;
+          const uint32_t sK = sKV + s * T::KV_BYTES, sV = sKV + (STAGES + s) * T::KV_BYTES;
+          mbar_expect_tx(full_k(s), T::KV_BYTES);
+#pragma unroll 1
+          for (int c = 0; c < T::BOXES; ++c)
+            tma_load_4d(sK + c * BK * 128, &tk, full_k(s), c * 64, k0, x.kvh, x.b);
+          mbar_expect_tx(full_v(s), T::KV_BYTES);
+#pragma unroll 1
+          for (int c = 0; c < T::BOXES; ++c)
+            tma_load_4d(sV + c * BK * 128, &tv, full_v(s), c * 64, k0, x.kvh, x.b);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(T::CONSUMER_REGS));
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    int wq_lo, qr0, qr1;     // this warpgroup's first row and this thread's rows
+    const float sl2 = p.scale * kLog2e;
+    const float cap_in = p.softcap > 0.f ? p.scale / p.softcap : 0.f;
+    const float cap_out = p.softcap * kLog2e;
+    const uint32_t sQw = sQ + wg * 64 * 128;         // this warpgroup's rows of each box
+
+    float o[HD / 2];
+    float m0, m1, l0, l1;    // running max (log2 units) and this thread's sums
+    float sc[BK / 2];        // S of the newest tile, then its probabilities
+    uint32_t pp[BK / 16][4]; // P of the tile before, bf16: the A fragments of P V
+
+    // S = Q K^T of stage s, issued (not waited for).
+    auto issue_qk = [&](int s) {
+      const uint32_t sK = sKV + s * T::KV_BYTES;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;   // 16 columns = 32 bytes into the box
+        const uint64_t da = sw128_desc(sQw + (kk / 4) * BQ * 128 + off, 16, 1024);
+        const uint64_t db = sw128_desc(sK + (kk / 4) * BK * 128 + off, 16, 1024);
+        Wgmma<BK>::ss(sc, da, db, kk > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P V of stage s: two 8-key column tiles of S form one 16-key A
+    // fragment; V rows kk*16.. of every column box, MN-major.
+    auto issue_pv = [&](int s) {
+      const uint32_t sV = sKV + (STAGES + s) * T::KV_BYTES;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const __nv_bfloat16* qa = sQ + (warp * 16 + g) * LD + kk * 16 + 2 * t;
-      const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * LD), ld32(qa + 8), ld32(qa + 8 * LD + 8)};
+      for (int kk = 0; kk < BK / 16; ++kk)
+        Wgmma<HD>::rs(o, pp[kk], sw128_desc(sV + kk * 16 * 128, BK * 128, 1024));
+      wgmma_commit();
+    };
+    // Online softmax of tile k0 in sc (raw q.k^T): running max m0 / m1 in
+    // log2 units, per-thread sums l0 / l1; sc becomes the probabilities.
+    // Returns the factors that rescale O.
+    auto softmax = [&](int k0, float& al0, float& al1) {
+      if (p.softcap > 0.f) {   // softcap first (log2 units), else scale in the exponent
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) sc[e] = cap_out * tanhf(sc[e] * cap_in);
+      }
+      const float to_log2 = p.softcap > 0.f ? 1.f : sl2;
+      // A tile every row of the warpgroup sees in full needs no mask.
+      const bool full = k0 + BK <= p.Skv && (!p.causal || k0 + BK - 1 <= wq_lo) &&
+                        (p.window <= 0 || k0 > wq_lo + 63 - p.window);
+      if (!full) {
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) {
+          const int kpos = k0 + (e / 4) * 8 + 2 * t + (e & 1);
+          if (!visible(p, (e & 2) ? qr1 : qr0, kpos)) sc[e] = -INFINITY;
+        }
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        const __nv_bfloat16* kb = tK + (nt * 8 + g) * LD + kk * 16 + 2 * t;
-        mma_bf16(s[nt], a, ld32(kb), ld32(kb + 8));
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * nt + 0], sc[4 * nt + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * nt + 2], sc[4 * nt + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {   // the 4 lanes that share a row
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      // Masked logits are -inf.  A row that has seen no visible key yet has
+      // the running max -inf, and subtracts 0 instead, so its probabilities
+      // and rescale factor are 0, never inf - inf.
+      const float mn0 = fmaxf(m0, mx0 * to_log2), mn1 = fmaxf(m1, mx1 * to_log2);
+      const float b0 = mn0 == -INFINITY ? 0.f : mn0, b1 = mn1 == -INFINITY ? 0.f : mn1;
+      al0 = ex2(m0 - b0);
+      al1 = ex2(m1 - b1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        sc[4 * nt + 0] = ex2(fmaf(sc[4 * nt + 0], to_log2, -b0));
+        sc[4 * nt + 1] = ex2(fmaf(sc[4 * nt + 1], to_log2, -b0));
+        sc[4 * nt + 2] = ex2(fmaf(sc[4 * nt + 2], to_log2, -b1));
+        sc[4 * nt + 3] = ex2(fmaf(sc[4 * nt + 3], to_log2, -b1));
+        ps0 += sc[4 * nt + 0] + sc[4 * nt + 1];
+        ps1 += sc[4 * nt + 2] + sc[4 * nt + 3];
+      }
+      l0 = l0 * al0 + ps0;
+      l1 = l1 * al1 + ps1;
+    };
+    auto rescale_o = [&](float al0, float al1) {
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        o[4 * j + 0] *= al0;
+        o[4 * j + 1] *= al0;
+        o[4 * j + 2] *= al1;
+        o[4 * j + 3] *= al1;
+      }
+    };
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pp[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pp[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pp[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pp[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+    };
+
+    if (wg == 0) named_arrive(1);   // the first turn is warpgroup 0's
+    int it = 0;   // K/V tiles consumed so far: the ring's position
+#pragma unroll 1
+    for (int n = 0, w = work_index(0); w < n_work; w = work_index(++n)) {
+      const Work x = work(w);
+      const int k_first = x.k_first, n_tiles = x.n_tiles;
+      wq_lo = x.q0 + wg * 64;
+      qr0 = wq_lo + warp * 16 + g;
+      qr1 = qr0 + 8;
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+      m0 = m1 = -INFINITY;
+      l0 = l1 = 0.f;
+      mbar_wait(full_q, n & 1);
+      if (n_tiles > 0) {
+        // Tile 0: S, softmax, P.  Then step i overlaps work with the tensor
+        // cores as FA3's intra-warpgroup pipelining does: issue S_i; rescale
+        // O (for tile i - 1) while it runs; issue P_{i-1} V_{i-1}; wait for
+        // S_i only, and run the softmax of tile i while P V runs.
+        float al0, al1;
+        mbar_wait(full_k(it % STAGES), (it / STAGES) & 1);
+        named_sync(1 + wg);
+        wgmma_fence();
+        issue_qk(it % STAGES);
+        named_arrive(2 - wg);
+        wgmma_wait<0>();
+        fence_operands(sc);
+        softmax(k_first, al0, al1);
+        pack_p();
+#pragma unroll 1
+        for (int i = 1; i < n_tiles; ++i) {
+          const int r = it + i, s = r % STAGES, sp = (r - 1) % STAGES;
+          mbar_wait(full_k(s), (r / STAGES) & 1);
+          named_sync(1 + wg);  // this warpgroup's turn at the tensor cores
+          wgmma_fence();       // sc was last written by plain code
+          issue_qk(s);
+          rescale_o(al0, al1);
+          fence_operands(o);
+          mbar_wait(full_v(sp), ((r - 1) / STAGES) & 1);
+          wgmma_fence();       // the rescaled o and the packed P are wgmma's input
+          issue_pv(sp);
+          named_arrive(2 - wg);   // the other warpgroup's turn
+          wgmma_wait<1>();     // S_i has landed; P_{i-1} V_{i-1} may still run
+          fence_operands(sc);
+          softmax(k_first + i * BK, al0, al1);
+          wgmma_wait<0>();
+          fence_operands(o);
+          fence_operands(pp);
+          mbar_arrive(empty(sp));   // this thread is done with slot sp's K and V
+          pack_p();
+        }
+        mbar_arrive(empty_q);       // every q.k^T of this work tile is done
+        const int r = it + n_tiles - 1, sp = r % STAGES;
+        rescale_o(al0, al1);
+        fence_operands(o);
+        mbar_wait(full_v(sp), (r / STAGES) & 1);
+        named_sync(1 + wg);
+        wgmma_fence();
+        issue_pv(sp);
+        named_arrive(2 - wg);
+        wgmma_wait<0>();
+        fence_operands(o);
+        fence_operands(pp);
+        mbar_arrive(empty(sp));
+        it += n_tiles;
+      } else {
+        mbar_arrive(empty_q);
+      }
+
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+      __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + x.b * p.o_sb + x.h * p.o_sh;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        const int col = j * 8 + 2 * t;
+        if (qr0 < p.Sq)
+          *reinterpret_cast<uint32_t*>(og + qr0 * p.o_ss + col) =
+              pack_bf16(o[4 * j + 0] * inv0, o[4 * j + 1] * inv0);
+        if (qr1 < p.Sq)
+          *reinterpret_cast<uint32_t*>(og + qr1 * p.o_ss + col) =
+              pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
       }
     }
-
-    // Scale, softcap, mask, then the online-softmax update of both rows.
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + nt * 8 + 2 * t + (e & 1);
-        const int qpos = e < 2 ? qr0 : qr1;
-        const float x = full || visible(p, qpos, kpos) ? logit(p, s[nt][e]) : kNegInf;
-        s[nt][e] = x;
-        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
-      }
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {   // the 4 lanes that share a row
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = __expf(m0 - mn0), al1 = __expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = __expf(s[nt][0] - mn0);
-      s[nt][1] = __expf(s[nt][1] - mn0);
-      s[nt][2] = __expf(s[nt][2] - mn1);
-      s[nt][3] = __expf(s[nt][3] - mn1);
-      ps0 += s[nt][0] + s[nt][1];
-      ps1 += s[nt][2] + s[nt][3];
-    }
-    l0 = l0 * al0 + ps0;
-    l1 = l1 * al1 + ps1;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      o[dt][0] *= al0;
-      o[dt][1] *= al0;
-      o[dt][2] *= al1;
-      o[dt][3] *= al1;
-    }
-
-    // O += P V: P's C fragments (two 8-key tiles) form one 16-key A fragment.
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, tV + (kk * 16 + (lane % 16)) * LD + dt * 8);
-        mma_bf16(o[dt], a, b0, b1);
-      }
-    }
-    __syncthreads();         // every warp is done with this buffer
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (qr0 < p.Sq)
-      *reinterpret_cast<uint32_t*>(og + qr0 * p.o_ss + col) = pack_bf16(o[dt][0] * inv0, o[dt][1] * inv0);
-    if (qr1 < p.Sq)
-      *reinterpret_cast<uint32_t*>(og + qr1 * p.o_ss + col) = pack_bf16(o[dt][2] * inv1, o[dt][3] * inv1);
   }
 }
 
@@ -412,10 +770,75 @@ cudaError_t launch(Kernel kernel, const Params& p, int block_q, size_t smem,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled from the driver through the runtime, so the library
+// needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// Tensor map over the 4-D strided bf16 view (hd, S, heads, B) with the
+// view's own strides (elements); boxes of [rows][64], 128-byte swizzle, zero
+// fill past every edge.
+bool encode_map(CUtensorMap* map, const void* ptr, int hd, int S, int heads, int B,
+                long long s_stride, long long h_stride, long long b_stride, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_stride) * 2,
+                                 static_cast<cuuint64_t>(h_stride) * 2,
+                                 static_cast<cuuint64_t>(b_stride) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int kEncodeFailed = -2;
+
 template <int HD>
-cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
-  const size_t smem = (64 + 4 * kBlockKBf16) * (HD + 8) * sizeof(__nv_bfloat16);
-  return launch(fa_fwd_bf16<HD>, p, 64, smem, stream);
+int launch_bf16(const Params& p, cudaStream_t stream) {
+  using T = Bf16Tiles<HD>;
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, p.q, HD, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, T::BQ) ||
+      !encode_map(&tk, p.k, HD, p.Skv, p.KV, p.B, p.k_ss, p.k_sh, p.k_sb, T::BK) ||
+      !encode_map(&tv, p.v, HD, p.Skv, p.KV, p.B, p.v_ss, p.v_sh, p.v_sb, T::BK))
+    return kEncodeFailed;
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_fwd_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(T::SMEM));
+  if (err != cudaSuccess) return err;
+  const long long n_work = static_cast<long long>((p.Sq + T::BQ - 1) / T::BQ) * p.B * p.H;
+  if (n_work > (1ll << 31) - 1) return cudaErrorInvalidConfiguration;
+  int device, sms;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  // One block per SM (its shared memory allows no second), each walking the
+  // work list.
+  const dim3 grid(static_cast<unsigned>(n_work < sms ? n_work : sms));
+  fa_fwd_bf16<HD><<<grid, kBf16Threads, T::SMEM, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
 }
 
 template <int HD, int BQ>
@@ -428,7 +851,9 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16.  strides: 12 element strides, (batch,
 // head, seq) for q, k, v and o in that order.  Returns a cudaError_t value,
-// or -1 for a dtype / head-dim pair with no instantiation.
+// -1 for a dtype / head-dim pair with no instantiation, or -2 when a TMA
+// tensor map cannot be encoded (no driver entry point, or a stride or
+// address the TMA unit does not take).
 extern "C" int repro_flash_attention_fwd(int dtype, int head_dim, const void* q,
                                          const void* k, const void* v, void* o,
                                          int B, int H, int KV, int Sq, int Skv,
@@ -452,6 +877,16 @@ extern "C" int repro_flash_attention_fwd(int dtype, int head_dim, const void* q,
       case 128: return launch_f32<128, 64>(p, st);
       case 256: return launch_f32<256, 32>(p, st);
     }
+  }
+  return -1;
+}
+
+// Dynamic shared memory of the bf16 kernel at a head dim (bytes), or -1.
+extern "C" long long repro_flash_attention_smem_bytes(int head_dim) {
+  switch (head_dim) {
+    case 64: return static_cast<long long>(Bf16Tiles<64>::SMEM);
+    case 128: return static_cast<long long>(Bf16Tiles<128>::SMEM);
+    case 256: return static_cast<long long>(Bf16Tiles<256>::SMEM);
   }
   return -1;
 }

@@ -22,21 +22,38 @@
 // does ~24.6 kFLOP per token-head in the chunk form (8.05 GFLOP): 0.125 ms of
 // bytes against 0.120 ms of fp32 CUDA-core operations, so both matter.  The
 // parity bound (2e-4) rules out TF32 tensor cores, so all arithmetic is fp32
-// FMAs.  The design:
-//   * one 128-thread block per (b, h, slice of NC value columns); the
-//     recurrence never mixes value columns, so the slices are exact and give
-//     B*H*hd/NC blocks (320 at the prefill shape, for 132 SMs);
-//   * a loop over the chunks inside the block takes the place of the TPU's
-//     sequential grid axis; the state slice lives in registers (each thread
-//     owns a fixed part) with a shared-memory mirror for the rt S product;
-//   * r, k, logw are stored channel-major in shared memory, so a warp scans
-//     one channel's 32 log decays with shuffles (lane = token) and every
-//     product below reads rows of consecutive tokens;
+// FMAs.  A recurrence over the whole sequence in one block per head leaves
+// the card nearly empty (B*H blocks), so the sequence is split into segments
+// of L tokens (a multiple of the chunk) and the state is carried between
+// them, which the recurrence allows because it is linear in S:
+//   pass 1  one block per (b, h, segment but the last): the chunk loop for
+//           the state only, from zero: the segment's end state and its total
+//           decay exp(sum logw) per channel, into scratch;
+//   pass 2  one thread per (b, h, state entry): the carry over segments,
+//           S_in[s+1] = diag(decay[s]) S_in[s] + end[s], in place;
+//   pass 3  one block per (b, h, segment): the chunk loop from S_in, writing
+//           out; the last segment's block writes S_last.
+// Passes 1 and 3 give B*H*S/L blocks (1,280 at the prefill shape with L =
+// 256), and segments of several chunks keep the scratch traffic at one state
+// per segment (21 MB at that shape, against ~1 GB for a state per chunk).
+// Inside a block:
+//   * one block covers all hd value columns (4*hd threads), so the per-
+//     channel decay scan and the rt kt^T tile are computed once per chunk;
+//   * the next chunk's r, k, v, logw are loaded into registers while this
+//     chunk computes, and stored channel-major into shared memory after it:
+//     a warp scans one channel's 32 log decays with shuffles (lane = token)
+//     and the products read rows of consecutive tokens or channels,
+//     conflict-free (cp.async would copy the rows as they lie, token-major);
+//   * the products are register-blocked outer products (4 x 4 or 4 x 8 a
+//     thread, both operands one float4 a step): shared-memory bandwidth, not
+//     the FMAs, bounds them, and a 128-bit load costs four passes of the
+//     shared-memory pipe whatever it broadcasts;
+//   * in pass 3 half the threads compute out while the other half update
+//     the state, which they hold in registers with a shared-memory mirror
+//     for the next chunk's rt S;
 //   * a ragged last chunk is loaded as k = v = logw = r = 0, which leaves
 //     the state untouched, and rows past S are never written;
 //   * the model's [B,S,H,hd] tensors come in as strided [B,H,S,hd] views.
-// Making it fast (prefetching the next chunk, tensor cores where the bound
-// allows) is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,8 +61,6 @@
 namespace {
 
 constexpr int kT = 32;          // tokens per chunk: one per lane of a warp
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 constexpr int kPad = 4;         // row padding (floats): keeps float4 alignment
 
 struct Params {
@@ -56,7 +71,9 @@ struct Params {
   const float* u;
   float* out;
   float* s_last;
-  int B, H, S;
+  float* seg_state;   // [B,H,n_seg-1,hd,hd]: end states, then (pass 2) S_in of the next segment
+  float* seg_decay;   // [B,H,n_seg-1,hd]: exp(sum of logw) over each segment
+  int B, H, S, seg_len, n_seg;
   long long r_sb, r_sh, r_ss;   // strides in elements; the head dim is unit-stride
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -65,201 +82,370 @@ struct Params {
   long long u_sh;
 };
 
+// N consecutive floats (N = 1, 2, 4 or 8; 4-float rows 16-byte aligned).
 template <int N>
 __device__ __forceinline__ void load_row(float (&dst)[N], const float* src) {
-  static_assert(N % 2 == 0, "row fragments are float2 or float4 aligned");
   if constexpr (N % 4 == 0) {
 #pragma unroll
     for (int m = 0; m < N; m += 4) {
       const float4 x = *reinterpret_cast<const float4*>(src + m);
       dst[m] = x.x; dst[m + 1] = x.y; dst[m + 2] = x.z; dst[m + 3] = x.w;
     }
+  } else if constexpr (N == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(src);
+    dst[0] = x.x; dst[1] = x.y;
   } else {
+    static_assert(N == 1, "row fragments are 1, 2 or a multiple of 4 floats");
+    dst[0] = *src;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_row(float* dst, const float (&src)[N]) {
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-    for (int m = 0; m < N; m += 2) {
-      const float2 x = *reinterpret_cast<const float2*>(src + m);
-      dst[m] = x.x; dst[m + 1] = x.y;
-    }
+    for (int m = 0; m < N; m += 4)
+      *reinterpret_cast<float4*>(dst + m) = make_float4(src[m], src[m + 1], src[m + 2], src[m + 3]);
+  } else if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(src[0], src[1]);
+  } else {
+    static_assert(N == 1, "row fragments are 1, 2 or a multiple of 4 floats");
+    *dst = src[0];
   }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads) wkv6_fwd(const Params p) {
-  constexpr int NC = HD < 32 ? HD : 32;       // value columns per block
-  constexpr int OUT_COLS = NC / 4;            // out: 4 threads per token row
-  constexpr int TPR = kThreads / HD;          // state: threads per channel row
-  constexpr int S_COLS = NC / TPR;            // state columns per thread
-  constexpr int LD = kT + kPad;               // channel-major row length
-  constexpr int LDV = NC + kPad;
-  static_assert(kThreads % HD == 0 && NC % TPR == 0 && HD % kWarps == 0, "tiling");
+struct Smem {
+  static constexpr int LD = kT + kPad;        // channel-major / token-major rows of 32
+  static constexpr int LDV = HD + kPad;       // token-major / state rows of hd
+  static constexpr int NW = 4 * HD / 32;      // warps
+  static constexpr int RT = 0;                               // [HD][LD] r, then rt
+  static constexpr int KT = RT + HD * LD;                    // [HD][LD] k, then kt
+  static constexpr int LW = KT + HD * LD;                    // [HD][LD] logw
+  static constexpr int VS = LW + HD * LD;                    // [kT][LDV] v
+  static constexpr int KD = VS + kT * LDV;                   // [kT][LDV] kd, token-major
+  static constexpr int AT = KD + kT * LDV;                   // [kT][LD] the a tile, transposed
+  static constexpr int SM = AT + kT * LD;                    // [HD][LDV] state mirror
+  static constexpr int DPART = SM + HD * LDV;                // [NW][kT] u-bonus partials
+  static constexpr int ETOT = DPART + NW * kT;               // [HD] exp(clw_T)
+  static constexpr size_t BYTES = (ETOT + HD) * sizeof(float);
+};
 
-  __shared__ __align__(16) float rt[HD][LD];  // r, then r * exp(clw - logw)
-  __shared__ __align__(16) float kt[HD][LD];  // k, then k * exp(-clw)
-  __shared__ __align__(16) float kd[HD][LD];  // logw, then k * exp(clw_T - clw)
-  __shared__ __align__(16) float vs[kT][LDV]; // this block's value columns
-  __shared__ __align__(16) float a[kT][LD];   // tril_strict(rt kt^T) + u-bonus diagonal
-  __shared__ __align__(16) float sm[HD][LDV]; // mirror of the state slice
-  __shared__ float dpart[kWarps][kT];         // u-bonus partial sums, one per warp
-  __shared__ float etot[HD];                  // exp(clw_T) per channel
+// Passes 1 (OUT = false: state only, from zero, for segments but the last)
+// and 3 (OUT = true: out from S_in; the last segment writes S_last).
+//
+// Every product is an outer-product loop over a 4 x N register block whose
+// two operand rows are contiguous in shared memory (one float4 each per
+// step): a = tril(rt kt^T) over channels, out = a v over tokens plus rt S
+// over channels, S' = e S + kd^T v over tokens.  In pass 3 the first half of
+// the block computes out while the second half updates the state.
+template <int HD, bool OUT>
+__global__ void __launch_bounds__(4 * HD, 2) wkv6_segment(const Params p) {
+  using L = Smem<HD>;
+  constexpr int NT = 4 * HD;                  // threads
+  constexpr int NW = L::NW;
+  constexpr int LD = L::LD, LDV = L::LDV;
+  constexpr int CPW = HD / NW;                // channels each warp scans (8)
+  // state update: CT threads, each rows 4*ib .. +4 and columns CJ*jb .. +CJ
+  constexpr int CT = OUT ? NT / 2 : NT;
+  constexpr int CJ = HD * HD / (CT * 4);
+  constexpr int IB = HD / 4;
+  static_assert(CPW == 8 && 8 * NT == kT * HD && CJ >= 1 && CJ <= 8, "tiling");
+
+  extern __shared__ __align__(16) float smem[];
+  float(*rt)[LD] = reinterpret_cast<float(*)[LD]>(smem + L::RT);
+  float(*kt)[LD] = reinterpret_cast<float(*)[LD]>(smem + L::KT);
+  float(*lwc)[LD] = reinterpret_cast<float(*)[LD]>(smem + L::LW);
+  float(*vs)[LDV] = reinterpret_cast<float(*)[LDV]>(smem + L::VS);
+  float(*kd)[LDV] = reinterpret_cast<float(*)[LDV]>(smem + L::KD);
+  float(*at)[LD] = reinterpret_cast<float(*)[LD]>(smem + L::AT);
+  float(*sm)[LDV] = reinterpret_cast<float(*)[LDV]>(smem + L::SM);
+  float(*dpart)[kT] = reinterpret_cast<float(*)[kT]>(smem + L::DPART);
+  float* etot = smem + L::ETOT;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int j_base = blockIdx.x * NC, h = blockIdx.y, b = blockIdx.z;
+  const int seg = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const long long bh = static_cast<long long>(b) * p.H + h;
+  const int t_begin = seg * p.seg_len;
+  const int t_end = min(p.S, t_begin + p.seg_len);
+  const int n_chunks = (t_end - t_begin + kT - 1) / kT;
+  const bool last_seg = seg == p.n_seg - 1;
   const float* r = p.r + b * p.r_sb + h * p.r_sh;
   const float* k = p.k + b * p.k_sb + h * p.k_sh;
-  const float* v = p.v + b * p.v_sb + h * p.v_sh + j_base;
+  const float* v = p.v + b * p.v_sb + h * p.v_sh;
   const float* lw = p.lw + b * p.w_sb + h * p.w_sh;
-  float* out = p.out + b * p.o_sb + h * p.o_sh + j_base;
+  float* out = p.out + b * p.o_sb + h * p.o_sh;
 
-  float u_reg[HD / kWarps];                   // u of the channels this warp scans
+  float u_reg[CPW];                           // u of the channels this warp scans
+  float logd[CPW];                            // pass 1: sum of logw over the segment
 #pragma unroll
-  for (int m = 0; m < HD / kWarps; ++m) u_reg[m] = p.u[h * p.u_sh + warp + kWarps * m];
-
-  // State: thread owns row si, columns sj .. sj + S_COLS of the slice.
-  const int si = tid / TPR, sj = (tid % TPR) * S_COLS;
-  float s_reg[S_COLS];
-#pragma unroll
-  for (int m = 0; m < S_COLS; ++m) s_reg[m] = 0.f;
-  for (int e = tid; e < HD * NC; e += kThreads) sm[e / NC][e % NC] = 0.f;
-
-  // Token row of the a-tile and of the output fragment this thread computes.
-  const int t = tid >> 2;
-  const int s0 = (tid & 3) * 8;
-  const int oj = (tid & 3) * OUT_COLS;
-
-  const int n_chunks = (p.S + kT - 1) / kT;
-  for (int c = 0; c < n_chunks; ++c) {
-    const int t0 = c * kT;
-    // ---- load the chunk: r, k, logw channel-major; v row-major; zeros past S.
-    // A warp reads 16 tokens x 2 float4 (one 32-byte sector per row), so its
-    // channel-major stores land on 32 distinct banks.
-    for (int e = tid; e < kT * HD / 4; e += kThreads) {
-      const int q = e >> 4;
-      const int tt = (e & 15) + 16 * (q / (HD / 4)), i = (q % (HD / 4)) * 4, pos = t0 + tt;
-      float4 rv = make_float4(0.f, 0.f, 0.f, 0.f), kv = rv, wv = rv;
-      if (pos < p.S) {
-        rv = *reinterpret_cast<const float4*>(r + pos * p.r_ss + i);
-        kv = *reinterpret_cast<const float4*>(k + pos * p.k_ss + i);
-        wv = *reinterpret_cast<const float4*>(lw + pos * p.w_ss + i);
-      }
-      rt[i][tt] = rv.x; rt[i + 1][tt] = rv.y; rt[i + 2][tt] = rv.z; rt[i + 3][tt] = rv.w;
-      kt[i][tt] = kv.x; kt[i + 1][tt] = kv.y; kt[i + 2][tt] = kv.z; kt[i + 3][tt] = kv.w;
-      kd[i][tt] = wv.x; kd[i + 1][tt] = wv.y; kd[i + 2][tt] = wv.z; kd[i + 3][tt] = wv.w;
-    }
-    for (int e = tid; e < kT * NC / 4; e += kThreads) {
-      const int tt = e / (NC / 4), j = (e % (NC / 4)) * 4, pos = t0 + tt;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (pos < p.S) x = *reinterpret_cast<const float4*>(v + pos * p.v_ss + j);
-      *reinterpret_cast<float4*>(&vs[tt][j]) = x;
-    }
-    __syncthreads();
-
-    // ---- per-channel cumulative decay (warp scan, lane = token) and factors
-    float diag = 0.f;
-#pragma unroll
-    for (int m = 0; m < HD / kWarps; ++m) {
-      const int i = warp + kWarps * m;
-      const float w = kd[i][lane];
-      float x = w;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float y = __shfl_up_sync(0xffffffffu, x, off);
-        if (lane >= off) x += y;
-      }
-      const float total = __shfl_sync(0xffffffffu, x, 31);
-      const float ri = rt[i][lane], ki = kt[i][lane];
-      diag += ri * u_reg[m] * ki;
-      rt[i][lane] = ri * expf(x - w);
-      kt[i][lane] = ki * expf(-x);
-      kd[i][lane] = ki * expf(total - x);
-      if (lane == 0) etot[i] = expf(total);
-    }
-    dpart[warp][lane] = diag;
-    __syncthreads();
-
-    // ---- a[t][s] = rt_t . kt_s for s < t; the u-bonus on the diagonal
-    {
-      float acc[8];
-#pragma unroll
-      for (int m = 0; m < 8; ++m) acc[m] = 0.f;
-      if (s0 < t) {
-#pragma unroll 8
-        for (int i = 0; i < HD; ++i) {
-          const float ri = rt[i][t];
-          float kk[8];
-          load_row(kk, &kt[i][s0]);
-#pragma unroll
-          for (int m = 0; m < 8; ++m) acc[m] = fmaf(ri, kk[m], acc[m]);
-        }
-      }
-      float d = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) d += dpart[w][t];
-#pragma unroll
-      for (int m = 0; m < 8; ++m) {
-        const int s = s0 + m;
-        a[t][s] = s < t ? acc[m] : (s == t ? d : 0.f);
-      }
-    }
-    __syncthreads();
-
-    // ---- out = a v + rt S (old state); new state into registers
-    {
-      float acc[OUT_COLS];
-#pragma unroll
-      for (int m = 0; m < OUT_COLS; ++m) acc[m] = 0.f;
-#pragma unroll 8
-      for (int s = 0; s < kT; ++s) {
-        const float as = a[t][s];
-        float vv[OUT_COLS];
-        load_row(vv, &vs[s][oj]);
-#pragma unroll
-        for (int m = 0; m < OUT_COLS; ++m) acc[m] = fmaf(as, vv[m], acc[m]);
-      }
-#pragma unroll 8
-      for (int i = 0; i < HD; ++i) {
-        const float ri = rt[i][t];
-        float ss[OUT_COLS];
-        load_row(ss, &sm[i][oj]);
-#pragma unroll
-        for (int m = 0; m < OUT_COLS; ++m) acc[m] = fmaf(ri, ss[m], acc[m]);
-      }
-      if (t0 + t < p.S) {
-        float* o = out + (t0 + t) * p.o_ss + oj;
-#pragma unroll
-        for (int m = 0; m < OUT_COLS; m += 2)
-          *reinterpret_cast<float2*>(o + m) = make_float2(acc[m], acc[m + 1]);
-      }
-
-      float upd[S_COLS];
-#pragma unroll
-      for (int m = 0; m < S_COLS; ++m) upd[m] = 0.f;
-#pragma unroll 8
-      for (int tt = 0; tt < kT; ++tt) {
-        const float kk = kd[si][tt];
-        float vv[S_COLS];
-        load_row(vv, &vs[tt][sj]);
-#pragma unroll
-        for (int m = 0; m < S_COLS; ++m) upd[m] = fmaf(kk, vv[m], upd[m]);
-      }
-      const float e = etot[si];
-#pragma unroll
-      for (int m = 0; m < S_COLS; ++m) s_reg[m] = fmaf(e, s_reg[m], upd[m]);
-    }
-    __syncthreads();          // every read of sm and of the chunk's tiles is done
-#pragma unroll
-    for (int m = 0; m < S_COLS; ++m) sm[si][sj + m] = s_reg[m];
+  for (int m = 0; m < CPW; ++m) {
+    u_reg[m] = OUT ? p.u[h * p.u_sh + warp + NW * m] : 0.f;
+    logd[m] = 0.f;
   }
 
-  float* s_out = p.s_last + ((long long)b * p.H + h) * HD * HD + si * HD + j_base + sj;
+  // State owners: thread c of the update group holds rows si .. si+3,
+  // columns sj .. sj+CJ.  Pass 3 starts from the carried state of the
+  // segments before (pass 2), pass 1 from zero.
+  const int c_upd = OUT ? tid - NT / 2 : tid;
+  const bool updater = c_upd >= 0;
+  const int si = 4 * (max(c_upd, 0) % IB), sj = CJ * (max(c_upd, 0) / IB);
+  float s_reg[4][CJ];
 #pragma unroll
-  for (int m = 0; m < S_COLS; ++m) s_out[m] = s_reg[m];
+  for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+    for (int m = 0; m < CJ; ++m) s_reg[ii][m] = 0.f;
+  if (OUT && updater) {
+    if (seg > 0) {
+      const float* src = p.seg_state + ((bh * (p.n_seg - 1) + seg - 1) * HD + si) * HD + sj;
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) load_row(s_reg[ii], src + ii * HD);
+    }
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) store_row(&sm[si + ii][sj], s_reg[ii]);
+  }
+
+  // Loads: two float4 of each tensor a thread.  r, k, logw go channel-major:
+  // a warp reads 16 tokens x 2 float4, so its transposed stores land on 32
+  // distinct banks; v stays token-major.
+  float4 pr[2], pk[2], pw[2], pv[2];
+  auto fetch = [&](int c) {
+    const int t0 = t_begin + c * kT;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int e = tid + m * NT;
+      const int q = e >> 4;
+      const int tt = (e & 15) + 16 * (q / (HD / 4)), i = (q % (HD / 4)) * 4, pos = t0 + tt;
+      const int vt = e / (HD / 4), vj = (e % (HD / 4)) * 4, vpos = t0 + vt;
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      pr[m] = OUT && pos < t_end ? *reinterpret_cast<const float4*>(r + pos * p.r_ss + i) : z;
+      pk[m] = pos < t_end ? *reinterpret_cast<const float4*>(k + pos * p.k_ss + i) : z;
+      pw[m] = pos < t_end ? *reinterpret_cast<const float4*>(lw + pos * p.w_ss + i) : z;
+      pv[m] = vpos < t_end ? *reinterpret_cast<const float4*>(v + vpos * p.v_ss + vj) : z;
+    }
+  };
+  auto stash = [&]() {
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int e = tid + m * NT;
+      const int q = e >> 4;
+      const int tt = (e & 15) + 16 * (q / (HD / 4)), i = (q % (HD / 4)) * 4;
+      const int vt = e / (HD / 4), vj = (e % (HD / 4)) * 4;
+      if (OUT) {
+        rt[i][tt] = pr[m].x; rt[i + 1][tt] = pr[m].y; rt[i + 2][tt] = pr[m].z; rt[i + 3][tt] = pr[m].w;
+      }
+      kt[i][tt] = pk[m].x; kt[i + 1][tt] = pk[m].y; kt[i + 2][tt] = pk[m].z; kt[i + 3][tt] = pk[m].w;
+      lwc[i][tt] = pw[m].x; lwc[i + 1][tt] = pw[m].y; lwc[i + 2][tt] = pw[m].z; lwc[i + 3][tt] = pw[m].w;
+      *reinterpret_cast<float4*>(&vs[vt][vj]) = pv[m];
+    }
+  };
+
+  if (n_chunks > 0) fetch(0);
+  for (int c = 0; c < n_chunks; ++c) {
+    const int t0 = t_begin + c * kT;
+    stash();
+    __syncthreads();
+    if (c + 1 < n_chunks) fetch(c + 1);       // in flight while this chunk computes
+
+    // ---- per-channel cumulative decay (warp scan, lane = token) and factors;
+    // the warp's 8 channels go through each step together, 8 independent
+    // shuffle chains in flight
+    float x[CPW], w[CPW], ki[CPW], ri[CPW];
+#pragma unroll
+    for (int m = 0; m < CPW; ++m) {
+      const int i = warp + NW * m;
+      w[m] = x[m] = lwc[i][lane];
+      ki[m] = kt[i][lane];
+      ri[m] = OUT ? rt[i][lane] : 0.f;
+    }
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+      for (int m = 0; m < CPW; ++m) {
+        const float y = __shfl_up_sync(0xffffffffu, x[m], off);
+        if (lane >= off) x[m] += y;
+      }
+    }
+    float diag = 0.f;
+#pragma unroll
+    for (int m = 0; m < CPW; ++m) {
+      const int i = warp + NW * m;
+      const float total = __shfl_sync(0xffffffffu, x[m], 31);
+      if (OUT) {
+        diag += ri[m] * u_reg[m] * ki[m];
+        rt[i][lane] = ri[m] * expf(x[m] - w[m]);
+        kt[i][lane] = ki[m] * expf(-x[m]);
+      } else {
+        logd[m] += total;
+      }
+      kd[lane][i] = ki[m] * expf(total - x[m]);
+      if (lane == 0) etot[i] = expf(total);
+    }
+    if (OUT) dpart[warp][lane] = diag;
+    __syncthreads();
+
+    if (OUT) {
+      // ---- at[s][t] = rt_t . kt_s for s < t, the u-bonus for s == t, else
+      // 0: 4 x 4 blocks of the lower triangle, one per thread of the first 64
+      if (tid < 64) {
+        const int bt = 4 * (tid % 8), bs = 4 * (tid / 8);
+        float acc[4][4];
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+#pragma unroll
+          for (int y = 0; y < 4; ++y) acc[x][y] = 0.f;
+        if (bs <= bt) {
+#pragma unroll 4
+          for (int i = 0; i < HD; ++i) {
+            float rr[4], kk[4];
+            load_row(rr, &rt[i][bt]);
+            load_row(kk, &kt[i][bs]);
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+#pragma unroll
+              for (int y = 0; y < 4; ++y) acc[x][y] = fmaf(rr[x], kk[y], acc[x][y]);
+          }
+        }
+#pragma unroll
+        for (int y = 0; y < 4; ++y) {
+          const int s = bs + y;
+          float col[4];
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int t = bt + x;
+            float d = 0.f;
+            if (s == t) {
+#pragma unroll
+              for (int w = 0; w < NW; ++w) d += dpart[w][t];
+            }
+            col[x] = s < t ? acc[x][y] : d;
+          }
+          store_row(&at[s][bt], col);
+        }
+      }
+      __syncthreads();
+    }
+
+    if (OUT && !updater) {
+      // ---- out = a v + rt S (the state before this chunk): 4 tokens x 4
+      // columns a thread
+      const int c_out = tid;
+      const int ot = 4 * (c_out % 8), oj = 4 * (c_out / 8);
+      float o[4][4];
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+#pragma unroll
+        for (int y = 0; y < 4; ++y) o[x][y] = 0.f;
+#pragma unroll 4
+      for (int s = 0; s < kT; ++s) {
+        float aa[4], vv[4];
+        load_row(aa, &at[s][ot]);
+        load_row(vv, &vs[s][oj]);
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+#pragma unroll
+          for (int y = 0; y < 4; ++y) o[x][y] = fmaf(aa[x], vv[y], o[x][y]);
+      }
+#pragma unroll 4
+      for (int i = 0; i < HD; ++i) {
+        float rr[4], ss[4];
+        load_row(rr, &rt[i][ot]);
+        load_row(ss, &sm[i][oj]);
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+#pragma unroll
+          for (int y = 0; y < 4; ++y) o[x][y] = fmaf(rr[x], ss[y], o[x][y]);
+      }
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        if (t0 + ot + x < t_end) store_row(out + (t0 + ot + x) * p.o_ss + oj, o[x]);
+    } else if (!OUT || c + 1 < n_chunks || last_seg) {
+      // ---- the state after this chunk, into registers (pass 3 needs it only
+      // for the next chunk, or as S_last in the last segment)
+      float upd[4][CJ];
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+#pragma unroll
+        for (int y = 0; y < CJ; ++y) upd[x][y] = 0.f;
+#pragma unroll 4
+      for (int tt = 0; tt < kT; ++tt) {
+        float kk[4], vv[CJ];
+        load_row(kk, &kd[tt][si]);
+        load_row(vv, &vs[tt][sj]);
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+#pragma unroll
+          for (int y = 0; y < CJ; ++y) upd[x][y] = fmaf(kk[x], vv[y], upd[x][y]);
+      }
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const float e = etot[si + x];
+#pragma unroll
+        for (int y = 0; y < CJ; ++y) s_reg[x][y] = fmaf(e, s_reg[x][y], upd[x][y]);
+      }
+    }
+    __syncthreads();          // every read of sm and of the chunk's tiles is done
+    if (OUT && updater) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) store_row(&sm[si + x][sj], s_reg[x]);
+    }
+  }
+
+  if (!updater) return;
+  float* dst;
+  if (OUT) {
+    if (!last_seg) return;
+    dst = p.s_last + (bh * HD + si) * HD + sj;
+  } else {
+    dst = p.seg_state + ((bh * (p.n_seg - 1) + seg) * HD + si) * HD + sj;
+    if (lane == 0) {
+#pragma unroll
+      for (int m = 0; m < CPW; ++m)
+        p.seg_decay[(bh * (p.n_seg - 1) + seg) * HD + warp + NW * m] = expf(logd[m]);
+    }
+  }
+#pragma unroll
+  for (int x = 0; x < 4; ++x) store_row(dst + x * HD, s_reg[x]);
+}
+
+// Pass 2: one thread per (b, h, state entry i, j); in place, slot s of
+// seg_state turns from segment s's end state (from zero) into the state
+// after segment s, which is where segment s + 1 starts.
+template <int HD>
+__global__ void wkv6_carry(const Params p) {
+  const long long n = static_cast<long long>(p.B) * p.H * HD * HD;
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  const long long bh = e / (HD * HD);
+  const int ij = static_cast<int>(e % (HD * HD)), i = ij / HD;
+  const int slots = p.n_seg - 1;
+  float cur = 0.f;
+  for (int s = 0; s < slots; ++s) {
+    const long long slot = bh * slots + s;
+    float* st = p.seg_state + slot * HD * HD + ij;
+    cur = fmaf(p.seg_decay[slot * HD + i], cur, *st);
+    *st = cur;
+  }
 }
 
 template <int HD>
 int launch(const Params& p, cudaStream_t stream) {
-  constexpr int NC = HD < 32 ? HD : 32;
-  dim3 grid(HD / NC, p.H, p.B);
-  wkv6_fwd<HD><<<grid, kThreads, 0, stream>>>(p);
+  constexpr size_t smem = Smem<HD>::BYTES;
+  cudaError_t err;
+  if (p.n_seg > 1) {
+    err = cudaFuncSetAttribute(wkv6_segment<HD, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    wkv6_segment<HD, false><<<dim3(p.n_seg - 1, p.H, p.B), 4 * HD, smem, stream>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const long long n = static_cast<long long>(p.B) * p.H * HD * HD;
+    wkv6_carry<HD><<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  err = cudaFuncSetAttribute(wkv6_segment<HD, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  wkv6_segment<HD, true><<<dim3(p.n_seg, p.H, p.B), 4 * HD, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -267,15 +453,23 @@ int launch(const Params& p, cudaStream_t stream) {
 
 // r, k, v, logw: [B,H,S,hd] fp32 with unit-stride head dim; u: [H,hd] fp32;
 // out: [B,H,S,hd] fp32 (strided); s_last: contiguous [B,H,hd,hd] fp32.
+// seg_len: tokens per segment, a positive multiple of 32; seg_state /
+// seg_decay: contiguous fp32 scratch of [B,H,n_seg-1,hd,hd] / [B,H,n_seg-1,hd]
+// with n_seg = max(1, ceil(S / seg_len)) (unused when n_seg is 1).
 // strides: (b, h, s) of r, k, v, logw, out, then u's head stride.  Returns 0
-// or the CUDA error of the launch; -1 for a head dim without an instantiation.
+// or the CUDA error of the first launch that fails; -1 for a head dim without
+// an instantiation or a segment length that is no multiple of 32.
 extern "C" int repro_wkv6_fwd(int head_dim, const void* r, const void* k, const void* v,
                               const void* logw, const void* u, void* out, void* s_last,
-                              int B, int H, int S, const long long* strides, void* stream) {
+                              void* seg_state, void* seg_decay, int B, int H, int S,
+                              int seg_len, const long long* strides, void* stream) {
+  if (seg_len <= 0 || seg_len % kT != 0) return -1;
+  const int n_seg = S > 0 ? (S + seg_len - 1) / seg_len : 1;
   Params p{static_cast<const float*>(r), static_cast<const float*>(k),
            static_cast<const float*>(v), static_cast<const float*>(logw),
            static_cast<const float*>(u), static_cast<float*>(out),
-           static_cast<float*>(s_last), B, H, S,
+           static_cast<float*>(s_last), static_cast<float*>(seg_state),
+           static_cast<float*>(seg_decay), B, H, S, seg_len, n_seg,
            strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
            strides[6], strides[7], strides[8], strides[9], strides[10], strides[11],
            strides[12], strides[13], strides[14], strides[15]};
@@ -284,6 +478,16 @@ extern "C" int repro_wkv6_fwd(int head_dim, const void* r, const void* k, const 
     case 16: return launch<16>(p, st);
     case 32: return launch<32>(p, st);
     case 64: return launch<64>(p, st);
+  }
+  return -1;
+}
+
+// Dynamic shared memory of the segment kernels at a head dim (bytes), or -1.
+extern "C" long long repro_wkv6_smem_bytes(int head_dim) {
+  switch (head_dim) {
+    case 16: return static_cast<long long>(Smem<16>::BYTES);
+    case 32: return static_cast<long long>(Smem<32>::BYTES);
+    case 64: return static_cast<long long>(Smem<64>::BYTES);
   }
   return -1;
 }

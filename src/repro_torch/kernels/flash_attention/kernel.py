@@ -7,7 +7,10 @@ its header says what bounds it and how its design answers that.  Built with
 
 Layout: q ``[B,H,Sq,hd]``, k/v ``[B,KV,Skv,hd]``, as in the reference.  The
 kernel takes strides, so a transposed view of the model's ``[B,S,H,hd]``
-tensors is passed without a copy; the output has q's strides and dtype.
+tensors is passed without a copy; the output has q's strides and dtype.  In
+bf16 the C function encodes a TMA tensor map of each input's strided view per
+call (``cuTensorMapEncodeTiled``, reached through the CUDA runtime's driver
+entry point, so the library links no ``libcuda``).
 """
 from __future__ import annotations
 
@@ -89,6 +92,9 @@ def flash_attention_kernel(
             B, H, KV, Sq, Skv, strides, int(causal), int(window),
             float(softcap), 1.0 / math.sqrt(hd), stream,
         )
+    if err == -2:
+        raise RuntimeError("flash attention: the TMA tensor maps could not be encoded "
+                           f"(strides {list(strides)})")
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed (cudaError {err})")
     flash_attention_kernel.launches += 1

@@ -9,6 +9,10 @@ Layout: r, k, v, logw ``[B,H,S,hd]`` and u ``[H,hd]``, fp32, as in the
 reference.  The kernel takes strides, so a transposed view of the model's
 ``[B,S,H,hd]`` tensors is passed without a copy; ``out`` has r's strides.
 Any ``S`` is taken: the last chunk may be ragged.
+
+One call runs three CUDA kernels over segments of ``SEGMENT`` tokens (the
+segment states, their carry, the outputs; ``csrc/wkv6.cu``); the wrapper
+allocates their scratch and counts the call once in ``launches``.
 """
 from __future__ import annotations
 
@@ -20,13 +24,14 @@ import torch
 from .._build import load_library
 
 HEAD_DIMS = (16, 32, 64)
+SEGMENT = 256   # tokens per segment: a multiple of the kernel's 32-token chunk
 
 
 @functools.cache
 def _fwd():
     fn = load_library("wkv6.cu").repro_wkv6_fwd
     fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+        [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -58,15 +63,22 @@ def _check(r, k, v, logw, u) -> None:
 
 def wkv6_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
                 u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on r's current stream; raises on any input the
-    kernel does not take and on any launch error.  Returns (out [B,H,S,hd]
-    with r's strides, S_last [B,H,hd,hd]), fp32, from a zero state."""
+    """Launch the CUDA kernels on r's current stream; raises on any input
+    they do not take and on any launch error.  Returns (out [B,H,S,hd] with
+    r's strides, S_last [B,H,hd,hd]), fp32, from a zero state.
+
+    ``launches`` counts calls, one per call however many kernels the call
+    runs, so it reads as calls per prefill.
+    """
     _check(r, k, v, logw, u)
     B, H, S, hd = r.shape
     out = torch.empty_like(r)      # same strides as r (dense, non-overlapping)
     s_last = torch.empty(B, H, hd, hd, dtype=torch.float32, device=r.device)
     if B * H == 0:
         return out, s_last
+    slots = max(1, -(-S // SEGMENT)) - 1          # segments before the last
+    seg_state = torch.empty(B, H, slots, hd, hd, dtype=torch.float32, device=r.device)
+    seg_decay = torch.empty(B, H, slots, hd, dtype=torch.float32, device=r.device)
     strides = (ctypes.c_longlong * 16)(
         *r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *logw.stride()[:3],
         *out.stride()[:3], u.stride(0),
@@ -74,12 +86,12 @@ def wkv6_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.T
     stream = torch.cuda.current_stream(r.device).cuda_stream
     with torch.cuda.device(r.device):
         err = _fwd()(hd, r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-                     u.data_ptr(), out.data_ptr(), s_last.data_ptr(), B, H, S, strides,
-                     stream)
+                     u.data_ptr(), out.data_ptr(), s_last.data_ptr(), seg_state.data_ptr(),
+                     seg_decay.data_ptr(), B, H, S, SEGMENT, strides, stream)
     if err != 0:
         raise RuntimeError(f"wkv6 kernel launch failed (cudaError {err})")
     wkv6_kernel.launches += 1
     return out, s_last
 
 
-wkv6_kernel.launches = 0   # kernel launches since the last reset
+wkv6_kernel.launches = 0   # calls that launched the kernels, since the last reset

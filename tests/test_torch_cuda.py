@@ -74,6 +74,49 @@ def test_flash_attention_kernel_matches_plain(cuda_device, case):
     assert (row_err <= 0.1 * row_rms).all(), (row_err / row_rms).max().item()
 
 
+# (B, H, KV, Sq, Skv, hd, causal, window, softcap): the edges of the bf16
+# wgmma kernel -- one token; Sq / Skv no multiple of its 128-row query tile or
+# of its key tile (64 keys at hd 256, 128 otherwise), a single partial tile,
+# Sq != Skv both ways; GQA ratios 1, 2 and 4; windows narrower than one key
+# tile; softcap; non-causal.  Each runs in the reference layout and as the
+# transposed view of the model's [B,S,H,hd] tensors (TMA over the strided
+# view, zero fill past each head's rows).
+FA_BF16_EDGE_CASES = [
+    (1, 2, 2, 1, 1, 64, True, 0, 0.0),
+    (1, 4, 4, 50, 50, 128, True, 0, 0.0),
+    (2, 4, 2, 200, 333, 128, False, 0, 0.0),
+    (1, 4, 2, 300, 200, 128, True, 0, 0.0),
+    (1, 8, 2, 129, 129, 64, True, 0, 0.0),
+    (1, 4, 1, 300, 300, 256, True, 0, 50.0),
+    (1, 4, 2, 517, 517, 128, True, 40, 0.0),
+    (1, 4, 2, 257, 100, 64, False, 0, 30.0),
+    (2, 2, 2, 190, 190, 256, True, 33, 0.0),
+    (1, 4, 4, 1000, 1000, 64, False, 0, 0.0),
+]
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("case", FA_BF16_EDGE_CASES)
+def test_flash_attention_bf16_kernel_edges(cuda_device, case, layout):
+    B, H, KV, Sq, Skv, hd, causal, window, cap = case
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+
+    def make(n, S):
+        if layout == "bhsd":
+            return torch.randn(B, n, S, hd, generator=g, device=cuda_device).bfloat16()
+        return torch.randn(B, S, n, hd, generator=g, device=cuda_device).bfloat16().transpose(1, 2)
+
+    q, k, v = make(H, Sq), make(KV, Skv), make(KV, Skv)
+    out = flash_attention_kernel(q, k, v, causal=causal, window=window, softcap=cap)
+    ref = attention_ref(q, k, v, causal, window, cap)
+    torch.cuda.synchronize()
+    assert out.stride() == q.stride()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    row_err = (out.float() - ref.float()).abs().amax(-1)
+    row_rms = ref.float().pow(2).mean(-1).sqrt()
+    assert (row_err <= 0.1 * row_rms).all(), (row_err / row_rms).max().item()
+
+
 def test_flash_attention_kernel_takes_model_layout(cuda_device):
     """A transposed [B,S,H,hd] view goes in without a copy and the output
     keeps that layout."""
@@ -97,10 +140,15 @@ def test_flash_attention_kernel_counts_launches(cuda_device):
 
 
 # (B, H, S, hd): tests/test_kernels.py WKV_CASES, then ragged lengths (no
-# multiple of the 32-token chunk), one chunk or less, and a longer sequence.
+# multiple of the 32-token chunk), one chunk or less, and a longer sequence;
+# then the kernel's 256-token segments: S = 31 and 33 around the chunk, and
+# several segments at hd 16 / 32 / 64, whole, with a one-token tail, or with
+# a ragged tail.
 WKV_GPU_CASES = [
     (2, 2, 64, 16), (1, 4, 128, 64), (2, 1, 96, 32), (1, 2, 256, 64),
     (2, 40, 100, 64), (1, 3, 7, 16), (2, 2, 33, 32), (1, 1, 1, 64), (2, 4, 1000, 64),
+    (2, 2, 31, 32), (2, 2, 33, 16), (1, 2, 300, 64), (2, 3, 700, 32), (1, 2, 1000, 16),
+    (2, 2, 513, 64), (1, 3, 768, 32), (2, 2, 257, 16),
 ]
 # Per-row bound on max|kernel - plain| / rms(plain row): fp32 rounding in
 # another summation order leaves up to ~4e-4 of a row's size in rows whose

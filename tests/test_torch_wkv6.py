@@ -17,6 +17,7 @@ from repro.models.rwkv import wkv_scan as jax_wkv_scan
 from repro_torch.kernels.rwkv6 import ops
 from repro_torch.kernels.rwkv6.kernel import wkv6_kernel
 from repro_torch.kernels.rwkv6.ops import wkv6
+from repro_torch.kernels.rwkv6.ref import wkv6_segmented_ref
 from repro_torch.models.rwkv import wkv_scan
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -55,6 +56,20 @@ def test_wkv6_ragged_length_matches_oracle():
     """S = 100 is no multiple of any chunk; the port takes it as it is."""
     arrs = _inputs(2, 3, 100, 64, seed=1)
     out, s_last = _port(arrs)
+    ro, rs = jax_wkv6_ref(*(jnp.asarray(a) for a in arrs))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ro), **TOL)
+    np.testing.assert_allclose(s_last.numpy(), np.asarray(rs), **TOL)
+
+
+@pytest.mark.parametrize("segment", [32, 64, 256])
+@pytest.mark.parametrize("shape", [c[:4] for c in WKV_CASES] + [(2, 3, 100, 64), (1, 2, 300, 16)])
+def test_wkv6_segmented_split_matches_reference_oracle(shape, segment):
+    """The CUDA kernel's split of the sequence (segment states, their carry,
+    the outputs from the carried state), written in plain PyTorch, against the
+    reference's oracle: at the reference's test shapes, and at S = 100 and 300
+    (no multiple of any segment), with one to ten segments."""
+    arrs = _inputs(*shape, seed=3)
+    out, s_last = wkv6_segmented_ref(*(torch.from_numpy(a) for a in arrs), segment)
     ro, rs = jax_wkv6_ref(*(jnp.asarray(a) for a in arrs))
     np.testing.assert_allclose(out.numpy(), np.asarray(ro), **TOL)
     np.testing.assert_allclose(s_last.numpy(), np.asarray(rs), **TOL)
