@@ -28,8 +28,9 @@ plain PyTorch version on the card, then drives the serving path:
    S=8192 so the 4096 window bites, then 8 decode steps;
 6. WKV-6 kernel vs its plain version at every shape the later phases give it
    (the reference's bound 2e-4, plus a per-row bound relative to the row's
-   size), with kernel / plain / bound times; no single PyTorch call computes
-   WKV-6, so it has no library time;
+   size), with kernel / plain / bound times, on the reference's decays and
+   on strong ones (w down to 1e-3, some log w = -50; every output finite);
+   no single PyTorch call computes WKV-6, so it has no library time;
 7. rwkv6-3b at full width and depth, bf16, seeded init: prefill step at
    B=4 x S=2048 (exactly one kernel launch per layer), prefill with the state
    collected then 8 decode steps from it, the launcher's flow (batch 4,
@@ -38,9 +39,11 @@ plain PyTorch version on the card, then drives the serving path:
    fp32 with TF32 off: logits and the final S / shift / shift_ffn state, the
    kernel against the model's plain one-step scan;
 9. selective-scan (mamba) kernel vs its plain version at every shape the
-   later phases give it (the reference's bound 2e-4, plus a per-row bound
-   relative to the row's size), with kernel / plain / bound times; no single
-   PyTorch call computes the selective scan, so it has no library time;
+   later phases give it and at the edges of its split (the reference's bound
+   2e-4, plus a per-row bound relative to the row's size), with kernel /
+   plain / bound times, and at the jamba shape the floor its exponentials set
+   on the special-function unit; no single PyTorch call computes the
+   selective scan, so it has no library time;
 10. jamba-v0.1-52b at full width cut to 16 layers (two periods of 7 mamba +
     1 attention layer, MoE on every second layer), bf16, seeded init:
     prefill step at B=4 x S=2048 (exactly 14 selective-scan and 2 flash
@@ -119,15 +122,19 @@ FA_CASES = [
 ROW_REL_TOL = 0.1
 MAIN_PATH_CASE = "granite_prefill"
 
-# (name, B, H, S, hd): tests/test_kernels.py WKV_CASES, the rwkv6-3b prefill
-# shape (phase 7) and the ragged phase-8 shape.
+# (name, B, H, S, hd, strong): tests/test_kernels.py WKV_CASES, the rwkv6-3b
+# prefill shape (phase 7) and the ragged phase-8 shape on the reference's
+# decays; then the prefill shape and a small ragged one on strong decays
+# (``wkv_inputs``), which overflow the chunk form's exp without its guard.
 WKV_CASES = [
-    ("wkv_case0", 2, 2, 64, 16),
-    ("wkv_case1", 1, 4, 128, 64),
-    ("wkv_case2", 2, 1, 96, 32),
-    ("wkv_case3", 1, 2, 256, 64),
-    ("rwkv_prefill", 4, 40, 2048, 64),
-    ("phase8_ragged", 2, 40, 100, 64),
+    ("wkv_case0", 2, 2, 64, 16, False),
+    ("wkv_case1", 1, 4, 128, 64, False),
+    ("wkv_case2", 2, 1, 96, 32, False),
+    ("wkv_case3", 1, 2, 256, 64, False),
+    ("rwkv_prefill", 4, 40, 2048, 64, False),
+    ("phase8_ragged", 2, 40, 100, 64, False),
+    ("rwkv_prefill_strong", 4, 40, 2048, 64, True),
+    ("ragged_strong", 2, 3, 100, 64, True),
 ]
 WKV_TOL = 2e-4             # the reference's bound (tests/test_kernels.py)
 # Per-row bound on max|kernel - plain| / rms(plain row): fp32 rounding in
@@ -138,16 +145,26 @@ WKV_ROW_REL_TOL = 1e-3
 WKV_CHUNK = 32             # the reference's chunk, for the operation count
 WKV_MAIN_PATH_CASE = "rwkv_prefill"
 # (name, B, S, di, N, dtype, model layout): tests/test_kernels.py MAMBA_CASES,
-# the jamba prefill shape (phase 10) and the phase-11 shape.  In the model
-# layout x is as given and B / C are column slices of one [B, S, R + 2N]
-# tensor (R = 256, jamba's dt rank), as the model passes them.
+# the jamba prefill shape (phase 10) and the phase-11 shape; then the edges of
+# the kernel's split (one token, S just past a 32-token chunk, d_inner no
+# multiple of the 128-channel block, several chunks with a ragged tail, and
+# d_inner no multiple of 8, whose bf16 rows take plain loads in place of
+# cp.async).  In the model layout x is as given and B / C are column slices of
+# one [B, S, R + 2N] tensor (R = 256, jamba's dt rank), as the model passes
+# them.
 MAMBA_CASES = [
     ("mamba_case0", 2, 64, 128, 8, "float32", False),
     ("mamba_case1", 1, 128, 256, 16, "float32", False),
     ("mamba_case2", 1, 96, 64, 4, "float32", False),
     ("jamba_prefill", 4, 2048, 8192, 16, "bfloat16", True),
     ("phase11_fp32", 2, 100, 8192, 16, "float32", True),
+    ("one_token", 4, 1, 8192, 16, "bfloat16", True),
+    ("past_one_chunk", 2, 33, 8192, 16, "bfloat16", True),
+    ("ragged_block", 2, 100, 200, 16, "float32", True),
+    ("chunks_ragged_tail", 2, 1000, 1000, 16, "bfloat16", True),
+    ("unaligned_rows", 1, 70, 130, 8, "bfloat16", True),
 ]
+SFU_EXP2_PER_CLOCK = 16    # exponentials per clock per SM (special-function unit)
 MAMBA_TOL = 2e-4           # the reference's bound (tests/test_kernels.py)
 # Per-row bound on max|kernel - plain| / rms(plain row): the two differ only
 # in fp32 rounding (expf, fused multiply-adds, the order of the N-term sum);
@@ -255,16 +272,30 @@ def row_rel_err(out, ref) -> float:
     return (d / rms).max().item()
 
 
-def wkv_inputs(dev, B, H, S, hd, seed=0):
+STRONG_W_MIN = 1e-3        # strong decays: w log-uniform in [1e-3, 0.999] ...
+STRONG_PINNED_LOGW = -50.0  # ... and every 16th channel at this log w
+
+
+def wkv_inputs(dev, B, H, S, hd, seed=0, strong=False):
     """The reference's test distribution: r, k, v normal, decay uniform in
-    (0.7, 0.999) as log w, u * 0.3."""
+    (0.7, 0.999) as log w, u * 0.3.  ``strong``: decay log-uniform in
+    [1e-3, 0.999] instead, with channels 3, 19, ... pinned at log w = -50,
+    decays whose 32-token sums overflow ``exp`` in fp32."""
+    import math
+
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
     r, k, v = (torch.randn(B, H, S, hd, generator=g, device=dev) for _ in range(3))
-    w = 0.7 + 0.299 * torch.rand(B, H, S, hd, generator=g, device=dev)
+    u_draw = torch.rand(B, H, S, hd, generator=g, device=dev)
+    if strong:
+        lo, hi = math.log(STRONG_W_MIN), math.log(0.999)
+        logw = lo + (hi - lo) * u_draw
+        logw[..., 3::16] = STRONG_PINNED_LOGW
+    else:
+        logw = torch.log(0.7 + 0.299 * u_draw)
     u = 0.3 * torch.randn(H, hd, generator=g, device=dev)
-    return r, k, v, torch.log(w), u
+    return r, k, v, logw, u
 
 
 def mamba_inputs(dev, B, S, di, N, dtype, model_layout, seed=0):
@@ -541,15 +572,19 @@ def main() -> int:
           + f" (wall {time.perf_counter() - t0:.3f} s, in parallel)")
     smem = {"fa_fwd_bf16": _build.load_library("flash_attention.cu").repro_flash_attention_smem_bytes,
             "wkv6_segment": _build.load_library("wkv6.cu").repro_wkv6_smem_bytes}
+    smem["fa_fwd_bf16"].argtypes = [ctypes.c_int]                     # head dim
+    smem["wkv6_segment"].argtypes = [ctypes.c_int, ctypes.c_int]      # head dim, output pass
     for fn in smem.values():
-        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+        fn.restype = ctypes.c_longlong
     for src in KERNEL_SOURCES:
         log = _build.library_path(src).with_suffix(".log")
         if log.exists():
             for name, regs, spill in ptxas_report(log.read_text()):
                 base = name.split("<")[0]
-                dyn = (f", {smem[base](int(name.split('<')[1].split(',')[0].rstrip('>')))} bytes "
-                       "dynamic shared memory" if base in smem else "")
+                targs = [int(a) if a.isdigit() else int(a == "true")
+                         for a in name.split("<")[-1].rstrip(">").split(", ")]
+                dyn = (f", {smem[base](*targs)} bytes dynamic shared memory"
+                       if base in smem else "")
                 print(f"  ptxas {src} {name}: {regs}{dyn}; {spill or 'no spill report'}")
             for line in log.read_text().splitlines():
                 if "Potential Performance Loss" in line:
@@ -699,11 +734,13 @@ def main() -> int:
     # ------------------------------------------------------------ phase 6
     print("phase 6: wkv6 kernel vs plain version on the card (fp32)")
     wkv_results = {}
-    for name, B, H, S, hd in WKV_CASES:
-        args = wkv_inputs(dev, B, H, S, hd)
+    for name, B, H, S, hd, strong in WKV_CASES:
+        args = wkv_inputs(dev, B, H, S, hd, strong=strong)
         out = wkv6_kernel(*args)
         ref = wkv6_ref(*args)
         sync()
+        check(bool(torch.isfinite(out[0]).all() and torch.isfinite(out[1]).all()),
+              f"{name}: {int((~torch.isfinite(out[0])).sum())} non-finite outputs")
         errs, rels = [], []
         for what, o, rf in (("out", out[0], ref[0]), ("S_last", out[1], ref[1])):
             err = (o - rf).abs().max().item()
@@ -716,7 +753,7 @@ def main() -> int:
             errs.append(err)
             rels.append(rel)
         rounding = ""
-        if name == WKV_MAIN_PATH_CASE:
+        if name in (WKV_MAIN_PATH_CASE, "rwkv_prefill_strong"):
             # How far fp32 rounding alone moves the plain version: the same
             # recurrence in float64 as the yardstick for both (max abs error;
             # worst row error / row rms).
@@ -741,7 +778,8 @@ def main() -> int:
             "bound_ms": 1e3 * max(t_ops, t_mem),
             "bound_by": "operations" if t_ops >= t_mem else "bytes",
         }
-        print(f"  {name}: B={B} H={H} S={S} hd={hd}: tol {WKV_TOL}, row tol "
+        print(f"  {name}: B={B} H={H} S={S} hd={hd}"
+              f"{', strong decays' if strong else ''}: tol {WKV_TOL}, row tol "
               f"{WKV_ROW_REL_TOL} (out, S_last) {json.dumps(wkv_results[name])}{rounding} {card}")
         del args
     torch.cuda.empty_cache()
@@ -872,6 +910,20 @@ def main() -> int:
             "bound_ms": 1e3 * max(t_ops, t_mem),
             "bound_by": "operations" if t_ops >= t_mem else "bytes",
         }
+        if name == MAMBA_MAIN_PATH_CASE:
+            # A second floor beside bound_ms: one exponential per state
+            # update on the special-function unit, at the SM clock the card
+            # reports as its maximum (the clock under load beside it).
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            clk = [float(v) for v in subprocess.run(
+                ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm,clocks.sm",
+                 "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                check=True, timeout=60).stdout.split(",")]
+            mamba_results[name]["context"] = {
+                "exponentials": B * S * di * N, "sms": sms, "sm_clock_max_mhz": clk[0],
+                "sm_clock_now_mhz": clk[1],
+                "exp_floor_ms": 1e3 * B * S * di * N / (sms * SFU_EXP2_PER_CLOCK * clk[0] * 1e6),
+            }
         print(f"  {name}: B={B} S={S} di={di} N={N} x {dt_name}"
               f"{', B/C strided views' if model_layout else ''}: tol {MAMBA_TOL}, row tol "
               f"{MAMBA_ROW_REL_TOL} (y, h_last) {json.dumps(mamba_results[name])}{rounding} "

@@ -1,0 +1,137 @@
+#!/usr/bin/env python3
+"""Ablations of a CUDA kernel of the port, timed on one NVIDIA GPU.
+
+    python3 scripts/kernel_variants.py scripts/scan_ablations.json
+
+Each entry of the spec is ``{"name", "source", "edits", "note"}``: ``source`` is a
+file under ``src/repro_torch/csrc`` (``mamba_scan.cu`` or ``wkv6.cu``) and
+``edits`` a list of ``[old, new]`` text replacements, each of which must
+match.  Every variant is built with the flags of ``kernels/_build.py`` (one
+``nvcc`` each, in parallel) into a scratch directory, called through the
+same C interface as the kernel, and timed with CUDA events (mean of 20
+calls, three times) at the shape of its main path: the selective scan at
+jamba's prefill (B=4, S=2048, di=8192, N=16, x bf16, B / C strided views),
+WKV-6 at rwkv6-3b's (B=4, H=40, S=2048, hd=64) on the reference's decays
+and on strong ones.  A variant that removes work gives wrong outputs on
+purpose; the max abs difference from the plain version is printed beside
+each time so that the two kinds stand apart.  One JSON line per variant,
+then the card's name and power limit.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+CSRC = REPO / "src" / "repro_torch" / "csrc"
+
+
+def build(item: dict, out: Path) -> tuple[str, str | None]:
+    from repro_torch.kernels import _build
+
+    text = (CSRC / item["source"]).read_text()
+    for old, new in item.get("edits", []):
+        if old not in text:
+            raise ValueError(f"{item['name']}: edit does not match {item['source']}: {old[:60]!r}")
+        text = text.replace(old, new)
+    src, lib = out / f"{item['name']}.cu", out / f"{item['name']}.so"
+    src.write_text(text)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                          capture_output=True, text=True)
+    return str(lib), None if proc.returncode == 0 else (proc.stdout + proc.stderr)[-3000:]
+
+
+def events_ms(torch, fn, iters: int = 20, reps: int = 3) -> list[float]:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return times
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch.cuda.is_available() is False: this needs a GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO / "src"))
+    sys.path.insert(1, str(REPO))
+    from chip_smoke import mamba_inputs, nvidia_smi_line, wkv_inputs
+    from repro_torch.kernels.mamba.ref import mamba_scan_ref
+    from repro_torch.kernels.rwkv6.kernel import SEGMENT
+    from repro_torch.kernels.rwkv6.ref import wkv6_ref
+
+    spec = json.loads(Path(sys.argv[1]).read_text())
+    dev = torch.device("cuda")
+    card = f"[{nvidia_smi_line()}]"
+    stream = torch.cuda.current_stream().cuda_stream
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(8) as pool:
+        built = list(pool.map(lambda item: build(item, Path(tmp)), spec))
+        for item, (lib, err) in zip(spec, built):
+            if err is not None:
+                print(json.dumps({"variant": item["name"], "build": "failed"}), err)
+                return 1
+            res = {"variant": item["name"], "source": item["source"], "note": item.get("note")}
+            if item["source"] == "mamba_scan.cu":
+                fn = ctypes.CDLL(lib).repro_mamba_scan_fwd
+                fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                               + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+                B, S, di, N = 4, 2048, 8192, 16
+                args = mamba_inputs(dev, B, S, di, N, torch.bfloat16, True)
+                dt, x, A, Bc, Cc, D = args
+                y = torch.empty(B, S, di, device=dev)
+                h = torch.empty(B, di, N, device=dev)
+                st = (ctypes.c_longlong * 10)(*dt.stride()[:2], *x.stride()[:2], *Bc.stride(),
+                                               *Cc.stride())
+                ptrs = [t.data_ptr() for t in (dt, x, A, Bc, Cc, D, y, h)]
+
+                def call():
+                    if fn(N, 1, *ptrs, B, S, di, st, stream) != 0:
+                        raise RuntimeError(f"{item['name']}: launch failed")
+
+                res["ms"] = events_ms(torch, call)
+                res["max_abs_diff"] = (y - mamba_scan_ref(*args)[0]).abs().max().item()
+            else:
+                fn = ctypes.CDLL(lib).repro_wkv6_fwd
+                fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                               + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+                B, H, S, hd = 4, 40, 2048, 64
+                slots = -(-S // SEGMENT) - 1
+                for strong in (False, True):
+                    r, k, v, w, u = args = wkv_inputs(dev, B, H, S, hd, strong=strong)
+                    out = torch.empty_like(r)
+                    s_last = torch.empty(B, H, hd, hd, device=dev)
+                    seg_state = torch.empty(B, H, slots, hd, hd, device=dev)
+                    seg_decay = torch.empty(B, H, slots, hd, device=dev)
+                    st = (ctypes.c_longlong * 16)(*r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                                   *w.stride()[:3], *out.stride()[:3], u.stride(0))
+                    ptrs = [t.data_ptr() for t in (r, k, v, w, u, out, s_last, seg_state, seg_decay)]
+
+                    def call():
+                        if fn(hd, *ptrs, B, H, S, SEGMENT, st, stream) != 0:
+                            raise RuntimeError(f"{item['name']}: launch failed")
+
+                    which = "strong" if strong else "reference"
+                    res[f"ms_{which}"] = events_ms(torch, call)
+                    res[f"max_abs_diff_{which}"] = (out - wkv6_ref(*args)[0]).abs().max().item()
+            print(json.dumps(res), card, flush=True)
+    print(nvidia_smi_line())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

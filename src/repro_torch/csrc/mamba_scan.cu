@@ -10,29 +10,47 @@
 // input term are formed here, so the [B,S,di,N] tensors of the jnp model
 // never exist.
 //
-// What bounds it on this card: at the jamba prefill shape (B=4, S=2048,
-// di=8192, N=16, x in bf16) the call reads dt (fp32) and x once and writes y
-// (fp32), ~0.67 GB, 0.20 ms at 3.35 TB/s, and does ~1.07e9 state updates of
-// one expf and ~6 fp32 operations each, ~0.11 ms at 67 TFLOP/s.  So it is
-// bytes-bound in principle; in practice the recurrence is serial in t, and
-// B*di = 32768 threads are ~8 warps per SM, so the kernel is latency-bound.
-// The design keeps it simple and exact:
-//   * one thread per (b, channel): h[N] and the row of A live in registers,
-//     so the state never leaves the thread;
-//   * blocks of 128 channels; a loop over chunks of 32 tokens inside the
-//     block takes the place of the TPU's sequential grid axis.  Each chunk's
-//     dt and x are staged in shared memory (32 independent loads in flight
-//     per thread, each a coalesced 512-byte row per block), B and C ([32, N])
-//     once per block and read as broadcasts;
-//   * any S: the last chunk is short (the TPU kernel asserts S % chunk == 0);
-//     channels past di (di not a multiple of 128) compute nothing and store
-//     nothing;
-//   * x, B and C come in bf16 or fp32 as the model holds them, B and C as
-//     strided views of the x_proj output (row stride R + 2N), so nothing is
-//     copied or cast before the call;
-//   * accurate expf and fp32 FMAs: the parity bound is 2e-4.
-// Splitting N across lanes (more warps in flight) and prefetching the next
-// chunk are later work.
+// What bounds it on this card, at the jamba prefill shape (B=4, S=2048,
+// di=8192, N=16, x in bf16):
+//   * bytes: dt (fp32) and x read once, y (fp32) written once, ~0.67 GB,
+//     0.20 ms at 3.35 TB/s;
+//   * exponentials: B*S*di*N = 1.07e9 of them, and the special-function unit
+//     does 16 a clock per SM: >= 0.26 ms at 132 SMs x 1.98 GHz, the higher
+//     floor; the ~4 fp32 operations of each state update come to ~0.13 ms.
+// The design answers both, and the latency that held the first port (one
+// thread per channel, ~8 warps per SM, 16-step dependent sums per token):
+//   * N split across lanes: a lane owns states 4g .. 4g+3, N/4 lanes a
+//     channel; and two adjacent channels a lane, two independent
+//     recurrences that share each B and C load.  Jamba's shape runs 65,536
+//     threads, two 256-thread blocks (16 warps) per SM.  One channel a lane
+//     (twice the warps) measured slower on the H100: the per-token loads,
+//     shuffles and stores cost more issue than the extra warps hid.  The
+//     recurrence over t stays sequential in each lane, in the reference's
+//     order;
+//   * y over the N/4 lanes by a reduce-scatter of shuffles over N/4 tokens:
+//     each lane ends with one token's y, 3 shuffles per 4 tokens at N = 16
+//     (an all-reduce would take 8), and y is stored as rows of channels
+//     (full 32-byte sectors);
+//   * one exponential per state update, on the special-function unit with A
+//     pre-scaled by log2(e) (ex2.approx: ~2 ulp, far inside the 2e-4
+//     bound).  The unit is not what binds here: a build with an FMA in place
+//     of ex2 ran barely faster;
+//   * blocks of 128 channels: each chunk of 64 tokens of B and C (fp32 in
+//     shared memory, 8 KB) serves all 128 channels, and dt and x come in
+//     as 512- and 256-byte rows;
+//   * dt and x stream through a ring of two chunks by cp.async (16-byte
+//     pieces, zero-filled past S and di), the next chunk in flight while
+//     one computes; B and C, strided views of the x_proj output, are loaded
+//     a chunk ahead into registers and converted to fp32 on their way to
+//     shared memory.  Inputs whose rows are not 16-byte aligned take plain
+//     loads instead (the same arithmetic).  A build that streams these loads
+//     and the stores of y with no arithmetic takes about 60 % of the kernel's
+//     time: the rest is issue and latency in the update loop;
+//   * any S (the last chunk runs past S on zero dt, which leaves h as it
+//     is) and any di (channels past di compute nothing and store nothing).
+// The time axis is not split: at jamba's shape the split of N and of the
+// channels fills the card, and a parallel scan over t would add combine
+// work on the same pipes without removing one exponential.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,8 +58,11 @@
 
 namespace {
 
-constexpr int kThreads = 128;   // channels per block, one thread each
-constexpr int kT = 32;          // tokens per staged chunk
+constexpr int kCB = 128;        // channels per block
+constexpr int kT = 64;          // tokens per chunk
+constexpr int kStages = 2;      // chunks of dt and x in the cp.async ring
+constexpr int kCPL = 2;         // channels a lane
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const float* dt;
@@ -62,93 +83,282 @@ struct Params {
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-template <int N, typename T>
-__global__ void __launch_bounds__(kThreads) mamba_scan_fwd(const Params p) {
-  // dt and x: each thread reads back only its own column, so these two need
-  // no barrier; B and C are shared by the whole block.  Register arrays in
-  // place of s_dt / s_x would need the token loop fully unrolled (32 x N
-  // expf bodies); that version measured 2x slower on the H100.
-  __shared__ float s_dt[kT][kThreads];
-  __shared__ float s_x[kT][kThreads];
-  __shared__ float s_b[kT][N];
-  __shared__ float s_c[kT][N];
+__device__ __forceinline__ float ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
 
-  const int tid = threadIdx.x, bi = blockIdx.y;
-  const int ch = blockIdx.x * kThreads + tid;
-  const bool active = ch < p.di;
-  const float* dt = p.dt + bi * p.dt_sb + ch;
-  const T* x = static_cast<const T*>(p.x) + bi * p.x_sb + ch;
-  const T* bc = static_cast<const T*>(p.b) + bi * p.b_sb;
-  const T* cc = static_cast<const T*>(p.c) + bi * p.c_sb;
-  float* y = p.y + (long long)bi * p.S * p.di + ch;
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid (src is
+// then any mapped address and is not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int n>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" :: "n"(n)); }
 
-  float a_row[N], h[N];
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    a_row[n] = active ? p.A[(long long)ch * N + n] : 0.f;
-    h[n] = 0.f;
-  }
-  const float d_skip = active ? p.D[ch] : 0.f;
-
-  for (int t0 = 0; t0 < p.S; t0 += kT) {
-    const int len = min(kT, p.S - t0);
-#pragma unroll 8
-    for (int tt = 0; tt < kT; ++tt) {
-      float dv = 0.f, xv = 0.f;
-      if (active && tt < len) {
-        const long long pos = t0 + tt;
-        dv = dt[pos * p.dt_ss];
-        xv = to_float(x[pos * p.x_ss]);
-      }
-      s_dt[tt][tid] = dv;
-      s_x[tt][tid] = xv;
-    }
-    for (int e = tid; e < kT * N; e += kThreads) {
-      const int tt = e / N, n = e % N;
-      float bv = 0.f, cv = 0.f;
-      if (tt < len) {
-        const long long pos = t0 + tt;
-        bv = to_float(bc[pos * p.b_ss + n * p.b_sn]);
-        cv = to_float(cc[pos * p.c_ss + n * p.c_sn]);
-      }
-      s_b[tt][n] = bv;
-      s_c[tt][n] = cv;
-    }
-    __syncthreads();
-
-    for (int tt = 0; tt < len; ++tt) {
-      const float dtv = s_dt[tt][tid], xv = s_x[tt][tid];
-      const float dtx = dtv * xv;
-      float acc = 0.f;
-#pragma unroll
-      for (int n = 0; n < N; ++n) {
-        h[n] = fmaf(expf(dtv * a_row[n]), h[n], dtx * s_b[tt][n]);
-        acc = fmaf(h[n], s_c[tt][n], acc);
-      }
-      if (active) y[(long long)(t0 + tt) * p.di] = fmaf(d_skip, xv, acc);
-    }
-    __syncthreads();          // every read of this chunk's B and C is done
-  }
-
-  if (active) {
-    float* h_out = p.h_last + ((long long)bi * p.di + ch) * N;
-#pragma unroll
-    for (int n = 0; n < N; ++n) h_out[n] = h[n];
+// p[j] is this lane's part of y at token j of a group of L tokens, over its 4
+// states; the L lanes of a channel (g = lane's state group) exchange halves
+// so that lane g ends with the whole y of token g:
+// y = (p_0 + p_2) + (p_1 + p_3) at L = 4, the same order in every lane.
+template <int L>
+__device__ __forceinline__ float reduce_scatter(const float (&p)[L], int g) {
+  if constexpr (L == 1) {
+    return p[0];
+  } else if constexpr (L == 2) {
+    const bool hi = g & 1;
+    return (hi ? p[1] : p[0]) + __shfl_xor_sync(0xffffffffu, hi ? p[0] : p[1], 1);
+  } else {
+    static_assert(L == 4, "1, 2 or 4 lanes of 4 states: N is 4, 8 or 16");
+    const bool hi2 = g & 2, hi1 = g & 1;
+    const float q0 = (hi2 ? p[2] : p[0]) + __shfl_xor_sync(0xffffffffu, hi2 ? p[0] : p[2], 2);
+    const float q1 = (hi2 ? p[3] : p[1]) + __shfl_xor_sync(0xffffffffu, hi2 ? p[1] : p[3], 2);
+    return (hi1 ? q1 : q0) + __shfl_xor_sync(0xffffffffu, hi1 ? q0 : q1, 1);
   }
 }
 
 template <int N, typename T>
+struct Smem {
+  static constexpr size_t DT = 0;                                          // float [kStages][kT][kCB]
+  static constexpr size_t X = DT + sizeof(float) * kStages * kT * kCB;     // T [kStages][kT][kCB]
+  static constexpr size_t BC = X + sizeof(T) * kStages * kT * kCB;         // float [2][kT][N/4][8]
+  static constexpr size_t BYTES = BC + sizeof(float) * 2 * kT * 2 * N;
+};
+
+// C adjacent channels of one token row (16 bytes at most, aligned to its size).
+template <int C>
+__device__ __forceinline__ void load_ch(float (&d)[C], const float* p) {
+  if constexpr (C == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+  } else if constexpr (C == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    d[0] = v.x; d[1] = v.y;
+  } else {
+    d[0] = *p;
+  }
+}
+template <int C>
+__device__ __forceinline__ void load_ch(float (&d)[C], const __nv_bfloat16* p) {
+  if constexpr (C == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+    d[0] = lo.x; d[1] = lo.y; d[2] = hi.x; d[3] = hi.y;
+  } else if constexpr (C == 2) {
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    d[0] = v.x; d[1] = v.y;
+  } else {
+    d[0] = __bfloat162float(*p);
+  }
+}
+template <int C>
+__device__ __forceinline__ void store_ch(float* p, const float (&v)[C]) {
+  if constexpr (C == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (C == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// One block: kCB channels of one batch row, all S tokens.  Thread tid owns
+// kCPL adjacent channels, from kCPL * (tid / L) of the block, and states
+// 4g .. 4g+3 of each, g = tid % L: kCPL independent recurrences that share
+// each token's B and C.  VEC: dt and x rows are 16-byte aligned and di fills
+// whole 16-byte pieces, so they stream by cp.async; otherwise by plain loads.
+template <int N, typename T, bool VEC>
+__global__ void __launch_bounds__(kCB / kCPL * N / 4, 2)
+mamba_scan_fwd(const Params p) {
+  constexpr int L = N / 4;                  // lanes a channel
+  constexpr int C = kCPL;
+  constexpr int NT = kCB / C * L;           // threads
+  constexpr int EPP = 16 / sizeof(T);       // x elements a 16-byte piece
+  constexpr int BC_PER = kT * N / NT;       // B (and C) elements a thread stages per chunk
+  using Sm = Smem<N, T>;
+  static_assert((kT * kCB / 4) % NT == 0 && (kT * kCB / EPP) % NT == 0 &&
+                (kT * kCB) % NT == 0 && (kT * N) % NT == 0, "whole pieces a thread");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float(*s_dt)[kT][kCB] = reinterpret_cast<float(*)[kT][kCB]>(smem + Sm::DT);
+  T(*s_x)[kT][kCB] = reinterpret_cast<T(*)[kT][kCB]>(smem + Sm::X);
+  float(*s_bc)[kT][L][8] = reinterpret_cast<float(*)[kT][L][8]>(smem + Sm::BC);
+
+  const int tid = threadIdx.x, g = tid % L, cl = C * (tid / L);
+  const int bi = blockIdx.y, ch0 = blockIdx.x * kCB, ch = ch0 + cl;
+  const int S = p.S, di = p.di;
+  const int n_chunks = (S + kT - 1) / kT;
+  const float* dt = p.dt + bi * p.dt_sb;
+  const T* x = static_cast<const T*>(p.x) + bi * p.x_sb;
+  const T* bc = static_cast<const T*>(p.b) + bi * p.b_sb;
+  const T* cc = static_cast<const T*>(p.c) + bi * p.c_sb;
+
+  float a2[C][4], h[C][4], d_skip[C];       // A * log2(e), the state, D
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const bool act = ch + c < di;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      a2[c][j] = act ? p.A[static_cast<long long>(ch + c) * N + 4 * g + j] * kLog2e : 0.f;
+      h[c][j] = 0.f;
+    }
+    d_skip[c] = act ? p.D[ch + c] : 0.f;
+  }
+
+  // dt and x of chunk k into ring slot k % kStages, one commit group (empty
+  // past the last chunk, so that the wait below counts groups uniformly)
+  auto issue = [&](int k) {
+    if (k < n_chunks) {
+      const int st = k % kStages, t0 = k * kT;
+      if constexpr (VEC) {
+#pragma unroll
+        for (int q = 0; q < kT * kCB / 4 / NT; ++q) {
+          const int e = tid + q * NT, tt = e / (kCB / 4), c4 = 4 * (e % (kCB / 4));
+          const bool ok = t0 + tt < S && ch0 + c4 < di;
+          cp_async16(&s_dt[st][tt][c4], ok ? dt + (t0 + tt) * p.dt_ss + ch0 + c4 : dt, ok);
+        }
+#pragma unroll
+        for (int q = 0; q < kT * kCB / EPP / NT; ++q) {
+          const int e = tid + q * NT, tt = e / (kCB / EPP), c8 = EPP * (e % (kCB / EPP));
+          const bool ok = t0 + tt < S && ch0 + c8 < di;
+          cp_async16(&s_x[st][tt][c8], ok ? x + (t0 + tt) * p.x_ss + ch0 + c8 : x, ok);
+        }
+      } else {
+        for (int q = 0; q < kT * kCB / NT; ++q) {
+          const int e = tid + q * NT, tt = e / kCB, c1 = e % kCB;
+          const bool ok = t0 + tt < S && ch0 + c1 < di;
+          s_dt[st][tt][c1] = ok ? dt[(t0 + tt) * p.dt_ss + ch0 + c1] : 0.f;
+          s_x[st][tt][c1] = ok ? x[(t0 + tt) * p.x_ss + ch0 + c1] : T(0.f);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // B and C of chunk k, BC_PER elements of each a thread, into registers,
+  // then as fp32 into buffer k & 1, laid out [token][state group][B0..3 C0..3]
+  float pb[BC_PER], pcv[BC_PER];
+  auto fetch_bc = [&](int k) {
+#pragma unroll
+    for (int q = 0; q < BC_PER; ++q) {
+      const int e = tid + q * NT, pos = k * kT + e / N, n = e % N;
+      const bool ok = k < n_chunks && pos < S;
+      pb[q] = ok ? to_float(bc[pos * p.b_ss + n * p.b_sn]) : 0.f;
+      pcv[q] = ok ? to_float(cc[pos * p.c_ss + n * p.c_sn]) : 0.f;
+    }
+  };
+  auto stash_bc = [&](int k) {
+#pragma unroll
+    for (int q = 0; q < BC_PER; ++q) {
+      const int e = tid + q * NT, tt = e / N, n = e % N;
+      s_bc[k & 1][tt][n / 4][n % 4] = pb[q];
+      s_bc[k & 1][tt][n / 4][4 + n % 4] = pcv[q];
+    }
+  };
+
+#pragma unroll
+  for (int k = 0; k < kStages - 1; ++k) issue(k);
+  fetch_bc(0);
+  stash_bc(0);
+  fetch_bc(1);
+
+  // y of token t0 + tt + g (row yt, one group of L tokens on at a time): one
+  // vector store where the thread's channels are all in range and the row
+  // offsets keep it aligned (di % C == 0)
+  float* yt = p.y + (static_cast<long long>(bi) * S + g) * di + ch;
+  const long long y_step = static_cast<long long>(L) * di;
+  const bool vec_store = ch + C <= di && di % C == 0;
+
+  for (int k = 0; k < n_chunks; ++k) {
+    cp_async_wait<kStages - 2>();       // this thread's pieces of chunk k landed
+    __syncthreads();                    // everyone's landed; chunk k - 1 is done with
+    issue(k + kStages - 1);             // into the slot chunk k - 1 used
+    const int st = k % kStages, t0 = k * kT;
+    const float(*bck)[L][8] = s_bc[k & 1];
+
+#pragma unroll 2
+    for (int tt = 0; tt < kT; tt += L) {
+      float part[C][L];
+#pragma unroll
+      for (int j = 0; j < L; ++j) {
+        float dtv[C], xv[C], dx[C];
+        load_ch(dtv, &s_dt[st][tt + j][cl]);
+        load_ch(xv, &s_x[st][tt + j][cl]);
+        const float4 bb = *reinterpret_cast<const float4*>(&bck[tt + j][g][0]);
+        const float4 cv = *reinterpret_cast<const float4*>(&bck[tt + j][g][4]);
+#pragma unroll
+        for (int c = 0; c < C; ++c) dx[c] = dtv[c] * xv[c];
+#pragma unroll
+        for (int c = 0; c < C; ++c) h[c][0] = fmaf(ex2(dtv[c] * a2[c][0]), h[c][0], dx[c] * bb.x);
+#pragma unroll
+        for (int c = 0; c < C; ++c) h[c][1] = fmaf(ex2(dtv[c] * a2[c][1]), h[c][1], dx[c] * bb.y);
+#pragma unroll
+        for (int c = 0; c < C; ++c) h[c][2] = fmaf(ex2(dtv[c] * a2[c][2]), h[c][2], dx[c] * bb.z);
+#pragma unroll
+        for (int c = 0; c < C; ++c) h[c][3] = fmaf(ex2(dtv[c] * a2[c][3]), h[c][3], dx[c] * bb.w);
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          part[c][j] = fmaf(cv.w, h[c][3], fmaf(cv.z, h[c][2], fmaf(cv.y, h[c][1], cv.x * h[c][0])));
+      }
+      float xg[C], yv[C];                 // x and y of this lane's token, tt + g
+      load_ch(xg, &s_x[st][tt + g][cl]);
+#pragma unroll
+      for (int c = 0; c < C; ++c) yv[c] = fmaf(d_skip[c], xg[c], reduce_scatter<L>(part[c], g));
+      if (t0 + tt + g < S) {
+        if (vec_store) {
+          store_ch(yt, yv);
+        } else {
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+            if (ch + c < di) yt[c] = yv[c];
+        }
+      }
+      yt += y_step;
+    }
+
+    stash_bc(k + 1);                    // buffer (k + 1) & 1 was last read in chunk k - 1
+    fetch_bc(k + 2);
+  }
+  cp_async_wait<0>();
+
+  float* h_out = p.h_last + (static_cast<long long>(bi) * di + ch) * N + 4 * g;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (ch + c < di)
+      *reinterpret_cast<float4*>(h_out + c * N) = make_float4(h[c][0], h[c][1], h[c][2], h[c][3]);
+}
+
+template <int N, typename T, bool VEC>
 int launch(const Params& p, cudaStream_t stream) {
-  dim3 grid((p.di + kThreads - 1) / kThreads, p.B);
-  mamba_scan_fwd<N, T><<<grid, kThreads, 0, stream>>>(p);
+  constexpr size_t smem = Smem<N, T>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(mamba_scan_fwd<N, T, VEC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.di + kCB - 1) / kCB, p.B);
+  mamba_scan_fwd<N, T, VEC><<<grid, kCB / kCPL * N / 4, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int N, typename T>
+int launch_t(const Params& p, cudaStream_t stream) {
+  // cp.async takes 16-byte pieces: rows 16-byte aligned, di whole pieces
+  constexpr long long epp = 16 / sizeof(T);
+  const bool vec = reinterpret_cast<uintptr_t>(p.dt) % 16 == 0 && p.dt_sb % 4 == 0 &&
+                   p.dt_ss % 4 == 0 && p.di % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(p.x) % 16 == 0 && p.x_sb % epp == 0 &&
+                   p.x_ss % epp == 0 && p.di % epp == 0;
+  return vec ? launch<N, T, true>(p, stream) : launch<N, T, false>(p, stream);
 }
 
 template <int N>
 int launch_n(int x_dtype, const Params& p, cudaStream_t stream) {
   switch (x_dtype) {
-    case 0: return launch<N, float>(p, stream);
-    case 1: return launch<N, __nv_bfloat16>(p, stream);
+    case 0: return launch_t<N, float>(p, stream);
+    case 1: return launch_t<N, __nv_bfloat16>(p, stream);
   }
   return -1;
 }

@@ -15,7 +15,19 @@
 //     S     = diag(exp(clw_T)) S + (k * exp(clw_T - clw))^T v
 // The exponents are re-based in every chunk, so exp() stays bounded by one
 // chunk's decay; that bound grows exponentially with T, which is why T stays
-// at the reference's 32 (PERF.md).
+// at the reference's 32 (PERF.md).  Even so kt = k * exp(-clw) overflows
+// fp32 once a chunk's decay sums below ~-88 (w < ~0.06 a token), and
+// rt kt^T turns to 0 * inf = NaN.  So a chunk whose block holds a log decay
+// below kStrongLogw (-2; the guard rides on a barrier the loop has anyway)
+// computes the a tile in the strong-decay form instead (strong_a_tile):
+// each pair's decay split at the first token of the later 4-token block,
+// pairs inside a block one by one, every factor <= 1 (the secondary
+// chunking of the GLA / RWKV-6 kernels of flash-linear-attention), the
+// exponents from sums inside the blocks; and kd's decays summed from the
+// chunk's end (strong_scan).  Every other factor (rt, exp(clw_T)) is <= 1
+// in either form.  Exact for every finite logw <= 0, and within a few times
+// the fp32 plain version's distance from a float64 run.  Both functions
+// are __noinline__ so that their registers stay out of the common path.
 //
 // What bounds it on this card: at the rwkv6-3b prefill shape (B=4, H=40,
 // S=2048, hd=64) the call reads r, k, v, logw and writes out, 5 x 84 MB, and
@@ -62,6 +74,10 @@ namespace {
 
 constexpr int kT = 32;          // tokens per chunk: one per lane of a warp
 constexpr int kPad = 4;         // row padding (floats): keeps float4 alignment
+// A chunk whose log decays all lie at or above this keeps every cumulative
+// sum above 32 * -2 = -64, so exp(-clw) <= 6e27 and exp(clw) stays normal:
+// the factored a tile is exact to rounding.  Below it, the strong-decay form.
+constexpr float kStrongLogw = -2.f;
 
 struct Params {
   const float* r;
@@ -119,8 +135,8 @@ struct Smem {
   static constexpr int LD = kT + kPad;        // channel-major / token-major rows of 32
   static constexpr int LDV = HD + kPad;       // token-major / state rows of hd
   static constexpr int NW = 4 * HD / 32;      // warps
-  static constexpr int RT = 0;                               // [HD][LD] r, then rt
-  static constexpr int KT = RT + HD * LD;                    // [HD][LD] k, then kt
+  static constexpr int RT = 0;                               // [HD][LD] rt (pass 3)
+  static constexpr int KT = RT + HD * LD;                    // [HD][LD] k (pass 1), kt (pass 3)
   static constexpr int LW = KT + HD * LD;                    // [HD][LD] logw
   static constexpr int VS = LW + HD * LD;                    // [kT][LDV] v
   static constexpr int KD = VS + kT * LDV;                   // [kT][LDV] kd, token-major
@@ -128,8 +144,151 @@ struct Smem {
   static constexpr int SM = AT + kT * LD;                    // [HD][LDV] state mirror
   static constexpr int DPART = SM + HD * LDV;                // [NW][kT] u-bonus partials
   static constexpr int ETOT = DPART + NW * kT;               // [HD] exp(clw_T)
-  static constexpr size_t BYTES = (ETOT + HD) * sizeof(float);
+  static constexpr int RR = ETOT + HD;                       // [HD][LD] r (pass 3)
+  static constexpr int KR = RR + HD * LD;                    // [HD][LD] k (pass 3)
+  static constexpr int EX = KR + HD * LD;                    // [HD][LD] strong decays: exclusive sums
+  static constexpr size_t BYTES_STATE = RR * sizeof(float);  // pass 1
+  static constexpr size_t BYTES = (EX + HD * LD) * sizeof(float);
 };
+
+constexpr int kLD = kT + kPad;     // rows of 32 tokens (Smem::LD)
+
+// Column s = bs .. bs+3, rows t = bt .. bt+3 of the a tile from a 4 x 4
+// block of r . k sums: the sum where s < t, the u-bonus (summed over the NW
+// warps' partials) where s == t, 0 above the diagonal.
+template <int NW>
+__device__ __forceinline__ void store_a_block(float (*at)[kLD], float (*dpart)[kT],
+                                              const float (&acc)[4][4], int bt, int bs) {
+#pragma unroll
+  for (int y = 0; y < 4; ++y) {
+    const int s = bs + y;
+    float col[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int t = bt + x;
+      float d = 0.f;
+      if (s == t) {
+#pragma unroll
+        for (int w = 0; w < NW; ++w) d += dpart[w][t];
+      }
+      col[x] = s < t ? acc[x][y] : d;
+    }
+    store_row(&at[s][bt], col);
+  }
+}
+
+// The decays of a chunk with strong decays, by the whole block, from logw
+// (lwc) and k as loaded (kin), each warp over its channels, lane = token:
+//   * kd again, its decay exp(sum of logw over t+1 .. 31) summed from the
+//     chunk's end (a scan down the lanes) rather than as clw_T - clw, a
+//     difference of two large sums that loses the small terms after them;
+//   * pass 3: the cumulative log decay inside each 4-token block (lane & 3
+//     is the place in the block), inclusive into lwc and exclusive into
+//     exc, the second shifted from the first so that equal sums are
+//     bit-equal, for strong_a_tile.
+template <int HD, bool OUT>
+__device__ __noinline__ void strong_scan(float (*lwc)[kLD], float (*exc)[kLD], float (*kin)[kLD],
+                                         float (*kd)[HD + kPad], int tid) {
+  constexpr int NW = 4 * HD / 32, CPW = HD / NW;
+  const int lane = tid & 31, warp = tid >> 5, pos = lane & 3;
+  float w[CPW], suf[CPW];
+#pragma unroll
+  for (int m = 0; m < CPW; ++m) suf[m] = w[m] = lwc[warp + NW * m][lane];
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+    for (int m = 0; m < CPW; ++m) {
+      const float y = __shfl_down_sync(0xffffffffu, suf[m], off);
+      if (lane + off < 32) suf[m] += y;
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < CPW; ++m) {
+    const int i = warp + NW * m;
+    const float after = __shfl_down_sync(0xffffffffu, suf[m], 1);
+    kd[lane][i] = kin[i][lane] * expf(lane == 31 ? 0.f : after);
+    if (OUT) {
+      float inc = w[m];
+      float up = __shfl_up_sync(0xffffffffu, inc, 1);
+      if (pos >= 1) inc += up;
+      up = __shfl_up_sync(0xffffffffu, inc, 2);
+      if (pos >= 2) inc += up;
+      const float prev = __shfl_up_sync(0xffffffffu, inc, 1);
+      lwc[i][lane] = inc;
+      exc[i][lane] = pos == 0 ? 0.f : prev;
+    }
+  }
+}
+
+// The a tile of a chunk with strong decays, by the whole block: P = NT / 64
+// threads a 4 x 4 block, each over HD / P channels, summed with shuffles.
+// A pair s < t carries exp(D), D = sum of logw over s+1 .. t-1.  With c and
+// cx the inclusive and exclusive cumulative log decay inside each 4-token
+// block (lwc, exc) and T_b = c at the block's last token, D is taken as
+//   cx_t + ((T_bs - c_s) + sum of T_b over the blocks between)
+//       with exp(cx_t) on r_t and the rest on k_s,   for s < bt <= t,
+//   cx_t - c_s, pair by pair,                         for s, t in one block.
+// Every exponent is <= 0 (underflow to 0 is right, nothing overflows) and a
+// sum of terms of one sign or of a block's own sums, so it keeps fp32's
+// relative precision: differences of sums over the whole chunk would lose
+// it wherever large decays come before small ones.  r and k come as they
+// are (rraw, kraw).
+template <int HD>
+__device__ __noinline__ void strong_a_tile(float (*rraw)[kLD], float (*exc)[kLD], float (*kraw)[kLD],
+                                           float (*lwc)[kLD], float (*dpart)[kT], float (*at)[kLD],
+                                           int tid) {
+  constexpr int NT = 4 * HD, P = NT / 64;
+  const int blk = tid / P, q = tid % P;
+  const int bt = 4 * (blk % 8), bs = 4 * (blk / 8);
+  float acc[4][4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+#pragma unroll
+    for (int y = 0; y < 4; ++y) acc[x][y] = 0.f;
+  if (bs < bt) {
+#pragma unroll 1
+    for (int i = q; i < HD; i += P) {
+      float r4[4], e4[4], k4[4], c4[4];
+      load_row(r4, &rraw[i][bt]);
+      load_row(e4, &exc[i][bt]);
+      load_row(k4, &kraw[i][bs]);
+      load_row(c4, &lwc[i][bs]);
+      float between = 0.f;                    // the totals of the blocks between
+#pragma unroll
+      for (int b = 1; b < kT / 4 - 1; ++b)
+        if (bs + 4 * b < bt) between += lwc[i][bs + 4 * b + 3];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) r4[x] *= expf(e4[x]);
+#pragma unroll
+      for (int y = 0; y < 4; ++y) k4[y] *= expf((c4[3] - c4[y]) + between);
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+#pragma unroll
+        for (int y = 0; y < 4; ++y) acc[x][y] = fmaf(r4[x], k4[y], acc[x][y]);
+    }
+  } else if (bs == bt) {
+#pragma unroll 1
+    for (int i = q; i < HD; i += P) {
+      float r4[4], e4[4], k4[4], c4[4];
+      load_row(r4, &rraw[i][bt]);
+      load_row(e4, &exc[i][bt]);
+      load_row(k4, &kraw[i][bs]);
+      load_row(c4, &lwc[i][bs]);
+#pragma unroll
+      for (int x = 1; x < 4; ++x)
+#pragma unroll
+        for (int y = 0; y < x; ++y)
+          acc[x][y] = fmaf(r4[x] * k4[y], expf(e4[x] - c4[y]), acc[x][y]);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < P; off <<= 1)
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int y = 0; y < 4; ++y) acc[x][y] += __shfl_xor_sync(0xffffffffu, acc[x][y], off);
+  if (q == 0) store_a_block<NT / 32>(at, dpart, acc, bt, bs);
+}
 
 // Passes 1 (OUT = false: state only, from zero, for segments but the last)
 // and 3 (OUT = true: out from S_in; the last segment writes S_last).
@@ -160,6 +319,10 @@ __global__ void __launch_bounds__(4 * HD, 2) wkv6_segment(const Params p) {
   float(*kd)[LDV] = reinterpret_cast<float(*)[LDV]>(smem + L::KD);
   float(*at)[LD] = reinterpret_cast<float(*)[LD]>(smem + L::AT);
   float(*sm)[LDV] = reinterpret_cast<float(*)[LDV]>(smem + L::SM);
+  float(*rraw)[LD] = reinterpret_cast<float(*)[LD]>(smem + L::RR);
+  float(*kraw)[LD] = reinterpret_cast<float(*)[LD]>(smem + L::KR);
+  float(*kin)[LD] = OUT ? kraw : kt;          // k as loaded
+  float(*exc)[LD] = reinterpret_cast<float(*)[LD]>(smem + L::EX);
   float(*dpart)[kT] = reinterpret_cast<float(*)[kT]>(smem + L::DPART);
   float* etot = smem + L::ETOT;
 
@@ -224,7 +387,8 @@ __global__ void __launch_bounds__(4 * HD, 2) wkv6_segment(const Params p) {
       pv[m] = vpos < t_end ? *reinterpret_cast<const float4*>(v + vpos * p.v_ss + vj) : z;
     }
   };
-  auto stash = [&]() {
+  auto stash = [&]() {                        // returns the least log w it stored
+    float lw_min = 0.f;
 #pragma unroll
     for (int m = 0; m < 2; ++m) {
       const int e = tid + m * NT;
@@ -232,19 +396,23 @@ __global__ void __launch_bounds__(4 * HD, 2) wkv6_segment(const Params p) {
       const int tt = (e & 15) + 16 * (q / (HD / 4)), i = (q % (HD / 4)) * 4;
       const int vt = e / (HD / 4), vj = (e % (HD / 4)) * 4;
       if (OUT) {
-        rt[i][tt] = pr[m].x; rt[i + 1][tt] = pr[m].y; rt[i + 2][tt] = pr[m].z; rt[i + 3][tt] = pr[m].w;
+        rraw[i][tt] = pr[m].x; rraw[i + 1][tt] = pr[m].y; rraw[i + 2][tt] = pr[m].z; rraw[i + 3][tt] = pr[m].w;
       }
-      kt[i][tt] = pk[m].x; kt[i + 1][tt] = pk[m].y; kt[i + 2][tt] = pk[m].z; kt[i + 3][tt] = pk[m].w;
+      kin[i][tt] = pk[m].x; kin[i + 1][tt] = pk[m].y; kin[i + 2][tt] = pk[m].z; kin[i + 3][tt] = pk[m].w;
       lwc[i][tt] = pw[m].x; lwc[i + 1][tt] = pw[m].y; lwc[i + 2][tt] = pw[m].z; lwc[i + 3][tt] = pw[m].w;
       *reinterpret_cast<float4*>(&vs[vt][vj]) = pv[m];
+      lw_min = fminf(lw_min, fminf(fminf(pw[m].x, pw[m].y), fminf(pw[m].z, pw[m].w)));
     }
+    return lw_min;
   };
 
   if (n_chunks > 0) fetch(0);
   for (int c = 0; c < n_chunks; ++c) {
     const int t0 = t_begin + c * kT;
-    stash();
-    __syncthreads();
+    const float lw_min = stash();
+    // strong: some log decay of this chunk, in any channel of the block, lies
+    // below kStrongLogw (block-uniform, from the barrier itself)
+    const bool strong = __syncthreads_or(lw_min < kStrongLogw);
     if (c + 1 < n_chunks) fetch(c + 1);       // in flight while this chunk computes
 
     // ---- per-channel cumulative decay (warp scan, lane = token) and factors;
@@ -255,8 +423,8 @@ __global__ void __launch_bounds__(4 * HD, 2) wkv6_segment(const Params p) {
     for (int m = 0; m < CPW; ++m) {
       const int i = warp + NW * m;
       w[m] = x[m] = lwc[i][lane];
-      ki[m] = kt[i][lane];
-      ri[m] = OUT ? rt[i][lane] : 0.f;
+      ki[m] = kin[i][lane];
+      ri[m] = OUT ? rraw[i][lane] : 0.f;
     }
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
@@ -281,13 +449,17 @@ __global__ void __launch_bounds__(4 * HD, 2) wkv6_segment(const Params p) {
       kd[lane][i] = ki[m] * expf(total - x[m]);
       if (lane == 0) etot[i] = expf(total);
     }
+    if (strong) strong_scan<HD, OUT>(lwc, exc, kin, kd, tid);
     if (OUT) dpart[warp][lane] = diag;
     __syncthreads();
 
     if (OUT) {
       // ---- at[s][t] = rt_t . kt_s for s < t, the u-bonus for s == t, else
-      // 0: 4 x 4 blocks of the lower triangle, one per thread of the first 64
-      if (tid < 64) {
+      // 0: 4 x 4 blocks of the lower triangle, one per thread of the first
+      // 64; strong decays take their own form (strong_a_tile)
+      if (strong) {
+        strong_a_tile<HD>(rraw, exc, kraw, lwc, dpart, at, tid);
+      } else if (tid < 64) {
         const int bt = 4 * (tid % 8), bs = 4 * (tid / 8);
         float acc[4][4];
 #pragma unroll
@@ -306,22 +478,7 @@ __global__ void __launch_bounds__(4 * HD, 2) wkv6_segment(const Params p) {
               for (int y = 0; y < 4; ++y) acc[x][y] = fmaf(rr[x], kk[y], acc[x][y]);
           }
         }
-#pragma unroll
-        for (int y = 0; y < 4; ++y) {
-          const int s = bs + y;
-          float col[4];
-#pragma unroll
-          for (int x = 0; x < 4; ++x) {
-            const int t = bt + x;
-            float d = 0.f;
-            if (s == t) {
-#pragma unroll
-              for (int w = 0; w < NW; ++w) d += dpart[w][t];
-            }
-            col[x] = s < t ? acc[x][y] : d;
-          }
-          store_row(&at[s][bt], col);
-        }
+        store_a_block<NW>(at, dpart, acc, bt, bs);
       }
       __syncthreads();
     }
@@ -430,13 +587,13 @@ __global__ void wkv6_carry(const Params p) {
 
 template <int HD>
 int launch(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = Smem<HD>::BYTES;
+  constexpr size_t smem = Smem<HD>::BYTES, smem_state = Smem<HD>::BYTES_STATE;
   cudaError_t err;
   if (p.n_seg > 1) {
-    err = cudaFuncSetAttribute(wkv6_segment<HD, false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    err = cudaFuncSetAttribute(wkv6_segment<HD, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_state));
     if (err != cudaSuccess) return err;
-    wkv6_segment<HD, false><<<dim3(p.n_seg - 1, p.H, p.B), 4 * HD, smem, stream>>>(p);
+    wkv6_segment<HD, false><<<dim3(p.n_seg - 1, p.H, p.B), 4 * HD, smem_state, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const long long n = static_cast<long long>(p.B) * p.H * HD * HD;
     wkv6_carry<HD><<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(p);
@@ -482,12 +639,13 @@ extern "C" int repro_wkv6_fwd(int head_dim, const void* r, const void* k, const 
   return -1;
 }
 
-// Dynamic shared memory of the segment kernels at a head dim (bytes), or -1.
-extern "C" long long repro_wkv6_smem_bytes(int head_dim) {
+// Dynamic shared memory of a segment kernel (out_pass: pass 3, else pass 1)
+// at a head dim (bytes), or -1.
+extern "C" long long repro_wkv6_smem_bytes(int head_dim, int out_pass) {
   switch (head_dim) {
-    case 16: return static_cast<long long>(Smem<16>::BYTES);
-    case 32: return static_cast<long long>(Smem<32>::BYTES);
-    case 64: return static_cast<long long>(Smem<64>::BYTES);
+    case 16: return static_cast<long long>(out_pass ? Smem<16>::BYTES : Smem<16>::BYTES_STATE);
+    case 32: return static_cast<long long>(out_pass ? Smem<32>::BYTES : Smem<32>::BYTES_STATE);
+    case 64: return static_cast<long long>(out_pass ? Smem<64>::BYTES : Smem<64>::BYTES_STATE);
   }
   return -1;
 }

@@ -33,3 +33,38 @@ def mamba_scan_ref(dt, x, A, Bc, Cc, D):
     for t in range(S):
         h, y[:, t] = scan_step(h, dt[:, t], x[:, t], A, Bc[:, t], Cc[:, t])
     return y + D * x, h
+
+
+def mamba_scan_lanes_ref(dt, x, A, Bc, Cc, D):
+    """The CUDA kernel's order of operations, in plain PyTorch: the same
+    ``(y, h_last)`` as :func:`mamba_scan_ref`, computed as
+    ``csrc/mamba_scan.cu`` computes it.  Only the tests use it, to hold that
+    order against the reference on the CPU.
+
+    The states of a channel are split into groups of 4 (one lane each on the
+    card).  Each group runs the recurrence token by token in the reference's
+    order, with the decay ``exp2(dt * (A log2 e))`` and ``A log2 e`` rounded
+    to fp32 first, and sums ``C . h`` over its 4 states; y adds the groups'
+    sums pairwise, ``(p_0 + p_2) + (p_1 + p_3)`` for 4 groups and ``p_0 + p_1``
+    for 2 (the lanes' reduce-scatter), then ``D x``.
+    """
+    B, S, di = x.shape
+    N = A.shape[1]
+    if N % 4 or N // 4 not in (1, 2, 4):
+        raise ValueError(f"state size {N}: the kernel's lanes take N = 4, 8 or 16")
+    dt, x, A, Bc, Cc, D = (t.to(torch.float32) for t in (dt, x, A, Bc, Cc, D))
+    A2 = A * torch.tensor(1.4426950408889634, dtype=torch.float32)
+    h = torch.zeros(B, di, N, dtype=torch.float32, device=x.device)
+    y = torch.empty(B, S, di, dtype=torch.float32, device=x.device)
+    for t in range(S):
+        dt_t = dt[:, t, :, None]
+        h = torch.exp2(dt_t * A2) * h + (dt[:, t] * x[:, t])[:, :, None] * Bc[:, t, None, :]
+        ch = (h * Cc[:, t, None, :]).reshape(B, di, N // 4, 4)      # [B, di, group, state]
+        part = ((ch[..., 0] + ch[..., 1]) + ch[..., 2]) + ch[..., 3]   # [B, di, N/4]
+        if N == 16:
+            y[:, t] = (part[..., 0] + part[..., 2]) + (part[..., 1] + part[..., 3])
+        elif N == 8:
+            y[:, t] = part[..., 0] + part[..., 1]
+        else:
+            y[:, t] = part[..., 0]
+    return y + D * x, h

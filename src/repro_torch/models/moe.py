@@ -100,12 +100,16 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def moe_ffn_dense_fallback(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Every-token-through-every-expert oracle (tests only: exact, slow)."""
+    """Every-token-through-every-expert oracle (tests only: exact, slow).  As
+    in the reference, the per-expert outputs stay fp32 (the second product
+    of the hidden activations, cast to x's dtype, returns fp32) and only the
+    combined sum is cast to x's dtype."""
     B, S, d = x.shape
     xf = x.reshape(-1, d)
     gates, sel = _route(params, xf, cfg)
-    per_e = _expert_ffn(params, xf.expand(cfg.moe.n_experts, -1, -1), cfg.ffn_gated)
+    hidden = _expert_hidden(params, xf.expand(cfg.moe.n_experts, -1, -1), cfg.ffn_gated)
+    per_e = _products_fp32(hidden.to(x.dtype), params["w2"])          # [E, T, d] fp32
     w = torch.zeros(xf.shape[0], cfg.moe.n_experts, device=x.device).scatter_add_(
         1, sel, gates)                                    # [T, E]
-    out = torch.einsum("etd,te->td", per_e.float(), w)
+    out = torch.einsum("etd,te->td", per_e, w)
     return out.reshape(B, S, d).to(x.dtype)

@@ -6,6 +6,8 @@ JAX package, so it also runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import math
+
 import pytest
 import torch
 
@@ -157,14 +159,22 @@ WKV_GPU_CASES = [
 WKV_ROW_REL_TOL = 1e-3
 
 
-def _wkv_inputs(device, B, H, S, hd, seed=0):
+def _wkv_inputs(device, B, H, S, hd, seed=0, strong=False):
     """r, k, v normal; decay uniform in (0.7, 0.999) as log w; u * 0.3 (the
-    reference's test distribution)."""
+    reference's test distribution).  ``strong``: decay log-uniform in
+    [1e-3, 0.999] instead, channels 3, 19, ... pinned at log w = -50, whose
+    32-token sums overflow exp in fp32."""
     g = torch.Generator(device=device).manual_seed(seed)
     r, k, v = (torch.randn(B, H, S, hd, generator=g, device=device) for _ in range(3))
-    w = 0.7 + 0.299 * torch.rand(B, H, S, hd, generator=g, device=device)
+    draw = torch.rand(B, H, S, hd, generator=g, device=device)
+    if strong:
+        lo, hi = math.log(1e-3), math.log(0.999)
+        logw = lo + (hi - lo) * draw
+        logw[..., 3::16] = -50.0
+    else:
+        logw = torch.log(0.7 + 0.299 * draw)
     u = 0.3 * torch.randn(H, hd, generator=g, device=device)
-    return r, k, v, torch.log(w), u
+    return r, k, v, logw, u
 
 
 def _assert_wkv_close(got, want):
@@ -175,12 +185,14 @@ def _assert_wkv_close(got, want):
         assert (row_err <= WKV_ROW_REL_TOL * row_rms).all(), (row_err / row_rms).max().item()
 
 
+@pytest.mark.parametrize("strong", [False, True], ids=["reference", "strong_decays"])
 @pytest.mark.parametrize("case", WKV_GPU_CASES)
-def test_wkv6_kernel_matches_plain(cuda_device, case):
-    args = _wkv_inputs(cuda_device, *case)
+def test_wkv6_kernel_matches_plain(cuda_device, case, strong):
+    args = _wkv_inputs(cuda_device, *case, strong=strong)
     got = wkv6_kernel(*args)
     want = wkv6_ref(*args)
     torch.cuda.synchronize()
+    assert torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
     _assert_wkv_close(got, want)
 
 
@@ -205,11 +217,15 @@ def test_wkv6_kernel_counts_launches(cuda_device):
 
 # (B, S, di, N): tests/test_kernels.py MAMBA_CASES, then ragged lengths (no
 # multiple of the 32-token chunk), one token, d_inner no multiple of the
-# 128-channel block, and a longer sequence.
+# 128-channel block, and a longer sequence; then the edges of the kernel's
+# split: one token at N = 16, S just past one chunk and past the three-chunk
+# ring, d_inner not a multiple of 4 (plain loads in place of cp.async),
+# several chunks with a ragged tail.
 MAMBA_GPU_CASES = [
     (2, 64, 128, 8), (1, 128, 256, 16), (1, 96, 64, 4),
     (2, 100, 256, 16), (1, 7, 128, 8), (1, 1, 128, 4), (2, 50, 200, 16), (3, 33, 320, 4),
     (2, 1000, 512, 16),
+    (2, 1, 256, 16), (2, 33, 256, 16), (1, 97, 384, 8), (1, 65, 130, 16), (2, 300, 1000, 16),
 ]
 # Per-row bound on max|kernel - plain| / rms(plain row) over a token's
 # channels: the two differ only in fp32 rounding (expf, fused multiply-adds,
@@ -249,7 +265,7 @@ def test_mamba_scan_kernel_matches_plain(cuda_device, case):
     _assert_mamba_close(got, want)
 
 
-@pytest.mark.parametrize("case", [(2, 100, 256, 16), (1, 70, 200, 4)])
+@pytest.mark.parametrize("case", [(2, 100, 256, 16), (1, 70, 200, 4), (1, 45, 130, 16)])
 def test_mamba_scan_kernel_takes_model_layout(cuda_device, case):
     """bf16 x with B and C as strided bf16 views (row stride R + 2N), as the
     model passes them: no copy, the same result as the plain version on the

@@ -8,7 +8,8 @@ import sys
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"] + [
+    REPO / "scripts" / name for name in ("wkv6_strong_decay.py", "kernel_variants.py")]
 BANNED = ("jax", "jaxlib", "repro")
 
 

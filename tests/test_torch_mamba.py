@@ -23,6 +23,7 @@ from repro_torch.convert import to_torch
 from repro_torch.kernels.mamba import ops
 from repro_torch.kernels.mamba.kernel import mamba_scan_kernel
 from repro_torch.kernels.mamba.ops import mamba_scan
+from repro_torch.kernels.mamba.ref import mamba_scan_lanes_ref
 from repro_torch.models import ssm as tssm
 
 SCAN_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -67,6 +68,21 @@ def test_mamba_scan_ragged_length_matches_oracle():
     one); the port takes it as it is."""
     arrs = _scan_inputs(2, 100, 64, 16, seed=1)
     y, h = mamba_scan(*(torch.from_numpy(a) for a in arrs))
+    yr, hr = jax_mamba_scan_ref(*(jnp.asarray(a) for a in arrs))
+    _close(y, yr, SCAN_TOL)
+    _close(h, hr, SCAN_TOL)
+
+
+@pytest.mark.parametrize("shape", [c[:4] for c in MAMBA_CASES]
+                         + [(2, 1, 64, 16), (1, 33, 200, 8), (2, 100, 64, 16), (1, 70, 48, 4)])
+def test_mamba_scan_lanes_order_matches_reference_oracle(shape):
+    """The CUDA kernel's order of operations (4 states a lane, the decay as
+    exp2 of A pre-scaled by log2 e, each lane's C . h over its states, the
+    lanes' sums added pairwise), in plain PyTorch, against the reference's
+    oracle at its bound 2e-4: the reference's shapes, one token, and ragged
+    lengths and widths at N = 4, 8 and 16."""
+    arrs = _scan_inputs(*shape, seed=8)
+    y, h = mamba_scan_lanes_ref(*(torch.from_numpy(a) for a in arrs))
     yr, hr = jax_mamba_scan_ref(*(jnp.asarray(a) for a in arrs))
     _close(y, yr, SCAN_TOL)
     _close(h, hr, SCAN_TOL)
@@ -153,3 +169,21 @@ def test_mamba_scan_kernel_raises_on_what_it_does_not_take():
     with pytest.raises(ValueError, match="float32"):
         mamba_scan_kernel(args[0].double(), *args[1:])
     assert mamba_scan_kernel.launches == before
+
+
+def test_scan_ablation_edits_match_the_kernel_sources():
+    """Every edit of ``scripts/scan_ablations.json`` (the variants that
+    ``scripts/kernel_variants.py`` builds and times on the card) matches its
+    CUDA source exactly once, so the ablations stay those of the kernels as
+    they are."""
+    import json
+    import pathlib
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    spec = json.loads((repo / "scripts" / "scan_ablations.json").read_text())
+    assert {item["source"] for item in spec} == {"mamba_scan.cu", "wkv6.cu"}
+    for item in spec:
+        text = (repo / "src" / "repro_torch" / "csrc" / item["source"]).read_text()
+        for old, new in item.get("edits", []):
+            assert text.count(old) == 1, (item["name"], old[:60])
+            assert old != new

@@ -131,3 +131,25 @@ def test_expert_ffn_bf16_feeds_fp32_hidden_to_the_second_product():
     out = tmoe._expert_ffn(params, xe, True)
     assert out.dtype == torch.bfloat16
     assert torch.equal(out, torch.matmul(tmoe._expert_hidden(params, xe, True).bfloat16(), w2))
+
+
+@pytest.mark.parametrize("gated", [True, False])
+def test_moe_dense_fallback_bf16_matches_reference(gated):
+    """bf16 weights and input: the oracle keeps the per-expert outputs fp32
+    and casts only the combined sum, as the reference does.  Tolerance: the
+    two differ only where fp32 summation order flips a bf16 rounding, so at
+    most 1 % of the outputs differ, each by at most one bf16 ulp of itself
+    (2^-7 relative); a bf16 rounding of the per-expert outputs before the
+    combine moves about a third of them, by up to 7e-3 of the output scale."""
+    jcfg, tcfg = _cfgs(E=8, K=2, gated=gated, d=64, ff=48)
+    jp = jmoe.init_moe(jax.random.PRNGKey(0), jcfg, jnp.bfloat16)
+    tp = {n: to_torch(np.asarray(a), "cpu") for n, a in jp.items()}
+    assert tp["w1"].dtype == torch.bfloat16 and tp["router"].dtype == torch.float32
+    x = np.random.default_rng(1).standard_normal((2, 16, jcfg.d_model)).astype(np.float32)
+    jout = _jit_fallback(jp, jnp.asarray(x).astype(jnp.bfloat16), jcfg)
+    out = tmoe.moe_ffn_dense_fallback(tp, torch.from_numpy(x).bfloat16(), tcfg)
+    assert out.dtype == torch.bfloat16
+    got, want = out.float().numpy(), np.asarray(jout.astype(jnp.float32))
+    diff = np.abs(got - want)
+    assert (diff > 0).mean() <= 0.01, (diff > 0).mean()
+    assert (diff <= 2.0 ** -7 * np.abs(want)).all(), (diff / np.abs(want).clip(1e-30)).max()

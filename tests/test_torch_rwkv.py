@@ -75,6 +75,28 @@ def test_channel_mix_matches(weights, with_state):
     _close(t_st["shift_ffn"], j_st["shift_ffn"])
 
 
+@pytest.mark.parametrize("scan", ["plain", "kernel_chunk_form"])
+def test_time_mix_strong_decays_matches(weights, monkeypatch, scan):
+    """w0 raised from -2 to 2.5, so log w = -exp(w0 + lora) is about -12 a
+    token (w ~ 6e-6) and a 32-token chunk sums far below fp32's exp range:
+    the prefill through the port's plain scan, and through the CUDA kernel's
+    in-chunk arithmetic replayed on the CPU (``wkv6_chunked_ref``, its
+    strong-decay form), against the reference's token-by-token scan."""
+    from repro_torch.kernels.rwkv6.ref import wkv6_chunked_ref
+
+    jcfg, jp, tcfg, tp = weights
+    jp = dict(jp, w0=jax.numpy.full_like(jp["w0"], 2.5))
+    tp = dict(tp, w0=torch.full_like(tp["w0"], 2.5))
+    if scan == "kernel_chunk_form":
+        monkeypatch.setattr(trwkv, "wkv6", wkv6_chunked_ref)
+    x = _x(jcfg, S=70, seed=4)
+    j_out, j_st = jrwkv.rwkv_time_mix(jp, jax.numpy.asarray(x), jcfg)
+    t_out, t_st = trwkv.rwkv_time_mix(tp, torch.from_numpy(x), tcfg)
+    assert torch.isfinite(t_out).all()
+    _close(t_out, j_out)
+    _close(t_st["S"], j_st["S"])
+
+
 def test_init_params_rwkv_leaves_and_scales():
     cfg = get_smoke_config(ARCH)
     model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")

@@ -17,7 +17,7 @@ from repro.models.rwkv import wkv_scan as jax_wkv_scan
 from repro_torch.kernels.rwkv6 import ops
 from repro_torch.kernels.rwkv6.kernel import wkv6_kernel
 from repro_torch.kernels.rwkv6.ops import wkv6
-from repro_torch.kernels.rwkv6.ref import wkv6_segmented_ref
+from repro_torch.kernels.rwkv6.ref import wkv6_chunked_ref, wkv6_segmented_ref
 from repro_torch.models.rwkv import wkv_scan
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -26,13 +26,19 @@ TOL = dict(rtol=2e-4, atol=2e-4)
 WKV_CASES = [(2, 2, 64, 16, 16), (1, 4, 128, 64, 32), (2, 1, 96, 32, 32), (1, 2, 256, 64, 64)]
 
 
-def _inputs(B, H, S, hd, seed=0):
-    """r, k, v normal; decay uniform in (0.7, 0.999) as log w; u * 0.3."""
+def _inputs(B, H, S, hd, seed=0, strong=False):
+    """r, k, v normal; decay uniform in (0.7, 0.999) as log w; u * 0.3.
+    ``strong``: decay log-uniform in [1e-3, 0.999] instead, channels 3, 19,
+    ... pinned at log w = -50 (a 32-token sum far below fp32's exp range)."""
     rng = np.random.default_rng(seed)
     r, k, v = (rng.standard_normal((B, H, S, hd)).astype(np.float32) for _ in range(3))
-    logw = np.log(rng.uniform(0.7, 0.999, (B, H, S, hd))).astype(np.float32)
+    if strong:
+        logw = rng.uniform(np.log(1e-3), np.log(0.999), (B, H, S, hd))
+        logw[..., 3::16] = -50.0
+    else:
+        logw = np.log(rng.uniform(0.7, 0.999, (B, H, S, hd)))
     u = (rng.standard_normal((H, hd)) * 0.3).astype(np.float32)
-    return r, k, v, logw, u
+    return r, k, v, logw.astype(np.float32), u
 
 
 def _port(arrs):
@@ -73,6 +79,37 @@ def test_wkv6_segmented_split_matches_reference_oracle(shape, segment):
     ro, rs = jax_wkv6_ref(*(jnp.asarray(a) for a in arrs))
     np.testing.assert_allclose(out.numpy(), np.asarray(ro), **TOL)
     np.testing.assert_allclose(s_last.numpy(), np.asarray(rs), **TOL)
+
+
+CHUNK_SHAPES = [c[:4] for c in WKV_CASES] + [(2, 3, 100, 64), (1, 2, 40, 16), (2, 1, 7, 32)]
+
+
+@pytest.mark.parametrize("strong", [False, True], ids=["reference", "strong_decays"])
+@pytest.mark.parametrize("shape", CHUNK_SHAPES)
+def test_wkv6_chunk_form_matches_reference_oracle(shape, strong):
+    """The CUDA kernel's arithmetic inside a chunk (the factored form, the
+    strong-decay guard, the re-based 4-token blocks and the pairwise
+    diagonal), in plain PyTorch, against the reference's oracle: finite and
+    within 2e-4 on the reference's decays and on strong ones (w down to
+    1e-3, some log w = -50); the port's CPU entry too."""
+    arrs = _inputs(*shape, seed=4, strong=strong)
+    ro, rs = jax_wkv6_ref(*(jnp.asarray(a) for a in arrs))
+    for out, s_last in (wkv6_chunked_ref(*(torch.from_numpy(a) for a in arrs)), _port(arrs)):
+        assert torch.isfinite(out).all() and torch.isfinite(s_last).all()
+        np.testing.assert_allclose(out.numpy(), np.asarray(ro), **TOL)
+        np.testing.assert_allclose(s_last.numpy(), np.asarray(rs), **TOL)
+
+
+def test_wkv6_factored_chunk_form_overflows_under_strong_decays():
+    """Without the guard (every chunk factored as ``r exp(Cx)`` against
+    ``k exp(-C)``) strong decays overflow ``exp`` and give non-finite
+    outputs: the fault the guard repairs.  On the reference's decays the
+    guard never fires and both forms agree bit for bit."""
+    args = [torch.from_numpy(a) for a in _inputs(2, 3, 100, 64, seed=4, strong=True)]
+    out, _ = wkv6_chunked_ref(*args, strong_logw=-np.inf)
+    assert not torch.isfinite(out).all()
+    args = [torch.from_numpy(a) for a in _inputs(2, 3, 100, 64, seed=4)]
+    assert torch.equal(wkv6_chunked_ref(*args)[0], wkv6_chunked_ref(*args, strong_logw=-np.inf)[0])
 
 
 def test_wkv_scan_from_nonzero_state_matches_reference():
