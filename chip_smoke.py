@@ -9,8 +9,9 @@ plain PyTorch version on the card, then drives the serving path:
 1. environment: versions, ``nvidia-smi`` name and power limit, kernel build
    (one ``nvcc`` per source, in parallel), each kernel's registers, spills
    and dynamic shared memory from ptxas, and ``cuobjdump -sass`` of the flash
-   library: the run fails unless every bf16 flash kernel holds wgmma
-   (``HGMMA``) and TMA (``UTMALDG``) instructions;
+   and qmatmul libraries: the run fails unless every bf16 flash kernel holds
+   wgmma (``HGMMA``) and TMA (``UTMALDG``) instructions, and every
+   ``qmatmul_tma`` kernel the int8 wgmma (``IGMMA``) and TMA with no spills;
 2. flash-attention kernel vs its plain version at every shape the later
    phases give it (reference bounds: 2e-3 fp32, 2e-2 bf16, plus a per-row
    bound relative to the row's size) with kernel / plain / library (SDPA) /
@@ -63,11 +64,14 @@ plain PyTorch version on the card, then drives the serving path:
 13. int8 ``qmatmul``: the op on its main path, granite-3-8b's FFN
     up-projection at its B=4 x S=2048 prefill (M=8192, K=4096, N=12800), a
     bf16 activation and weight quantized per row and per column (exactly one
-    kernel launch; within the reference's 0.02 of the bf16 product), then the
+    op call; within the reference's 0.02 of the bf16 product), then the
     kernel vs its plain version, bit-equal (``torch.equal``), at the
     reference's test shapes with random scales, kernel_bench's, ragged
-    shapes, bf16 output and the main-path shape, with kernel / plain /
-    library (``torch._int_mm`` and the dequantizing multiply) / bound times.
+    shapes of both paths (the wgmma / TMA kernel where K % 16 == 0, the
+    byte-staged mma.sync kernel otherwise), bf16 output and the main-path
+    shape, with kernel / plain / library (``torch._int_mm`` and the
+    dequantizing multiply) / bound times, and as context ``torch._int_mm``
+    alone on w as given and on a K-major copy of it.
 
 Any failed check raises and the script exits non-zero without a result.  The
 last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -172,8 +176,10 @@ MAMBA_TOL = 2e-4           # the reference's bound (tests/test_kernels.py)
 MAMBA_ROW_REL_TOL = 1e-3
 MAMBA_MAIN_PATH_CASE = "jamba_prefill"
 # (name, M, N, K, out dtype): tests/test_kernels.py's qmatmul shapes,
-# benchmarks/kernel_bench.py's 256 x 512 x 256, ragged shapes (the byte-staged
-# instantiation: K % 16, N % 4 nonzero), bf16 output, and the main path's.
+# benchmarks/kernel_bench.py's 256 x 512 x 256 (2 output tiles: fewer than
+# SMs), ragged shapes of the byte-staged mma.sync path (K % 16 nonzero),
+# ragged tiles of the wgmma / TMA path (M no multiple of 128, N of 256, K of
+# 128; one row; fewer tiles than SMs), bf16 output, and the main path's.
 QMM_CASES = [
     ("qmm_case0", 128, 128, 128, "float32"),
     ("qmm_case1", 256, 128, 384, "float32"),
@@ -181,8 +187,11 @@ QMM_CASES = [
     ("kernel_bench", 256, 256, 512, "float32"),
     ("ragged_small", 1, 40, 100, "float32"),
     ("ragged_large", 8193, 12801, 4100, "float32"),
+    ("tma_ragged", 8193, 12808, 4112, "float32"),
+    ("tma_few_tiles", 200, 300, 272, "float32"),
     ("bf16_out", 300, 200, 160, "bfloat16"),
     ("bf16_out_ragged", 1, 40, 100, "bfloat16"),
+    ("bf16_out_one_row", 1, 4096, 4096, "bfloat16"),
 ]
 QMM_MAIN = (8192, 12800, 4096)    # granite-3-8b FFN up-projection, B=4 x S=2048
 QMM_CLOSE_TOL = 0.02              # the reference's bound (test_qmatmul_quantized_close_to_fp)
@@ -212,19 +221,26 @@ def visible_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
     return total
 
 
+_TEMPLATE_ARG = r"L([ib])(\d+)E|(f)|13(__nv_bfloat16)"   # int / bool literal, float, bf16
+
+
 def kernel_name(mangled: str) -> str:
-    """``fa_fwd_bf16<128>`` from a mangled kernel symbol of the port: the
-    length-prefixed name followed by template arguments (``I...E``)."""
+    """``fa_fwd_bf16<128>`` or ``qmatmul_tma<float>`` from a mangled kernel
+    symbol of the port: the length-prefixed name followed by template
+    arguments (``I...E``)."""
     for run in re.finditer(r"\d+", mangled):
         for i in range(len(run.group())):
             n, start = int(run.group()[i:]), run.end()
             name = mangled[start:start + n]
-            tail = re.match(r"I((?:L[ib]\d+E)+)E", mangled[start + n:])
+            tail = re.match(rf"I((?:{_TEMPLATE_ARG})+)E", mangled[start + n:])
             if n and tail and re.fullmatch(r"[A-Za-z_]\w*", name):
-                args = re.findall(r"L([ib])(\d+)E", tail.group(1))
-                return name + "<" + ", ".join(
-                    ("true" if v == "1" else "false") if kind == "b" else v
-                    for kind, v in args) + ">"
+                args = []
+                for kind, v, f, bf16 in re.findall(_TEMPLATE_ARG, tail.group(1)):
+                    if kind:
+                        args.append(("true" if v == "1" else "false") if kind == "b" else v)
+                    else:
+                        args.append("float" if f else bf16)
+                return name + "<" + ", ".join(args) + ">"
     return mangled
 
 
@@ -242,9 +258,12 @@ def ptxas_report(log: str) -> list[tuple[str, str, str]]:
     return rows
 
 
-def sass_counts(lib: Path) -> dict[str, tuple[int, int]]:
-    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in each kernel of a
-    built library, from ``cuobjdump -sass``."""
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG")   # bf16 / int8 wgmma, TMA load / store
+
+
+def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
+    """Instructions of ``SASS_OPS`` in each kernel of a built library, from
+    ``cuobjdump -sass``."""
     from repro_torch.kernels import _build
 
     tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
@@ -254,10 +273,10 @@ def sass_counts(lib: Path) -> dict[str, tuple[int, int]]:
     for line in sass.splitlines():
         if "Function :" in line:
             name = kernel_name(line.split("Function :")[1].strip())
-            counts[name] = (0, 0)
+            counts[name] = dict.fromkeys(SASS_OPS, 0)
         elif name:
-            h, t = counts[name]
-            counts[name] = (h + ("HGMMA" in line), t + ("UTMALDG" in line))
+            for op in SASS_OPS:
+                counts[name][op] += op in line
     return counts
 
 
@@ -517,7 +536,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.mamba.kernel import mamba_scan_kernel
     from repro_torch.kernels.mamba.ref import mamba_scan_ref
-    from repro_torch.kernels.qmatmul.kernel import qmatmul_kernel
+    from repro_torch.kernels.qmatmul.kernel import qmatmul_kernel, tma_path
     from repro_torch.kernels.qmatmul.ops import qmatmul
     from repro_torch.kernels.qmatmul.ref import qmatmul_ref, quantize_cols, quantize_rows
     from repro_torch.kernels.rwkv6.kernel import wkv6_kernel
@@ -574,12 +593,17 @@ def main() -> int:
             "wkv6_segment": _build.load_library("wkv6.cu").repro_wkv6_smem_bytes}
     smem["fa_fwd_bf16"].argtypes = [ctypes.c_int]                     # head dim
     smem["wkv6_segment"].argtypes = [ctypes.c_int, ctypes.c_int]      # head dim, output pass
-    for fn in smem.values():
+    qmm_smem = _build.load_library("qmatmul.cu").repro_qmatmul_smem_bytes
+    qmm_smem.argtypes = []
+    for fn in (*smem.values(), qmm_smem):
         fn.restype = ctypes.c_longlong
+    smem["qmatmul_tma"] = lambda *_: qmm_smem()                       # one size for both outputs
+    spills = {}
     for src in KERNEL_SOURCES:
         log = _build.library_path(src).with_suffix(".log")
         if log.exists():
             for name, regs, spill in ptxas_report(log.read_text()):
+                spills[name] = spill
                 base = name.split("<")[0]
                 targs = [int(a) if a.isdigit() else int(a == "true")
                          for a in name.split("<")[-1].rstrip(">").split(", ")]
@@ -589,13 +613,22 @@ def main() -> int:
             for line in log.read_text().splitlines():
                 if "Potential Performance Loss" in line:
                     print(f"  ptxas {src}: {line.split('info    :')[-1].strip()[:160]}")
-    # The bf16 flash kernel must run on wgmma and TMA: count both in its SASS.
+    # The bf16 flash kernel and the qmatmul_tma kernel must run on wgmma and
+    # TMA: count both in their SASS.
     counts = sass_counts(_build.library_path("flash_attention.cu"))
     bf16 = {k: v for k, v in counts.items() if k.startswith("fa_fwd_bf16")}
     print("  SASS of flash_attention.cu (HGMMA, UTMALDG): " + ", ".join(
-        f"{k} {v[0]}, {v[1]}" for k, v in sorted(bf16.items())))
-    check(len(bf16) == 3 and all(h > 0 and t > 0 for h, t in bf16.values()),
+        f"{k} {v['HGMMA']}, {v['UTMALDG']}" for k, v in sorted(bf16.items())))
+    check(len(bf16) == 3 and all(v["HGMMA"] > 0 and v["UTMALDG"] > 0 for v in bf16.values()),
           f"bf16 flash kernels without wgmma (HGMMA) or TMA (UTMALDG) in their SASS: {bf16}")
+    counts = sass_counts(_build.library_path("qmatmul.cu"))
+    tma = {k: v for k, v in counts.items() if k.startswith("qmatmul_tma")}
+    print("  SASS of qmatmul.cu (IGMMA, UTMALDG, UTMASTG): " + ", ".join(
+        f"{k} {v['IGMMA']}, {v['UTMALDG']}, {v['UTMASTG']}" for k, v in sorted(counts.items())))
+    check(len(tma) == 4 and all(v["IGMMA"] > 0 and v["UTMALDG"] > 0 for v in tma.values()),
+          f"qmatmul_tma kernels without int8 wgmma (IGMMA) or TMA (UTMALDG) in their SASS: {tma}")
+    check(all("0 bytes spill stores, 0 bytes spill loads" in spills.get(k, "") for k in tma),
+          f"qmatmul_tma kernels spill: { {k: spills.get(k) for k in tma} }")
 
     # ------------------------------------------------------------ phase 2
     print("phase 2: flash_attention kernel vs plain version on the card")
@@ -1080,6 +1113,7 @@ def main() -> int:
     sync()
     qmm_launches = qmatmul_kernel.launches
     check(qmm_launches == 1, f"{qmm_launches} qmatmul launches in one op call, expected 1")
+    check(tma_path(K, xq.data_ptr()), "the main path's call does not take the wgmma / TMA kernel")
     check(flash_attention_kernel.launches == wkv6_kernel.launches
           == mamba_scan_kernel.launches == 0, "another kernel launched in the qmatmul op")
     check(tuple(out.shape) == (M, N) and out.dtype == torch.float32, f"out {out.shape} {out.dtype}")
@@ -1090,7 +1124,7 @@ def main() -> int:
     plain = qmatmul_ref(xq, wq, xs, ws)
     check(torch.equal(out, plain), "main-path kernel output differs from the plain version: "
           f"max abs err {(out - plain).abs().max().item()}")
-    print(f"  op on the main path: {qmm_launches} kernel launch, |int8 - bf16| / |bf16| "
+    print(f"  op on the main path: {qmm_launches} op call on the card, |int8 - bf16| / |bf16| "
           f"{rel:.6f} (tol {QMM_CLOSE_TOL}), bit-equal to the plain version")
     del x, w, out, ref_bf16, plain
     qmm_results = {}
@@ -1109,7 +1143,8 @@ def main() -> int:
         sync()
         err = (got.float() - want.float()).abs().max().item()
         check(torch.equal(got, want), f"{name}: kernel vs plain not bit-equal, max abs err {err}")
-        res = {"max_abs_err": err}
+        res = {"max_abs_err": err,
+               "path": "wgmma_tma" if tma_path(k, args[0].data_ptr()) else "mma_sync"}
         if name == "main_path":
             res["ms"] = cuda_ms_median(lambda: qmatmul_kernel(*args), 21)
             res["plain_ms"] = cuda_ms_median(lambda: qmatmul_ref(*args), 5)
@@ -1119,12 +1154,15 @@ def main() -> int:
             xb, wb = args[0].bfloat16(), args[1].bfloat16()
             bf16_ms = cuda_ms_median(lambda: xb @ wb, 21)
             int_mm_ms = cuda_ms_median(lambda: torch._int_mm(args[0], args[1]), 11)
-            del xb, wb
+            w_kmajor = args[1].t().contiguous()     # [N,K]: the layout cuBLASLt's int8 path takes
+            int_mm_kmajor_ms = cuda_ms_median(lambda: torch._int_mm(args[0], w_kmajor.t()), 11)
+            del xb, wb, w_kmajor
             t_ops = 2 * m * n * k / INT8_PEAK_OPS
             t_mem = (m * k + k * n + 4 * (m + n) + got.element_size() * m * n) / HBM_BYTES_PER_S
             res["bound_ms"] = 1e3 * max(t_ops, t_mem)
             res["bound_by"] = "operations" if t_ops >= t_mem else "bytes"
-            res["context"] = {"bf16_matmul_ms": bf16_ms, "int_mm_only_ms": int_mm_ms}
+            res["context"] = {"bf16_matmul_ms": bf16_ms, "int_mm_only_ms": int_mm_ms,
+                              "int_mm_kmajor_ms": int_mm_kmajor_ms}
         qmm_results[name] = res
         print(f"  {name}: M={m} N={n} K={k} out {dt_name}: bit-equal {json.dumps(res)} {card}")
         del got, want, args

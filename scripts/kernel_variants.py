@@ -2,20 +2,24 @@
 """Ablations of a CUDA kernel of the port, timed on one NVIDIA GPU.
 
     python3 scripts/kernel_variants.py scripts/scan_ablations.json
+    python3 scripts/kernel_variants.py scripts/qmatmul_ablations.json
 
 Each entry of the spec is ``{"name", "source", "edits", "note"}``: ``source`` is a
-file under ``src/repro_torch/csrc`` (``mamba_scan.cu`` or ``wkv6.cu``) and
-``edits`` a list of ``[old, new]`` text replacements, each of which must
-match.  Every variant is built with the flags of ``kernels/_build.py`` (one
-``nvcc`` each, in parallel) into a scratch directory, called through the
-same C interface as the kernel, and timed with CUDA events (mean of 20
-calls, three times) at the shape of its main path: the selective scan at
-jamba's prefill (B=4, S=2048, di=8192, N=16, x bf16, B / C strided views),
-WKV-6 at rwkv6-3b's (B=4, H=40, S=2048, hd=64) on the reference's decays
-and on strong ones.  A variant that removes work gives wrong outputs on
-purpose; the max abs difference from the plain version is printed beside
-each time so that the two kinds stand apart.  One JSON line per variant,
-then the card's name and power limit.
+file under ``src/repro_torch/csrc`` (``mamba_scan.cu``, ``wkv6.cu`` or
+``qmatmul.cu``) and ``edits`` a list of ``[old, new]`` text replacements,
+each of which must match.  Every variant is built with the flags of
+``kernels/_build.py`` (one ``nvcc`` each, in parallel) into a scratch
+directory, called through the same C interface as the kernel, and timed
+with CUDA events (mean of 20 calls, three times) at the shape of its main
+path: the selective scan at jamba's prefill (B=4, S=2048, di=8192, N=16,
+x bf16, B / C strided views), WKV-6 at rwkv6-3b's (B=4, H=40, S=2048,
+hd=64) on the reference's decays and on strong ones, qmatmul at
+granite-3-8b's FFN up-projection (M=8192, K=4096, N=12800, fp32 out) on
+its wgmma / TMA path, with the [N,K] scratch holding w transposed before
+the timing.  A variant that removes work gives wrong outputs on purpose;
+the max abs difference from the plain version is printed beside each time
+so that the two kinds stand apart.  One JSON line per variant, then the
+card's name and power limit.
 """
 from __future__ import annotations
 
@@ -72,6 +76,7 @@ def main() -> int:
     sys.path.insert(1, str(REPO))
     from chip_smoke import mamba_inputs, nvidia_smi_line, wkv_inputs
     from repro_torch.kernels.mamba.ref import mamba_scan_ref
+    from repro_torch.kernels.qmatmul.ref import qmatmul_ref
     from repro_torch.kernels.rwkv6.kernel import SEGMENT
     from repro_torch.kernels.rwkv6.ref import wkv6_ref
 
@@ -79,6 +84,7 @@ def main() -> int:
     dev = torch.device("cuda")
     card = f"[{nvidia_smi_line()}]"
     stream = torch.cuda.current_stream().cuda_stream
+    qmm = None    # qmatmul's inputs, plain output and w transposed, made once
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(8) as pool:
         built = list(pool.map(lambda item: build(item, Path(tmp)), spec))
         for item, (lib, err) in zip(spec, built):
@@ -105,6 +111,31 @@ def main() -> int:
 
                 res["ms"] = events_ms(torch, call)
                 res["max_abs_diff"] = (y - mamba_scan_ref(*args)[0]).abs().max().item()
+            elif item["source"] == "qmatmul.cu":
+                fn = ctypes.CDLL(lib).repro_qmatmul_fwd
+                fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                M, N, K = 8192, 12800, 4096
+                if qmm is None:
+                    g = torch.Generator(device=dev).manual_seed(0)
+                    x = torch.randint(-127, 128, (M, K), generator=g, device=dev,
+                                      dtype=torch.int8)
+                    w = torch.randint(-127, 128, (K, N), generator=g, device=dev,
+                                      dtype=torch.int8)
+                    xs = 0.5 + torch.rand(M, generator=g, device=dev)
+                    ws = 0.5 + torch.rand(N, generator=g, device=dev)
+                    qmm = (x, w, xs, ws, qmatmul_ref(x, w, xs, ws), w.t().contiguous())
+                x, w, xs, ws, want, wt_ready = qmm
+                out = torch.full((M, N), float("nan"), device=dev)   # unwritten stays NaN
+                wt = wt_ready.clone()
+                ptrs = [t.data_ptr() for t in (x, w, xs, ws, out, wt)]
+
+                def call():
+                    if fn(*ptrs, M, N, K, 0, 1, stream) != 0:
+                        raise RuntimeError(f"{item['name']}: launch failed")
+
+                res["ms"] = events_ms(torch, call)
+                res["max_abs_diff"] = (out - want).abs().max().item()
+                del out, wt
             else:
                 fn = ctypes.CDLL(lib).repro_wkv6_fwd
                 fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4

@@ -15,7 +15,7 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.mamba.kernel import mamba_scan_kernel
 from repro_torch.kernels.mamba.ref import mamba_scan_ref
-from repro_torch.kernels.qmatmul.kernel import qmatmul_kernel
+from repro_torch.kernels.qmatmul.kernel import qmatmul_kernel, tma_path
 from repro_torch.kernels.qmatmul.ops import qmatmul
 from repro_torch.kernels.qmatmul.ref import qmatmul_ref, quantize_cols, quantize_rows
 from repro_torch.kernels.rwkv6.kernel import wkv6_kernel
@@ -287,9 +287,10 @@ def test_mamba_scan_kernel_counts_launches(cuda_device):
 
 
 # (M, N, K, out dtype): tests/test_kernels.py's shapes, benchmarks/
-# kernel_bench.py's 256 x 512 x 256, ragged M / N / K (no multiple of the
-# 128 x 128 tile or the 64-deep step; K % 16 and N % 4 nonzero take the
-# byte-staged instantiation), bf16 output, and the granite-3-8b FFN
+# kernel_bench.py's 256 x 512 x 256 (2 output tiles: fewer than SMs), ragged
+# M / N / K on the byte-staged mma.sync path (K % 16 nonzero), ragged tiles
+# of the wgmma / TMA path (M no multiple of 128, N of 256, K of 128; one row
+# in bf16; fewer tiles than SMs), bf16 output, and the granite-3-8b FFN
 # up-projection of a B=4 x S=2048 prefill.
 QMM_GPU_CASES = [
     (128, 128, 128, torch.float32), (256, 128, 384, torch.float32),
@@ -297,6 +298,8 @@ QMM_GPU_CASES = [
     (1, 40, 100, torch.float32), (100, 40, 96, torch.float32),
     (8193, 12801, 4100, torch.float32), (300, 200, 160, torch.bfloat16),
     (1, 40, 100, torch.bfloat16), (8192, 12800, 4096, torch.float32),
+    (8193, 12808, 4112, torch.float32), (1, 4096, 4096, torch.bfloat16),
+    (200, 300, 272, torch.float32),
 ]
 
 
@@ -346,6 +349,35 @@ def test_qmatmul_op_launches_the_kernel(cuda_device):
     assert qmatmul_kernel.launches == before + 1
     assert torch.equal(got, qmatmul(*args, impl="ref"))
     assert qmatmul_kernel.launches == before + 1
+
+
+def _unaligned_copy(x):
+    """A contiguous copy of x whose data starts one byte past a 16-byte bound."""
+    buf = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+    base = (16 - buf.data_ptr() % 16) % 16 + 1
+    out = buf[base:base + x.numel()].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_qmatmul_both_paths_agree_and_count_one_launch(cuda_device, out_dtype):
+    """One shape both kernels take, sent down each path by x's alignment (the
+    predicate's input): each call adds one to the count, and the wgmma / TMA
+    kernel, the byte-staged mma.sync kernel and the plain version agree bit
+    for bit."""
+    M, N, K = 1000, 777, 1040
+    x, w, xs, ws = _qmm_inputs(cuda_device, M, N, K, seed=3)
+    x_odd = _unaligned_copy(x)
+    assert tma_path(K, x.data_ptr()) and not tma_path(K, x_odd.data_ptr())
+    outs = []
+    for xx in (x, x_odd):
+        before = qmatmul_kernel.launches
+        outs.append(qmatmul_kernel(xx, w, xs, ws, out_dtype=out_dtype))
+        torch.cuda.synchronize()
+        assert qmatmul_kernel.launches == before + 1
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], qmatmul_ref(x, w, xs, ws, out_dtype=out_dtype))
 
 
 def test_moe_first_layer_products_fp32_on_the_card(cuda_device):

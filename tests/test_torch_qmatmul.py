@@ -22,7 +22,7 @@ from repro.kernels.qmatmul.ops import qmatmul as jax_qmatmul
 from repro.kernels.qmatmul.ref import qmatmul_ref as jax_qmatmul_ref
 from repro.kernels.qmatmul.ref import quantize_cols as jax_quantize_cols
 from repro.kernels.qmatmul.ref import quantize_rows as jax_quantize_rows
-from repro_torch.kernels.qmatmul.kernel import qmatmul_kernel
+from repro_torch.kernels.qmatmul.kernel import qmatmul_kernel, tma_path
 from repro_torch.kernels.qmatmul.ops import qmatmul
 from repro_torch.kernels.qmatmul.ref import qmatmul_ref, quantize_cols, quantize_rows
 
@@ -213,3 +213,40 @@ def test_qmatmul_op_raises_on_unknown_impl():
     _, (tx, tw, txs, tws) = _both(_int8_inputs(16, 16, 16))
     with pytest.raises(ValueError, match="impl"):
         qmatmul(tx, tw, txs, tws, impl="pallas")
+
+
+@pytest.mark.parametrize("K,offset,expected", [
+    (4096, 0, True),      # main path: granite-3-8b FFN up-projection, 8192 x 12800 x 4096
+    (4112, 0, True),      # ragged tiles: 8193 x 12808 x 4112
+    (4096, 512, True),    # one row, bf16 out: 1 x 4096 x 4096, x at another 16-byte bound
+    (512, 0, True),       # fewer tiles than SMs: 256 x 256 x 512
+    (272, 16, True),      # 200 x 300 x 272
+    (100, 0, False),      # ragged_small: 1 x 40 x 100
+    (4100, 0, False),     # ragged_large: 8193 x 12801 x 4100
+    (4104, 0, False),     # K a multiple of 8, not of 16
+    (4096, 1, False),     # x one byte past a 16-byte bound
+    (4096, 8, False),
+])
+def test_qmatmul_path_predicate(K, offset, expected):
+    """The wgmma / TMA kernel takes a call exactly when TMA can describe x
+    and the transposed w (K % 16 == 0, x 16-byte aligned); the byte-staged
+    mma.sync kernel takes the rest.  Only K and x's address decide."""
+    assert tma_path(K, 0x7f0000000000 + offset) is expected
+
+
+def test_qmatmul_ablation_edits_match_the_kernel_source():
+    """Every edit of ``scripts/qmatmul_ablations.json`` (the variants that
+    ``scripts/kernel_variants.py`` builds and times on the card) matches
+    ``csrc/qmatmul.cu`` exactly once, so the ablations stay those of the
+    kernel as it is."""
+    import json
+    import pathlib
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    spec = json.loads((repo / "scripts" / "qmatmul_ablations.json").read_text())
+    assert {item["source"] for item in spec} == {"qmatmul.cu"}
+    text = (repo / "src" / "repro_torch" / "csrc" / "qmatmul.cu").read_text()
+    for item in spec:
+        for old, new in item.get("edits", []):
+            assert text.count(old) == 1, (item["name"], old[:60])
+            assert old != new
