@@ -71,7 +71,16 @@ plain PyTorch version on the card, then drives the serving path:
     byte-staged mma.sync kernel otherwise), bf16 output and the main-path
     shape, with kernel / plain / library (``torch._int_mm`` and the
     dequantizing multiply) / bound times, and as context ``torch._int_mm``
-    alone on w as given and on a K-major copy of it.
+    alone on w as given and on a K-major copy of it;
+14. the facade (``repro_torch.scope``) on its main path: solve granite-3-8b
+    + gemma2-9b at full size (S=2048, weights 1:2) on the cost model's
+    ``tpu_v5e(16, (1, 16))`` (a merged co-schedule), deploy at global batch
+    4 (re-planned partitioned), then ``serve(n_requests=1000,
+    measure=True, device="cuda")``: both models built at full size and depth
+    (gemma2-9b's 42 layers), one at a time, their bf16 prefills timed at
+    B=1 and B=4 (every attention layer through the flash kernel), and every
+    server of the simulated run on its measured service law; the report
+    beside the modeled (``measure=False``) one, which must differ.
 
 Any failed check raises and the script exits non-zero without a result.  The
 last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -79,7 +88,8 @@ card's name and power limit, and the line before that a JSON object listing
 every ported kernel with its launches on its own main path (flash attention:
 the phase-3 granite-3-8b prefill; WKV-6: the phase-7 rwkv6-3b prefill;
 selective scan: the phase-10 jamba prefill; qmatmul: the phase-13 op call)
-and its times.  Imports nothing of JAX or of ``repro``.
+and its times (each also with its launches on phase 14's facade path).
+Imports nothing of JAX or of ``repro``.
 """
 from __future__ import annotations
 
@@ -118,6 +128,13 @@ FA_CASES = [
     ("gemma2_local", 1, 16, 8, 8192, 256, True, 4096, 50.0, "bfloat16"),
     ("gemma2_global", 1, 16, 8, 8192, 256, True, 0, 50.0, "bfloat16"),
     ("granite_moe_prefill", 4, 16, 8, 2048, 64, True, 0, 0.0, "bfloat16"),
+    # phase 14 times granite-3-8b and gemma2-9b (local and global layers)
+    # prefills at B=1 and B=4 x S=2048
+    ("granite_prefill_b1", 1, 32, 8, 2048, 128, True, 0, 0.0, "bfloat16"),
+    ("gemma2_prefill_local", 4, 16, 8, 2048, 256, True, 4096, 50.0, "bfloat16"),
+    ("gemma2_prefill_global", 4, 16, 8, 2048, 256, True, 0, 50.0, "bfloat16"),
+    ("gemma2_prefill_b1_local", 1, 16, 8, 2048, 256, True, 4096, 50.0, "bfloat16"),
+    ("gemma2_prefill_b1_global", 1, 16, 8, 2048, 256, True, 0, 50.0, "bfloat16"),
 ]
 # Per-row bound on max|kernel - plain| / rms(plain row).  The absolute 2e-2
 # is about half a typical output in rows that see thousands of keys (their
@@ -196,6 +213,23 @@ QMM_CASES = [
 QMM_MAIN = (8192, 12800, 4096)    # granite-3-8b FFN up-projection, B=4 x S=2048
 QMM_CLOSE_TOL = 0.02              # the reference's bound (test_qmatmul_quantized_close_to_fp)
 KERNEL_SOURCES = ("flash_attention.cu", "wkv6.cu", "mamba_scan.cu", "qmatmul.cu")
+# Phase 14: the facade's problem, the llm pair of BENCH_serving.json on the
+# runtime bridge's default package tpu_v5e(16, (1, 16)), and what the solve
+# and deploy(global_batch=4) must give for it (tests/test_torch_api.py pins
+# the same on the CPU): per model (p1, p2, transition_repeat, quota_chips,
+# co_mode).
+FACADE_MODELS = ("granite-3-8b", "gemma2-9b")
+FACADE_WEIGHTS = (1.0, 2.0)
+FACADE_SEQ = 2048
+FACADE_EXPECTED = {"strategy": "coschedule", "mode": "merged", "plans": {
+    "granite-3-8b": ("WSP", "WSP", None, 4, "partitioned"),
+    "gemma2-9b": ("WSP", "WSP", None, 12, "partitioned")}}
+FACADE_BATCHES = (1, 4)           # measure_service_models' two-point fit
+FACADE_ITERS = 3
+# granite-3-8b's measured b=4 prefill against phase 3's median at the same
+# B=4 x S=2048 shape: the two time the same model, so only the host's spread
+# separates them (phase 3's runs moved 2-3 % between calls)
+FACADE_PREFILL_TOL = 0.25
 
 
 def check(cond: bool, msg: str) -> None:
@@ -517,6 +551,105 @@ def launcher_flow(serve, cfg, model, card: str) -> None:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
 
 
+def _report_line(rep) -> str:
+    per = "; ".join(
+        f"{m}: completed {pm.completed_requests}/{pm.arrived_requests}, p50 "
+        f"{pm.latency_p50_s:.6f} p95 {pm.latency_p95_s:.6f} p99 {pm.latency_p99_s:.6f} s, "
+        f"utilization {pm.utilization:.4f}, SLO attainment {pm.slo_attainment}"
+        for m, pm in rep.per_model.items())
+    return (f"goodput {rep.goodput:.4f}/s, throughput {rep.throughput:.4f}/s, p95 "
+            f"{rep.latency_p95_s:.6f} s, utilization {rep.utilization:.4f}, makespan "
+            f"{rep.makespan_s:.4f} s, arrived {rep.total_arrived}, conserved {rep.conserved}; "
+            + per)
+
+
+def facade_phase(get_config, card: str, granite_prefill_ms: float, reset_launches,
+                 kernels, device: str = "cuda") -> dict[str, int]:
+    """Phase 14: solve -> deploy -> measured serving through the port's
+    facade.  Returns each kernel's launches on this path."""
+    import torch
+
+    from repro_torch import scope
+    from repro_torch.core.hw import tpu_v5e
+    from repro_torch.serving import service_from_assignment
+
+    cfgs = [get_config(name) for name in FACADE_MODELS]
+    print(f"phase 14: the facade, {' + '.join(FACADE_MODELS)} at full size and depth "
+          f"({' + '.join(str(c.n_layers) for c in cfgs)} layers), S={FACADE_SEQ}, "
+          f"weights {FACADE_WEIGHTS}, bf16")
+    held = torch.cuda.memory_allocated() if device == "cuda" else 0
+    print(f"  {held / 2**30:.3f} GiB allocated before the phase")
+    check(held < 2 * 2**30, "an earlier phase's model is still on the card")
+    t0 = time.perf_counter()
+    sol = scope.solve(scope.problem(
+        scope.WorkloadSpec.lm(cfgs, seq_len=FACADE_SEQ, weights=list(FACADE_WEIGHTS)),
+        tpu_v5e(16, (1, 16))))
+    solve_s = time.perf_counter() - t0
+    check(sol.feasible, "the facade's full-size solve is infeasible")
+    check((sol.strategy, sol.multi.mode) == (FACADE_EXPECTED["strategy"], FACADE_EXPECTED["mode"]),
+          f"solve picked {sol.strategy}/{sol.multi.mode}")
+    print(f"  solve: strategy {sol.strategy}, mode {sol.multi.mode}, weighted throughput "
+          f"{sol.multi.weighted_throughput} /s, dse_s {sol.diagnostics['dse_s']:.3f} s, "
+          f"{solve_s:.3f} s in all (host seconds; the cost model's TPU v5e constants, "
+          "not this card)")
+    t0 = time.perf_counter()
+    dep = sol.deploy(global_batch=4)
+    deploy_s = time.perf_counter() - t0
+    plans = {name: (p.p1, p.p2, p.transition_repeat, p.meta["quota_chips"], p.meta["co_mode"])
+             for name, p in dep.plans.items()}
+    check(plans == FACADE_EXPECTED["plans"], f"deploy plans {plans}")
+    how = "re-planned" if dep.multi is not sol.multi else "reused the solve's"
+    print(f"  deploy(global_batch=4): {deploy_s:.3f} s (host), {how} {dep.multi.mode} co-schedule")
+    for name, (p1, p2, rep, quota, mode) in plans.items():
+        print(f"    ShardPlan {name}: p1 {p1}, p2 {p2}, transition_repeat {rep}, "
+              f"quota_chips {quota}, co_mode {mode}")
+
+    modeled = {a.model: service_from_assignment(a) for a in sol.as_multimodel().assignments}
+    reset_launches()
+    t0 = time.perf_counter()
+    rep = sol.serve(n_requests=1000, seed=0, measure=True, seq_len=FACADE_SEQ, device=device)
+    serve_s = time.perf_counter() - t0
+    launches = {k.__name__.removesuffix("_kernel"): k.launches for k in kernels}
+    calls = (1 + FACADE_ITERS) * len(FACADE_BATCHES)
+    want = calls * sum(c.n_layers for c in cfgs)
+    check(launches["flash_attention"] == want,
+          f"{launches['flash_attention']} flash launches in the measured serve, expected {want}")
+    check(sum(launches.values()) == launches["flash_attention"],
+          f"another kernel launched on the facade path: {launches}")
+    source = rep.meta["service_source"]
+    check(set(source) == set(modeled) and set(source.values()) == {"measured"},
+          f"servers not on their measured service law: {source}")
+    check(rep.conserved, "measured serving report does not conserve requests")
+    print(f"  serve(measure=True): {serve_s:.3f} s (host, both models built and timed), "
+          f"{launches['flash_attention']} flash launches ({calls} prefills a model) {card}")
+    for name, measured in rep.meta["service"].items():
+        timed = rep.meta["measured_s"][name]
+        mod = modeled[name]
+        print(f"    {name}: modeled beat {mod.beat:.6e} s, overhead {mod.overhead_s} s, "
+              f"stages {mod.stages}, samples/beat {mod.samples_per_beat} | measured beat "
+              f"{measured.beat:.6f} s, overhead {measured.overhead_s:.6f} s (timed "
+              + ", ".join(f"b={b} {1e3 * s:.3f} ms" for b, s in timed.items()) + f") {card}")
+    g_name = next(n for n in rep.meta["measured_s"] if n.startswith(cfgs[0].name + "@"))
+    g_b4_ms = 1e3 * rep.meta["measured_s"][g_name][FACADE_BATCHES[1]]
+    rel = g_b4_ms / granite_prefill_ms - 1.0
+    check(abs(rel) <= FACADE_PREFILL_TOL,
+          f"granite-3-8b measured b=4 prefill {g_b4_ms:.3f} ms vs phase 3's "
+          f"{granite_prefill_ms:.3f} ms ({rel:+.1%}, tol {FACADE_PREFILL_TOL:.0%})")
+    print(f"  granite-3-8b b=4: {g_b4_ms:.3f} ms measured vs {granite_prefill_ms:.3f} ms phase 3 "
+          f"({rel:+.2%}, tol {FACADE_PREFILL_TOL:.0%}) {card}")
+    print(f"  measured report: {_report_line(rep)}")
+    base = sol.serve(n_requests=1000, seed=0)
+    check(base.conserved, "modeled serving report does not conserve requests")
+    check(base.total_arrived == rep.total_arrived, "the two runs served different traces")
+    check((base.goodput, base.latency_p95_s, base.makespan_s)
+          != (rep.goodput, rep.latency_p95_s, rep.makespan_s),
+          "measured report equals the modeled one: the measurements were dropped")
+    print(f"  modeled report (measure=False): {_report_line(base)}")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"no src/repro_torch beside {Path(__file__).name}: run from a checkout",
@@ -711,6 +844,7 @@ def main() -> int:
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
     del logits
     times = timed_prefills(prefill, model, tokens, sync)
+    granite_prefill_ms = statistics.median(times)
     check(flash_attention_kernel.launches == 4 * cfg.n_layers, "launches over 4 prefills")
     print(f"  prefill B={B} S={S}: {statistics.median(times):.3f} ms (median of 3), "
           f"{launches} kernel launches per call, peak "
@@ -1169,6 +1303,11 @@ def main() -> int:
     del xq, wq, xs, ws
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------ phase 14
+    facade_launches = facade_phase(get_config, card, granite_prefill_ms, reset_launches,
+                                   (flash_attention_kernel, wkv6_kernel, mamba_scan_kernel,
+                                    qmatmul_kernel))
+
     # ------------------------------------------------------------ result
     main_case = results[MAIN_PATH_CASE]
     wkv_case = wkv_results[WKV_MAIN_PATH_CASE]
@@ -1178,25 +1317,25 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
-        "launches": launches,
+        "launches": launches, "facade_launches": facade_launches["flash_attention"],
         **{k: main_case[k] for k in keys},
     }, {
         "name": "wkv6", "route": "cuda",
         "source": "src/repro_torch/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/rwkv6/kernel.py:82",
-        "launches": wkv_launches,
+        "launches": wkv_launches, "facade_launches": facade_launches["wkv6"],
         **{k: wkv_case[k] for k in keys},
     }, {
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba/kernel.py:61",
-        "launches": mamba_launches,
+        "launches": mamba_launches, "facade_launches": facade_launches["mamba_scan"],
         **{k: mamba_case[k] for k in keys},
     }, {
         "name": "qmatmul", "route": "cuda",
         "source": "src/repro_torch/csrc/qmatmul.cu",
         "replaces": "src/repro/kernels/qmatmul/kernel.py:43",
-        "launches": qmm_launches,
+        "launches": qmm_launches, "facade_launches": facade_launches["qmatmul"],
         **{k: qmm_results["main_path"][k] for k in keys},
     }]
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,6 @@
-"""Scope core: the paper's cost model and the layer graphs it prices (a copy
-of the JAX package's ``core/`` modules that the planner's DSE branch needs).
+"""Scope core: the paper's merged-pipeline scheduler and analytical models.
 
-Only the copied modules are exported: the search (``baselines``, ``search``,
-``segments``, ``partition``, ``cmt``) and the CNN workloads are not copied
-yet (ROADMAP A5, ``plan_for_multimodel``).
+A copy of the JAX package's ``core/__init__.py``, which is JAX-free.
 """
 from .costmodel import CostModel, LayerTime  # noqa: F401
 from .fastcost import FastCostModel  # noqa: F401
@@ -31,3 +28,11 @@ from .hw import (  # noqa: F401
     tpu_v5e,
 )
 from .regions import RegionMode  # noqa: F401
+from .baselines import (  # noqa: F401
+    ALL_METHODS,
+    schedule_full_pipeline,
+    schedule_scope,
+    schedule_segmented,
+    schedule_sequential,
+)
+from .search import search, search_segment  # noqa: F401

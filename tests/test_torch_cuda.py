@@ -44,6 +44,7 @@ FA_GPU_CASES = [
     (1, 4, 2, 333, 256, False, 0, 50.0, torch.float32),
     (1, 4, 2, 1024, 256, True, 0, 50.0, torch.bfloat16),
     (4, 16, 8, 2048, 64, True, 0, 0.0, torch.bfloat16),     # granite-moe prefill
+    (4, 16, 8, 2048, 256, True, 4096, 50.0, torch.bfloat16),  # gemma2-9b local, facade
 ]
 
 
@@ -393,3 +394,31 @@ def test_moe_first_layer_products_fp32_on_the_card(cuda_device):
     scale = want.abs().max()
     assert ((got.double() - want).abs().max() / scale).item() < 1e-5
     assert ((torch.bmm(xe, w).double() - want).abs().max() / scale).item() > 1e-4
+
+
+def test_facade_measured_serving_runs_every_server_on_the_card(cuda_device):
+    """``Solution.serve(measure=True)`` on the card with the smoke pair (at
+    head dim 64, which the flash kernel is built for; the smoke configs' 16
+    is not): both prefills timed through the flash kernel at both batch
+    sizes, and every server of the simulated run on its measured service
+    law."""
+    import dataclasses
+
+    from repro_torch import scope
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.hw import tpu_v5e
+
+    cfgs = [dataclasses.replace(get_smoke_config(name), d_head=64)
+            for name in ("granite-3-8b", "gemma2-9b")]
+    sol = scope.solve(scope.problem(scope.WorkloadSpec.lm(cfgs, 64, [1, 2]),
+                                    tpu_v5e(8, (1, 8))))
+    flash_attention_kernel.launches = 0
+    rep = sol.serve(n_requests=300, seed=0, measure=True, seq_len=64, device="cuda")
+    # one warm-up and three timed prefills at each of two batch sizes
+    assert flash_attention_kernel.launches == 8 * sum(c.n_layers for c in cfgs)
+    names = {a.model for a in sol.multi.assignments}
+    assert rep.meta["service_source"] == {name: "measured" for name in names}
+    assert set(rep.meta["measured_s"]) == names
+    assert rep.conserved
+    base = sol.serve(n_requests=300, seed=0)
+    assert (base.goodput, base.latency_p95_s) != (rep.goodput, rep.latency_p95_s)

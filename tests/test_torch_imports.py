@@ -32,7 +32,9 @@ def test_port_file_imports_no_jax_and_no_reference(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.launch.serve, repro_torch.convert, "
             "repro_torch.runtime.planner, repro_torch.core, repro_torch.core.workloads, "
-            "repro_torch.kernels.qmatmul.ops; "
+            "repro_torch.kernels.qmatmul.ops, repro_torch.api, repro_torch.serving, "
+            "repro_torch.multimodel, repro_torch.obs; "
+            "from repro_torch import scope; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
