@@ -58,8 +58,9 @@ plain PyTorch version on the card, then drives the serving path:
     one-step update;
 12. granite-moe-1b-a400m at full width and depth, bf16, seeded init: prefill
     step at B=4 x S=2048 (exactly one flash launch per layer; a second
-    call's logits bit-identical to the first's), the launcher's
-    flow and one decode step traced, then ``python -m
+    call's logits bit-identical to the first's), the same prefill with the
+    kernels called directly and through their autograd functions, in
+    turns, the launcher's flow and one decode step traced, then ``python -m
     repro_torch.launch.serve --arch granite-moe-1b-a400m`` as a process;
 13. int8 ``qmatmul``: the op on its main path, granite-3-8b's FFN
     up-projection at its B=4 x S=2048 prefill (M=8192, K=4096, N=12800), a
@@ -80,13 +81,39 @@ plain PyTorch version on the card, then drives the serving path:
     (gemma2-9b's 42 layers), one at a time, their bf16 prefills timed at
     B=1 and B=4 (every attention layer through the flash kernel), and every
     server of the simulated run on its measured service law; the report
-    beside the modeled (``measure=False``) one, which must differ.
+    beside the modeled (``measure=False``) one, which must differ;
+15. training: (a) the flash backward kernel (``csrc/flash_attention_bwd.cu``)
+    against ``attention_bwd_ref`` in fp32 and bf16 (the reference's flash
+    bounds, and a per-row bound over rows that are not ~0) at
+    granite-3-8b's training shape, gemma2-9b's local and global layers at
+    S=8192 (hd 256, window 4096, softcap 50, q scaled so the cap's
+    tanh saturates) and granite-20b's MQA (48 query heads, one kv head); (b) its time at the granite shape in bf16 beside
+    its bound (five products), the plain backward's and SDPA's backward
+    (``library_ms``, timed alone after one forward); (c) granite-3-8b at full width cut to 2 layers, bf16: the
+    loss and every leaf's gradient through the kernels against plain
+    attention (``plain_attention=True``), both against the same weights in
+    fp32 (the kernels no further from it than the plain path, within 10 %),
+    every wq / wk / wv gradient non-zero; (d) the slice's path: granite-3-8b at full width cut to 16
+    layers, bf16, AdamW, B=4 x S=2048, planned by ``plan_for_cell(kind=
+    "train")``, 6 steps of ``build_train_step`` through ``ResilientTrainer``
+    on the data pipeline's batches: step wall time, tokens/s, MFU, peak
+    memory, launches per step, one more step traced (device time by kind:
+    flash forward, flash backward, dense products, optimizer, other; the
+    backward's three kernels per call), every
+    loss, grad norm and per-layer gradient finite and non-zero; (e)
+    ``tests/test_system.py``'s story at granite-3-8b's smoke config (d_head
+    64, bf16): 20 steps, checkpoints every 5, a failure injected at step 12,
+    the restarted run's parameters and optimizer state bit-identical to an
+    uninterrupted run's (deterministic algorithms on), then greedy decoding;
+    (f) ``python -m repro_torch.launch.train --arch granite-moe-1b-a400m``
+    as a process, 4 steps at full size.
 
 Any failed check raises and the script exits non-zero without a result.  The
 last line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the line before that a JSON object listing
 every ported kernel with its launches on its own main path (flash attention:
-the phase-3 granite-3-8b prefill; WKV-6: the phase-7 rwkv6-3b prefill;
+the phase-3 granite-3-8b prefill; its backward: the phase-15(d) training
+run, calls of three kernels each; WKV-6: the phase-7 rwkv6-3b prefill;
 selective scan: the phase-10 jamba prefill; qmatmul: the phase-13 op call)
 and its times (each also with its launches on phase 14's facade path).
 Imports nothing of JAX or of ``repro``.
@@ -96,6 +123,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -212,7 +240,8 @@ QMM_CASES = [
 ]
 QMM_MAIN = (8192, 12800, 4096)    # granite-3-8b FFN up-projection, B=4 x S=2048
 QMM_CLOSE_TOL = 0.02              # the reference's bound (test_qmatmul_quantized_close_to_fp)
-KERNEL_SOURCES = ("flash_attention.cu", "wkv6.cu", "mamba_scan.cu", "qmatmul.cu")
+KERNEL_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "wkv6.cu", "mamba_scan.cu",
+                  "qmatmul.cu")
 # Phase 14: the facade's problem, the llm pair of BENCH_serving.json on the
 # runtime bridge's default package tpu_v5e(16, (1, 16)), and what the solve
 # and deploy(global_batch=4) must give for it (tests/test_torch_api.py pins
@@ -230,6 +259,26 @@ FACADE_ITERS = 3
 # B=4 x S=2048 shape: the two time the same model, so only the host's spread
 # separates them (phase 3's runs moved 2-3 % between calls)
 FACADE_PREFILL_TOL = 0.25
+# Phase 15: the flash backward kernel against attention_bwd_ref at (name, B,
+# H, KV, S, hd, causal, window, softcap), each in fp32 and bf16: granite-3-8b's
+# training shape, gemma2-9b's local and global layers at an S its 4096 window
+# bites, granite-20b's MQA (48 query heads on one kv head); times at the first
+# in bf16.  Then granite-3-8b trains at full width cut to TRAIN_LAYERS layers.
+FA_BWD_CASES = [
+    ("granite_train", 4, 32, 8, 2048, 128, True, 0, 0.0),
+    ("gemma2_local", 1, 16, 8, 8192, 256, True, 4096, 50.0),
+    ("gemma2_global", 1, 16, 8, 8192, 256, True, 0, 50.0),
+    ("granite20b_mqa", 1, 48, 1, 2048, 128, True, 0, 0.0),
+]
+FA_BWD_MAIN = ("granite_train", "bfloat16")
+# Per-row bound of the backward, over rows whose rms reaches FA_BWD_ROW_FLOOR
+# of the tensor's.  fp32: where one key holds nearly all of a row's softmax
+# (the softcap cases' scaled q), dP - D cancels and the fp32 plain version
+# itself is ~2e-3 off an fp64 one in such rows; a dropped softcap chain
+# factor leaves errors of several times the rms.  bf16: as ROW_REL_TOL.
+FA_BWD_ROW_REL_TOL = {"float32": 1e-2, "bfloat16": ROW_REL_TOL}
+FA_BWD_ROW_FLOOR = 1e-3
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 4, 2048, 6
 
 
 def check(cond: bool, msg: str) -> None:
@@ -292,7 +341,7 @@ def ptxas_report(log: str) -> list[tuple[str, str, str]]:
     return rows
 
 
-SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG")   # bf16 / int8 wgmma, TMA load / store
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "HMMA")   # bf16 / int8 wgmma, TMA load / store, mma.sync
 
 
 def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
@@ -314,15 +363,64 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
     return counts
 
 
-def row_rel_err(out, ref) -> float:
+def row_rel_err(out, ref, floor: float = 0.0) -> float:
     """max over rows of max|out - ref| / rms(ref) within the row, in fp32
-    (fp64 where either is fp64)."""
+    (fp64 where either is fp64), over the rows whose rms reaches ``floor``
+    times the whole tensor's rms (a gradient row that is 0 up to rounding
+    has no scale to be relative to; the absolute bound holds it)."""
     import torch
 
     dt = torch.promote_types(torch.promote_types(out.dtype, ref.dtype), torch.float32)
     d = (out.to(dt) - ref.to(dt)).abs().amax(dim=-1)
-    rms = ref.to(dt).pow(2).mean(dim=-1).sqrt().clamp_min(1e-30)
-    return (d / rms).max().item()
+    rms = ref.to(dt).pow(2).mean(dim=-1).sqrt()
+    if floor > 0:
+        keep = rms >= floor * ref.to(dt).pow(2).mean().sqrt()
+        d, rms = d[keep], rms[keep]
+        if d.numel() == 0:
+            return 0.0
+    return (d / rms.clamp_min(1e-30)).max().item()
+
+
+def fa_bwd_inputs(dev, B, H, KV, S, hd, cap, dtype, seed=0):
+    """q, k, v as the model passes them (transposed [B, S, n, hd] views) and
+    a contiguous dO, normal; under a softcap q is scaled by cap / 3, so the
+    logits' std is a third of the cap and the chain factor 1 - tanh^2 is
+    below 0.79 in about a tenth of the pairs (with unit q it stays within
+    4e-4 of 1, and a kernel that dropped it would pass)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(B, S, n, hd, generator=g, device=dev) for n in (H, KV, KV))
+    if cap > 0:
+        q = q * (cap / 3)
+    do = torch.randn(B, H, S, hd, generator=g, device=dev).to(dtype)
+    return (*(t.to(dtype).transpose(1, 2) for t in (q, k, v)), do)
+
+
+def fa_bwd_errors(got, want, dtype) -> tuple[dict, list[str]]:
+    """The backward's (dq, dk, dv) against attention_bwd_ref: readings, and
+    the bounds they miss.  Each gradient is held elementwise to the
+    reference's flash bound (2e-3 fp32, 2e-2 bf16, relative and absolute)
+    and per row to FA_BWD_ROW_REL_TOL of the row's rms, over the rows whose
+    rms reaches FA_BWD_ROW_FLOOR of the tensor's."""
+    import torch
+
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    row_tol = FA_BWD_ROW_REL_TOL[str(dtype).removeprefix("torch.")]
+    res, missed = {"tol": tol, "row_tol": row_tol}, []
+    for gname, a, w in zip(("dq", "dk", "dv"), got, want, strict=True):
+        err = (a.float() - w.float()).abs().max().item()
+        rel = row_rel_err(a, w, floor=FA_BWD_ROW_FLOOR)
+        if not bool(torch.isfinite(a).all()):
+            missed.append(f"{gname}: non-finite")
+        if not torch.allclose(a.float(), w.float(), rtol=tol, atol=tol):
+            missed.append(f"{gname}: max abs err {err} (tol {tol})")
+        if not rel <= row_tol:
+            missed.append(f"{gname}: per-row error {rel} / rms (tol {row_tol})")
+        res[f"{gname}_max_abs_err"] = err
+        res[f"{gname}_row_rel_err"] = rel
+    res["max_abs_err"] = max(res[f"{x}_max_abs_err"] for x in ("dq", "dk", "dv"))
+    return res, missed
 
 
 STRONG_W_MIN = 1e-3        # strong decays: w log-uniform in [1e-3, 0.999] ...
@@ -463,6 +561,40 @@ def timed_prefills(prefill, model, tokens, sync) -> list[float]:
         sync()
         times.append(1e3 * (time.perf_counter() - t0))
     return times
+
+
+def autograd_overhead(prefill, model, tokens, sync) -> dict[str, float]:
+    """The serving prefill with the autograd functions on its path (the
+    flash call, the MoE experts' fp32 products; their backward is a kernel
+    or a hand-written rule) as they are, and with the kernels called
+    directly, in turns (direct, function, function, direct), each turn one
+    untimed call then ``timed_prefills``: the median ms of each over its
+    turns."""
+    import torch
+
+    import repro_torch.models.attention as attention
+    import repro_torch.models.moe as moe
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+
+    def direct_products(xe, w):
+        return torch.bmm(xe, w, out_dtype=torch.float32)
+
+    def direct_flash(q, k, v, causal=True, window=0, softcap=0.0):
+        return flash_attention_kernel(q, k, v, causal=causal, window=window, softcap=softcap)
+
+    as_is = (moe._products_fp32, attention.flash_attention)
+    variants = {"direct": (direct_products, direct_flash), "autograd_function": as_is}
+    times = {name: [] for name in variants}
+    try:
+        for turn in range(4):
+            for name in (variants if turn % 2 == 0 else reversed(variants)):
+                moe._products_fp32, attention.flash_attention = variants[name]
+                prefill(model, tokens)
+                sync()
+                times[name] += timed_prefills(prefill, model, tokens, sync)
+    finally:
+        moe._products_fp32, attention.flash_attention = as_is
+    return {f"{name}_ms": statistics.median(t) for name, t in times.items()}
 
 
 def check_reproducible(prefill, model, tokens, first, name: str) -> None:
@@ -650,11 +782,395 @@ def facade_phase(get_config, card: str, granite_prefill_ms: float, reset_launche
     return launches
 
 
+def train_breakdown(prof) -> dict[str, list]:
+    """Device time of one profiled train step by kind: the flash forward and
+    backward kernels (by symbol), dense products (cuBLAS / CUTLASS symbols),
+    the optimizer (kernels launched under the step's ``optimizer`` range:
+    compression, clipping, the update) and everything else."""
+    import torch
+
+    # kernels and copies; not the device-side span of the ``optimizer`` range
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and e.name != "optimizer"]
+    groups = {k: [0, 0.0] for k in ("flash forward", "flash backward", "dense products",
+                                    "optimizer", "other")}
+
+    def under_optimizer(e) -> bool:
+        while e is not None:
+            if e.name == "optimizer":
+                return True
+            e = e.cpu_parent
+        return False
+
+    opt_us = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.kernels and under_optimizer(e):
+            for k in e.kernels:
+                opt_us[k.name] = opt_us.get(k.name, 0.0) + k.duration
+    opt_total = sum(opt_us.values()) / 1e3
+    opt_n = sum(len(e.kernels) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CPU and e.kernels
+                and under_optimizer(e))
+    for e in kern:
+        name = e.name.lower()
+        kind = ("flash forward" if "fa_fwd" in name else "flash backward" if "fa_bwd" in name
+                else "dense products" if any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma"))
+                else "other")
+        groups[kind][0] += 1
+        groups[kind][1] += e.time_range.elapsed_us() / 1e3
+    groups["optimizer"] = [opt_n, opt_total]
+    groups["other"][0] -= opt_n
+    groups["other"][1] -= opt_total
+    return groups
+
+
+def bwd_split(prof) -> dict[str, float]:
+    """Device ms of each of the flash backward's three kernels in a trace."""
+    import torch
+
+    split = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "fa_bwd_" in e.name:
+            kind = next(x for x in ("prep", "dkdv", "dq") if f"fa_bwd_{x}" in e.name)
+            split[kind] = split.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3
+    return split
+
+
+def training_phase(get_config, card: str, reset_launches, kernels, cuda_ms, cuda_ms_median,
+                   sync) -> dict:
+    """Phase 15: the flash backward kernel against its plain version, the
+    model's gradients through the kernels against plain attention, the
+    training path (granite-3-8b at full width, 16 layers) and the
+    train -> failure -> restart -> decode story.  Returns the backward's
+    results at the main-path shape and each kernel's launches on the
+    training path."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.ft import ResilientTrainer
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_kernel,
+                                                            flash_attention_kernel)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.models import init_kv_cache, init_params, loss_fn
+    from repro_torch.tree import leaf_layers
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime.planner import plan_for_cell
+    from repro_torch.runtime.serve import build_decode_step, greedy_generate
+    from repro_torch.runtime.train import build_train_step
+
+    dev = torch.device("cuda")
+    held = torch.cuda.memory_allocated()
+    print(f"phase 15: training: the flash backward kernel, granite-3-8b training at full "
+          f"width, train -> failure -> restart -> decode ({held / 2**30:.3f} GiB allocated "
+          "before the phase)")
+    check(held < 2 * 2**30, "an earlier phase's model is still on the card")
+
+    # (a), (b): the backward kernel against attention_bwd_ref; times at the
+    # granite-3-8b training shape in bf16
+    bwd = {}
+    for name, B, H, KV, S, hd, causal, window, cap in FA_BWD_CASES:
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            q, k, v, do = fa_bwd_inputs(dev, B, H, KV, S, hd, cap, dtype)
+            got = flash_attention_bwd_kernel(q, k, v, do, causal=causal, window=window,
+                                             softcap=cap)
+            want = attention_bwd_ref(q, k, v, do, causal, window, cap)
+            sync()
+            res, missed = fa_bwd_errors(got, want, dtype)
+            check(not missed, f"{name} {dt}: kernel vs plain: {'; '.join(missed)}")
+            del got, want
+            if (name, dt) == FA_BWD_MAIN:
+                res["ms"] = cuda_ms_median(
+                    lambda: flash_attention_bwd_kernel(q, k, v, do, causal=causal), 21)
+                res["plain_ms"] = cuda_ms(lambda: attention_bwd_ref(q, k, v, do, causal), 3)
+                leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+                out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                     enable_gqa=H != KV)
+                res["library_ms"] = cuda_ms_median(
+                    lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 21)
+                del out, leaves
+                pairs = visible_pairs(S, S, causal, window)
+                flops = 5 * 2 * B * H * hd * pairs      # q k^T, dO v^T, P^T dO, dS^T q, dS k
+                nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, do, q, k, v))
+                t_ops, t_mem = flops / BF16_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+                res.update(bound_ms=1e3 * max(t_ops, t_mem),
+                           bound_by="operations" if t_ops >= t_mem else "bytes",
+                           bound_arithmetic=f"5 products x 2 x B*H*hd*pairs = 10 x {B}*{H}*{hd}*"
+                           f"{pairs} = {flops:.4e} FLOP / {BF16_PEAK_FLOPS:.3e} FLOP/s = "
+                           f"{1e3 * t_ops:.4f} ms; {nbytes} bytes / {HBM_BYTES_PER_S:.3e} B/s = "
+                           f"{1e3 * t_mem:.4f} ms")
+            bwd[(name, dt)] = res
+            print(f"  (a) {name} B={B} H={H} KV={KV} S={S} hd={hd} causal={causal} "
+                  f"window={window} softcap={cap} {dt}: {json.dumps(res)} {card}")
+            del q, k, v, do
+            torch.cuda.empty_cache()
+
+    # (c) the model's gradients through the kernels against plain attention
+    cfg = get_config("granite-3-8b")
+    cfg_c = dataclasses.replace(cfg, n_layers=2)
+    print(f"  (c) {cfg.name} full width, bf16, reduced: n_layers {cfg.n_layers}→{cfg_c.n_layers}; "
+          "B=4 x S=2048, loss and every leaf's gradient through the kernels vs plain attention")
+    model = init_params(cfg_c, torch.Generator(device=dev).manual_seed(0), dev).train_params()
+    def named_flat(m):
+        """(key, tensor) per layer of every leaf, in the reference's order."""
+        return [(key, t) for key, leaf in tree.flatten_with_path(m.param_tree())
+                for t in leaf_layers(leaf)]
+
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (4, 2048), generator=gen).to(dev)
+    labels = torch.randint(0, cfg.vocab, (4, 2048), generator=gen).to(dev)
+    reset_launches()
+    loss_k = loss_fn(model, tokens, labels)
+    grads_k = torch.autograd.grad(loss_k, model.flat_params())
+    check(flash_attention_bwd_kernel.launches == cfg_c.n_layers,
+          f"{flash_attention_bwd_kernel.launches} backward launches, expected {cfg_c.n_layers}")
+    loss_p = loss_fn(model, tokens, labels, plain_attention=True)
+    grads_p = torch.autograd.grad(loss_p, model.flat_params())
+    # per layer of every leaf: ||kernels - plain|| / ||plain||, held to the
+    # bf16 bound; the largest difference over the leaf's largest entry beside
+    # it (the two paths' bf16 forwards differ by rounding, which the network
+    # carries into every gradient, not only attention's)
+    worst, worst_max = (0.0, ""), (0.0, "")
+    for (key, _), gk, gp in zip(named_flat(model), grads_k, grads_p, strict=True):
+        d = gk.float() - gp.float()
+        rel = (d.norm() / gp.float().norm()).item()
+        worst = max(worst, (rel, key))
+        worst_max = max(worst_max, ((d.abs().max() / gp.float().abs().max()).item(), key))
+        check(rel <= 2e-2, f"{key}: gradient through the kernels vs plain attention, relative "
+              f"norm {rel:.3e} (tol 2e-2)")
+    for (key, _), gk in zip(named_flat(model), grads_k, strict=True):
+        if key.endswith(("['wq']", "['wk']", "['wv']")):
+            check(gk.abs().max().item() > 0, f"zero {key} gradient through attention")
+    # both bf16 paths against the same weights in fp32 (plain attention, TF32
+    # off): the kernels must add no error beyond bf16's own, each leaf's
+    # distance from fp32 within 10 % of the plain path's (+1e-3)
+    cfg_32 = dataclasses.replace(cfg_c, param_dtype="float32")
+    m32 = init_params(cfg_32, torch.Generator(device=dev).manual_seed(0), dev).train_params()
+    with torch.no_grad():
+        for a, b in zip(m32.flat_params(), model.flat_params(), strict=True):
+            a.copy_(b.float())
+    grads_32 = torch.autograd.grad(loss_fn(m32, tokens, labels, plain_attention=True),
+                                   m32.flat_params())
+    worst_ratio = (0.0, "", 0.0, 0.0)
+    for (key, _), gk, gp, g32 in zip(named_flat(model), grads_k, grads_p, grads_32,
+                                     strict=True):
+        rk = ((gk.float() - g32).norm() / g32.norm()).item()
+        rp = ((gp.float() - g32).norm() / g32.norm()).item()
+        worst_ratio = max(worst_ratio, (rk / rp, key, rk, rp))
+        check(rk <= 1.1 * rp + 1e-3, f"{key}: kernels {rk:.3e} from fp32, plain attention "
+              f"{rp:.3e}")
+    del m32, grads_32
+    rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    check(rel_loss <= 2e-2, f"loss through the kernels {loss_k.item()} vs plain {loss_p.item()}")
+    print(f"      loss {loss_k.item():.6f} (kernels) vs {loss_p.item():.6f} (plain); worst "
+          f"relative norm {worst[0]:.3e} at {worst[1]} (tol 2e-2); worst max difference "
+          f"{worst_max[0]:.3e} of the leaf's largest gradient at {worst_max[1]}; from the "
+          f"fp32 run the kernels are at most {worst_ratio[0]:.4f}x the plain path's distance "
+          f"({worst_ratio[2]:.3e} vs {worst_ratio[3]:.3e} at {worst_ratio[1]}); every "
+          f"wq/wk/wv gradient non-zero {card}")
+    del model, grads_k, grads_p, loss_k, loss_p
+    torch.cuda.empty_cache()
+
+    # (d) the slice's path: granite-3-8b, full width, 16 layers, AdamW
+    cfg_d = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    print(f"  (d) {cfg.name} full width, bf16, AdamW, B={B} x S={S}, reduced: n_layers "
+          f"{cfg.n_layers}→{cfg_d.n_layers} (weights + grads + AdamW moments at 12 bytes a "
+          "parameter fit 80 GB at 16 layers, not at 40)")
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg_d, torch.Generator(device=dev).manual_seed(0), dev).train_params()
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = make_optimizer(cfg_d.optimizer)[0](model.param_tree())
+    plan = plan_for_cell(cfg_d, S, B, ("data", "model"), 1, kind="train")
+    print(f"      {n_params / 1e9:.3f} B params; DSE plan (model_axis 1, kind train): p1 {plan.p1}, "
+          f"p2 {plan.p2}, dse {plan.meta.get('dse')}; {torch.cuda.memory_allocated() / 2**30:.2f} "
+          "GiB allocated with the optimizer state")
+    step = build_train_step(cfg_d, plan, base_lr=3e-4, warmup=2, total_steps=100, device=dev)
+    it = make_batch_iterator(cfg_d, batch=B, seq=S, seed=0)
+    batches = {}
+
+    def batch_fn(s):
+        while s not in batches:
+            i, b = next(it)
+            batches[i] = b
+        return batches[s]
+
+    for s in range(TRAIN_STEPS + 1):
+        batch_fn(s)                                  # host data made before the timed run
+    grad_norms = []
+
+    def recorded_step(m, o, b):
+        m, o, metrics = step(m, o, b)
+        grad_norms.append(metrics["grad_norm"])
+        return m, o, metrics
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        trainer = ResilientTrainer(train_step=recorded_step, batch_fn=batch_fn, ckpt_dir=ckpt,
+                                   ckpt_every=10 * TRAIN_STEPS)
+        reset_launches()
+        model, opt, hist = trainer.run(model, opt, n_steps=TRAIN_STEPS)
+        sync()
+        launches = {k.__name__.removesuffix("_kernel"): k.launches for k in kernels}
+    check(len(hist) == TRAIN_STEPS, f"{len(hist)} steps ran")
+    check(launches["flash_attention"] == 2 * TRAIN_STEPS * cfg_d.n_layers,
+          f"{launches['flash_attention']} flash forward launches (remat recomputes each "
+          f"layer's forward: expected {2 * TRAIN_STEPS * cfg_d.n_layers})")
+    check(launches["flash_attention_bwd"] == TRAIN_STEPS * cfg_d.n_layers,
+          f"{launches['flash_attention_bwd']} flash backward calls, expected "
+          f"{TRAIN_STEPS * cfg_d.n_layers}")
+    check(launches["wkv6"] == launches["mamba_scan"] == launches["qmatmul"] == 0,
+          f"another kernel launched on the training path: {launches}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [h["loss"] for h in hist]
+    norms = [g.item() for g in grad_norms]
+    check(all(math.isfinite(x) for x in losses + norms), f"non-finite loss {losses} or "
+          f"grad norm {norms}")
+    times = [1e3 * h["time"] for h in hist]
+    step_ms = statistics.median(times[1:])
+    # one more step traced, then the gradient of every leaf checked
+    b = batch_fn(TRAIN_STEPS)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        model, opt, m = step(model, opt, b)
+        sync()
+    gnorm = m["grad_norm"].item()
+    check(math.isfinite(gnorm) and math.isfinite(m["loss"].item()), "non-finite traced step")
+    groups = train_breakdown(prof)
+    split = bwd_split(prof)
+    busy = sum(ms for _, ms in groups.values())
+    del prof
+    flat = model.flat_params()
+    toks = torch.as_tensor(b["tokens"]).to(dev, torch.int64)
+    labs = torch.as_tensor(b["labels"]).to(dev, torch.int64)
+    grads = torch.autograd.grad(loss_fn(model, toks, labs), flat)
+    bad = [i for i, g in enumerate(grads)
+           if not (bool(torch.isfinite(g).all()) and g.abs().max().item() > 0)]
+    check(not bad, f"{len(bad)} of {len(grads)} per-layer gradients are zero or non-finite")
+    del grads, flat
+    # model FLOPs: 6 x (parameters in products) x tokens, plus attention's
+    # 3 x 4 x B*H*hd*pairs a layer (forward 2 products, backward 4); remat's
+    # recomputed forward is not counted
+    n_mm = n_params - model.embed.numel() - sum(
+        p.numel() for n_, p in model.named_parameters() if "ln" in n_)
+    pairs = visible_pairs(S, S, True, 0)
+    attn = 12 * B * cfg.n_heads * cfg.head_dim * pairs * cfg_d.n_layers
+    model_flops = 6 * n_mm * B * S + attn
+    mfu = model_flops / (step_ms / 1e3) / BF16_PEAK_FLOPS
+    print(f"      losses {[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 4) for x in norms]}, of the traced step {gnorm:.4f}; "
+          f"all {len(model.flat_params())} per-layer gradients finite and non-zero")
+    print(f"      step wall {step_ms:.3f} ms (median of steps 2-{TRAIN_STEPS}; all "
+          f"{[round(t, 3) for t in times]}), {B * S / (step_ms / 1e3):.1f} tokens/s, MFU "
+          f"{mfu:.4f} (model FLOPs 6 x {n_mm} x {B * S} + 12 x B*H*hd*pairs x L = "
+          f"{model_flops:.4e} per step / step wall / 989e12), peak {peak:.2f} GiB, per step "
+          f"{launches['flash_attention'] // TRAIN_STEPS} flash forward launches, "
+          f"{launches['flash_attention_bwd'] // TRAIN_STEPS} flash backward calls {card}")
+    print(f"      traced step: device busy {busy:.3f} ms: " + ", ".join(
+        f"{kind} {ms:.3f} ms ({n} kernels)" for kind, (n, ms) in groups.items())
+        + "; the flash backward per call: " + ", ".join(
+            f"{kind} {ms / cfg_d.n_layers:.3f} ms" for kind, ms in split.items()) + f" {card}")
+    train = {"step_ms": step_ms, "tokens_per_s": B * S / (step_ms / 1e3), "mfu": mfu,
+             "peak_gib": peak, "launches": launches, "busy": groups, "bwd_split": split}
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    # (e) the test_system story on the card: train -> failure at step 12 ->
+    # restart from the step-10 checkpoint -> decode; bit-identical to an
+    # uninterrupted run
+    cfg_e = dataclasses.replace(get_smoke_config("granite-3-8b"), d_head=64,
+                                param_dtype="bfloat16")
+    print(f"  (e) {cfg_e.name} (reduced: d_head 16→64, the flash kernel's smallest; "
+          "param_dtype float32→bfloat16), 20 steps, B=8 x S=32, checkpoints every 5, a failure "
+          "injected at step 12, deterministic algorithms on")
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = {}
+        for label, fail_at in (("restarted", 12), ("uninterrupted", None)):
+            plan = plan_for_cell(cfg_e, 32, 8, ("data", "model"), 1, kind="train", use_dse=False)
+            step = build_train_step(cfg_e, plan, base_lr=5e-3, warmup=5, device=dev)
+            model = init_params(cfg_e, torch.Generator(device=dev).manual_seed(0),
+                                dev).train_params()
+            opt = make_optimizer(cfg_e.optimizer)[0](model.param_tree())
+            it_e = make_batch_iterator(cfg_e, batch=8, seq=32, seed=0)
+            cache = {}
+
+            def batch_e(s, it_e=it_e, cache=cache):
+                while s not in cache:
+                    i, bb = next(it_e)
+                    cache[i] = bb
+                return cache[s]
+
+            fired = []
+
+            def injector(s, fail_at=fail_at, fired=fired):
+                if s == fail_at and not fired:
+                    fired.append(s)
+                    raise RuntimeError("injected failure")
+
+            with tempfile.TemporaryDirectory() as ckpt:
+                trainer = ResilientTrainer(train_step=step, batch_fn=batch_e, ckpt_dir=ckpt,
+                                           ckpt_every=5)
+                model, opt, hist = trainer.run(model, opt, n_steps=20, failure_injector=injector)
+            runs[label] = (model, opt, hist, fired)
+        model, opt, hist, fired = runs["restarted"]
+        check(fired == [12], "the failure was not injected")
+        check([h["step"] for h in hist].count(11) == 2, "no replay from the step-10 checkpoint")
+        losses = [h["loss"] for h in hist]
+        check(losses[-1] < losses[0], f"loss did not drop: {losses}")
+        m2, o2, _, _ = runs["uninterrupted"]
+        pairs_ = list(zip(tree.leaves((model.param_tree(), opt)), tree.leaves((m2.param_tree(), o2)),
+                          strict=True))
+        same = all(torch.equal(x, y) for a, b_ in pairs_
+                   for x, y in zip(leaf_layers(a), leaf_layers(b_), strict=True))
+        check(same, "the restarted run's parameters or optimizer state differ from the "
+              "uninterrupted run's")
+        dplan = plan_for_cell(cfg_e, 16, 4, ("data", "model"), 1, kind="decode")
+        dstep = build_decode_step(cfg_e, dplan, batch=4, max_len=16, device=dev)
+        caches = init_kv_cache(cfg_e, 4, 16, torch.bfloat16, dev)
+        toks, _ = greedy_generate(cfg_e, model, dstep, caches,
+                                  prompt_last_token=torch.ones(4, 1, dtype=torch.int64),
+                                  start_pos=0, steps=8)
+        sync()
+        check(tuple(toks.shape) == (4, 8) and int(toks.max()) < cfg_e.padded_vocab,
+              f"decoded {tuple(toks.shape)}")
+        print(f"      restarted run: losses {losses[0]:.4f} → {losses[-1]:.4f} over "
+              f"{len(hist)} recorded steps (step 11 and 12 replayed); parameters and optimizer "
+              f"state bit-identical to the uninterrupted run ({len(pairs_)} leaves); decoded "
+              f"{toks[0].tolist()} {card}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del runs
+    torch.cuda.empty_cache()
+
+    # (f) the train launcher as a process, granite-moe-1b-a400m at full size
+    # (the MoE dispatch's backward; no checkpoint within its steps)
+    with tempfile.TemporaryDirectory() as ckpt:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "granite-moe-1b-a400m", "--steps", "4", "--ckpt-every", "100", "--ckpt-dir", ckpt]
+        proc = subprocess.run(cmd, cwd=REPO, env=dict(os.environ, PYTHONPATH=str(SRC)),
+                              capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0 and "final loss" in proc.stdout,
+          f"{' '.join(cmd[1:6])} exited {proc.returncode}: {proc.stdout}{proc.stderr[-3000:]}")
+    print(f"  (f) python {' '.join(cmd[1:8])}: " + " | ".join(
+        line for line in proc.stdout.strip().splitlines() if not line.startswith("plan:"))
+        + f" {card}")
+    return {"bwd": bwd[FA_BWD_MAIN], "train": train}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"no src/repro_torch beside {Path(__file__).name}: run from a checkout",
               file=sys.stderr)
         return 2
+    # phase 15(e) replays training bit for bit: cuBLAS is deterministic only
+    # with a fixed workspace, which must be set before CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     import torch.nn.functional as F
 
@@ -665,7 +1181,8 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_kernel,
+                                                            flash_attention_kernel)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.mamba.kernel import mamba_scan_kernel
     from repro_torch.kernels.mamba.ref import mamba_scan_ref
@@ -706,7 +1223,8 @@ def main() -> int:
         return statistics.median(start.elapsed_time(end) for start, end in events)
 
     def reset_launches() -> None:
-        flash_attention_kernel.launches = wkv6_kernel.launches = 0
+        flash_attention_kernel.launches = flash_attention_bwd_kernel.launches = 0
+        wkv6_kernel.launches = 0
         mamba_scan_kernel.launches = qmatmul_kernel.launches = 0
 
     # ------------------------------------------------------------ phase 1
@@ -762,6 +1280,12 @@ def main() -> int:
           f"qmatmul_tma kernels without int8 wgmma (IGMMA) or TMA (UTMALDG) in their SASS: {tma}")
     check(all("0 bytes spill stores, 0 bytes spill loads" in spills.get(k, "") for k in tma),
           f"qmatmul_tma kernels spill: { {k: spills.get(k) for k in tma} }")
+    counts = sass_counts(_build.library_path("flash_attention_bwd.cu"))
+    print("  SASS of flash_attention_bwd.cu (HMMA): " + ", ".join(
+        f"{k} {v['HMMA']}" for k, v in sorted(counts.items())))
+    bwd16 = {k: v for k, v in counts.items() if "bfloat16" in k}
+    check(len(bwd16) == 9 and all(v["HMMA"] > 0 for v in bwd16.values()),
+          f"bf16 flash backward kernels without mma.sync (HMMA) in their SASS: {bwd16}")
 
     # ------------------------------------------------------------ phase 2
     print("phase 2: flash_attention kernel vs plain version on the card")
@@ -1218,6 +1742,9 @@ def main() -> int:
           f"{min(times):.3f}-{max(times):.3f}), {gcfg.n_layers} flash launches per call, "
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
     check_reproducible(prefill, model, tokens, first, "granite-moe")
+    print(f"  prefill with the kernels called directly vs through their autograd functions "
+          f"(medians of 12, in turns): {json.dumps(autograd_overhead(prefill, model, tokens, sync))}"
+          f" {card}")
     print(f"  prefill traced: {prefill_breakdown(prefill, model, tokens, ('fa_fwd',), sync)} "
           f"{card}")
     launcher_flow(serve, gcfg, model, card)
@@ -1304,9 +1831,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phase 14
+    all_kernels = (flash_attention_kernel, flash_attention_bwd_kernel, wkv6_kernel,
+                   mamba_scan_kernel, qmatmul_kernel)
     facade_launches = facade_phase(get_config, card, granite_prefill_ms, reset_launches,
-                                   (flash_attention_kernel, wkv6_kernel, mamba_scan_kernel,
-                                    qmatmul_kernel))
+                                   all_kernels)
+
+    # ------------------------------------------------------------ phase 15
+    training = training_phase(get_config, card, reset_launches, all_kernels, cuda_ms,
+                              cuda_ms_median, sync)
 
     # ------------------------------------------------------------ result
     main_case = results[MAIN_PATH_CASE]
@@ -1319,6 +1851,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
         "launches": launches, "facade_launches": facade_launches["flash_attention"],
         **{k: main_case[k] for k in keys},
+    }, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
+        "launches": training["train"]["launches"]["flash_attention_bwd"],
+        "facade_launches": facade_launches["flash_attention_bwd"],
+        **{k: training["bwd"][k] for k in keys},
     }, {
         "name": "wkv6", "route": "cuda",
         "source": "src/repro_torch/csrc/wkv6.cu",

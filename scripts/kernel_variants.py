@@ -3,10 +3,12 @@
 
     python3 scripts/kernel_variants.py scripts/scan_ablations.json
     python3 scripts/kernel_variants.py scripts/qmatmul_ablations.json
+    python3 scripts/kernel_variants.py scripts/flash_bwd_ablations.json
+    python3 scripts/kernel_variants.py scripts/flash_bwd_mutations.json
 
 Each entry of the spec is ``{"name", "source", "edits", "note"}``: ``source`` is a
-file under ``src/repro_torch/csrc`` (``mamba_scan.cu``, ``wkv6.cu`` or
-``qmatmul.cu``) and ``edits`` a list of ``[old, new]`` text replacements,
+file under ``src/repro_torch/csrc`` (``mamba_scan.cu``, ``wkv6.cu``,
+``qmatmul.cu`` or ``flash_attention_bwd.cu``) and ``edits`` a list of ``[old, new]`` text replacements,
 each of which must match.  Every variant is built with the flags of
 ``kernels/_build.py`` (one ``nvcc`` each, in parallel) into a scratch
 directory, called through the same C interface as the kernel, and timed
@@ -16,10 +18,16 @@ x bf16, B / C strided views), WKV-6 at rwkv6-3b's (B=4, H=40, S=2048,
 hd=64) on the reference's decays and on strong ones, qmatmul at
 granite-3-8b's FFN up-projection (M=8192, K=4096, N=12800, fp32 out) on
 its wgmma / TMA path, with the [N,K] scratch holding w transposed before
-the timing.  A variant that removes work gives wrong outputs on purpose;
+the timing, the flash backward at granite-3-8b's training shape (B=4,
+H=32, KV=8, S=2048, hd=128, bf16, causal; q, k, v transposed views as the
+model passes them).  A variant that removes work gives wrong outputs on purpose;
 the max abs difference from the plain version is printed beside each time
-so that the two kinds stand apart.  One JSON line per variant, then the
-card's name and power limit.
+so that the two kinds stand apart.  A flash-backward entry with ``cases``
+(``[[name, dtype], ...]``, names of ``chip_smoke.FA_BWD_CASES``) is not
+timed: its variant goes through the wrapper in place of the kernel, at each
+case's shape and inputs, and is held to ``chip_smoke.py`` phase 15(a)'s
+bounds, which must fail a variant that computes something else.  One JSON
+line per variant, then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -74,7 +82,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO / "src"))
     sys.path.insert(1, str(REPO))
-    from chip_smoke import mamba_inputs, nvidia_smi_line, wkv_inputs
+    from chip_smoke import (FA_BWD_CASES, fa_bwd_errors, fa_bwd_inputs, mamba_inputs,
+                            nvidia_smi_line, wkv_inputs)
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     from repro_torch.kernels.mamba.ref import mamba_scan_ref
     from repro_torch.kernels.qmatmul.ref import qmatmul_ref
     from repro_torch.kernels.rwkv6.kernel import SEGMENT
@@ -82,9 +93,12 @@ def main() -> int:
 
     spec = json.loads(Path(sys.argv[1]).read_text())
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
     card = f"[{nvidia_smi_line()}]"
     stream = torch.cuda.current_stream().cuda_stream
     qmm = None    # qmatmul's inputs, plain output and w transposed, made once
+    fab = None    # the flash backward's inputs and plain gradients, made once
+    fa_cases = {}  # (case, dtype) -> inputs and plain gradients, made once
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(8) as pool:
         built = list(pool.map(lambda item: build(item, Path(tmp)), spec))
         for item, (lib, err) in zip(spec, built):
@@ -136,6 +150,58 @@ def main() -> int:
                 res["ms"] = events_ms(torch, call)
                 res["max_abs_diff"] = (out - want).abs().max().item()
                 del out, wt
+            elif item["source"] == "flash_attention_bwd.cu" and "cases" in item:
+                variant = ctypes.CDLL(lib).repro_flash_attention_bwd
+                variant.argtypes, variant.restype = fa._bwd().argtypes, fa._bwd().restype
+                shapes = {c[0]: c[1:] for c in FA_BWD_CASES}
+                as_is, fa._bwd = fa._bwd, lambda: variant
+                try:
+                    for name, dt in item["cases"]:
+                        B, H, KV, S, hd, causal, window, cap = shapes[name]
+                        dtype = getattr(torch, dt)
+                        if (name, dt) not in fa_cases:
+                            q, k, v, do = fa_bwd_inputs(dev, B, H, KV, S, hd, cap, dtype)
+                            fa_cases[name, dt] = (q, k, v, do, attention_bwd_ref(
+                                q, k, v, do, causal, window, cap))
+                        q, k, v, do, want = fa_cases[name, dt]
+                        got = fa.flash_attention_bwd_kernel(q, k, v, do, causal=causal,
+                                                            window=window, softcap=cap)
+                        readings, missed = fa_bwd_errors(got, want, dtype)
+                        res[f"{name}_{dt}"] = {"passes": not missed, "missed": missed,
+                                               **readings}
+                        del got
+                finally:
+                    fa._bwd = as_is
+            elif item["source"] == "flash_attention_bwd.cu":
+                fn = ctypes.CDLL(lib).repro_flash_attention_bwd
+                fn.argtypes = ([ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
+                               + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                               + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+                B, H, KV, S, hd = 4, 32, 8, 2048, 128
+                if fab is None:
+                    g = torch.Generator(device=dev).manual_seed(0)
+                    q, k, v = (torch.randn(B, S, n, hd, generator=g, device=dev).bfloat16()
+                               .transpose(1, 2) for n in (H, KV, KV))
+                    do = torch.randn(B, H, S, hd, generator=g, device=dev).bfloat16()
+                    fab = (q, k, v, do, attention_bwd_ref(q, k, v, do))
+                q, k, v, do, want = fab
+                grads = [torch.full_like(t, float("nan")) for t in (q, k, v)]
+                lse = torch.empty(B, H, S, device=dev)
+                delta = torch.empty_like(lse)
+                tensors = (q, k, v, do, *grads)
+                ptrs = (ctypes.c_void_p * 7)(*(t.data_ptr() for t in tensors))
+                st = (ctypes.c_longlong * 21)(*(x for t in tensors for x in t.stride()[:3]))
+
+                def call():
+                    if fn(1, hd, ptrs, lse.data_ptr(), delta.data_ptr(), B, H, KV, S, S, st, 1,
+                          0, 0.0, hd ** -0.5, stream) != 0:
+                        raise RuntimeError(f"{item['name']}: launch failed")
+
+                res["ms"] = events_ms(torch, call)
+                res["max_abs_diff"] = max((a.float() - b.float()).abs().max().item()
+                                          for a, b in zip(grads, want))
+                del grads, lse, delta
             else:
                 fn = ctypes.CDLL(lib).repro_wkv6_fwd
                 fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4

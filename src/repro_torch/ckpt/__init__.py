@@ -1,0 +1,1 @@
+from .checkpoint import save_checkpoint, restore_checkpoint, latest_step  # noqa: F401

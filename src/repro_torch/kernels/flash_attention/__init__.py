@@ -1,1 +1,1 @@
-"""Flash attention (forward): hand-written Hopper kernel + plain PyTorch version."""
+"""Flash attention: hand-written Hopper kernels (forward and backward) + plain PyTorch versions."""

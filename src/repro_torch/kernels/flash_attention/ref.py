@@ -24,8 +24,9 @@ def attention_ref(
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     g = H // KV
-    kf = torch.repeat_interleave(k, g, dim=1).float()
-    vf = torch.repeat_interleave(v, g, dim=1).float()
+    # upcast before repeating: autograd then sums a group's heads in fp32
+    kf = torch.repeat_interleave(k.float(), g, dim=1)
+    vf = torch.repeat_interleave(v.float(), g, dim=1)
     s = torch.einsum("bhsd,bhtd->bhst", q.float(), kf) / math.sqrt(hd)
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
@@ -40,3 +41,26 @@ def attention_ref(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhst,bhtd->bhsd", p, vf)
     return out.to(q.dtype)
+
+
+def attention_bwd_ref(
+    q: torch.Tensor,      # [B, H, Sq, hd]
+    k: torch.Tensor,      # [B, KV, Skv, hd]
+    v: torch.Tensor,
+    do: torch.Tensor,     # gradient of the output, [B, H, Sq, hd]
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`attention_ref` by autograd, each in its input's
+    dtype: computed in fp32 (``attention_ref`` upcasts q, k, v, so a GQA
+    group's dk, dv are summed in fp32) and rounded once.
+
+    The plain backward the CUDA backward kernel is held against on the card;
+    the reference has no backward kernel and differentiates its jnp attention
+    the same way.
+    """
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = attention_ref(*leaves, causal, window, softcap)
+        return torch.autograd.grad(out, leaves, do)

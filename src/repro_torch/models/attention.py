@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.flash_attention.ref import attention_ref
 from .config import ModelConfig
 from .layers import apply_rope, dense, rope_freqs, softcap
 
@@ -49,12 +50,14 @@ def attention_prefill(
     cfg: ModelConfig,
     positions: torch.Tensor | None = None,
     window: int = 0,
+    plain: bool = False,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence causal attention.  Returns (out, (k, v)) for caching.
 
     ``positions=None`` means ``0..S-1`` per row, the only positions the flash
     kernel takes.  Explicit positions run the plain masked path, on the CPU
-    only.
+    only.  ``plain`` runs the flash call's plain version on any device (the
+    checks that hold the kernels against it pass it).
     """
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -71,8 +74,9 @@ def attention_prefill(
     if default_pos:
         # [B,S,H,hd] -> [B,H,S,hd] as a strided view; the kernel takes strides
         # and returns q's layout, so the reshape back copies nothing.
-        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                              causal=True, window=window, softcap=cfg.attn_softcap)
+        attend = attention_ref if plain else flash_attention
+        out = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                     causal=True, window=window, softcap=cfg.attn_softcap)
         out = out.transpose(1, 2).reshape(B, S, H * hd)
     elif x.device.type != "cpu":
         raise NotImplementedError(

@@ -17,7 +17,9 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from .. import tree as pytree
 from ..device import resolve_device
 from .attention import attention_decode, attention_prefill
 from .config import ModelConfig
@@ -71,9 +73,10 @@ class AttnBlock(_FfnBlock):
         self.window = cfg.window if kind == "local" else 0
         self.attn = _frozen_dict(params["attn"])
 
-    def prefill(self, x, positions):
+    def prefill(self, x, positions, plain_attention=False):
         h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
-        a, (k, v) = attention_prefill(self.attn, h, self.cfg, positions, self.window)
+        a, (k, v) = attention_prefill(self.attn, h, self.cfg, positions, self.window,
+                                      plain=plain_attention)
         return self._ffn(x + a), {"k": k, "v": v}
 
     def decode(self, x, position, cache):
@@ -102,7 +105,7 @@ class RwkvBlock(nn.Module):
         f, st2 = rwkv_channel_mix(self.rwkv, h2, state)
         return x + f, {**st, **st2}
 
-    def prefill(self, x, positions):
+    def prefill(self, x, positions, plain_attention=False):
         return self._run(x, None)          # position-free, as in the reference
 
     def decode(self, x, position, cache):
@@ -120,7 +123,7 @@ class MambaBlock(_FfnBlock):
         super().__init__(cfg, params)
         self.mamba = _frozen_dict(params["mamba"])
 
-    def prefill(self, x, positions):
+    def prefill(self, x, positions, plain_attention=False):
         h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
         a, st = mamba_prefill(self.mamba, h, self.cfg)     # position-free
         return self._ffn(x + a), st
@@ -138,7 +141,11 @@ _BLOCKS = {"attn": AttnBlock, "local": AttnBlock, "rwkv": RwkvBlock, "mamba": Ma
 
 
 class DecoderLM(nn.Module):
-    """Parameters in the reference's leaf layout (``[d_in, d_out]`` weights)."""
+    """Parameters in the reference's leaf layout (``[d_in, d_out]`` weights).
+
+    Built frozen (``requires_grad=False``), as serving wants it;
+    :meth:`train_params` makes every parameter trainable.
+    """
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
@@ -156,24 +163,69 @@ class DecoderLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def train_params(self) -> "DecoderLM":
+        """Make every parameter trainable (in place); returns the model."""
+        for p in self.parameters():
+            p.requires_grad_(True)
+        return self
+
+    def param_tree(self) -> dict:
+        """The reference's parameter pytree over this model's tensors:
+        ``{"blocks": (slot dicts...), "embed", "final_ln"[, "lm_head"]}``,
+        where each leaf under ``blocks`` is a :class:`~repro_torch.tree.Stacked` of the slot's
+        R per-layer tensors (the reference's ``[R, ...]`` leaf) and every
+        other leaf is the parameter itself."""
+        P = len(self.cfg.expanded_pattern)
+        blocks = []
+        for pi in range(P):
+            layers = [self.blocks[li] for li in range(pi, self.cfg.n_layers, P)]
+            tree: dict = {}
+            for name, _ in layers[0].named_parameters():
+                *outer, leaf = name.split(".")
+                node = tree
+                for key in outer:
+                    node = node.setdefault(key, {})
+                node[leaf] = pytree.Stacked([layer.get_parameter(name) for layer in layers])
+            blocks.append(tree)
+        tree = {"blocks": tuple(blocks), "embed": self.embed, "final_ln": self.final_ln}
+        if self.lm_head is not None:
+            tree["lm_head"] = self.lm_head
+        return tree
+
+    def flat_params(self) -> list[nn.Parameter]:
+        """Every parameter, one tensor per layer, in the order of
+        :meth:`param_tree`'s leaves (the order the train step differentiates
+        and the optimizers walk)."""
+        return [t for leaf in pytree.leaves(self.param_tree()) for t in pytree.leaf_layers(leaf)]
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rmsnorm(x, self.final_ln, self.cfg.norm_eps)
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return softcap(dense(x, head).float(), self.cfg.logit_softcap)
 
     def forward(self, tokens: torch.Tensor, collect_cache: bool = False,
-                positions: torch.Tensor | None = None):
+                positions: torch.Tensor | None = None, plain_attention: bool = False):
         """tokens [B,S] -> (logits [B,S,padded_vocab] fp32, caches or None).
 
         ``positions=None`` is ``0..S-1`` per row; explicit positions run on
         the CPU only (see :func:`attention_prefill`).  rwkv blocks take no
-        positions, as in the reference.
+        positions, as in the reference.  With ``cfg.remat`` and autograd
+        recording, each block runs under ``torch.utils.checkpoint`` (the
+        reference's ``jax.checkpoint`` of its scanned body): its activations
+        are recomputed in the backward pass.  ``plain_attention`` runs
+        attention through the plain version on any device; it exists for the
+        checks that hold the kernels against it, not for use.
         """
         P = len(self.cfg.expanded_pattern)
         x = embed(tokens, self.embed)
         per_slot = [[] for _ in range(P)]
+        remat = self.cfg.remat and torch.is_grad_enabled() and not collect_cache
         for layer, blk in enumerate(self.blocks):
-            x, cache = blk.prefill(x, positions)
+            if remat:
+                x, cache = checkpoint(blk.prefill, x, positions, plain_attention,
+                                      use_reentrant=False)
+            else:
+                x, cache = blk.prefill(x, positions, plain_attention)
             if collect_cache:
                 per_slot[layer % P].append(cache)
         caches = None
@@ -323,9 +375,10 @@ def decode_step(model: DecoderLM, token, position, caches):
     return model.decode_step(token, position, caches)
 
 
-def loss_fn(model: DecoderLM, tokens: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def loss_fn(model: DecoderLM, tokens: torch.Tensor, labels: torch.Tensor,
+            plain_attention: bool = False) -> torch.Tensor:
     """Mean next-token NLL over the final ``labels.shape[1]`` positions."""
-    logits, _ = model(tokens)
+    logits, _ = model(tokens, plain_attention=plain_attention)
     logits = logits[:, -labels.shape[1]:]
     logp = torch.log_softmax(logits, dim=-1)
     return -torch.gather(logp, -1, labels[..., None])[..., 0].mean()

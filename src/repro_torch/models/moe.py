@@ -38,6 +38,24 @@ def _route(params, xf: torch.Tensor, cfg: ModelConfig):
     return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), sel
 
 
+class _BmmFp32(torch.autograd.Function):
+    """``bmm`` with an fp32 output from operands in their own dtype (CUDA
+    only), which has no derivative of its own: the backward multiplies in
+    fp32 and returns each gradient in its operand's dtype, as autograd of
+    the CPU form below does."""
+
+    @staticmethod
+    def forward(ctx, xe, w):
+        ctx.save_for_backward(xe, w)
+        return torch.bmm(xe, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        xe, w = ctx.saved_tensors
+        return (torch.bmm(g, w.float().transpose(1, 2)).to(xe.dtype),
+                torch.bmm(xe.float().transpose(1, 2), g).to(w.dtype))
+
+
 def _products_fp32(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """xe [E, M, d] @ w [E, d, f] -> [E, M, f] fp32, from operands in their own
     dtype.  On the card a bf16 product accumulates and returns fp32 on the
@@ -46,7 +64,7 @@ def _products_fp32(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     order of the sum."""
     if xe.device.type == "cpu":
         return torch.matmul(xe.float(), w.float())
-    return torch.bmm(xe, w, out_dtype=torch.float32)
+    return _BmmFp32.apply(xe, w)
 
 
 def _expert_hidden(params, xe: torch.Tensor, gated: bool) -> torch.Tensor:

@@ -11,8 +11,9 @@ import math
 import pytest
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_kernel,
+                                                        flash_attention_kernel)
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
 from repro_torch.kernels.mamba.kernel import mamba_scan_kernel
 from repro_torch.kernels.mamba.ref import mamba_scan_ref
 from repro_torch.kernels.qmatmul.kernel import qmatmul_kernel, tma_path
@@ -422,3 +423,168 @@ def test_facade_measured_serving_runs_every_server_on_the_card(cuda_device):
     assert rep.conserved
     base = sol.serve(n_requests=300, seed=0)
     assert (base.goodput, base.latency_p95_s) != (rep.goodput, rep.latency_p95_s)
+
+
+# (B, H, KV, S, hd, causal, window, softcap, dtype): the backward at
+# chip_smoke.py phase 15's shapes (granite-3-8b's prefill, gemma2-9b's local
+# and global layers at an S its window bites, granite-20b's MQA 48 / 1), in
+# both dtypes, then small edges (ragged S, non-causal, hd 64).
+FA_BWD_CASES = [
+    (4, 32, 8, 2048, 128, True, 0, 0.0, torch.bfloat16),
+    (4, 32, 8, 2048, 128, True, 0, 0.0, torch.float32),
+    (1, 16, 8, 8192, 256, True, 4096, 50.0, torch.bfloat16),
+    (1, 16, 8, 8192, 256, True, 0, 50.0, torch.float32),
+    (1, 48, 1, 2048, 128, True, 0, 0.0, torch.bfloat16),
+    (1, 48, 1, 2048, 128, True, 0, 0.0, torch.float32),
+    (2, 4, 2, 333, 64, True, 100, 30.0, torch.bfloat16),
+    (1, 6, 3, 257, 256, False, 0, 0.0, torch.float32),
+    (1, 4, 1, 1000, 128, False, 300, 50.0, torch.bfloat16),
+]
+
+
+def _bwd_inputs(dev, B, H, KV, S, hd, dtype, seed=3, cap=0.0):
+    """q, k, v as the model passes them (transposed [B,S,n,hd] views), dO
+    contiguous.  Under a softcap q is scaled by cap / 3, so that the cap's
+    tanh saturates and its chain factor 1 - tanh^2 matters (with unit q it
+    stays within 4e-4 of 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(B, S, n, hd, generator=g, device=dev) for n in (H, KV, KV))
+    if cap > 0:
+        q = q * (cap / 3)
+    do = torch.randn(B, H, S, hd, generator=g, device=dev).to(dtype)
+    return (*(t.to(dtype).transpose(1, 2) for t in (q, k, v)), do)
+
+
+# per-row bound over the rows whose rms reaches 1e-3 of the tensor's (a
+# causal q row 0 sees one key, so its dq is 0 up to rounding); fp32: where
+# one key holds nearly all of a row's softmax, dP - D cancels and the fp32
+# plain version itself is ~2e-3 off an fp64 one; as chip_smoke.py phase 15
+FA_BWD_ROW_TOL = {torch.float32: 1e-2, torch.bfloat16: 0.1}
+
+
+@pytest.mark.parametrize("case", FA_BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(cuda_device, case):
+    """dq, dk, dv against attention_bwd_ref, to the reference's flash bounds;
+    each row's worst error held to FA_BWD_ROW_TOL of the row's rms as well."""
+    B, H, KV, S, hd, causal, window, cap, dtype = case
+    q, k, v, do = _bwd_inputs(cuda_device, B, H, KV, S, hd, dtype, cap=cap)
+    got = flash_attention_bwd_kernel(q, k, v, do, causal=causal, window=window, softcap=cap)
+    want = attention_bwd_ref(q, k, v, do, causal, window, cap)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    for g_, w, t in zip(got, want, (q, k, v), strict=True):
+        assert g_.dtype == t.dtype and g_.shape == t.shape and g_.stride() == t.stride()
+        torch.testing.assert_close(g_.float(), w.float(), rtol=tol, atol=tol)
+        row_err = (g_.float() - w.float()).abs().amax(-1)
+        row_rms = w.float().pow(2).mean(-1).sqrt()
+        rows = row_rms >= 1e-3 * w.float().pow(2).mean().sqrt()
+        assert (row_err[rows] <= FA_BWD_ROW_TOL[dtype] * row_rms[rows]).all(), \
+            (row_err[rows] / row_rms[rows]).max().item()
+    del got, want
+
+
+def test_flash_attention_bwd_is_deterministic_and_counts_calls(cuda_device):
+    q, k, v, do = _bwd_inputs(cuda_device, 2, 8, 2, 300, 128, torch.bfloat16)
+    before = flash_attention_bwd_kernel.launches
+    first = flash_attention_bwd_kernel(q, k, v, do)
+    second = flash_attention_bwd_kernel(q, k, v, do)
+    assert flash_attention_bwd_kernel.launches == before + 2
+    for a, b in zip(first, second, strict=True):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_autograd_goes_through_both_kernels(cuda_device):
+    """ops.flash_attention on CUDA tensors that need a gradient: one forward
+    and one backward launch, the gradients those of the kernels, and a dO of
+    any strides (here an expanded one, from a sum)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    q, k, v, _ = _bwd_inputs(cuda_device, 1, 8, 2, 256, 64, torch.bfloat16)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    f0, b0 = flash_attention_kernel.launches, flash_attention_bwd_kernel.launches
+    out = flash_attention(*leaves, causal=True, window=64, softcap=30.0)
+    got = torch.autograd.grad(out.float().sum(), leaves)
+    assert flash_attention_kernel.launches == f0 + 1
+    assert flash_attention_bwd_kernel.launches == b0 + 1
+    want = attention_bwd_ref(q, k, v, torch.ones_like(q), True, 64, 30.0)
+    for g_, w in zip(got, want, strict=True):
+        torch.testing.assert_close(g_.float(), w.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_model_gradients_through_the_kernels_match_plain_attention(cuda_device):
+    """granite-3-8b's smoke config at head dim 64, bf16: the loss and every
+    leaf's gradient through the kernels against the same model with
+    attention through the plain version (``plain_attention=True``): each
+    leaf's relative norm difference within the bf16 bound, 2e-2; every
+    attention projection gets a non-zero gradient."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params, loss_fn
+
+    cfg = dataclasses.replace(get_smoke_config("granite-3-8b"), d_head=64,
+                              param_dtype="bfloat16")
+    model = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                        cuda_device).train_params()
+    flat = model.flat_params()
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 128), generator=g).to(cuda_device)
+    labels = torch.randint(0, cfg.vocab, (2, 128), generator=g).to(cuda_device)
+    b0 = flash_attention_bwd_kernel.launches
+    loss_k = loss_fn(model, tokens, labels)
+    grads_k = torch.autograd.grad(loss_k, flat)
+    assert flash_attention_bwd_kernel.launches == b0 + cfg.n_layers
+    loss_p = loss_fn(model, tokens, labels, plain_attention=True)
+    grads_p = torch.autograd.grad(loss_p, flat)
+    assert abs(loss_k.item() - loss_p.item()) <= 2e-2 * abs(loss_p.item())
+    for gk, gp in zip(grads_k, grads_p, strict=True):
+        assert ((gk.float() - gp.float()).norm() / gp.float().norm()).item() <= 2e-2
+    nonzero = {id(p): gk.abs().max().item() > 0 for p, gk in zip(flat, grads_k)}
+    assert all(nonzero[id(blk.attn[n])] for blk in model.blocks for n in ("wq", "wk", "wv"))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b"])
+def test_training_without_a_backward_kernel_raises(cuda_device, arch):
+    """wkv6 / mamba_scan have no backward kernel yet: on the card a call
+    that needs a gradient raises (ROADMAP A17) rather than dropping it."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params, loss_fn
+
+    cfg = dataclasses.replace(get_smoke_config(arch), d_head=64, rwkv_head_dim=64)
+    model = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                        cuda_device).train_params()
+    tokens = torch.zeros(1, 32, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="A17"):
+        loss_fn(model, tokens, tokens)
+
+
+def test_moe_model_trains_on_the_card(cuda_device):
+    """granite-moe-1b-a400m's smoke config at head dim 64, bf16: two train
+    steps on the card through the MoE dispatch's backward (the expert
+    products' fp32-output ``bmm`` has its own backward), every expert and
+    router weight moved, the loss finite."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime.planner import plan_for_cell
+    from repro_torch.runtime.train import build_train_step
+
+    cfg = dataclasses.replace(get_smoke_config("granite-moe-1b-a400m"), d_head=64,
+                              param_dtype="bfloat16")
+    model = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                        cuda_device).train_params()
+    opt = make_optimizer(cfg.optimizer)[0](model.param_tree())
+    plan = plan_for_cell(cfg, 32, 4, ("data", "model"), 1, kind="train", use_dse=False)
+    step = build_train_step(cfg, plan, base_lr=1e-3, warmup=1, device=cuda_device)
+    before = {n: p.detach().clone() for n, p in model.named_parameters() if ".moe." in n}
+    g = torch.Generator().manual_seed(2)
+    for _ in range(2):
+        toks = torch.randint(0, cfg.vocab, (4, 33), generator=g)
+        model, opt, m = step(model, opt, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+        assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    after = dict(model.named_parameters())
+    assert before and all(not torch.equal(before[n], after[n]) for n in before)

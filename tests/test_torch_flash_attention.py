@@ -1,10 +1,14 @@
 """The port's flash_attention entry on the CPU (its plain version) against
-the reference's oracle and its Pallas kernel in interpret mode.
+the reference's oracle and its Pallas kernel in interpret mode, and the
+backward's plain version (``attention_bwd_ref``, the oracle the backward
+kernel is held against on the card) against ``jax.grad`` of the
+reference's oracle.
 
 Bounds are the reference's own (tests/test_kernels.py): 2e-3 in fp32,
 2e-2 in bf16.  The kernel itself is held against the plain version on the
 card by tests/test_torch_cuda.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,8 +16,10 @@ import torch
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash_attention
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
-from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_kernel,
+                                                        flash_attention_kernel)
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 
 FA_CASES = [
     # (B, H, KV, S, hd, causal, window, softcap, dtype) -- tests/test_kernels.py
@@ -72,3 +78,114 @@ def test_kernel_wrapper_rejects_what_it_cannot_take(bad):
     k = torch.zeros(shapes[1], dtype=dtype)
     with pytest.raises(ValueError):
         flash_attention_kernel(q, k, k)
+
+
+# (B, H, KV, S, hd, causal, window, softcap, dtype): GQA, windows, softcaps,
+# non-causal, MQA, a ragged S, in both dtypes.
+BWD_CASES = [
+    (2, 4, 2, 96, 64, True, 0, 0.0, "float32"),
+    (1, 4, 1, 80, 32, True, 16, 50.0, "float32"),
+    (1, 6, 3, 70, 64, False, 0, 30.0, "float32"),
+    (1, 8, 1, 64, 16, True, 8, 0.0, "float32"),
+    (1, 4, 2, 96, 64, True, 24, 50.0, "bfloat16"),
+    (2, 2, 1, 64, 32, False, 0, 0.0, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_attention_bwd_ref_matches_jax_grad(case):
+    """dq, dk, dv of the plain backward against jax.vjp of the reference's
+    oracle, to the reference's flash bounds (2e-3 fp32, 2e-2 bf16), each in
+    its input's dtype; dk and dv sum over the H / KV heads of a group."""
+    _, _, _, _, _, causal, window, cap, dtype = case
+    (jq, jk, jv), (tq, tk, tv) = _inputs(case)
+    rng = np.random.default_rng(5)
+    do = rng.standard_normal(tuple(tq.shape)).astype(np.float32)
+    jdo = jnp.asarray(do, jq.dtype)
+    _, vjp = jax.vjp(lambda q, k, v: jax_attention_ref(q, k, v, causal, window, cap), jq, jk, jv)
+    want = vjp(jdo)
+    got = attention_bwd_ref(tq, tk, tv, torch.from_numpy(do).to(tq.dtype), causal, window, cap)
+    for g, w, t in zip(got, want, (tq, tk, tv), strict=True):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        _check(w, g, dtype)
+
+
+class _CapNoChain(torch.autograd.Function):
+    """cap * tanh(s / cap) whose backward leaves out 1 - tanh^2."""
+
+    @staticmethod
+    def forward(ctx, s, cap):
+        return cap * torch.tanh(s / cap)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _bwd_fp64(q, k, v, do, window, cap, chain=True):
+    """dq, dk, dv of causal attention in fp64 (``attention_ref`` computes in
+    fp32), optionally without the softcap's chain factor."""
+    leaves = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+    q_, k_, v_ = leaves
+    g = q.shape[1] // k.shape[1]
+    s = torch.einsum("bhsd,bhtd->bhst", q_, k_.repeat_interleave(g, 1)) / q.shape[-1] ** 0.5
+    s = cap * torch.tanh(s / cap) if chain else _CapNoChain.apply(s, cap)
+    pos = torch.arange(q.shape[2])
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - (window or 10**9))
+    p = torch.softmax(torch.where(mask, s, -1e300), dim=-1)
+    out = torch.einsum("bhst,bhtd->bhsd", p, v_.repeat_interleave(g, 1))
+    return torch.autograd.grad(out, leaves, do.double())
+
+
+def _row_rel(got, want, floor=1e-3):
+    """max|got - want| / rms(want) per row, over rows whose rms reaches
+    ``floor`` of the tensor's (chip_smoke.py's ``row_rel_err``)."""
+    d = (got.double() - want).abs().amax(-1)
+    rms = want.pow(2).mean(-1).sqrt()
+    keep = rms >= floor * want.pow(2).mean().sqrt()
+    return (d[keep] / rms[keep]).max().item()
+
+
+@pytest.mark.parametrize("window", [0, 300])
+def test_softcap_backward_check_sees_the_chain_factor(window):
+    """chip_smoke.py phase 15(a)'s softcap inputs (q scaled by cap / 3, so
+    the cap's tanh saturates) at S=1024, hd 256, cap 50, on the CPU.  The
+    fp32 plain backward is within the card's fp32 per-row bound (1e-2 of
+    the row's rms, rows above 1e-3 of the tensor's rms) of an fp64 one:
+    measured dq 1.31e-3 (dP - D cancels in rows that one key holds), dk
+    <= 2.5e-4, dv <= 9e-5.  A backward without the chain factor 1 - tanh^2
+    misses it in dq and dk by several times the rms (measured 8.3-11.1)."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 1024, n, 256, generator=g).transpose(1, 2) for n in (4, 2, 2))
+    q = q * (50.0 / 3)
+    do = torch.randn(1, 4, 1024, 256, generator=g)
+    want = _bwd_fp64(q, k, v, do, window, 50.0)
+    plain = attention_bwd_ref(q, k, v, do, True, window, 50.0)
+    errs = [_row_rel(a, w) for a, w in zip(plain, want, strict=True)]
+    assert max(errs) <= 5e-3, errs
+    no_chain = _bwd_fp64(q, k, v, do, window, 50.0, chain=False)
+    missed = [_row_rel(a, w) for a, w in zip(no_chain[:2], want[:2], strict=True)]
+    assert min(missed) >= 1.0, missed
+
+
+def test_flash_attention_cpu_backward_is_autograd_of_the_plain_version():
+    """On the CPU the entry is the plain version, so autograd through it is
+    attention_bwd_ref."""
+    (_, _, _), (tq, tk, tv) = _inputs(BWD_CASES[1])
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    out = flash_attention(*leaves, causal=True, window=16, softcap=50.0)
+    do = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
+    got = torch.autograd.grad(out, leaves, do)
+    want = attention_bwd_ref(tq, tk, tv, do, True, 16, 50.0)
+    for g, w in zip(got, want, strict=True):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "do_shape", "device"])
+def test_bwd_kernel_wrapper_rejects_what_it_cannot_take(bad):
+    """The backward wrapper validates before it builds or launches anything."""
+    hd = 96 if bad == "head_dim" else 64
+    q = torch.zeros(1, 2, 8, hd)
+    do = torch.zeros(1, 2, 9, hd) if bad == "do_shape" else torch.zeros_like(q)
+    with pytest.raises(ValueError):
+        flash_attention_bwd_kernel(q, q, q, do)

@@ -33,7 +33,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.launch.serve, repro_torch.convert, "
             "repro_torch.runtime.planner, repro_torch.core, repro_torch.core.workloads, "
             "repro_torch.kernels.qmatmul.ops, repro_torch.api, repro_torch.serving, "
-            "repro_torch.multimodel, repro_torch.obs; "
+            "repro_torch.multimodel, repro_torch.obs, repro_torch.launch.train, "
+            "repro_torch.runtime.train, repro_torch.runtime.compression, repro_torch.optim, "
+            "repro_torch.ckpt, repro_torch.ft, repro_torch.data; "
             "from repro_torch import scope; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
