@@ -9,9 +9,11 @@ plain PyTorch version on the card, then drives the serving path:
 1. environment: versions, ``nvidia-smi`` name and power limit, kernel build
    (one ``nvcc`` per source, in parallel), each kernel's registers, spills
    and dynamic shared memory from ptxas, and ``cuobjdump -sass`` of the flash
-   and qmatmul libraries: the run fails unless every bf16 flash kernel holds
-   wgmma (``HGMMA``) and TMA (``UTMALDG``) instructions, and every
-   ``qmatmul_tma`` kernel the int8 wgmma (``IGMMA``) and TMA with no spills;
+   and qmatmul libraries: the run fails unless every bf16 flash forward
+   kernel and every bf16 flash backward kernel at hd 64 and 128 holds wgmma
+   (``HGMMA``) and TMA (``UTMALDG``) instructions, the bf16 backward at hd
+   256 ``mma.sync`` (``HMMA``), and every ``qmatmul_tma`` kernel the int8
+   wgmma (``IGMMA``) and TMA with no spills;
 2. flash-attention kernel vs its plain version at every shape the later
    phases give it (reference bounds: 2e-3 fp32, 2e-2 bf16, plus a per-row
    bound relative to the row's size) with kernel / plain / library (SDPA) /
@@ -82,14 +84,19 @@ plain PyTorch version on the card, then drives the serving path:
     B=1 and B=4 (every attention layer through the flash kernel), and every
     server of the simulated run on its measured service law; the report
     beside the modeled (``measure=False``) one, which must differ;
-15. training: (a) the flash backward kernel (``csrc/flash_attention_bwd.cu``)
-    against ``attention_bwd_ref`` in fp32 and bf16 (the reference's flash
-    bounds, and a per-row bound over rows that are not ~0) at
+15. training: (a) the flash backward kernel (``csrc/flash_attention_bwd.cu``),
+    on the log-sum-exp and output a training forward keeps, against
+    ``attention_bwd_ref`` in fp32 and bf16 (the reference's flash bounds, and
+    a per-row bound over rows that are not ~0; two calls bit-identical) at
     granite-3-8b's training shape, gemma2-9b's local and global layers at
-    S=8192 (hd 256, window 4096, softcap 50, q scaled so the cap's
-    tanh saturates) and granite-20b's MQA (48 query heads, one kv head); (b) its time at the granite shape in bf16 beside
-    its bound (five products), the plain backward's and SDPA's backward
-    (``library_ms``, timed alone after one forward); (c) granite-3-8b at full width cut to 2 layers, bf16: the
+    S=8192 (hd 256, window 4096, softcap 50, q scaled so the cap's tanh
+    saturates), granite-20b's MQA (48 query heads, one kv head) and the
+    softcap with a window at hd 128; (b) its time in bf16 at each beside
+    its bound (five products) and SDPA's backward (``library_ms``, timed
+    alone after one forward; under a window or a softcap SDPA's causal
+    backward is a different function, recorded apart), at the granite shape
+    the plain backward's and the forward's serving and training
+    instantiations; (c) granite-3-8b at full width cut to 2 layers, bf16: the
     loss and every leaf's gradient through the kernels against plain
     attention (``plain_attention=True``), both against the same weights in
     fp32 (the kernels no further from it than the plain path, within 10 %),
@@ -99,7 +106,7 @@ plain PyTorch version on the card, then drives the serving path:
     on the data pipeline's batches: step wall time, tokens/s, MFU, peak
     memory, launches per step, one more step traced (device time by kind:
     flash forward, flash backward, dense products, optimizer, other; the
-    backward's three kernels per call), every
+    backward's three kernels per call: D, dq, dk / dv), every
     loss, grad norm and per-layer gradient finite and non-zero; (e)
     ``tests/test_system.py``'s story at granite-3-8b's smoke config (d_head
     64, bf16): 20 steps, checkpoints every 5, a failure injected at step 12,
@@ -262,13 +269,16 @@ FACADE_PREFILL_TOL = 0.25
 # Phase 15: the flash backward kernel against attention_bwd_ref at (name, B,
 # H, KV, S, hd, causal, window, softcap), each in fp32 and bf16: granite-3-8b's
 # training shape, gemma2-9b's local and global layers at an S its 4096 window
-# bites, granite-20b's MQA (48 query heads on one kv head); times at the first
-# in bf16.  Then granite-3-8b trains at full width cut to TRAIN_LAYERS layers.
+# bites, granite-20b's MQA (48 query heads on one kv head), and gemma2's
+# softcap and a window at hd 128 (the wgmma kernels' softcap path); times of
+# each in bf16.  Then granite-3-8b trains at full width cut to TRAIN_LAYERS
+# layers.
 FA_BWD_CASES = [
     ("granite_train", 4, 32, 8, 2048, 128, True, 0, 0.0),
     ("gemma2_local", 1, 16, 8, 8192, 256, True, 4096, 50.0),
     ("gemma2_global", 1, 16, 8, 8192, 256, True, 0, 50.0),
     ("granite20b_mqa", 1, 48, 1, 2048, 128, True, 0, 0.0),
+    ("softcap_hd128", 1, 16, 8, 2048, 128, True, 1024, 50.0),
 ]
 FA_BWD_MAIN = ("granite_train", "bfloat16")
 # Per-row bound of the backward, over rows whose rms reaches FA_BWD_ROW_FLOOR
@@ -324,6 +334,12 @@ def kernel_name(mangled: str) -> str:
                     else:
                         args.append("float" if f else bf16)
                 return name + "<" + ", ".join(args) + ">"
+    for run in re.finditer(r"\d+", mangled):        # a plain function: <n><name>E
+        for i in range(len(run.group())):
+            n, start = int(run.group()[i:]), run.end()
+            name = mangled[start:start + n]
+            if n and re.fullmatch(r"[A-Za-z]\w*", name) and mangled[start + n:start + n + 1] == "E":
+                return name
     return mangled
 
 
@@ -825,13 +841,14 @@ def train_breakdown(prof) -> dict[str, list]:
 
 
 def bwd_split(prof) -> dict[str, float]:
-    """Device ms of each of the flash backward's three kernels in a trace."""
+    """Device ms of each kind of the flash backward's kernels in a trace (D,
+    dq, dk / dv with their partial sums' addition)."""
     import torch
 
     split = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA and "fa_bwd_" in e.name:
-            kind = next(x for x in ("prep", "dkdv", "dq") if f"fa_bwd_{x}" in e.name)
+            kind = next(x for x in ("delta", "prep", "dkdv", "dq") if f"fa_bwd_{x}" in e.name)
             split[kind] = split.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3
     return split
 
@@ -871,30 +888,32 @@ def training_phase(get_config, card: str, reset_launches, kernels, cuda_ms, cuda
           "before the phase)")
     check(held < 2 * 2**30, "an earlier phase's model is still on the card")
 
-    # (a), (b): the backward kernel against attention_bwd_ref; times at the
-    # granite-3-8b training shape in bf16
+    # (a) the backward kernel, on what a training forward keeps, against
+    # attention_bwd_ref; (b) its times in bf16 beside SDPA's backward and the
+    # bound (five products)
     bwd = {}
     for name, B, H, KV, S, hd, causal, window, cap in FA_BWD_CASES:
         for dt in ("float32", "bfloat16"):
             dtype = getattr(torch, dt)
             q, k, v, do = fa_bwd_inputs(dev, B, H, KV, S, hd, cap, dtype)
-            got = flash_attention_bwd_kernel(q, k, v, do, causal=causal, window=window,
-                                             softcap=cap)
+            saved = flash_attention_kernel(q, k, v, causal=causal, window=window, softcap=cap,
+                                           with_lse=True)
+
+            def call():
+                return flash_attention_bwd_kernel(q, k, v, do, saved, causal=causal,
+                                                  window=window, softcap=cap)
+
+            got = call()
             want = attention_bwd_ref(q, k, v, do, causal, window, cap)
             sync()
             res, missed = fa_bwd_errors(got, want, dtype)
             check(not missed, f"{name} {dt}: kernel vs plain: {'; '.join(missed)}")
-            del got, want
-            if (name, dt) == FA_BWD_MAIN:
-                res["ms"] = cuda_ms_median(
-                    lambda: flash_attention_bwd_kernel(q, k, v, do, causal=causal), 21)
-                res["plain_ms"] = cuda_ms(lambda: attention_bwd_ref(q, k, v, do, causal), 3)
-                leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-                out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
-                                                     enable_gqa=H != KV)
-                res["library_ms"] = cuda_ms_median(
-                    lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 21)
-                del out, leaves
+            again = call()
+            check(all(torch.equal(a, b_) for a, b_ in zip(got, again, strict=True)),
+                  f"{name} {dt}: two calls differ")
+            del got, want, again
+            if dt == "bfloat16":
+                res["ms"] = cuda_ms_median(call, 21)
                 pairs = visible_pairs(S, S, causal, window)
                 flops = 5 * 2 * B * H * hd * pairs      # q k^T, dO v^T, P^T dO, dS^T q, dS k
                 nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, do, q, k, v))
@@ -905,10 +924,30 @@ def training_phase(get_config, card: str, reset_launches, kernels, cuda_ms, cuda
                            f"{pairs} = {flops:.4e} FLOP / {BF16_PEAK_FLOPS:.3e} FLOP/s = "
                            f"{1e3 * t_ops:.4f} ms; {nbytes} bytes / {HBM_BYTES_PER_S:.3e} B/s = "
                            f"{1e3 * t_mem:.4f} ms")
+                # SDPA has no softcap and takes a window only as a dense mask:
+                # under them its causal backward is a different function
+                leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+                out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                     enable_gqa=H != KV)
+                sdpa_ms = cuda_ms_median(
+                    lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 21)
+                del out, leaves
+                if window == 0 and cap == 0.0:
+                    res["library_ms"] = sdpa_ms
+                else:
+                    res["library_ms"] = None
+                    res["sdpa_causal_bwd_other_function_ms"] = sdpa_ms
+            if (name, dt) == FA_BWD_MAIN:
+                res["plain_ms"] = cuda_ms(
+                    lambda: attention_bwd_ref(q, k, v, do, causal, window, cap), 3)
+                # the forward's serving and training instantiations
+                res["fwd_ms"] = cuda_ms_median(lambda: flash_attention_kernel(q, k, v), 21)
+                res["fwd_training_ms"] = cuda_ms_median(
+                    lambda: flash_attention_kernel(q, k, v, with_lse=True), 21)
             bwd[(name, dt)] = res
             print(f"  (a) {name} B={B} H={H} KV={KV} S={S} hd={hd} causal={causal} "
                   f"window={window} softcap={cap} {dt}: {json.dumps(res)} {card}")
-            del q, k, v, do
+            del q, k, v, do, saved
             torch.cuda.empty_cache()
 
     # (c) the model's gradients through the kernels against plain attention
@@ -1073,7 +1112,8 @@ def training_phase(get_config, card: str, reset_launches, kernels, cuda_ms, cuda
           f"{launches['flash_attention_bwd'] // TRAIN_STEPS} flash backward calls {card}")
     print(f"      traced step: device busy {busy:.3f} ms: " + ", ".join(
         f"{kind} {ms:.3f} ms ({n} kernels)" for kind, (n, ms) in groups.items())
-        + "; the flash backward per call: " + ", ".join(
+        + f"; the flash backward {100 * groups['flash backward'][1] / busy:.2f} % of it, per call: "
+        + ", ".join(
             f"{kind} {ms / cfg_d.n_layers:.3f} ms" for kind, ms in split.items()) + f" {card}")
     train = {"step_ms": step_ms, "tokens_per_s": B * S / (step_ms / 1e3), "mfu": mfu,
              "peak_gib": peak, "launches": launches, "busy": groups, "bwd_split": split}
@@ -1240,15 +1280,20 @@ def main() -> int:
         took = dict(zip(KERNEL_SOURCES, pool.map(_build.build, KERNEL_SOURCES)))
     print("kernel build: " + ", ".join(f"{src} {t:.3f} s" for src, t in took.items())
           + f" (wall {time.perf_counter() - t0:.3f} s, in parallel)")
-    smem = {"fa_fwd_bf16": _build.load_library("flash_attention.cu").repro_flash_attention_smem_bytes,
-            "wkv6_segment": _build.load_library("wkv6.cu").repro_wkv6_smem_bytes}
-    smem["fa_fwd_bf16"].argtypes = [ctypes.c_int]                     # head dim
+    fwd_smem = _build.load_library("flash_attention.cu").repro_flash_attention_smem_bytes
+    fwd_smem.argtypes = [ctypes.c_int]                                # head dim
+    bwd_smem = _build.load_library("flash_attention_bwd.cu").repro_flash_attention_bwd_smem_bytes
+    bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]                  # head dim, dk/dv kernel
+    smem = {"wkv6_segment": _build.load_library("wkv6.cu").repro_wkv6_smem_bytes}
     smem["wkv6_segment"].argtypes = [ctypes.c_int, ctypes.c_int]      # head dim, output pass
     qmm_smem = _build.load_library("qmatmul.cu").repro_qmatmul_smem_bytes
     qmm_smem.argtypes = []
-    for fn in (*smem.values(), qmm_smem):
+    for fn in (*smem.values(), qmm_smem, fwd_smem, bwd_smem):
         fn.restype = ctypes.c_longlong
     smem["qmatmul_tma"] = lambda *_: qmm_smem()                       # one size for both outputs
+    smem["fa_fwd_bf16"] = lambda hd, stats: fwd_smem(hd)              # both instantiations
+    smem["fa_bwd_dq_bf16"] = lambda hd: bwd_smem(hd, 0)
+    smem["fa_bwd_dkdv_bf16"] = lambda hd, resid: bwd_smem(hd, 1)
     spills = {}
     for src in KERNEL_SOURCES:
         log = _build.library_path(src).with_suffix(".log")
@@ -1270,7 +1315,7 @@ def main() -> int:
     bf16 = {k: v for k, v in counts.items() if k.startswith("fa_fwd_bf16")}
     print("  SASS of flash_attention.cu (HGMMA, UTMALDG): " + ", ".join(
         f"{k} {v['HGMMA']}, {v['UTMALDG']}" for k, v in sorted(bf16.items())))
-    check(len(bf16) == 3 and all(v["HGMMA"] > 0 and v["UTMALDG"] > 0 for v in bf16.values()),
+    check(len(bf16) == 6 and all(v["HGMMA"] > 0 and v["UTMALDG"] > 0 for v in bf16.values()),
           f"bf16 flash kernels without wgmma (HGMMA) or TMA (UTMALDG) in their SASS: {bf16}")
     counts = sass_counts(_build.library_path("qmatmul.cu"))
     tma = {k: v for k, v in counts.items() if k.startswith("qmatmul_tma")}
@@ -1280,12 +1325,19 @@ def main() -> int:
           f"qmatmul_tma kernels without int8 wgmma (IGMMA) or TMA (UTMALDG) in their SASS: {tma}")
     check(all("0 bytes spill stores, 0 bytes spill loads" in spills.get(k, "") for k in tma),
           f"qmatmul_tma kernels spill: { {k: spills.get(k) for k in tma} }")
+    # The bf16 backward at hd 64 and 128 must run on wgmma and TMA; at hd 256
+    # it keeps mma.sync.
     counts = sass_counts(_build.library_path("flash_attention_bwd.cu"))
-    print("  SASS of flash_attention_bwd.cu (HMMA): " + ", ".join(
-        f"{k} {v['HMMA']}" for k, v in sorted(counts.items())))
-    bwd16 = {k: v for k, v in counts.items() if "bfloat16" in k}
-    check(len(bwd16) == 9 and all(v["HMMA"] > 0 for v in bwd16.values()),
-          f"bf16 flash backward kernels without mma.sync (HMMA) in their SASS: {bwd16}")
+    print("  SASS of flash_attention_bwd.cu (HGMMA, UTMALDG, HMMA): " + ", ".join(
+        f"{k} {v['HGMMA']}, {v['UTMALDG']}, {v['HMMA']}" for k, v in sorted(counts.items())))
+    wg_bwd = {k: v for k, v in counts.items() if k.startswith(("fa_bwd_dq_bf16", "fa_bwd_dkdv_bf16"))}
+    check(len(wg_bwd) == 6 and all(v["HGMMA"] > 0 and v["UTMALDG"] > 0 for v in wg_bwd.values()),
+          f"bf16 flash backward kernels at hd 64 / 128 without wgmma (HGMMA) or TMA (UTMALDG) "
+          f"in their SASS: {wg_bwd}")
+    mma_bwd = {k: v for k, v in counts.items()
+               if k.startswith(("fa_bwd_dq<", "fa_bwd_dkdv<")) and "bfloat16" in k}
+    check(len(mma_bwd) == 2 and all(v["HMMA"] > 0 for v in mma_bwd.values()),
+          f"bf16 flash backward kernels at hd 256 without mma.sync (HMMA): {mma_bwd}")
 
     # ------------------------------------------------------------ phase 2
     print("phase 2: flash_attention kernel vs plain version on the card")

@@ -20,14 +20,16 @@ granite-3-8b's FFN up-projection (M=8192, K=4096, N=12800, fp32 out) on
 its wgmma / TMA path, with the [N,K] scratch holding w transposed before
 the timing, the flash backward at granite-3-8b's training shape (B=4,
 H=32, KV=8, S=2048, hd=128, bf16, causal; q, k, v transposed views as the
-model passes them).  A variant that removes work gives wrong outputs on purpose;
+model passes them), on what a training forward of the built kernel keeps.
+A flash-backward variant goes through the wrapper in place of the kernel.
+A variant that removes work gives wrong outputs on purpose;
 the max abs difference from the plain version is printed beside each time
 so that the two kinds stand apart.  A flash-backward entry with ``cases``
 (``[[name, dtype], ...]``, names of ``chip_smoke.FA_BWD_CASES``) is not
-timed: its variant goes through the wrapper in place of the kernel, at each
-case's shape and inputs, and is held to ``chip_smoke.py`` phase 15(a)'s
-bounds, which must fail a variant that computes something else.  One JSON
-line per variant, then the card's name and power limit.
+timed: it runs at each case's shape and inputs and is held to
+``chip_smoke.py`` phase 15(a)'s bounds, which must fail a variant that
+computes something else.  One JSON line per variant, then the card's name
+and power limit.
 """
 from __future__ import annotations
 
@@ -53,8 +55,8 @@ def build(item: dict, out: Path) -> tuple[str, str | None]:
         text = text.replace(old, new)
     src, lib = out / f"{item['name']}.cu", out / f"{item['name']}.so"
     src.write_text(text)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
-                          capture_output=True, text=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(CSRC), "-o", str(lib),
+                           str(src)], capture_output=True, text=True)
     return str(lib), None if proc.returncode == 0 else (proc.stdout + proc.stderr)[-3000:]
 
 
@@ -150,58 +152,47 @@ def main() -> int:
                 res["ms"] = events_ms(torch, call)
                 res["max_abs_diff"] = (out - want).abs().max().item()
                 del out, wt
-            elif item["source"] == "flash_attention_bwd.cu" and "cases" in item:
+            elif item["source"] == "flash_attention_bwd.cu":
+                # the variant goes through the wrapper in place of the kernel
                 variant = ctypes.CDLL(lib).repro_flash_attention_bwd
                 variant.argtypes, variant.restype = fa._bwd().argtypes, fa._bwd().restype
-                shapes = {c[0]: c[1:] for c in FA_BWD_CASES}
                 as_is, fa._bwd = fa._bwd, lambda: variant
                 try:
-                    for name, dt in item["cases"]:
-                        B, H, KV, S, hd, causal, window, cap = shapes[name]
-                        dtype = getattr(torch, dt)
-                        if (name, dt) not in fa_cases:
-                            q, k, v, do = fa_bwd_inputs(dev, B, H, KV, S, hd, cap, dtype)
-                            fa_cases[name, dt] = (q, k, v, do, attention_bwd_ref(
-                                q, k, v, do, causal, window, cap))
-                        q, k, v, do, want = fa_cases[name, dt]
-                        got = fa.flash_attention_bwd_kernel(q, k, v, do, causal=causal,
-                                                            window=window, softcap=cap)
-                        readings, missed = fa_bwd_errors(got, want, dtype)
-                        res[f"{name}_{dt}"] = {"passes": not missed, "missed": missed,
-                                               **readings}
+                    if "cases" in item:
+                        shapes = {c[0]: c[1:] for c in FA_BWD_CASES}
+                        for name, dt in item["cases"]:
+                            B, H, KV, S, hd, causal, window, cap = shapes[name]
+                            dtype = getattr(torch, dt)
+                            if (name, dt) not in fa_cases:
+                                q, k, v, do = fa_bwd_inputs(dev, B, H, KV, S, hd, cap, dtype)
+                                saved = fa.flash_attention_kernel(
+                                    q, k, v, causal=causal, window=window, softcap=cap,
+                                    with_lse=True)
+                                fa_cases[name, dt] = (q, k, v, do, saved, attention_bwd_ref(
+                                    q, k, v, do, causal, window, cap))
+                            q, k, v, do, saved, want = fa_cases[name, dt]
+                            got = fa.flash_attention_bwd_kernel(q, k, v, do, saved, causal=causal,
+                                                                window=window, softcap=cap)
+                            readings, missed = fa_bwd_errors(got, want, dtype)
+                            res[f"{name}_{dt}"] = {"passes": not missed, "missed": missed,
+                                                   **readings}
+                            del got
+                    else:
+                        B, H, KV, S, hd = 4, 32, 8, 2048, 128
+                        if fab is None:
+                            q, k, v, do = fa_bwd_inputs(dev, B, H, KV, S, hd, 0.0,
+                                                        torch.bfloat16)
+                            saved = fa.flash_attention_kernel(q, k, v, with_lse=True)
+                            fab = (q, k, v, do, saved, attention_bwd_ref(q, k, v, do))
+                        q, k, v, do, saved, want = fab
+                        res["ms"] = events_ms(
+                            torch, lambda: fa.flash_attention_bwd_kernel(q, k, v, do, saved))
+                        got = fa.flash_attention_bwd_kernel(q, k, v, do, saved)
+                        res["max_abs_diff"] = max((a.float() - b.float()).abs().max().item()
+                                                  for a, b in zip(got, want))
                         del got
                 finally:
                     fa._bwd = as_is
-            elif item["source"] == "flash_attention_bwd.cu":
-                fn = ctypes.CDLL(lib).repro_flash_attention_bwd
-                fn.argtypes = ([ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
-                               + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-                               + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-                B, H, KV, S, hd = 4, 32, 8, 2048, 128
-                if fab is None:
-                    g = torch.Generator(device=dev).manual_seed(0)
-                    q, k, v = (torch.randn(B, S, n, hd, generator=g, device=dev).bfloat16()
-                               .transpose(1, 2) for n in (H, KV, KV))
-                    do = torch.randn(B, H, S, hd, generator=g, device=dev).bfloat16()
-                    fab = (q, k, v, do, attention_bwd_ref(q, k, v, do))
-                q, k, v, do, want = fab
-                grads = [torch.full_like(t, float("nan")) for t in (q, k, v)]
-                lse = torch.empty(B, H, S, device=dev)
-                delta = torch.empty_like(lse)
-                tensors = (q, k, v, do, *grads)
-                ptrs = (ctypes.c_void_p * 7)(*(t.data_ptr() for t in tensors))
-                st = (ctypes.c_longlong * 21)(*(x for t in tensors for x in t.stride()[:3]))
-
-                def call():
-                    if fn(1, hd, ptrs, lse.data_ptr(), delta.data_ptr(), B, H, KV, S, S, st, 1,
-                          0, 0.0, hd ** -0.5, stream) != 0:
-                        raise RuntimeError(f"{item['name']}: launch failed")
-
-                res["ms"] = events_ms(torch, call)
-                res["max_abs_diff"] = max((a.float() - b.float()).abs().max().item()
-                                          for a, b in zip(grads, want))
-                del grads, lse, delta
             else:
                 fn = ctypes.CDLL(lib).repro_wkv6_fwd
                 fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4

@@ -50,12 +50,16 @@
 // it; otherwise it allocates the launch's 168 and serializes the wgmmas.
 // fp32 inputs take a CUDA-core kernel with the tiling of the first version,
 // since the tensor cores would round fp32 to TF32.
+// A training call passes `lse`: both kernels then also write each row's
+// base-2 log-sum-exp for the backward (flash_attention_bwd.cu), and bf16 runs
+// its STATS instantiation, which writes o's bf16 residual as well and adds
+// the product of P's bf16 residual to P V.  Serving passes none and runs the
+// instantiation the serving path always ran.
 
-#include <cuda.h>            // CUtensorMap and its enums (types only: no -lcuda)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>              // INFINITY
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -75,6 +79,13 @@ struct Params {
   long long o_sb, o_sh, o_ss;
   int causal, window;
   float softcap, scale;
+  // What the backward takes from a training forward (null when serving):
+  // each row's base-2 log-sum-exp, log2 sum_k exp2(y log2 e) (+inf for a
+  // row that sees no key), at lse[(b * H + h) * lse_ld + row], and in bf16
+  // o's residual, o_fp32 - bf16(o_fp32), with o's strides.
+  float* lse;
+  void* o_res;
+  long long lse_ld;
 };
 
 __device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
@@ -96,233 +107,6 @@ __device__ __forceinline__ float logit(const Params& p, float s) {
 }
 
 // ------------------------------------------------- bf16: wgmma, TMA, mbarrier
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Returns once the barrier's phase of the given parity has completed.  (No
-// trap on a long wait: an exit inside the consumer path stops ptxas from
-// giving it the registers of setmaxnreg.)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 4-D tensor map into shared memory; completes on `bar`.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle (layout type 1).  Byte
-// offsets: `lbo` between 64-element column blocks of an MN-major operand
-// (unused for K-major), `sbo` between groups of 8 rows (1024 bytes here).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {   // at most N groups still in flight
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Named barriers 1 and 2 order the two consumer warpgroups' turns at the
-// tensor cores: a warpgroup syncs on its own barrier before it issues its
-// products, and arrives on the other's after (256 threads each).
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-// Keeps the compiler from moving accesses of accumulator registers across
-// the asynchronous wgmma (issued before, completed at the wait).
-template <int N>
-__device__ __forceinline__ void fence_operands(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-// The same for the bf16 A fragments of an in-flight register-A wgmma.
-template <int N>
-__device__ __forceinline__ void fence_operands(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// wgmma wrappers, one per N: `ss` (N = the key tile, 64 or 128) takes A and
-// B from shared memory, both K-major; `rs` (N = the head dim) takes A from
-// registers and B MN-major.  The accumulator is N/2 fp32 registers a thread.
-template <int N> struct Wgmma;
-
-template <> struct Wgmma<64> {
-  // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared memory.
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{" 
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-  // D[64 x 64] += A[64 x 16] . B[16 x 64], A in registers (bf16 pairs),
-  // B MN-major in shared memory (the transpose bit).
-  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{" 
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
-  }
-};
-
-template <> struct Wgmma<128> {
-  // D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B K-major in shared memory.
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{" 
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-  // D[64 x 128] += A[64 x 16] . B[16 x 128], A in registers (bf16 pairs),
-  // B MN-major in shared memory (the transpose bit).
-  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{" 
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
-  }
-};
-
-template <> struct Wgmma<256> {
-  // D[64 x 256] += A[64 x 16] . B[16 x 256], A in registers (bf16 pairs),
-  // B MN-major in shared memory (the transpose bit).
-  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-        "{" 
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
-  }
-};
 
 template <int HD>
 struct Bf16Tiles {
@@ -346,7 +130,13 @@ struct Bf16Tiles {
 
 constexpr int kBf16Threads = 384;   // consumer warpgroups 0 and 1, producer 2
 
-template <int HD>
+// STATS: the training instantiation, which also writes p.lse and p.o_res.
+// Its P V adds the product of P's bf16 residual, so that o + o_res is
+// sum_k P v in fp32 to ~16 bits and the backward's D = rowsum(dO (o +
+// o_res)) agrees with the P it recomputes (one bf16 rounding of P shifts D by
+// 2^-9 of the second key's share, more than dS where one key holds a row).
+// The serving instantiation (STATS false) is the kernel as it was.
+template <int HD, bool STATS>
 __global__ void __launch_bounds__(kBf16Threads, 1)
     fa_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, const Params p) {
@@ -454,6 +244,7 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
     float m0, m1, l0, l1;    // running max (log2 units) and this thread's sums
     float sc[BK / 2];        // S of the newest tile, then its probabilities
     uint32_t pp[BK / 16][4]; // P of the tile before, bf16: the A fragments of P V
+    uint32_t pr[STATS ? BK / 16 : 1][4];   // STATS: P - bf16(P), bf16
 
     // S = Q K^T of stage s, issued (not waited for).
     auto issue_qk = [&](int s) {
@@ -474,6 +265,11 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
         Wgmma<HD>::rs(o, pp[kk], sw128_desc(sV + kk * 16 * 128, BK * 128, 1024));
+      if constexpr (STATS) {
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          Wgmma<HD>::rs(o, pr[kk], sw128_desc(sV + kk * 16 * 128, BK * 128, 1024));
+      }
       wgmma_commit();
     };
     // Online softmax of tile k0 in sc (raw q.k^T): running max m0 / m1 in
@@ -540,10 +336,13 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
     auto pack_p = [&]() {
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        pp[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
-        pp[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-        pp[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-        pp[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if constexpr (STATS)
+            pack_split(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1], pp[kk][i], pr[kk][i]);
+          else
+            pp[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+        }
       }
     };
 
@@ -595,6 +394,7 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
           wgmma_wait<0>();
           fence_operands(o);
           fence_operands(pp);
+          if constexpr (STATS) fence_operands(pr);
           mbar_arrive(empty(sp));   // this thread is done with slot sp's K and V
           pack_p();
         }
@@ -610,6 +410,7 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
         wgmma_wait<0>();
         fence_operands(o);
         fence_operands(pp);
+        if constexpr (STATS) fence_operands(pr);
         mbar_arrive(empty(sp));
         it += n_tiles;
       } else {
@@ -623,15 +424,38 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
       }
       const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
       __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + x.b * p.o_sb + x.h * p.o_sh;
+      if constexpr (STATS) {
+        __nv_bfloat16* rg = static_cast<__nv_bfloat16*>(p.o_res) + x.b * p.o_sb + x.h * p.o_sh;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        const int col = j * 8 + 2 * t;
-        if (qr0 < p.Sq)
-          *reinterpret_cast<uint32_t*>(og + qr0 * p.o_ss + col) =
-              pack_bf16(o[4 * j + 0] * inv0, o[4 * j + 1] * inv0);
-        if (qr1 < p.Sq)
-          *reinterpret_cast<uint32_t*>(og + qr1 * p.o_ss + col) =
-              pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+        for (int j = 0; j < HD / 8; ++j) {
+          const int col = j * 8 + 2 * t;
+          uint32_t hi, lo;
+          if (qr0 < p.Sq) {
+            pack_split(o[4 * j + 0] * inv0, o[4 * j + 1] * inv0, hi, lo);
+            *reinterpret_cast<uint32_t*>(og + qr0 * p.o_ss + col) = hi;
+            *reinterpret_cast<uint32_t*>(rg + qr0 * p.o_ss + col) = lo;
+          }
+          if (qr1 < p.Sq) {
+            pack_split(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1, hi, lo);
+            *reinterpret_cast<uint32_t*>(og + qr1 * p.o_ss + col) = hi;
+            *reinterpret_cast<uint32_t*>(rg + qr1 * p.o_ss + col) = lo;
+          }
+        }
+        // m: the row's running max in log2 units; l: its sum of exp2(y log2 e - m)
+        float* lg = p.lse + (static_cast<long long>(x.b) * p.H + x.h) * p.lse_ld;
+        if (t == 0 && qr0 < p.Sq) lg[qr0] = l0 > 0.f ? m0 + log2f(l0) : INFINITY;
+        if (t == 0 && qr1 < p.Sq) lg[qr1] = l1 > 0.f ? m1 + log2f(l1) : INFINITY;
+      } else {
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          const int col = j * 8 + 2 * t;
+          if (qr0 < p.Sq)
+            *reinterpret_cast<uint32_t*>(og + qr0 * p.o_ss + col) =
+                pack_bf16(o[4 * j + 0] * inv0, o[4 * j + 1] * inv0);
+          if (qr1 < p.Sq)
+            *reinterpret_cast<uint32_t*>(og + qr1 * p.o_ss + col) =
+                pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+        }
       }
     }
   }
@@ -754,6 +578,9 @@ __global__ void __launch_bounds__(kThreads) fa_fwd_f32(Params p) {
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < C; ++c) og[row * p.o_ss + tx + 16 * c] = acc[i][c] * inv;
+    if (p.lse != nullptr && tx == 0)   // m and l in natural-log units here
+      p.lse[(static_cast<long long>(b) * p.H + h) * p.lse_ld + row] =
+          l[i] > 0.f ? (m[i] + logf(l[i])) * kLog2e : INFINITY;
   }
 }
 
@@ -770,54 +597,7 @@ cudaError_t launch(Kernel kernel, const Params& p, int block_q, size_t smem,
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled from the driver through the runtime, so the library
-// needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// Tensor map over the 4-D strided bf16 view (hd, S, heads, B) with the
-// view's own strides (elements); boxes of [rows][64], 128-byte swizzle, zero
-// fill past every edge.
-bool encode_map(CUtensorMap* map, const void* ptr, int hd, int S, int heads, int B,
-                long long s_stride, long long h_stride, long long b_stride, int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_stride) * 2,
-                                 static_cast<cuuint64_t>(h_stride) * 2,
-                                 static_cast<cuuint64_t>(b_stride) * 2};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-constexpr int kEncodeFailed = -2;
-
-template <int HD>
+template <int HD, bool STATS>
 int launch_bf16(const Params& p, cudaStream_t stream) {
   using T = Bf16Tiles<HD>;
   CUtensorMap tq, tk, tv;
@@ -826,7 +606,8 @@ int launch_bf16(const Params& p, cudaStream_t stream) {
       !encode_map(&tv, p.v, HD, p.Skv, p.KV, p.B, p.v_ss, p.v_sh, p.v_sb, T::BK))
     return kEncodeFailed;
   cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(T::SMEM));
+      fa_fwd_bf16<HD, STATS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(T::SMEM));
   if (err != cudaSuccess) return err;
   const long long n_work = static_cast<long long>((p.Sq + T::BQ - 1) / T::BQ) * p.B * p.H;
   if (n_work > (1ll << 31) - 1) return cudaErrorInvalidConfiguration;
@@ -837,7 +618,7 @@ int launch_bf16(const Params& p, cudaStream_t stream) {
   // One block per SM (its shared memory allows no second), each walking the
   // work list.
   const dim3 grid(static_cast<unsigned>(n_work < sms ? n_work : sms));
-  fa_fwd_bf16<HD><<<grid, kBf16Threads, T::SMEM, stream>>>(tq, tk, tv, p);
+  fa_fwd_bf16<HD, STATS><<<grid, kBf16Threads, T::SMEM, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
@@ -850,12 +631,15 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  strides: 12 element strides, (batch,
-// head, seq) for q, k, v and o in that order.  Returns a cudaError_t value,
-// -1 for a dtype / head-dim pair with no instantiation, or -2 when a TMA
-// tensor map cannot be encoded (no driver entry point, or a stride or
-// address the TMA unit does not take).
+// head, seq) for q, k, v and o in that order.  lse: null (serving), or fp32
+// [B, H, lse_ld] for each row's base-2 log-sum-exp (training); then in bf16
+// o_res (o's strides) takes o's residual.  Returns a cudaError_t value, -1
+// for a dtype / head-dim pair with no instantiation, or -2 when a TMA tensor
+// map cannot be encoded (no driver entry point, or a stride or address the
+// TMA unit does not take).
 extern "C" int repro_flash_attention_fwd(int dtype, int head_dim, const void* q,
                                          const void* k, const void* v, void* o,
+                                         float* lse, void* o_res, long long lse_ld,
                                          int B, int H, int KV, int Sq, int Skv,
                                          const long long* strides, int causal,
                                          int window, float softcap, float scale,
@@ -863,13 +647,19 @@ extern "C" int repro_flash_attention_fwd(int dtype, int head_dim, const void* q,
   Params p{q, k, v, o, B, H, KV, Sq, Skv,
            strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
            strides[6], strides[7], strides[8], strides[9], strides[10], strides[11],
-           causal, window, softcap, scale};
+           causal, window, softcap, scale, lse, o_res, lse_ld};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (dtype == 1 && lse != nullptr) {
     switch (head_dim) {
-      case 64: return launch_bf16<64>(p, st);
-      case 128: return launch_bf16<128>(p, st);
-      case 256: return launch_bf16<256>(p, st);
+      case 64: return launch_bf16<64, true>(p, st);
+      case 128: return launch_bf16<128, true>(p, st);
+      case 256: return launch_bf16<256, true>(p, st);
+    }
+  } else if (dtype == 1) {
+    switch (head_dim) {
+      case 64: return launch_bf16<64, false>(p, st);
+      case 128: return launch_bf16<128, false>(p, st);
+      case 256: return launch_bf16<256, false>(p, st);
     }
   } else if (dtype == 0) {
     switch (head_dim) {

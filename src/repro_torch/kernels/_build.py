@@ -4,7 +4,8 @@ Route: ``nvcc`` straight to a ``.so`` with a plain C interface, loaded with
 ``ctypes`` -- seconds per source, where a build against PyTorch's headers
 takes minutes.  Each library is built at first use into ``_build/`` beside
 the package (listed in ``.gitignore``) and named by a hash of its source and
-flags, so an edit rebuilds and an unchanged source is reused.
+flags, so an edit rebuilds and an unchanged source is reused.  Sources
+include the headers beside them (``csrc/*.cuh``) by a relative path.
 """
 from __future__ import annotations
 
@@ -38,8 +39,11 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
+    """Where ``csrc/<source>``'s library goes: named by a hash of the source,
+    the headers beside it (``csrc/*.cuh``) and the flags."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 

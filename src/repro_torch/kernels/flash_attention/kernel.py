@@ -13,14 +13,17 @@ call (``cuTensorMapEncodeTiled``, reached through the CUDA runtime's driver
 entry point, so the library links no ``libcuda``).
 
 ``csrc/flash_attention_bwd.cu`` is its gradient (the reference has no
-backward kernel; it differentiates its jnp attention): three launches a
-call, no atomics, the same bits on every run.
+backward kernel; it differentiates its jnp attention): a pass for D, then dq
+and dk / dv in two kernels, no atomics, the same bits on every run.  It
+takes what a training forward (``with_lse=True``) keeps: the output, each
+row's log-sum-exp and, in bf16, the output's residual.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -30,12 +33,34 @@ HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+class SavedForward(NamedTuple):
+    """What a training forward hands the backward kernel."""
+
+    o: torch.Tensor              # the output
+    lse: torch.Tensor            # fp32 [B, H, lse_rows(Sq)]: each row's base-2 log-sum-exp
+    o_res: torch.Tensor | None   # bf16: o_fp32 - o, o's strides; None in fp32
+
+
+def lse_rows(sq: int) -> int:
+    """Rows of the log-sum-exp buffer: Sq rounded up to the kernels' 128-row
+    tiles (the backward writes the rows past Sq)."""
+    return -(-sq // 128) * 128
+
+
+@functools.cache
+def _bwd_split():
+    fn = load_library("flash_attention_bwd.cu").repro_flash_attention_bwd_split
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    return fn
+
+
 @functools.cache
 def _bwd():
     fn = load_library("flash_attention_bwd.cu").repro_flash_attention_bwd
     fn.argtypes = (
         [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
-        + [ctypes.c_void_p] * 2
+        + [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_void_p]
         + [ctypes.c_int] * 5
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
            ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
@@ -49,7 +74,7 @@ def _fwd():
     fn = load_library("flash_attention.cu").repro_flash_attention_fwd
     fn.argtypes = (
         [ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_void_p] * 4
+        + [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
         + [ctypes.c_int] * 5
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
            ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
@@ -95,15 +120,28 @@ def flash_attention_kernel(
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
-) -> torch.Tensor:
+    with_lse: bool = False,
+) -> torch.Tensor | SavedForward:
     """Launch the CUDA kernel on q's current stream; raises on any input the
-    kernel does not take and on any launch error."""
+    kernel does not take and on any launch error.
+
+    With ``with_lse`` (training) the kernel also writes what the backward
+    kernel takes, and the call returns it as a :class:`SavedForward`; bf16
+    then runs the forward's training instantiation, whose P v also takes
+    the product of P's bf16 residual.  Without it (serving) nothing else is
+    written.
+    """
     _check(q, k, v)
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)       # same strides as q (dense, non-overlapping)
+    lse = o_res = None
+    if with_lse:
+        lse = torch.empty(B, H, lse_rows(Sq), dtype=torch.float32, device=q.device)
+        if q.dtype == torch.bfloat16:
+            o_res = torch.empty_like(o)
     if o.numel() == 0:
-        return o
+        return SavedForward(o, lse, o_res) if with_lse else o
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3]
     )
@@ -112,6 +150,8 @@ def flash_attention_kernel(
         err = _fwd()(
             _DTYPE_CODES[q.dtype], hd,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            None if o_res is None else o_res.data_ptr(), lse_rows(Sq),
             B, H, KV, Sq, Skv, strides, int(causal), int(window),
             float(softcap), 1.0 / math.sqrt(hd), stream,
         )
@@ -121,10 +161,29 @@ def flash_attention_kernel(
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed (cudaError {err})")
     flash_attention_kernel.launches += 1
-    return o
+    return SavedForward(o, lse, o_res) if with_lse else o
 
 
 flash_attention_kernel.launches = 0   # kernel launches since the last reset
+
+
+def _check_saved(q: torch.Tensor, saved: SavedForward) -> None:
+    o, lse, o_res = saved
+    B, H, Sq, _ = q.shape
+    if o.shape != q.shape or o.dtype != q.dtype or o.device != q.device or not _layout_ok(o):
+        raise ValueError(f"saved output {tuple(o.shape)} {o.dtype} on {o.device} (strides "
+                         f"{o.stride()}) does not match q {tuple(q.shape)} {q.dtype}")
+    if (lse is None or lse.shape != (B, H, lse_rows(Sq)) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError("saved log-sum-exp must be the forward's fp32 "
+                         f"[{B}, {H}, {lse_rows(Sq)}]: flash_attention_kernel(..., "
+                         "with_lse=True)")
+    if (o_res is None) != (q.dtype != torch.bfloat16) or (
+            o_res is not None and (o_res.shape != o.shape or o_res.dtype != o.dtype
+                                   or o_res.stride() != o.stride()
+                                   or o_res.device != q.device)):
+        raise ValueError("the saved output's residual must be given in bf16 (o's shape "
+                         "and strides) and only there")
 
 
 def flash_attention_bwd_kernel(
@@ -132,20 +191,23 @@ def flash_attention_bwd_kernel(
     k: torch.Tensor,      # [B, KV, Skv, hd]
     v: torch.Tensor,
     do: torch.Tensor,     # gradient of the output, any strides
+    saved: SavedForward,  # flash_attention_kernel(q, k, v, ..., with_lse=True)
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of the forward kernel's output, each in its input's dtype
     and layout, from the CUDA backward kernels on q's current stream (they
-    recompute what they use from q, k, v, so the output is not an input);
-    raises on any input they do not take and on any launch error.  A ``do``
-    whose strides the kernels do not take (an expanded or transposed
-    gradient) is copied contiguous first."""
+    recompute P from q, k and the forward's log-sum-exp, and take D from its
+    output); raises on any input they do not take and on any launch error.
+    A ``do`` whose strides the kernels do not take (an expanded or
+    transposed gradient) is copied contiguous first.  The rows of
+    ``saved.lse`` past Sq are scratch."""
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"do {tuple(do.shape)} {do.dtype} on {do.device} does not match "
                          f"q {tuple(q.shape)} {q.dtype} on {q.device}")
     _check(q, k, v)
+    _check_saved(q, saved)
     if not _layout_ok(do):
         do = do.contiguous()
     B, H, Sq, hd = q.shape
@@ -153,18 +215,25 @@ def flash_attention_bwd_kernel(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
-    tensors = (q, k, v, do, dq, dk, dv)
-    ptrs = (ctypes.c_void_p * 7)(*(t.data_ptr() for t in tensors))
-    strides = (ctypes.c_longlong * 21)(*(s for t in tensors for s in t.stride()[:3]))
+    stats = torch.empty((2, *saved.lse.shape), dtype=torch.float32, device=q.device)
+    tensors = (q, k, v, do, saved.o, saved.o_res, dq, dk, dv)
+    ptrs = (ctypes.c_void_p * 9)(*(None if t is None else t.data_ptr() for t in tensors))
+    strides = (ctypes.c_longlong * 27)(*(s for t in tensors
+                                         for s in (t.stride()[:3] if t is not None else (0,) * 3)))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
+        # a group too few blocks cover is split over more, into fp32 partial sums
+        split = _bwd_split()(_DTYPE_CODES[q.dtype], hd, B, H, KV, Skv)
+        part = (torch.empty(2 * split * B * KV * Skv * hd, dtype=torch.float32, device=q.device)
+                if split > 1 else None)
         err = _bwd()(
-            _DTYPE_CODES[q.dtype], hd, ptrs, lse.data_ptr(), delta.data_ptr(),
-            B, H, KV, Sq, Skv, strides, int(causal), int(window),
-            float(softcap), 1.0 / math.sqrt(hd), stream,
+            _DTYPE_CODES[q.dtype], hd, ptrs, saved.lse.data_ptr(), stats.data_ptr(),
+            lse_rows(Sq), None if part is None else part.data_ptr(), B, H, KV, Sq, Skv,
+            strides, int(causal), int(window), float(softcap), 1.0 / math.sqrt(hd), stream,
         )
+    if err == -2:
+        raise RuntimeError("flash attention backward: the TMA tensor maps could not be "
+                           f"encoded (strides {list(strides)})")
     if err != 0:
         raise RuntimeError(f"flash attention backward launch failed (cudaError {err})")
     flash_attention_bwd_kernel.launches += 1

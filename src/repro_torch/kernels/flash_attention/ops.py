@@ -4,27 +4,33 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import flash_attention_bwd_kernel, flash_attention_kernel
+from .kernel import SavedForward, flash_attention_bwd_kernel, flash_attention_kernel
 from .ref import attention_ref
 
 
 class _FlashAttention(torch.autograd.Function):
     """Forward through the forward kernel, backward through the backward
-    kernel; nothing in between runs the plain version."""
+    kernel; nothing in between runs the plain version.  ``keep`` (a
+    gradient will be asked for) makes the forward keep what the backward
+    takes; without it the forward writes its output alone."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap):
-        ctx.save_for_backward(q, k, v)
+    def forward(ctx, q, k, v, causal, window, softcap, keep):
         ctx.mask = (causal, window, softcap)
-        return flash_attention_kernel(q, k, v, causal=causal, window=window, softcap=softcap)
+        if not keep:
+            return flash_attention_kernel(q, k, v, causal=causal, window=window, softcap=softcap)
+        saved = flash_attention_kernel(q, k, v, causal=causal, window=window, softcap=softcap,
+                                       with_lse=True)
+        ctx.save_for_backward(q, k, v, *saved)
+        return saved.o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
+        q, k, v, o, lse, o_res = ctx.saved_tensors
         causal, window, softcap = ctx.mask
-        dq, dk, dv = flash_attention_bwd_kernel(q, k, v, do, causal=causal, window=window,
-                                                softcap=softcap)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = flash_attention_bwd_kernel(q, k, v, do, SavedForward(o, lse, o_res),
+                                                causal=causal, window=window, softcap=softcap)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -44,4 +50,5 @@ def flash_attention(
     """
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal, window, softcap)
-    return _FlashAttention.apply(q, k, v, causal, window, softcap)
+    keep = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    return _FlashAttention.apply(q, k, v, causal, window, softcap, keep)

@@ -464,11 +464,15 @@ FA_BWD_ROW_TOL = {torch.float32: 1e-2, torch.bfloat16: 0.1}
 
 @pytest.mark.parametrize("case", FA_BWD_CASES)
 def test_flash_attention_bwd_kernel_matches_plain(cuda_device, case):
-    """dq, dk, dv against attention_bwd_ref, to the reference's flash bounds;
-    each row's worst error held to FA_BWD_ROW_TOL of the row's rms as well."""
+    """dq, dk, dv, on what a training forward keeps, against
+    attention_bwd_ref, to the reference's flash bounds; each row's worst
+    error held to FA_BWD_ROW_TOL of the row's rms as well."""
     B, H, KV, S, hd, causal, window, cap, dtype = case
     q, k, v, do = _bwd_inputs(cuda_device, B, H, KV, S, hd, dtype, cap=cap)
-    got = flash_attention_bwd_kernel(q, k, v, do, causal=causal, window=window, softcap=cap)
+    saved = flash_attention_kernel(q, k, v, causal=causal, window=window, softcap=cap,
+                                   with_lse=True)
+    got = flash_attention_bwd_kernel(q, k, v, do, saved, causal=causal, window=window,
+                                     softcap=cap)
     want = attention_bwd_ref(q, k, v, do, causal, window, cap)
     torch.cuda.synchronize()
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
@@ -483,11 +487,43 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda_device, case):
     del got, want
 
 
+@pytest.mark.parametrize("hd, dtype", [(64, torch.bfloat16), (128, torch.bfloat16),
+                                       (256, torch.bfloat16), (128, torch.float32)])
+def test_flash_attention_training_forward_keeps_lse_and_residual(cuda_device, hd, dtype):
+    """``with_lse=True``: each row's base-2 log-sum-exp against the plain
+    logits', and in bf16 o + o_res against the fp32 attention of the same
+    inputs (to ~16 bits: the forward's P v adds P's residual product), o_res
+    within half a unit in the last place of o; the serving call's output
+    within the reference's bound."""
+    B, H, KV, S, window, cap = 1, 4, 2, 333, 100, 30.0
+    q, k, v, _ = _bwd_inputs(cuda_device, B, H, KV, S, hd, dtype, cap=cap)
+    saved = flash_attention_kernel(q, k, v, window=window, softcap=cap, with_lse=True)
+    torch.cuda.synchronize()
+    assert saved.lse.shape == (B, H, 384)
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float().repeat_interleave(H // KV, 1))
+    s = cap * torch.tanh(s / math.sqrt(hd) / cap)
+    pos = torch.arange(S, device=cuda_device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    lse = torch.logsumexp(torch.where(mask, s, -math.inf), -1) / math.log(2.0)
+    torch.testing.assert_close(saved.lse[..., :S], lse, rtol=0, atol=1e-4)
+    want = attention_ref(q.float(), k.float(), v.float(), True, window, cap)
+    if dtype == torch.bfloat16:
+        full = saved.o.float() + saved.o_res.float()
+        torch.testing.assert_close(full, want, rtol=0, atol=1e-4)
+        assert (saved.o_res.float().abs() <= saved.o.float().abs() * 2.0 ** -8).all()
+    else:
+        assert saved.o_res is None
+        torch.testing.assert_close(saved.o, want, rtol=0, atol=1e-4)
+    serving = flash_attention_kernel(q, k, v, window=window, softcap=cap)
+    torch.testing.assert_close(serving.float(), want, rtol=2e-2, atol=2e-2)
+
+
 def test_flash_attention_bwd_is_deterministic_and_counts_calls(cuda_device):
     q, k, v, do = _bwd_inputs(cuda_device, 2, 8, 2, 300, 128, torch.bfloat16)
+    saved = flash_attention_kernel(q, k, v, with_lse=True)
     before = flash_attention_bwd_kernel.launches
-    first = flash_attention_bwd_kernel(q, k, v, do)
-    second = flash_attention_bwd_kernel(q, k, v, do)
+    first = flash_attention_bwd_kernel(q, k, v, do, saved)
+    second = flash_attention_bwd_kernel(q, k, v, do, saved)
     assert flash_attention_bwd_kernel.launches == before + 2
     for a, b in zip(first, second, strict=True):
         assert torch.equal(a, b)

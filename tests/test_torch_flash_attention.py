@@ -1,8 +1,9 @@
 """The port's flash_attention entry on the CPU (its plain version) against
-the reference's oracle and its Pallas kernel in interpret mode, and the
+the reference's oracle and its Pallas kernel in interpret mode, the
 backward's plain version (``attention_bwd_ref``, the oracle the backward
 kernel is held against on the card) against ``jax.grad`` of the
-reference's oracle.
+reference's oracle, and the bf16 backward kernels' rounding, emulated
+(``attention_bwd_emulated``), against the same.
 
 Bounds are the reference's own (tests/test_kernels.py): 2e-3 in fp32,
 2e-2 in bf16.  The kernel itself is held against the plain version on the
@@ -16,10 +17,11 @@ import torch
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash_attention
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
-from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_kernel,
-                                                        flash_attention_kernel)
+from repro_torch.kernels.flash_attention.kernel import (SavedForward, flash_attention_bwd_kernel,
+                                                        flash_attention_kernel, lse_rows)
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+from repro_torch.kernels.flash_attention.ref import (RESIDUAL_GROUP, attention_bwd_emulated,
+                                                     attention_bwd_ref)
 
 FA_CASES = [
     # (B, H, KV, S, hd, causal, window, softcap, dtype) -- tests/test_kernels.py
@@ -181,11 +183,117 @@ def test_flash_attention_cpu_backward_is_autograd_of_the_plain_version():
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("bad", ["head_dim", "do_shape", "device"])
+@pytest.mark.parametrize("bad", ["head_dim", "do_shape", "device", "lse"])
 def test_bwd_kernel_wrapper_rejects_what_it_cannot_take(bad):
-    """The backward wrapper validates before it builds or launches anything."""
+    """The backward wrapper validates before it builds or launches anything:
+    here on CPU tensors, and a log-sum-exp of the wrong shape."""
     hd = 96 if bad == "head_dim" else 64
     q = torch.zeros(1, 2, 8, hd)
     do = torch.zeros(1, 2, 9, hd) if bad == "do_shape" else torch.zeros_like(q)
+    lse = torch.zeros(1, 2, 8 if bad == "lse" else lse_rows(8))
     with pytest.raises(ValueError):
-        flash_attention_bwd_kernel(q, q, q, do)
+        flash_attention_bwd_kernel(q, q, q, do, SavedForward(q, lse, None))
+
+
+# chip_smoke.py phase 15(a)'s cases cut to S=512 (gemma2's window to 256):
+# (name, B, H, KV, S, hd, causal, window, softcap)
+EMU_CASES = [
+    ("granite_train", 1, 32, 8, 512, 128, True, 0, 0.0),
+    ("gemma2_local", 1, 16, 8, 512, 256, True, 256, 50.0),
+    ("gemma2_global", 1, 16, 8, 512, 256, True, 0, 50.0),
+    ("granite20b_mqa", 1, 48, 1, 512, 128, True, 0, 0.0),
+]
+
+
+def _emu_case(case):
+    """bf16 inputs as phase 15(a) draws them (under a softcap q scaled by
+    cap / 3, so the cap's tanh saturates), and the oracle: jax.vjp of the
+    reference's attention in fp32 on the same bf16 values.  (jax.vjp at bf16
+    inputs sums a group's dk, dv in bf16, its repeat's transpose, and that
+    alone misses 2e-2 at gemma2's and the MQA shapes; attention_bwd_ref on
+    the card upcasts before it sums.)"""
+    _, B, H, KV, S, hd, causal, window, cap = case
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal((B, n, S, hd)).astype(np.float32) for n in (H, KV, KV))
+    if cap > 0:
+        q *= cap / 3
+    do = rng.standard_normal((B, H, S, hd)).astype(np.float32)
+    tt = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, do)]
+    jx = [jnp.asarray(t.float().numpy()) for t in tt]
+    _, vjp = jax.vjp(lambda a, b, c: jax_attention_ref(a, b, c, causal, window, cap), *jx[:3])
+    want = [torch.from_numpy(np.array(w)) for w in vjp(jx[3])]
+    return tt, want
+
+
+def _card_bounds_missed(got, want):
+    """phase 15(a)'s bf16 checks: 2e-2 elementwise (relative and absolute),
+    and each row within 0.1 of its rms over rows whose rms reaches 1e-3 of
+    the tensor's; the names of the ones missed."""
+    missed = []
+    for name, g, w in zip(("dq", "dk", "dv"), got, want, strict=True):
+        if not torch.allclose(g.float(), w, rtol=2e-2, atol=2e-2):
+            missed.append(f"{name} elementwise")
+        if _row_rel(g, w.double()) > 0.1:
+            missed.append(f"{name} per row")
+    return missed
+
+
+@pytest.mark.parametrize("case", EMU_CASES, ids=[c[0] for c in EMU_CASES])
+def test_attention_bwd_emulated_matches_jax_grad(case):
+    """The bf16 kernels' rounding points (D from o + o_res, P from the
+    forward's log-sum-exp, P and dS rounded to bf16 for their products, the
+    residual products by the kernels' rule) stay inside the card's bounds."""
+    _, B, H, KV, S, hd, causal, window, cap = case
+    tt, want = _emu_case(case)
+    got = attention_bwd_emulated(*tt, causal, window, cap)
+    for g, t in zip(got, tt[:3], strict=True):
+        assert g.dtype == torch.bfloat16 and g.shape == t.shape
+    assert not _card_bounds_missed(got, want)
+
+
+@pytest.mark.parametrize("case, without, misses", [
+    (EMU_CASES[3], ("residual",), "dv elementwise"),
+    (EMU_CASES[1], ("residual",), "dk elementwise"),
+    (EMU_CASES[0], ("o_residual", "p_residual"), "dq per row"),
+    (EMU_CASES[2], ("o_residual", "p_residual"), "dq per row"),
+    (EMU_CASES[2], ("p_residual",), "dq per row"),
+], ids=["mqa-no-residual-products", "softcap-no-residual-products", "granite-d-from-bf16-o",
+        "gemma2-d-from-bf16-o", "gemma2-p-rounded-once"])
+def test_attention_bwd_emulated_needs_each_precision_step(case, without, misses):
+    """Each of the design's precision steps is needed: without the residual
+    products granite-20b's 48 heads on one kv head miss the bound in dv,
+    and a softcap's scaled logits in dk; D from the bf16 output alone, or
+    from o + o_res of a forward whose P v rounds P once, misses the per-row
+    bound in dq, where one key holds a row."""
+    _, B, H, KV, S, hd, causal, window, cap = case
+    tt, want = _emu_case(case)
+    got = attention_bwd_emulated(*tt, causal, window, cap, **dict.fromkeys(without, False))
+    assert misses in _card_bounds_missed(got, want)
+
+
+def test_residual_group_is_the_kernels():
+    """The emulation's group threshold is the CUDA source's."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+           / "flash_attention_bwd.cu").read_text()
+    assert re.search(r"constexpr int kResidualGroup = (\d+);", src).group(1) == str(RESIDUAL_GROUP)
+
+
+@pytest.mark.parametrize("spec", ["flash_bwd_ablations.json", "flash_bwd_mutations.json"])
+def test_flash_bwd_variant_edits_match_the_kernel_source(spec):
+    """Every edit of the flash backward's ablation and mutation specs (the
+    variants ``scripts/kernel_variants.py`` builds on the card) matches its
+    CUDA source exactly once, so they stay those of the kernels as they
+    are."""
+    import json
+    import pathlib
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    items = json.loads((repo / "scripts" / spec).read_text())
+    for item in items:
+        text = (repo / "src" / "repro_torch" / "csrc" / item["source"]).read_text()
+        for old, new in item.get("edits", []):
+            assert text.count(old) == 1, (item["name"], old[:60])
+            assert old != new
