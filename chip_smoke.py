@@ -15,9 +15,9 @@ plain PyTorch version on the card, then drives the serving path:
    256 ``mma.sync`` (``HMMA``), and every ``qmatmul_tma`` kernel the int8
    wgmma (``IGMMA``) and TMA with no spills;
 2. flash-attention kernel vs its plain version at every shape the later
-   phases give it (reference bounds: 2e-3 fp32, 2e-2 bf16, plus a per-row
-   bound relative to the row's size) with kernel / plain / library (SDPA) /
-   bound times;
+   phases give it, phases 16-17's five head layouts included (reference
+   bounds: 2e-3 fp32, 2e-2 bf16, plus a per-row bound relative to the
+   row's size) with kernel / plain / library (SDPA) / bound times;
 3. granite-3-8b at full width and depth, bf16, seeded init: the prefill
    planned by the DSE branch of ``plan_for_cell`` (one-chip model axis, the
    reference's TPU v5e cost model), prefill step at B=4 x S=2048 (exactly
@@ -113,17 +113,37 @@ plain PyTorch version on the card, then drives the serving path:
     the restarted run's parameters and optimizer state bit-identical to an
     uninterrupted run's (deterministic algorithms on), then greedy decoding;
     (f) ``python -m repro_torch.launch.train --arch granite-moe-1b-a400m``
-    as a process, 4 steps at full size.
+    as a process, 4 steps at full size;
+16. the configs first run on the card: starcoder2-15b (ungated GELU MLP,
+    GQA 48 / 4) and granite-20b (MQA 48 / 1) at full size, llama4-maverick
+    at full width cut to 2 layers (one dense, one MoE layer of 128 experts,
+    top-1), bf16, seeded init: prefill step at B=4 x S=2048 (exactly one
+    flash launch per attention layer, nothing else), its wall time and
+    device time by kind, one batch-4 decode step counted and traced; then
+    each at full width and reduced depth in fp32 with TF32 off, prefill
+    against token-by-token decode (phase 4's bound; llama4 at B*S = 200,
+    where no dispatch drops a choice);
+17. the frontend stubs at full size, bf16: paligemma-3b (256 patch
+    embeddings ahead of 1792 tokens) and musicgen-medium (2048 frame
+    embeddings, no tokens) as phase 16, their fp32 checks (paligemma: a
+    prefill of the patches and the first text tokens, caches collected,
+    then decode of the rest against one prefill of it all; musicgen: frames
+    = the embedded tokens against token-by-token decode), then ``python -m
+    repro_torch.launch.train --arch <it> --batch 4 --seq 2048`` as a
+    process, 4 steps at full size each (the backward kernel at hd 256 and
+    hd 64): finite losses and grad norms; then the gradient of each on one
+    batch in this process: every per-layer gradient non-zero.
 
 Any failed check raises and the script exits non-zero without a result.  The
 last line is ``{"ok": true, "device": {...}}``; the line before it is the
-card's name and power limit, and the line before that a JSON object listing
+card's name and power limit, the line before that a JSON object listing
 every ported kernel with its launches on its own main path (flash attention:
 the phase-3 granite-3-8b prefill; its backward: the phase-15(d) training
 run, calls of three kernels each; WKV-6: the phase-7 rwkv6-3b prefill;
 selective scan: the phase-10 jamba prefill; qmatmul: the phase-13 op call)
-and its times (each also with its launches on phase 14's facade path).
-Imports nothing of JAX or of ``repro``.
+and its times (each also with its launches on phase 14's facade path), and
+the line before that the script's wall time.  Imports nothing of JAX or of
+``repro``.
 """
 from __future__ import annotations
 
@@ -141,6 +161,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+T_START = time.perf_counter()
 REPO = Path(__file__).resolve().parent
 SRC = REPO / "src"
 
@@ -170,6 +191,18 @@ FA_CASES = [
     ("gemma2_prefill_global", 4, 16, 8, 2048, 256, True, 0, 50.0, "bfloat16"),
     ("gemma2_prefill_b1_local", 1, 16, 8, 2048, 256, True, 4096, 50.0, "bfloat16"),
     ("gemma2_prefill_b1_global", 1, 16, 8, 2048, 256, True, 0, 50.0, "bfloat16"),
+    # phases 16-17: the head layouts of the configs first run on the card, at
+    # their B=4 x S=2048 bf16 prefills and their fp32 checks' shapes
+    ("starcoder2_prefill", 4, 48, 4, 2048, 128, True, 0, 0.0, "bfloat16"),
+    ("granite20b_prefill", 4, 48, 1, 2048, 128, True, 0, 0.0, "bfloat16"),
+    ("llama4_prefill", 4, 40, 8, 2048, 128, True, 0, 0.0, "bfloat16"),
+    ("paligemma_prefill", 4, 8, 1, 2048, 256, True, 0, 0.0, "bfloat16"),
+    ("musicgen_prefill", 4, 24, 24, 2048, 64, True, 0, 0.0, "bfloat16"),
+    ("starcoder2_fp32", 2, 48, 4, 100, 128, True, 0, 0.0, "float32"),
+    ("granite20b_fp32", 2, 48, 1, 100, 128, True, 0, 0.0, "float32"),
+    ("llama4_fp32", 2, 40, 8, 100, 128, True, 0, 0.0, "float32"),
+    ("paligemma_fp32", 2, 8, 1, 288, 256, True, 0, 0.0, "float32"),
+    ("musicgen_fp32", 2, 24, 24, 100, 64, True, 0, 0.0, "float32"),
 ]
 # Per-row bound on max|kernel - plain| / rms(plain row).  The absolute 2e-2
 # is about half a typical output in rows that see thousands of keys (their
@@ -289,6 +322,18 @@ FA_BWD_MAIN = ("granite_train", "bfloat16")
 FA_BWD_ROW_REL_TOL = {"float32": 1e-2, "bfloat16": ROW_REL_TOL}
 FA_BWD_ROW_FLOOR = 1e-3
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 4, 2048, 6
+# Phases 16-17: the configs first run on the card, (arch, layers run; None =
+# full depth).  llama4 at 48 layers is ~735 GiB of bf16 weights; its first two
+# are one dense layer and one MoE layer of 128 experts (34.3 GiB).
+A16_ARCHS = (("starcoder2-15b", None), ("granite-20b", None), ("llama4-maverick-400b-a17b", 2))
+FRONTEND_ARCHS = ("paligemma-3b", "musicgen-medium")
+PREFILL_B, PREFILL_S = 4, 2048
+# The fp32 prefill-vs-decode checks (TF32 off): layers (llama4 keeps its 2),
+# B x S (llama4's B*S <= 512 leaves one token a dispatch group: nothing is
+# dropped on either path), paligemma's text tokens in its prefix prefill and
+# then decoded, after its 256 patches.
+FP32_LAYERS, FP32_B, FP32_S, VISION_TEXT = 4, 2, 100, (16, 16)
+LAUNCHER_STEPS = 4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1042,15 +1087,8 @@ def training_phase(get_config, card: str, reset_launches, kernels, cuda_ms, cuda
 
     for s in range(TRAIN_STEPS + 1):
         batch_fn(s)                                  # host data made before the timed run
-    grad_norms = []
-
-    def recorded_step(m, o, b):
-        m, o, metrics = step(m, o, b)
-        grad_norms.append(metrics["grad_norm"])
-        return m, o, metrics
-
     with tempfile.TemporaryDirectory() as ckpt:
-        trainer = ResilientTrainer(train_step=recorded_step, batch_fn=batch_fn, ckpt_dir=ckpt,
+        trainer = ResilientTrainer(train_step=step, batch_fn=batch_fn, ckpt_dir=ckpt,
                                    ckpt_every=10 * TRAIN_STEPS)
         reset_launches()
         model, opt, hist = trainer.run(model, opt, n_steps=TRAIN_STEPS)
@@ -1067,7 +1105,7 @@ def training_phase(get_config, card: str, reset_launches, kernels, cuda_ms, cuda
           f"another kernel launched on the training path: {launches}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [h["loss"] for h in hist]
-    norms = [g.item() for g in grad_norms]
+    norms = [h["grad_norm"] for h in hist]
     check(all(math.isfinite(x) for x in losses + norms), f"non-finite loss {losses} or "
           f"grad norm {norms}")
     times = [1e3 * h["time"] for h in hist]
@@ -1201,6 +1239,208 @@ def training_phase(get_config, card: str, reset_launches, kernels, cuda_ms, cuda
         line for line in proc.stdout.strip().splitlines() if not line.startswith("plan:"))
         + f" {card}")
     return {"bwd": bwd[FA_BWD_MAIN], "train": train}
+
+
+def prefill_inputs(cfg, B: int, S: int, seed: int, dev) -> tuple:
+    """The data pipeline's batch of S positions a row as the prefill step's
+    inputs after the model, on ``dev``: (tokens,), for ``audio_stub``
+    (frame embeddings,), for ``vision_stub`` (tokens, patch embeddings)."""
+    import torch
+
+    from repro_torch.data import make_batch_iterator
+
+    _, batch = next(make_batch_iterator(cfg, batch=B, seq=S, seed=seed))
+    toks = (torch.as_tensor(batch["tokens"]).long().to(dev),) if "tokens" in batch else ()
+    emb = batch.get("frontend_embeds")
+    return toks + (() if emb is None else (torch.as_tensor(emb).to(dev),))
+
+
+def arch_prefill_phase(cfg, full_layers: int, seed: int, card: str, reset_launches, kernels,
+                       sync) -> dict:
+    """Phases 16-17 in bf16 at full width: the prefill step at B=4 x S=2048
+    (one flash launch per attention layer and no other kernel; logits of the
+    expected shape and finite), its wall time (median of 3) and its device
+    time by kind, then one batch-4 decode step, wall beside device busy.
+    Returns the prefill's median ms and flash launches."""
+    import torch
+
+    from repro_torch.models import init_params
+    from repro_torch.runtime.planner import plan_for_cell
+    from repro_torch.runtime.serve import build_prefill_step
+
+    dev = torch.device("cuda")
+    held = torch.cuda.memory_allocated()
+    print(f"  {cfg.name}: full width, {cfg.n_layers} layers, frontend {cfg.frontend}, bf16 "
+          f"({held / 2**30:.3f} GiB allocated before)")
+    check(held < 2 * 2**30, "an earlier phase's model is still on the card")
+    if cfg.n_layers != full_layers:
+        print(f"  reduced: n_layers {full_layers}→{cfg.n_layers}")
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    sync()
+    print(f"    init {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params in "
+          f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    B, S = PREFILL_B, PREFILL_S
+    plan = plan_for_cell(cfg, S, B, ("data", "model"), 1, kind="prefill", use_dse=False)
+    prefill = build_prefill_step(cfg, plan, dev)
+    inputs = prefill_inputs(cfg, B, S, seed + 1, dev)
+
+    def step(m, x):
+        return prefill(m, *x)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    logits = step(model, inputs)
+    sync()
+    launches = {k.__name__.removesuffix("_kernel"): k.launches for k in kernels}
+    n_attn = sum(kind in ("attn", "local") for kind in cfg.block_kinds())
+    check(launches["flash_attention"] == n_attn,
+          f"{launches['flash_attention']} flash launches in one {cfg.name} prefill, "
+          f"expected {n_attn}")
+    check(all(n == 0 for k, n in launches.items() if k != "flash_attention"),
+          f"another kernel launched in a {cfg.name} prefill: {launches}")
+    check(tuple(logits.shape) == (B, S, cfg.padded_vocab), f"logits shape {logits.shape}")
+    check(bool(torch.isfinite(logits).all()), f"non-finite {cfg.name} prefill logits")
+    del logits
+    times = timed_prefills(step, model, inputs, sync)
+    print(f"    prefill B={B} S={S}: {statistics.median(times):.3f} ms (median of 3, "
+          f"{min(times):.3f}-{max(times):.3f}), {n_attn} flash launches per call, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+    print(f"    prefill traced: {prefill_breakdown(step, model, inputs, ('fa_fwd',), sync)} "
+          f"{card}")
+    prof = decode_step_profile(cfg, model, dev, sync)
+    print(f"    decode step (batch 4, position 64): {prof} {card}")
+    del model
+    torch.cuda.empty_cache()
+    return {"prefill_ms": statistics.median(times), "flash_launches": n_attn}
+
+
+def fp32_prefill_vs_decode(cfg, full_layers: int, seed: int, reset_launches, kernels,
+                           sync) -> None:
+    """Phases 16-17 in fp32 at full width and reduced depth, TF32 off: the
+    prefill step against token-by-token decode from zero caches.  audio:
+    the prefill's frames are the embedded tokens, which decode embeds;
+    vision: a prefill of the patches and the first text tokens (caches
+    collected), then decode of the rest, against one prefill of it all.
+    Each logit within 1e-3 of the logits' scale (phase 4's bound)."""
+    import torch
+
+    from repro_torch.models import init_kv_cache, init_params
+    from repro_torch.runtime.planner import plan_for_cell
+    from repro_torch.runtime.serve import build_decode_step, build_prefill_step
+
+    dev = torch.device("cuda")
+    cfg32 = dataclasses.replace(cfg, n_layers=min(FP32_LAYERS, cfg.n_layers),
+                                param_dtype="float32")
+    held = torch.cuda.memory_allocated()
+    check(held < 2 * 2**30, "an earlier phase's model is still on the card")
+    print(f"  {cfg.name}: fp32 prefill vs decode, TF32 off, full width")
+    print(f"  reduced: n_layers {full_layers}→{cfg32.n_layers}")
+    model = init_params(cfg32, torch.Generator(device=dev).manual_seed(seed), dev)
+    flash = kernels[0]
+    n_attn = sum(kind in ("attn", "local") for kind in cfg32.block_kinds())
+    B = FP32_B
+    g = torch.Generator().manual_seed(seed + 1)
+    if cfg.frontend == "vision_stub":
+        P, (T1, T2) = cfg.frontend_tokens, VISION_TEXT
+        S = P + T1 + T2
+        toks = torch.randint(0, cfg.vocab, (B, T1 + T2), generator=g).to(dev)
+        patches = (0.02 * torch.randn(B, P, cfg.d_model, generator=g)).to(dev)
+        plan = plan_for_cell(cfg32, S, B, ("data", "model"), 1, kind="prefill", use_dse=False)
+        reset_launches()
+        whole = build_prefill_step(cfg32, plan, dev)(model, toks, patches)
+        with torch.inference_mode():
+            pre_logits, pre = model(toks[:, :T1], patches, collect_cache=True)
+        check(flash.launches == 2 * n_attn, f"{flash.launches} flash launches, expected "
+              f"{2 * n_attn}")
+        dplan = plan_for_cell(cfg32, S, B, ("data", "model"), 1, kind="decode")
+        dstep = build_decode_step(cfg32, dplan, batch=B, max_len=S, device=dev)
+        caches = init_kv_cache(cfg32, B, S, torch.float32, dev)
+        for full, c in zip(caches, pre):
+            for n in full:
+                full[n][:, :, :P + T1] = c[n]
+        dec = []
+        for t in range(T2):
+            lg, caches = dstep(model, toks[:, T1 + t:T1 + t + 1],
+                               torch.full((B,), P + T1 + t), caches)
+            dec.append(lg)
+        pairs = [(f"prefix prefill ({P} patches + {T1} tokens)", pre_logits, whole[:, :P + T1]),
+                 (f"decode of the last {T2} tokens", torch.cat(dec, dim=1), whole[:, P + T1:])]
+        shape = f"B={B}, {P} patches + {T1 + T2} tokens"
+    else:
+        S = FP32_S
+        toks = torch.randint(0, cfg.vocab, (B, S), generator=g)
+        plan = plan_for_cell(cfg32, S, B, ("data", "model"), 1, kind="prefill", use_dse=False)
+        inputs = ((model.embed[toks.to(dev)].detach(),) if cfg.frontend == "audio_stub"
+                  else (toks,))
+        reset_launches()
+        whole = build_prefill_step(cfg32, plan, dev)(model, *inputs)
+        check(flash.launches == n_attn, f"{flash.launches} flash launches, expected {n_attn}")
+        dec, _ = decode_token_by_token(cfg32, model, toks, dev)
+        what = "frames = embed[tokens]" if cfg.frontend == "audio_stub" else "tokens"
+        pairs = [(f"token-by-token decode vs prefill of {what}", dec, whole)]
+        shape = f"B={B} S={S}"
+    sync()
+    check(all(k.launches == 0 for k in kernels[1:]), "another kernel launched")
+    report = []
+    for name, a, b in pairs:
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        check(bool(torch.isfinite(a).all()), f"{cfg.name} {name}: non-finite logits")
+        check(err <= 1e-3 * scale, f"{cfg.name} {name}: max abs err {err} > 1e-3 x {scale}")
+        report.append(f"{name}: max |diff| {err:.3e} (tol 1e-3 x max|logit| = "
+                      f"{1e-3 * scale:.3e})")
+    print(f"    {shape}: " + "; ".join(report))
+    del model, whole, pairs
+    torch.cuda.empty_cache()
+
+
+def launcher_training(arch: str, card: str, reset_launches, kernels, sync) -> None:
+    """``python -m repro_torch.launch.train --arch <arch>`` as a process at
+    full size, B=4 x S=2048 (it exits non-zero on a non-finite loss or grad
+    norm); then, in this process, the gradient of the same full-size config
+    on the pipeline's first batch: every per-layer gradient finite and
+    non-zero (``check_gradients``), one flash backward launch per attention
+    layer."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.launch.train import check_gradients
+    from repro_torch.models import init_params
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--steps",
+               str(LAUNCHER_STEPS), "--batch", str(PREFILL_B), "--seq", str(PREFILL_S),
+               "--ckpt-every", "100", "--ckpt-dir", ckpt]
+        proc = subprocess.run(cmd, cwd=REPO, env=dict(os.environ, PYTHONPATH=str(SRC)),
+                              capture_output=True, text=True, timeout=600)
+    shown = " ".join(cmd[1:11])                     # the checkpoint flags left out
+    check(proc.returncode == 0 and "final loss" in proc.stdout,
+          f"{shown} exited {proc.returncode}: {proc.stdout}{proc.stderr[-3000:]}")
+    print(f"  python {shown}: " + " | ".join(
+        line for line in proc.stdout.strip().splitlines() if not line.startswith("plan:"))
+        + f" {card}")
+    cfg = get_config(arch)
+    dev = torch.device("cuda")
+    check(torch.cuda.memory_allocated() < 2 * 2**30,
+          "an earlier phase's model is still on the card")
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev).train_params()
+    _, batch = next(make_batch_iterator(cfg, batch=PREFILL_B, seq=PREFILL_S))
+    reset_launches()
+    n = check_gradients(model, batch, dev)
+    sync()
+    launches = {k.__name__.removesuffix("_kernel"): k.launches for k in kernels}
+    n_attn = sum(kind in ("attn", "local") for kind in cfg.block_kinds())
+    check(launches["flash_attention_bwd"] == n_attn,
+          f"{launches['flash_attention_bwd']} flash backward launches in one {cfg.name} "
+          f"gradient, expected {n_attn}")
+    print(f"    gradient on the first batch (B={PREFILL_B} x S={PREFILL_S}): all {n} per-layer "
+          f"gradients finite and non-zero, {n_attn} flash backward launches")
+    del model
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1892,6 +2132,31 @@ def main() -> int:
     training = training_phase(get_config, card, reset_launches, all_kernels, cuda_ms,
                               cuda_ms_median, sync)
 
+    # ------------------------------------------------------------ phase 16
+    print("phase 16: the configs first run on the card: "
+          + ", ".join(a for a, _ in A16_ARCHS) + f"; bf16 prefill B={PREFILL_B} x "
+          f"S={PREFILL_S} and decode at full width, fp32 prefill vs decode at reduced depth")
+    for i, (arch, layers) in enumerate(A16_ARCHS):
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers or full.n_layers)
+        arch_prefill_phase(cfg, full.n_layers, 20 + 2 * i, card, reset_launches, all_kernels,
+                           sync)
+        fp32_prefill_vs_decode(cfg, full.n_layers, 30 + 2 * i, reset_launches, all_kernels,
+                               sync)
+
+    # ------------------------------------------------------------ phase 17
+    print("phase 17: the frontend stubs at full size: " + ", ".join(FRONTEND_ARCHS)
+          + f"; bf16 prefill B={PREFILL_B} x S={PREFILL_S} positions and decode, fp32 "
+          "prefill vs decode at reduced depth, the train launcher as a process")
+    for i, arch in enumerate(FRONTEND_ARCHS):
+        cfg = get_config(arch)
+        arch_prefill_phase(cfg, cfg.n_layers, 40 + 2 * i, card, reset_launches, all_kernels,
+                           sync)
+        fp32_prefill_vs_decode(cfg, cfg.n_layers, 50 + 2 * i, reset_launches, all_kernels,
+                               sync)
+    for arch in FRONTEND_ARCHS:
+        launcher_training(arch, card, reset_launches, all_kernels, sync)
+
     # ------------------------------------------------------------ result
     main_case = results[MAIN_PATH_CASE]
     wkv_case = wkv_results[WKV_MAIN_PATH_CASE]
@@ -1929,6 +2194,7 @@ def main() -> int:
         "launches": qmm_launches, "facade_launches": facade_launches["qmatmul"],
         **{k: qmm_results["main_path"][k] for k in keys},
     }]
+    print(f"total wall time {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -49,14 +49,20 @@ class SyntheticLM:
 
 
 def make_batch_iterator(cfg, batch: int, seq: int, seed: int = 0, start_step: int = 0):
-    """Infinite iterator of numpy batches for an arch config."""
+    """Infinite iterator of numpy batches for an arch config.
+
+    Only ``vision_stub`` takes patches ahead of its tokens: an audio config's
+    ``frontend_tokens`` (4 in every smoke config with a frontend) is not
+    passed on, so its batches hold a frame embedding at every position.  The
+    reference passes it, and its audio smoke batches hold 4 frames against
+    ``seq`` labels (ROADMAP C-ref-7).
+    """
     src = SyntheticLM(cfg.vocab, seed=seed)
+    patches = cfg.frontend_tokens if cfg.frontend == "vision_stub" else 0
     step = start_step
     while True:
         if cfg.frontend == "none":
             yield step, src.batch(step, batch, seq)
         else:
-            yield step, src.frontend_batch(
-                step, batch, seq, cfg.d_model, cfg.frontend_tokens
-            )
+            yield step, src.frontend_batch(step, batch, seq, cfg.d_model, patches)
         step += 1

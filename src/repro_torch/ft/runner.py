@@ -66,7 +66,9 @@ class ResilientTrainer:
 
     def run(self, params, opt_state, n_steps: int, start_step: int = 0,
             failure_injector=None):
-        """Runs to ``n_steps``; returns (params, opt_state, history).
+        """Runs to ``n_steps``; returns (params, opt_state, history): per step
+        its ``loss``, ``grad_norm`` (``None`` where the step reports none) and
+        wall ``time``.
 
         ``failure_injector`` is either a ``(step) -> None`` callable that
         raises to simulate a failure, or a
@@ -102,6 +104,7 @@ class ResilientTrainer:
                     failure_injector(step)
                 params, opt_state, metrics = self.train_step(params, opt_state, batch)
                 loss = float(metrics["loss"])
+                grad_norm = float(metrics["grad_norm"]) if "grad_norm" in metrics else None
             except Exception as exc:  # noqa: BLE001 -- restart-on-anything
                 failed = step
                 retries[failed] = retries.get(failed, 0) + 1
@@ -124,7 +127,7 @@ class ResilientTrainer:
                 self.on_straggler(step, dt)
             retries.pop(step, None)
             step += 1
-            history.append({"step": step, "loss": loss, "time": dt})
+            history.append({"step": step, "loss": loss, "grad_norm": grad_norm, "time": dt})
             if step % self.ckpt_every == 0:
                 save_checkpoint(self.ckpt_dir, step, (params, opt_state),
                                 meta={"loss": loss})

@@ -9,10 +9,16 @@ a config whose weights, gradients and optimizer state exceed the card.
 
     python -m repro_torch.launch.train --arch granite-3-8b --smoke --device cpu --steps 20
     python -m repro_torch.launch.train --arch granite-moe-1b-a400m --steps 20
+    python -m repro_torch.launch.train --arch musicgen-medium --steps 4 --batch 4 --seq 2048
+
+The frontend stubs train on the data pipeline's embeddings (audio: a frame
+a position; vision: ``frontend_tokens`` patches ahead of the tokens).  The
+run fails if a step's loss or grad norm is not finite.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import tempfile
 
@@ -22,7 +28,7 @@ from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.data import make_batch_iterator
 from repro_torch.device import resolve_device
 from repro_torch.ft import ResilientTrainer, StragglerMonitor
-from repro_torch.models import init_params
+from repro_torch.models import init_params, loss_fn
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import make_optimizer
 from repro_torch.runtime.planner import plan_for_cell
@@ -101,9 +107,33 @@ def main(argv: list[str] | None = None) -> list[dict]:
     model, opt, hist = trainer.run(model, opt, n_steps=args.steps)
     for h in hist:
         if h["step"] % max(1, args.steps // 20) == 0 or h["step"] == 1:
-            print(f"step {h['step']:5d} loss {h['loss']:.4f} ({h['time']*1e3:.0f} ms)")
+            print(f"step {h['step']:5d} loss {h['loss']:.4f} grad norm {h['grad_norm']:.4f} "
+                  f"({h['time']*1e3:.0f} ms)")
     print(f"final loss {hist[-1]['loss']:.4f}; stragglers flagged: {len(mon.flagged)}")
+    bad = [h for h in hist if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]))]
+    if bad:
+        raise RuntimeError(f"non-finite loss or grad norm: {bad}")
     return hist
+
+
+def check_gradients(model, batch: dict, device: torch.device) -> int:
+    """Raise unless every per-layer gradient of the loss on ``batch`` is
+    finite and non-zero (those the prefill does not use,
+    :meth:`DecoderLM.unused_by_prefill`, left out); return how many were
+    checked.  One forward and backward beyond training, for the checks that
+    hold a config's gradient path."""
+    tokens = batch.get("tokens")
+    femb = batch.get("frontend_embeds")
+    loss = loss_fn(model, None if tokens is None else torch.as_tensor(tokens).to(device).long(),
+                   torch.as_tensor(batch["labels"]).to(device).long(),
+                   None if femb is None else torch.as_tensor(femb).to(device))
+    unused = {id(p) for p in model.unused_by_prefill()}
+    flat = [p for p in model.flat_params() if id(p) not in unused]
+    grads = torch.autograd.grad(loss, flat)
+    n_bad = sum(not (bool(torch.isfinite(g).all()) and g.abs().max().item() > 0) for g in grads)
+    if n_bad:
+        raise RuntimeError(f"{n_bad} of {len(grads)} per-layer gradients are zero or non-finite")
+    return len(grads)
 
 
 if __name__ == "__main__":

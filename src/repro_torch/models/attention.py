@@ -44,6 +44,14 @@ def _masked_attention(q, k, v, mask, cap, dtype):
     return out.reshape(B, S, H * hd).to(dtype)
 
 
+def runs_from_offsets(positions: torch.Tensor) -> bool:
+    """Whether each row is ``p0_b + 0..S-1``: one comparison on the
+    positions' device (on the card, one host sync)."""
+    S = positions.shape[1]
+    steps = torch.arange(S, device=positions.device, dtype=positions.dtype)
+    return torch.equal(positions, positions[:, :1] + steps)
+
+
 def attention_prefill(
     params: dict,
     x: torch.Tensor,
@@ -51,38 +59,47 @@ def attention_prefill(
     positions: torch.Tensor | None = None,
     window: int = 0,
     plain: bool = False,
+    from_offsets: bool | None = None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence causal attention.  Returns (out, (k, v)) for caching.
 
-    ``positions=None`` means ``0..S-1`` per row, the only positions the flash
-    kernel takes.  Explicit positions run the plain masked path, on the CPU
-    only.  ``plain`` runs the flash call's plain version on any device (the
-    checks that hold the kernels against it pass it).
+    ``positions=None`` means ``0..S-1`` per row.  The flash call counts
+    query and key positions from 0, and its causal and window masks depend
+    only on ``i - j``, so rows whose positions run ``p0_b + 0..S-1`` take it
+    too, exactly, with RoPE applied on the given positions first.  Other
+    explicit positions run the plain masked path on the CPU and raise
+    elsewhere (ROADMAP A19).  ``from_offsets`` is :func:`runs_from_offsets`
+    of ``positions`` where the caller has it already (the model tests once
+    for all its layers); ``None`` tests here.  ``plain`` runs the flash
+    call's plain version on any device (the checks that hold the kernels
+    against it pass it).
     """
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if positions is not None and from_offsets is None:
+        from_offsets = runs_from_offsets(positions)
+    flash = positions is None or from_offsets
+    if not (flash or x.device.type == "cpu"):
+        raise NotImplementedError(
+            "explicit prefill positions that do not run p0 + 0..S-1 in each row on the "
+            "card (the flash kernel takes no per-row positions): ROADMAP A19"
+        )
     q = _split_heads(dense(x, params["wq"]), H, hd)
     k = _split_heads(dense(x, params["wk"]), KV, hd)
     v = _split_heads(dense(x, params["wv"]), KV, hd)
-    default_pos = positions is None
-    if default_pos:
+    if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
     cos, sin = rope_freqs(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    if default_pos:
+    if flash:
         # [B,S,H,hd] -> [B,H,S,hd] as a strided view; the kernel takes strides
         # and returns q's layout, so the reshape back copies nothing.
         attend = attention_ref if plain else flash_attention
         out = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                      causal=True, window=window, softcap=cfg.attn_softcap)
         out = out.transpose(1, 2).reshape(B, S, H * hd)
-    elif x.device.type != "cpu":
-        raise NotImplementedError(
-            "explicit prefill positions on the card (the flash kernel counts "
-            "positions from 0): ROADMAP A4"
-        )
     else:
         i = positions[:, :, None]
         j = positions[:, None, :]

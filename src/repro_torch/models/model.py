@@ -10,8 +10,10 @@ card has no sharding, so the reference's ``constrain`` /
 
 ``attn``, ``local`` and ``mamba`` blocks take a dense or an MoE FFN (MoE on
 the layers ``cfg.is_moe_block`` names); ``rwkv`` blocks carry their own
-channel mix.  The frontend stubs raise ``NotImplementedError`` naming their
-ROADMAP entry.
+channel mix.  The frontend stubs stand in for an encoder (SigLIP, EnCodec)
+as in the reference: ``audio_stub`` prefills take frame embeddings and no
+tokens, ``vision_stub`` prefills take patch embeddings placed ahead of the
+text tokens; decode embeds tokens for both.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import tree as pytree
 from ..device import resolve_device
-from .attention import attention_decode, attention_prefill
+from .attention import attention_decode, attention_prefill, runs_from_offsets
 from .config import ModelConfig
 from .layers import dense, embed, ffn, rmsnorm, softcap
 from .moe import moe_ffn
@@ -29,10 +31,13 @@ from .rwkv import rwkv_channel_mix, rwkv_time_mix
 from .ssm import mamba_decode, mamba_prefill
 
 
+FRONTENDS = ("none", "audio_stub", "vision_stub")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port lacks so far."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: {cfg.frontend} frontend: ROADMAP A4")
+    """Raise ``ValueError`` for a frontend or block kind the model has no code for."""
+    if cfg.frontend not in FRONTENDS:
+        raise ValueError(f"{cfg.name}: frontend {cfg.frontend!r}")
     for kind in cfg.block_pattern:
         if kind not in _BLOCKS:
             raise ValueError(kind)
@@ -73,10 +78,10 @@ class AttnBlock(_FfnBlock):
         self.window = cfg.window if kind == "local" else 0
         self.attn = _frozen_dict(params["attn"])
 
-    def prefill(self, x, positions, plain_attention=False):
+    def prefill(self, x, positions, plain_attention=False, from_offsets=None):
         h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
         a, (k, v) = attention_prefill(self.attn, h, self.cfg, positions, self.window,
-                                      plain=plain_attention)
+                                      plain=plain_attention, from_offsets=from_offsets)
         return self._ffn(x + a), {"k": k, "v": v}
 
     def decode(self, x, position, cache):
@@ -105,7 +110,7 @@ class RwkvBlock(nn.Module):
         f, st2 = rwkv_channel_mix(self.rwkv, h2, state)
         return x + f, {**st, **st2}
 
-    def prefill(self, x, positions, plain_attention=False):
+    def prefill(self, x, positions, plain_attention=False, from_offsets=None):
         return self._run(x, None)          # position-free, as in the reference
 
     def decode(self, x, position, cache):
@@ -123,7 +128,7 @@ class MambaBlock(_FfnBlock):
         super().__init__(cfg, params)
         self.mamba = _frozen_dict(params["mamba"])
 
-    def prefill(self, x, positions, plain_attention=False):
+    def prefill(self, x, positions, plain_attention=False, from_offsets=None):
         h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
         a, st = mamba_prefill(self.mamba, h, self.cfg)     # position-free
         return self._ffn(x + a), st
@@ -192,6 +197,14 @@ class DecoderLM(nn.Module):
             tree["lm_head"] = self.lm_head
         return tree
 
+    def unused_by_prefill(self) -> list[nn.Parameter]:
+        """Parameters with no path from a prefill's inputs to its logits: the
+        audio stub's embedding table when the head is not tied to it (decode
+        embeds tokens with it; the prefill takes frames)."""
+        if self.cfg.frontend == "audio_stub" and not self.cfg.tie_embeddings:
+            return [self.embed]
+        return []
+
     def flat_params(self) -> list[nn.Parameter]:
         """Every parameter, one tensor per layer, in the order of
         :meth:`param_tree`'s leaves (the order the train step differentiates
@@ -203,12 +216,32 @@ class DecoderLM(nn.Module):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return softcap(dense(x, head).float(), self.cfg.logit_softcap)
 
-    def forward(self, tokens: torch.Tensor, collect_cache: bool = False,
+    def embed_inputs(self, tokens: torch.Tensor | None,
+                     frontend_embeds: torch.Tensor | None = None) -> torch.Tensor:
+        """The first hidden state [B, S, d]: ``audio_stub`` takes the frame
+        embeddings [B, S, d] (cast to the parameter dtype) and no tokens;
+        ``vision_stub`` puts the patch embeddings [B, P, d] (cast to the
+        token embeddings' dtype) ahead of the embedded tokens [B, S - P]."""
+        frontend = self.cfg.frontend
+        if frontend == "none":
+            return embed(tokens, self.embed)
+        if frontend_embeds is None:
+            raise ValueError(f"{self.cfg.name}: the {frontend} prefill takes frontend_embeds")
+        if frontend == "audio_stub":
+            return frontend_embeds.to(getattr(torch, self.cfg.param_dtype))
+        t_emb = embed(tokens, self.embed)
+        return torch.cat([frontend_embeds.to(t_emb.dtype), t_emb], dim=1)
+
+    def forward(self, tokens: torch.Tensor | None,
+                frontend_embeds: torch.Tensor | None = None, collect_cache: bool = False,
                 positions: torch.Tensor | None = None, plain_attention: bool = False):
         """tokens [B,S] -> (logits [B,S,padded_vocab] fp32, caches or None).
 
-        ``positions=None`` is ``0..S-1`` per row; explicit positions run on
-        the CPU only (see :func:`attention_prefill`).  rwkv blocks take no
+        The frontend stubs take ``frontend_embeds`` (:meth:`embed_inputs`);
+        their logits cover every position, patches included.
+        ``positions=None`` is ``0..S-1`` per row; on the card explicit
+        positions must run ``p0 + 0..S-1`` in each row (see
+        :func:`attention_prefill`).  rwkv blocks take no
         positions, as in the reference.  With ``cfg.remat`` and autograd
         recording, each block runs under ``torch.utils.checkpoint`` (the
         reference's ``jax.checkpoint`` of its scanned body): its activations
@@ -217,15 +250,17 @@ class DecoderLM(nn.Module):
         checks that hold the kernels against it, not for use.
         """
         P = len(self.cfg.expanded_pattern)
-        x = embed(tokens, self.embed)
+        x = self.embed_inputs(tokens, frontend_embeds)
+        # one test (one host sync on the card) for every attention layer
+        from_offsets = None if positions is None else runs_from_offsets(positions)
         per_slot = [[] for _ in range(P)]
         remat = self.cfg.remat and torch.is_grad_enabled() and not collect_cache
         for layer, blk in enumerate(self.blocks):
             if remat:
-                x, cache = checkpoint(blk.prefill, x, positions, plain_attention,
+                x, cache = checkpoint(blk.prefill, x, positions, plain_attention, from_offsets,
                                       use_reentrant=False)
             else:
-                x, cache = blk.prefill(x, positions, plain_attention)
+                x, cache = blk.prefill(x, positions, plain_attention, from_offsets)
             if collect_cache:
                 per_slot[layer % P].append(cache)
         caches = None
@@ -266,8 +301,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     d, H, KV, hd, ff = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
 
     def normal(shape, scale, dt=dtype):
+        # scaled in place: one fp32 temporary at a time (llama4's fp32 expert
+        # weights are 21 GB a leaf)
         t = torch.randn(shape, generator=generator, device=generator.device)
-        return (t * scale).to(dev, dt)
+        return t.mul_(scale).to(dev, dt)
 
     def full(shape, value):
         return torch.full(shape, value, dtype=torch.float32, device=dev)
@@ -365,9 +402,10 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat
     return tuple(caches)
 
 
-def forward(model: DecoderLM, tokens, collect_cache: bool = False, positions=None):
+def forward(model: DecoderLM, tokens, frontend_embeds=None, collect_cache: bool = False,
+            positions=None):
     """Functional spelling of :meth:`DecoderLM.forward` (the reference's name)."""
-    return model(tokens, collect_cache=collect_cache, positions=positions)
+    return model(tokens, frontend_embeds, collect_cache=collect_cache, positions=positions)
 
 
 def decode_step(model: DecoderLM, token, position, caches):
@@ -375,10 +413,12 @@ def decode_step(model: DecoderLM, token, position, caches):
     return model.decode_step(token, position, caches)
 
 
-def loss_fn(model: DecoderLM, tokens: torch.Tensor, labels: torch.Tensor,
+def loss_fn(model: DecoderLM, tokens: torch.Tensor | None, labels: torch.Tensor,
+            frontend_embeds: torch.Tensor | None = None,
             plain_attention: bool = False) -> torch.Tensor:
-    """Mean next-token NLL over the final ``labels.shape[1]`` positions."""
-    logits, _ = model(tokens, plain_attention=plain_attention)
+    """Mean next-token NLL over the final ``labels.shape[1]`` positions (a
+    frontend stub's positions ahead of them are unlabeled)."""
+    logits, _ = model(tokens, frontend_embeds, plain_attention=plain_attention)
     logits = logits[:, -labels.shape[1]:]
     logp = torch.log_softmax(logits, dim=-1)
     return -torch.gather(logp, -1, labels[..., None])[..., 0].mean()

@@ -26,7 +26,12 @@ def _check_model(model: DecoderLM, cfg: ModelConfig, dev: torch.device) -> None:
 
 
 def build_prefill_step(cfg: ModelConfig, plan: ShardPlan, device: str | torch.device = "cuda"):
-    """``prefill(model, tokens [B,S]) -> logits [B,S,padded_vocab]`` (fp32).
+    """The prefill step, ``-> logits [B,S,padded_vocab]`` (fp32); as in the
+    reference its signature depends on the frontend:
+
+    * ``none``: ``prefill(model, tokens [B,S])``;
+    * ``audio_stub``: ``prefill(model, frontend_embeds [B,S,d])``;
+    * ``vision_stub``: ``prefill(model, tokens [B,S-P], frontend_embeds [B,P,d])``.
 
     On the card every attention layer's prefill goes through the flash
     attention kernel, every rwkv layer's through the WKV-6 kernel and every
@@ -36,12 +41,17 @@ def build_prefill_step(cfg: ModelConfig, plan: ShardPlan, device: str | torch.de
     dev = resolve_device(device)
 
     @torch.inference_mode()
-    def prefill(model: DecoderLM, tokens: torch.Tensor) -> torch.Tensor:
+    def core(model: DecoderLM, tokens, frontend_embeds) -> torch.Tensor:
         _check_model(model, cfg, dev)
-        logits, _ = model(tokens.to(dev))
+        logits, _ = model(None if tokens is None else tokens.to(dev),
+                          None if frontend_embeds is None else frontend_embeds.to(dev))
         return logits
 
-    return prefill
+    if cfg.frontend == "audio_stub":
+        return lambda model, frontend_embeds: core(model, None, frontend_embeds)
+    if cfg.frontend == "vision_stub":
+        return core
+    return lambda model, tokens: core(model, tokens, None)
 
 
 def build_decode_step(cfg: ModelConfig, plan: ShardPlan, batch: int | None = None,

@@ -50,24 +50,35 @@ def build_train_step(
     """``train_step(model, opt_state, batch) -> (model, opt_state, metrics)``
     with ``metrics = {"loss", "grad_norm"}`` (fp32 scalar tensors on the
     device).  ``batch``: ``{"tokens", "labels"}`` [B, S] integer arrays or
-    tensors.  The model must be trainable (:meth:`DecoderLM.train_params`)."""
+    tensors, and for the frontend stubs ``"frontend_embeds"`` (the audio
+    stub's batch has no ``"tokens"``), as the data pipeline's
+    ``frontend_batch`` makes them.  The model must be trainable
+    (:meth:`DecoderLM.train_params`)."""
     check_supported(cfg)
     dev = resolve_device(device)
     _, update_fn = make_optimizer(cfg.optimizer)
     lr = cosine_schedule(base_lr, warmup, total_steps)
 
-    def grads_of(model, flat, tokens, labels):
-        # every leaf has a path to the loss: autograd raises on one that has
-        # none (a kernel call that drops its inputs' graph) rather than
-        # training on with that leaf frozen
-        loss = loss_fn(model, tokens, labels)
-        grads = torch.autograd.grad(loss, flat)
-        return loss.detach(), grads
+    def grads_of(model, flat, tokens, labels, femb):
+        # every other leaf has a path to the loss: autograd raises on one
+        # that has none (a kernel call that drops its inputs' graph) rather
+        # than training on with that leaf frozen.  The leaves the prefill
+        # does not use get a zero gradient, as in the reference.
+        loss = loss_fn(model, tokens, labels, femb)
+        unused = {id(p) for p in model.unused_by_prefill()}
+        g = iter(torch.autograd.grad(loss, [p for p in flat if id(p) not in unused]))
+        return loss.detach(), [torch.zeros_like(p) if id(p) in unused else next(g)
+                               for p in flat]
 
     def train_step(model: DecoderLM, opt_state, batch: dict):
         _check_model(model, cfg, dev)
-        tokens = torch.as_tensor(batch["tokens"]).to(dev, torch.int64)
+        tokens = batch.get("tokens")
+        if tokens is not None:
+            tokens = torch.as_tensor(tokens).to(dev, torch.int64)
         labels = torch.as_tensor(batch["labels"]).to(dev, torch.int64)
+        femb = batch.get("frontend_embeds")
+        if femb is not None:
+            femb = torch.as_tensor(femb).to(dev)
         params = model.param_tree()
         flat = model.flat_params()
         A = cfg.accum_steps
@@ -80,14 +91,15 @@ def build_train_step(
             loss = torch.zeros((), dtype=torch.float32, device=dev)
             for a in range(A):
                 rows = slice(a * mb, (a + 1) * mb)
-                loss_a, g = grads_of(model, flat, tokens[rows], labels[rows])
+                loss_a, g = grads_of(model, flat, None if tokens is None else tokens[rows],
+                                     labels[rows], None if femb is None else femb[rows])
                 loss = loss + loss_a
                 for acc, ga in zip(grads, g, strict=True):
                     acc.add_(ga.float())
             loss = loss / A
             grads = [g / A for g in grads]
         else:
-            loss, grads = grads_of(model, flat, tokens, labels)
+            loss, grads = grads_of(model, flat, tokens, labels, femb)
         grads = _regroup(params, list(grads))
         with torch.profiler.record_function("optimizer"):
             if compress:

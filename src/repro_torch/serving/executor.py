@@ -1067,6 +1067,23 @@ def simulate(
 # Measured path: calibrate the service law from the real torch steps
 # ---------------------------------------------------------------------------
 
+def _prefill_inputs(cfg, b: int, seq_len: int, dev) -> tuple:
+    """Inputs of ``cfg``'s prefill step after the model, ``seq_len``
+    positions a row (see :func:`measure_service_models`)."""
+    import torch
+
+    def embeds(n):
+        return torch.full((b, n, cfg.d_model), 0.02, device=dev)
+
+    if cfg.frontend == "audio_stub":
+        return (embeds(seq_len),)
+    P = cfg.frontend_tokens if cfg.frontend == "vision_stub" else 0
+    if P >= seq_len:
+        raise ValueError(f"{cfg.name}: seq_len {seq_len} leaves no token after {P} patches")
+    toks = torch.ones((b, seq_len - P), dtype=torch.int64, device=dev)
+    return (toks,) if cfg.frontend == "none" else (toks, embeds(P))
+
+
 def measure_service_models(
     deployment,
     seq_len: int = 16,
@@ -1089,7 +1106,12 @@ def measure_service_models(
     both batch sizes, keyed alike.
 
     One model is on the device at a time: each is built from a seeded
-    generator, timed, and freed before the next.
+    generator, timed, and freed before the next.  Each call prefills
+    ``seq_len`` positions in the step's own signature: tokens; an
+    ``audio_stub`` model frame embeddings; a ``vision_stub`` model its
+    ``frontend_tokens`` patch embeddings ahead of ``seq_len -
+    frontend_tokens`` tokens.  (The reference passes tokens to every step,
+    and its stub-frontend steps raise: ROADMAP C-ref-6.)
     """
     import time
 
@@ -1114,12 +1136,12 @@ def measure_service_models(
         model = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
         timed = {}
         for b in (b_lo, b_hi):
-            toks = torch.ones((b, seq_len), dtype=torch.int64, device=dev)
-            prefill(model, toks)                                # warm-up
+            inputs = _prefill_inputs(cfg, b, seq_len, dev)
+            prefill(model, *inputs)                             # warm-up
             sync()
             t0 = time.perf_counter()
             for _ in range(iters):
-                prefill(model, toks)
+                prefill(model, *inputs)
             sync()
             timed[b] = (time.perf_counter() - t0) / iters
         del model

@@ -188,6 +188,27 @@ class TestSyntheticData:
                 np.testing.assert_array_equal(got[k], want[k])
 
 
+    @pytest.mark.parametrize("arch", ["paligemma-3b", "musicgen-medium"])
+    def test_frontend_batches(self, arch):
+        """The stubs' batches: vision ``frontend_tokens`` patches ahead of
+        S - frontend_tokens tokens, the reference's stream; audio a frame at
+        each of S positions and no tokens (the reference's iterator gives
+        the audio smoke config 4 frames: ROADMAP C-ref-7).  Labels cover S."""
+        cfg = get_smoke_config(arch)
+        _, got = next(make_batch_iterator(cfg, batch=4, seq=16, seed=2))
+        assert got["labels"].shape == (4, 16)
+        if cfg.frontend == "vision_stub":
+            P = cfg.frontend_tokens
+            assert got["tokens"].shape == (4, 16 - P)
+            assert got["frontend_embeds"].shape == (4, P, cfg.d_model)
+            want = RefSyntheticLM(cfg.vocab, seed=2).frontend_batch(0, 4, 16, cfg.d_model, P)
+            for k in ("tokens", "labels", "frontend_embeds"):
+                np.testing.assert_array_equal(got[k], want[k])
+        else:
+            assert "tokens" not in got
+            assert got["frontend_embeds"].shape == (4, 16, cfg.d_model)
+
+
 # ------------------------------------------------- checkpoints across packages
 
 B, S, LR = 4, 32, 1e-3
@@ -337,6 +358,29 @@ def test_train_launcher_on_the_cpu(tmp_path, capsys):
     assert [h["step"] for h in hist] == [1, 2, 3, 4, 5, 6]
     assert latest_step(str(tmp_path)) == 6
     assert "final loss" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["paligemma-3b", "musicgen-medium"])
+def test_train_launcher_trains_the_frontend_stubs(tmp_path, arch):
+    """The data pipeline's embeddings reach the step: finite losses and
+    grad norms; and on the pipeline's next batch every per-layer gradient
+    is finite and non-zero (:func:`check_gradients`), the audio stub's
+    embedding table, which its prefill does not use, left out."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.launch.train import check_gradients, main
+    from repro_torch.models import init_params
+
+    hist = main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "3", "--batch", "4",
+                 "--seq", "16", "--ckpt-every", "100", "--ckpt-dir", str(tmp_path)])
+    assert [h["step"] for h in hist] == [1, 2, 3]
+    assert all(np.isfinite(h["loss"]) and h["grad_norm"] > 0 for h in hist)
+    cfg = get_smoke_config(arch)
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu").train_params()
+    _, batch = next(make_batch_iterator(cfg, batch=4, seq=16))
+    n_unused = 1 if arch == "musicgen-medium" else 0
+    assert check_gradients(model, batch, torch.device("cpu")) == \
+        len(model.flat_params()) - n_unused
 
 
 def test_train_launcher_refuses_what_one_card_cannot_hold():

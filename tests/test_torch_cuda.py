@@ -46,6 +46,19 @@ FA_GPU_CASES = [
     (1, 4, 2, 1024, 256, True, 0, 50.0, torch.bfloat16),
     (4, 16, 8, 2048, 64, True, 0, 0.0, torch.bfloat16),     # granite-moe prefill
     (4, 16, 8, 2048, 256, True, 4096, 50.0, torch.bfloat16),  # gemma2-9b local, facade
+    # the head layouts of the configs first run on the card: granite-20b
+    # (MQA, a group of 48), starcoder2-15b (48 / 4), llama4 (40 / 8, a group
+    # of 5), paligemma (MQA at hd 256), musicgen (MHA at hd 64)
+    (1, 48, 1, 640, 128, True, 0, 0.0, torch.bfloat16),
+    (1, 48, 1, 300, 128, True, 0, 0.0, torch.float32),
+    (1, 48, 4, 640, 128, True, 0, 0.0, torch.bfloat16),
+    (1, 48, 4, 300, 128, True, 0, 0.0, torch.float32),
+    (1, 40, 8, 640, 128, True, 0, 0.0, torch.bfloat16),
+    (1, 40, 8, 300, 128, True, 0, 0.0, torch.float32),
+    (2, 8, 1, 640, 256, True, 0, 0.0, torch.bfloat16),
+    (2, 8, 1, 300, 256, True, 0, 0.0, torch.float32),
+    (1, 24, 24, 640, 64, True, 0, 0.0, torch.bfloat16),
+    (1, 24, 24, 300, 64, True, 0, 0.0, torch.float32),
 ]
 
 
@@ -624,3 +637,39 @@ def test_moe_model_trains_on_the_card(cuda_device):
         assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
     after = dict(model.named_parameters())
     assert before and all(not torch.equal(before[n], after[n]) for n in before)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "gemma2-9b"])
+def test_offset_positions_go_through_the_kernel(cuda_device, arch):
+    """Explicit prefill positions ``p0_b + 0..S-1`` (a different p0 in each
+    row) take the flash kernel, one launch, with RoPE on the given
+    positions, and match the masked plain path (the CPU's route for explicit
+    positions) on the same fp32 inputs within the kernel's fp32 bound, 2e-3;
+    gemma2's window of 8 and its softcaps included.  Positions with a gap
+    raise on the card (ROADMAP A19)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import attention
+
+    cfg = dataclasses.replace(get_smoke_config(arch), d_head=64)
+    d, hd = cfg.d_model, cfg.head_dim
+    g = torch.Generator().manual_seed(3)
+    params = {n: torch.randn(shape, generator=g) * shape[0] ** -0.5 for n, shape in (
+        ("wq", (d, cfg.n_heads * hd)), ("wk", (d, cfg.n_kv_heads * hd)),
+        ("wv", (d, cfg.n_kv_heads * hd)), ("wo", (cfg.n_heads * hd, d)))}
+    S = 200
+    x = torch.randn(2, S, d, generator=g)
+    pos = torch.stack([5 + torch.arange(S), 300 + torch.arange(S)])
+    want, (wk, _) = attention.attention_prefill(params, x, cfg, pos, cfg.window)
+    gpu = {n: t.to(cuda_device) for n, t in params.items()}
+    f0 = flash_attention_kernel.launches
+    got, (gk, _) = attention.attention_prefill(gpu, x.to(cuda_device), cfg,
+                                               pos.to(cuda_device), cfg.window)
+    assert flash_attention_kernel.launches == f0 + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(gk.cpu(), wk, rtol=2e-3, atol=2e-3)
+    pos[1, 100:] += 1
+    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
+        attention.attention_prefill(gpu, x.to(cuda_device), cfg, pos.to(cuda_device),
+                                    cfg.window)

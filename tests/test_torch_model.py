@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as JAX_ARCHS
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import attention as jatt
 from repro.models import decode_step as jax_decode_step
@@ -28,7 +29,7 @@ from repro_torch.models import decode_step, forward, init_kv_cache, init_params,
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 ARCHS = ["granite-3-8b", "gemma2-9b"]          # attention models
-MODEL_ARCHS = ARCHS + ["rwkv6-3b", "jamba-v0.1-52b", "granite-moe-1b-a400m"]
+MODEL_ARCHS = sorted(JAX_ARCHS)                 # every registered config
 
 
 def _close(t, j):
@@ -59,6 +60,27 @@ def _close_caches(t_caches, j_caches):
 
 def _tokens(cfg, B=2, S=12, seed=3):
     return np.random.default_rng(seed).integers(0, cfg.vocab, (B, S))
+
+
+def _inputs(cfg, B=2, S=12, seed=3):
+    """(tokens, frontend_embeds) of an S-position prefill, as
+    tests/test_arch_smoke.py feeds the stubs: audio takes S frame embeddings
+    and no tokens; vision ``frontend_tokens`` patch embeddings ahead of
+    S - frontend_tokens tokens."""
+    toks = _tokens(cfg, B, S - cfg.frontend_tokens, seed)
+    if cfg.frontend == "none":
+        return toks, None
+    n = S if cfg.frontend == "audio_stub" else cfg.frontend_tokens
+    emb = np.random.default_rng(seed + 100).standard_normal((B, n, cfg.d_model))
+    return (None if cfg.frontend == "audio_stub" else toks), emb.astype(np.float32)
+
+
+def _jnp(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _torch(a):
+    return None if a is None else torch.from_numpy(a)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -105,9 +127,9 @@ def test_attention_decode_matches(arch):
 
 def test_forward_logits_and_caches_match(pair):
     _, jcfg, jparams, tcfg, model = pair
-    toks = _tokens(jcfg)
-    j_logits, j_caches = jax_forward(jparams, jcfg, jnp.asarray(toks), collect_cache=True)
-    t_logits, t_caches = forward(model, torch.from_numpy(toks), collect_cache=True)
+    toks, emb = _inputs(jcfg)
+    j_logits, j_caches = jax_forward(jparams, jcfg, _jnp(toks), _jnp(emb), collect_cache=True)
+    t_logits, t_caches = forward(model, _torch(toks), _torch(emb), collect_cache=True)
     assert t_logits.shape == (2, 12, tcfg.padded_vocab) and t_logits.dtype == torch.float32
     _close(t_logits, j_logits)
     _close_caches(t_caches, j_caches)
@@ -115,10 +137,10 @@ def test_forward_logits_and_caches_match(pair):
 
 def test_forward_explicit_positions_match(pair):
     _, jcfg, jparams, _, model = pair
-    toks = _tokens(jcfg, seed=4)
-    pos = np.broadcast_to(np.arange(3, 15), toks.shape).copy()
-    j_logits, _ = jax_forward(jparams, jcfg, jnp.asarray(toks), positions=jnp.asarray(pos))
-    t_logits, _ = forward(model, torch.from_numpy(toks), positions=torch.from_numpy(pos))
+    toks, emb = _inputs(jcfg, seed=4)
+    pos = np.broadcast_to(np.arange(3, 15), (2, 12)).copy()
+    j_logits, _ = jax_forward(jparams, jcfg, _jnp(toks), _jnp(emb), positions=jnp.asarray(pos))
+    t_logits, _ = forward(model, _torch(toks), _torch(emb), positions=torch.from_numpy(pos))
     _close(t_logits, j_logits)
 
 
@@ -141,10 +163,10 @@ def test_decode_steps_match(pair):
 
 def test_loss_matches(pair):
     _, jcfg, jparams, _, model = pair
-    toks = _tokens(jcfg, seed=6)
+    toks, emb = _inputs(jcfg, seed=6)
     labels = _tokens(jcfg, S=8, seed=7)
-    j_loss = jax_loss_fn(jparams, jcfg, jnp.asarray(toks), jnp.asarray(labels))
-    _close(loss_fn(model, torch.from_numpy(toks), torch.from_numpy(labels)), j_loss)
+    j_loss = jax_loss_fn(jparams, jcfg, _jnp(toks), jnp.asarray(labels), _jnp(emb))
+    _close(loss_fn(model, _torch(toks), torch.from_numpy(labels), _torch(emb)), j_loss)
 
 
 def test_init_params_shapes_and_scales():
@@ -160,21 +182,21 @@ def test_init_params_shapes_and_scales():
     assert not any(p.requires_grad for p in model.parameters())
 
 
-@pytest.mark.parametrize("arch, entry", [("paligemma-3b", "A4"), ("musicgen-medium", "A4")])
-def test_unported_families_raise(arch, entry):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {entry}"):
-        init_params(get_smoke_config(arch), torch.Generator(), "cpu")
-
-
 @pytest.mark.parametrize("arch", MODEL_ARCHS)
 def test_prefill_then_decode_consistency(arch):
     """Token-by-token decode reproduces the prefill logits and, for rwkv, the
-    collected state (tests/test_arch_smoke.py's check, on the port)."""
+    collected state (tests/test_arch_smoke.py's check, on the port).  A
+    frontend stub's prefill takes the token embeddings as its frames (audio)
+    or its patches (vision, the first ``frontend_tokens`` tokens), which
+    decode embeds from the tokens."""
     cfg = get_smoke_config(arch)
     model = init_params(cfg, torch.Generator().manual_seed(6), "cpu")
     B, S = 2, 6
     toks = torch.from_numpy(_tokens(cfg, B=B, S=S, seed=7))
-    full_logits, pre_caches = forward(model, toks, collect_cache=True)
+    P = S if cfg.frontend == "audio_stub" else cfg.frontend_tokens
+    emb = model.embed[toks[:, :P]] if cfg.frontend != "none" else None
+    text = None if cfg.frontend == "audio_stub" else toks[:, P:]
+    full_logits, pre_caches = forward(model, text, emb, collect_cache=True)
     caches = init_kv_cache(cfg, B, 8, torch.float32, "cpu")
     outs = []
     for t in range(S):

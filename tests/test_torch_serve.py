@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as JAX_ARCHS
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.launch.mesh import single_device_mesh
 from repro.models import init_kv_cache as jax_init_kv_cache
@@ -59,13 +60,28 @@ def _torch_greedy(cfg, model, prompt, steps):
     return toks.numpy()
 
 
-@pytest.mark.parametrize("arch", ["granite-3-8b", "gemma2-9b", "rwkv6-3b", "jamba-v0.1-52b",
-                                  "granite-moe-1b-a400m"])
+def _prefill_inputs(cfg, prompt):
+    """The prefill step's inputs after the model, by frontend (the
+    reference's three signatures), fed as tests/test_arch_smoke.py does:
+    audio S frame embeddings; vision ``frontend_tokens`` patch embeddings
+    and the prompt's last S - frontend_tokens tokens."""
+    B, S = prompt.shape
+    rng = np.random.default_rng(3)
+    if cfg.frontend == "audio_stub":
+        return (rng.standard_normal((B, S, cfg.d_model)).astype(np.float32),)
+    if cfg.frontend == "vision_stub":
+        P = cfg.frontend_tokens
+        return prompt[:, P:], rng.standard_normal((B, P, cfg.d_model)).astype(np.float32)
+    return (prompt,)
+
+
+@pytest.mark.parametrize("arch", sorted(JAX_ARCHS))
 def test_prefill_and_greedy_decode_match_jax(arch):
     jcfg, tcfg = jax_smoke_config(arch), get_smoke_config(arch)
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(1))
     model = params_from_jax(tcfg, jax.tree.map(np.asarray, jparams), "cpu")
     prompt = np.random.default_rng(2).integers(0, jcfg.vocab, (2, 12))
+    inputs = _prefill_inputs(jcfg, prompt)
 
     jplan = jax_plan_for_cell(jcfg, 12, 2, ("data", "model"), 1, kind="prefill", use_dse=False)
     jpf, _ = jserve.build_prefill_step(jcfg, single_device_mesh(), jplan)
@@ -73,8 +89,9 @@ def test_prefill_and_greedy_decode_match_jax(arch):
     assert (tplan.p1, tplan.p2, tplan.transition_repeat, tplan.dp) == \
         (jplan.p1, jplan.p2, jplan.transition_repeat, jplan.dp)
     tpf = tserve.build_prefill_step(tcfg, tplan, device="cpu")
-    np.testing.assert_allclose(tpf(model, torch.from_numpy(prompt)).numpy(),
-                               np.asarray(jpf(jparams, jnp.asarray(prompt))),
+    t_logits = tpf(model, *map(torch.from_numpy, inputs)).numpy()
+    assert t_logits.shape == (2, 12, tcfg.padded_vocab)
+    np.testing.assert_allclose(t_logits, np.asarray(jpf(jparams, *map(jnp.asarray, inputs))),
                                rtol=1e-4, atol=1e-4)
 
     np.testing.assert_array_equal(_torch_greedy(tcfg, model, prompt, 8),

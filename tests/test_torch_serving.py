@@ -13,6 +13,8 @@ drops the measurements (it keys them by ``cfg.name``, the executor looks them
 up by the lm-graph name), so its report equals ``measure=False``'s; the
 port's runs every server on its measured law.
 """
+import dataclasses
+
 import pytest
 
 from repro import scope as jax_scope
@@ -180,6 +182,32 @@ def test_measure_service_models_keys_and_fit_on_the_cpu():
         assert law.overhead_s == max(0.0, t1 - law.beat)
     with pytest.raises(ValueError, match="b_lo < b_hi"):
         serving.measure_service_models(dep, batches=(4, 1), device="cpu")
+
+
+def _stub_deployment(s, smoke, tpu):
+    cfgs = [smoke("paligemma-3b"), smoke("musicgen-medium")]
+    sol = s.solve(s.problem(s.WorkloadSpec.lm(cfgs, 64, [1, 1]), tpu(8, (1, 8))))
+    return sol.deploy(global_batch=4)
+
+
+def test_c_ref_6_reference_cannot_time_a_stub_port_can():
+    """The reference's measure_service_models passes tokens to every
+    prefill step, and both stub steps raise (the vision step takes tokens
+    and embeddings, the audio step embeddings); the port's feeds each step
+    its own inputs, ``seq_len`` positions a row, and fits both laws."""
+    from repro.launch.mesh import single_device_mesh
+
+    jdep = _stub_deployment(jax_scope, jax_smoke_config, jax_tpu_v5e)
+    for cfg in jdep.cfgs:
+        one = dataclasses.replace(jdep, cfgs=[cfg])
+        with pytest.raises((TypeError, ValueError)):
+            jax_serving.measure_service_models(one, single_device_mesh(), seq_len=16, iters=1)
+    dep = _stub_deployment(scope, get_smoke_config, tpu_v5e)
+    timings = {}
+    laws = serving.measure_service_models(dep, seq_len=16, batches=(1, 3), iters=1,
+                                          device="cpu", timings=timings)
+    assert set(laws) == set(timings) == {"paligemma-3b-smoke", "musicgen-medium-smoke"}
+    assert all(law.beat > 0 for law in laws.values())
 
 
 def test_measured_path_defaults_to_the_card():

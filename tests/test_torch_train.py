@@ -116,6 +116,16 @@ def _leaf_errors(a_tree, b_tree, scale=None):
     return out
 
 
+def _batch(jc, data, step):
+    """The data pipeline's batch for ``jc``: tokens and labels, and for a
+    frontend stub its embeddings (audio: a frame a position, no tokens;
+    vision: ``frontend_tokens`` patches ahead of the tokens)."""
+    if jc.frontend == "none":
+        return data.batch(step, B, S)
+    patches = jc.frontend_tokens if jc.frontend == "vision_stub" else 0
+    return data.frontend_batch(step, B, S, jc.d_model, patches)
+
+
 def _run(arch, steps=5, compress=False, skip=(), resync=None, **over):
     """Run both steps ``steps`` times; yield (step, ref metrics, port metrics,
     params err / lr, m err, v err) after step 1 and the last step."""
@@ -125,7 +135,7 @@ def _run(arch, steps=5, compress=False, skip=(), resync=None, **over):
     for s in range(steps):
         if resync is not None:
             resync(jparams, jopt, model, topt)
-        b = data.batch(s, B, S)
+        b = _batch(jc, data, s)
         jparams, jopt, jm = jstep(jparams, jopt, {k: jnp.asarray(v) for k, v in b.items()})
         model, topt, tm = tstep(model, topt, b)
         if s + 1 in (1, steps):
@@ -152,7 +162,12 @@ def _check(records, param_tol=PARAM_TOL, state_tol=STATE_TOL, norm_rtol=LOSS_RTO
     ("gemma2-9b", {}),                              # window and softcaps in the backward
     ("granite-3-8b", {"accum_steps": 2}),           # fp32 accumulation over microbatches
     ("granite-3-8b", {"optimizer": "adafactor"}),   # R = 2: stacked [2, d] norms factored
-], ids=["granite-adamw", "gemma2-adamw", "granite-accum2", "granite-adafactor-R2"])
+    ("paligemma-3b", {}),                           # patches ahead of the tokens, unlabeled
+    ("musicgen-medium", {}),                        # frames, no tokens; ungated GELU MLP
+    ("paligemma-3b", {"accum_steps": 2}),           # embeddings row-sliced with the labels
+    ("musicgen-medium", {"tie_embeddings": True}),  # the table reaches the loss through the head
+], ids=["granite-adamw", "gemma2-adamw", "granite-accum2", "granite-adafactor-R2",
+        "paligemma-adamw", "musicgen-adamw", "paligemma-accum2", "musicgen-tied"])
 def test_train_steps_match_reference(arch, over):
     _check(_run(arch, **over))
 
@@ -279,13 +294,19 @@ def test_schedule_matches_reference():
         assert got(step) == np.float32(want(step)), step
 
 
-def _loss_and_grads(tc, jparams, tokens, labels):
+def _loss_and_grads(tc, jparams, tokens, labels, femb=None):
     model = params_from_jax(tc, jax.tree.map(np.asarray, jparams), "cpu").train_params()
     ptree = model.param_tree()
     flat = model.flat_params()
-    loss = loss_fn(model, torch.as_tensor(tokens).long(), torch.as_tensor(labels).long())
-    g = torch.autograd.grad(loss, flat)
-    it = iter(g)
+    loss = loss_fn(model, None if tokens is None else torch.as_tensor(tokens).long(),
+                   torch.as_tensor(labels).long(),
+                   None if femb is None else torch.as_tensor(femb))
+    # only the leaves the prefill does not use (the audio stub's untied
+    # embedding table) have no path to the loss: a zero gradient, as the
+    # reference's; any other leaf without one raises
+    unused = {id(p) for p in model.unused_by_prefill()}
+    used = iter(torch.autograd.grad(loss, [p for p in flat if id(p) not in unused]))
+    it = iter([torch.zeros_like(p) if id(p) in unused else next(used) for p in flat])
     grads = tree.map(lambda leaf: np.stack([next(it).numpy() for _ in leaf.layers])
                      if isinstance(leaf, Stacked) else next(it).numpy(), ptree)
     return loss.item(), grads
@@ -293,22 +314,25 @@ def _loss_and_grads(tc, jparams, tokens, labels):
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_loss_and_gradients_match_reference(arch):
-    """Every smoke config the port builds: the loss and the gradient of every
-    leaf against ``jax.value_and_grad`` of the reference's ``loss_fn``, to
-    1e-4 of the leaf's largest gradient (fp32; measured <= 1e-5), except a
-    top-1 MoE router's, whose gradient is rounding noise around 0 (the
-    renormalised gate is 1): held to 1e-7 absolute.  The frontend configs
-    raise ROADMAP A4."""
+    """Every smoke config: the loss and the gradient of every leaf against
+    ``jax.value_and_grad`` of the reference's ``loss_fn``, to 1e-4 of the
+    leaf's largest gradient (fp32; measured <= 1e-5), except a top-1 MoE
+    router's, whose gradient is rounding noise around 0 (the renormalised
+    gate is 1): held to 1e-7 absolute.  The frontend stubs take the data
+    pipeline's ``frontend_batch`` (audio: frame embeddings and no tokens;
+    vision: patch embeddings ahead of the tokens, the patches unlabeled)."""
     jc, tc = ref_smoke(arch), get_smoke_config(arch)
     jparams = ref_init(jc, jax.random.PRNGKey(0))
-    b = SyntheticLM(jc.vocab, seed=1).batch(0, 2, 16)
-    if jc.frontend != "none":
-        with pytest.raises(NotImplementedError, match="A4"):
-            _loss_and_grads(tc, jparams, b["tokens"], b["labels"])
-        return
+    data = SyntheticLM(jc.vocab, seed=1)
+    patches = jc.frontend_tokens if jc.frontend == "vision_stub" else 0
+    b = (data.batch(0, 2, 16) if jc.frontend == "none"
+         else data.frontend_batch(0, 2, 16, jc.d_model, patches))
+    tokens, femb = b.get("tokens"), b.get("frontend_embeds")
     want_loss, want = jax.jit(jax.value_and_grad(
-        lambda p: ref_loss_fn(p, jc, jnp.asarray(b["tokens"]), jnp.asarray(b["labels"]))))(jparams)
-    got_loss, got = _loss_and_grads(tc, jparams, b["tokens"], b["labels"])
+        lambda p: ref_loss_fn(p, jc, None if tokens is None else jnp.asarray(tokens),
+                              jnp.asarray(b["labels"]),
+                              None if femb is None else jnp.asarray(femb))))(jparams)
+    got_loss, got = _loss_and_grads(tc, jparams, tokens, b["labels"], femb)
     assert got_loss == pytest.approx(float(want_loss), rel=LOSS_RTOL)
     for (key, g), w in zip(tree.flatten_with_path(got), jax.tree.leaves(_np(want)), strict=True):
         err = float(np.abs(g - w).max())
