@@ -4,7 +4,8 @@
     python3 chip_smoke.py          # from the root of a checkout; one card, nvcc
 
 Builds the CUDA kernels from the checkout's sources, holds each against its
-plain PyTorch version on the card, then drives the serving path:
+plain PyTorch version on the card, then drives the serving and training
+paths:
 
 1. environment: versions, ``nvidia-smi`` name and power limit, kernel build
    (one ``nvcc`` per source, in parallel), each kernel's registers, spills
@@ -132,7 +133,23 @@ plain PyTorch version on the card, then drives the serving path:
     repro_torch.launch.train --arch <it> --batch 4 --seq 2048`` as a
     process, 4 steps at full size each (the backward kernel at hd 256 and
     hd 64): finite losses and grad norms; then the gradient of each on one
-    batch in this process: every per-layer gradient non-zero.
+    batch in this process: every per-layer gradient non-zero;
+18. the WKV-6 backward kernel (``csrc/wkv6_bwd.cu``), on the segment states
+    a training forward keeps, against ``wkv6_bwd_ref`` (the forward's bound
+    2e-4 on every gradient, and its per-row bound over rows that are not
+    ~0; two calls bit-identical) at rwkv6-3b's training shape on the
+    reference's decays and on strong ones, and at a ragged S with a
+    cotangent of S_last; its time beside its bound and the plain
+    version's (autograd of ``wkv6_ref``), and at the main shape both
+    against the float64 plain version; no single PyTorch call computes it,
+    so it has no library time; then rwkv6-3b at full size (32 layers,
+    bf16, AdamW, B=4 x S=2048), 5 steps of ``build_train_step`` through
+    ``ResilientTrainer``: step wall time, tokens/s, MFU, peak memory,
+    launches per step (64 forward and 32 backward WKV-6 calls), one more
+    step traced (device time by kind and the backward's kernels); then
+    ``python -m repro_torch.launch.train --arch rwkv6-3b`` as a process, 4
+    steps at full size, and every per-layer gradient of it non-zero in
+    this process, one backward launch per layer.
 
 Any failed check raises and the script exits non-zero without a result.  The
 last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -140,6 +157,7 @@ card's name and power limit, the line before that a JSON object listing
 every ported kernel with its launches on its own main path (flash attention:
 the phase-3 granite-3-8b prefill; its backward: the phase-15(d) training
 run, calls of three kernels each; WKV-6: the phase-7 rwkv6-3b prefill;
+its backward: the phase-18 training run, calls of five kernels each;
 selective scan: the phase-10 jamba prefill; qmatmul: the phase-13 op call)
 and its times (each also with its launches on phase 14's facade path), and
 the line before that the script's wall time.  Imports nothing of JAX or of
@@ -280,8 +298,8 @@ QMM_CASES = [
 ]
 QMM_MAIN = (8192, 12800, 4096)    # granite-3-8b FFN up-projection, B=4 x S=2048
 QMM_CLOSE_TOL = 0.02              # the reference's bound (test_qmatmul_quantized_close_to_fp)
-KERNEL_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "wkv6.cu", "mamba_scan.cu",
-                  "qmatmul.cu")
+KERNEL_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "wkv6.cu", "wkv6_bwd.cu",
+                  "mamba_scan.cu", "qmatmul.cu")
 # Phase 14: the facade's problem, the llm pair of BENCH_serving.json on the
 # runtime bridge's default package tpu_v5e(16, (1, 16)), and what the solve
 # and deploy(global_batch=4) must give for it (tests/test_torch_api.py pins
@@ -334,6 +352,17 @@ PREFILL_B, PREFILL_S = 4, 2048
 # then decoded, after its 256 patches.
 FP32_LAYERS, FP32_B, FP32_S, VISION_TEXT = 4, 2, 100, (16, 16)
 LAUNCHER_STEPS = 4
+# Phase 18: the WKV-6 backward kernel against wkv6_bwd_ref, (name, B, H, S,
+# hd, strong decays, a cotangent of S_last): rwkv6-3b's training shape on
+# both decay ranges, then a ragged S over two segments with dS_last.  Then
+# rwkv6-3b trains at full size (32 layers, AdamW) on the card.
+WKV_BWD_CASES = [
+    ("rwkv_train", 4, 40, 2048, 64, False, False),
+    ("rwkv_train_strong", 4, 40, 2048, 64, True, False),
+    ("ragged_ds_last", 2, 40, 300, 64, False, True),
+]
+WKV_BWD_MAIN = "rwkv_train"
+RWKV_TRAIN_STEPS = 5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -843,17 +872,19 @@ def facade_phase(get_config, card: str, granite_prefill_ms: float, reset_launche
     return launches
 
 
-def train_breakdown(prof) -> dict[str, list]:
-    """Device time of one profiled train step by kind: the flash forward and
-    backward kernels (by symbol), dense products (cuBLAS / CUTLASS symbols),
-    the optimizer (kernels launched under the step's ``optimizer`` range:
-    compression, clipping, the update) and everything else."""
+def train_breakdown(prof, hand=(("flash forward", "fa_fwd"), ("flash backward", "fa_bwd"))
+                    ) -> dict[str, list]:
+    """Device time of one profiled train step by kind: the hand kernels
+    (``hand``: kind and symbol part; by default the flash forward and
+    backward), dense products (cuBLAS / CUTLASS symbols), the optimizer
+    (kernels launched under the step's ``optimizer`` range: compression,
+    clipping, the update) and everything else."""
     import torch
 
     # kernels and copies; not the device-side span of the ``optimizer`` range
     kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False) and e.name != "optimizer"]
-    groups = {k: [0, 0.0] for k in ("flash forward", "flash backward", "dense products",
+    groups = {k: [0, 0.0] for k in (*(kind for kind, _ in hand), "dense products",
                                     "optimizer", "other")}
 
     def under_optimizer(e) -> bool:
@@ -874,9 +905,9 @@ def train_breakdown(prof) -> dict[str, list]:
                 and under_optimizer(e))
     for e in kern:
         name = e.name.lower()
-        kind = ("flash forward" if "fa_fwd" in name else "flash backward" if "fa_bwd" in name
-                else "dense products" if any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma"))
-                else "other")
+        kind = next((k for k, sym in hand if sym in name), None) or (
+            "dense products" if any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma"))
+            else "other")
         groups[kind][0] += 1
         groups[kind][1] += e.time_range.elapsed_us() / 1e3
     groups["optimizer"] = [opt_n, opt_total]
@@ -1401,7 +1432,7 @@ def launcher_training(arch: str, card: str, reset_launches, kernels, sync) -> No
     norm); then, in this process, the gradient of the same full-size config
     on the pipeline's first batch: every per-layer gradient finite and
     non-zero (``check_gradients``), one flash backward launch per attention
-    layer."""
+    layer and one WKV-6 backward launch per rwkv layer."""
     import tempfile
 
     import torch
@@ -1434,13 +1465,219 @@ def launcher_training(arch: str, card: str, reset_launches, kernels, sync) -> No
     sync()
     launches = {k.__name__.removesuffix("_kernel"): k.launches for k in kernels}
     n_attn = sum(kind in ("attn", "local") for kind in cfg.block_kinds())
+    n_rwkv = sum(kind == "rwkv" for kind in cfg.block_kinds())
     check(launches["flash_attention_bwd"] == n_attn,
           f"{launches['flash_attention_bwd']} flash backward launches in one {cfg.name} "
           f"gradient, expected {n_attn}")
+    check(launches["wkv6_bwd"] == n_rwkv,
+          f"{launches['wkv6_bwd']} wkv6 backward launches in one {cfg.name} gradient, "
+          f"expected {n_rwkv}")
     print(f"    gradient on the first batch (B={PREFILL_B} x S={PREFILL_S}): all {n} per-layer "
-          f"gradients finite and non-zero, {n_attn} flash backward launches")
+          f"gradients finite and non-zero, {n_attn} flash backward launches, {n_rwkv} wkv6 "
+          "backward launches")
     del model
     torch.cuda.empty_cache()
+
+
+def wkv6_training_phase(get_config, card: str, reset_launches, kernels, cuda_ms,
+                        cuda_ms_median, sync) -> dict:
+    """Phase 18: the WKV-6 backward kernel against its plain version, then
+    rwkv6-3b trained at full size on the card.  Returns the backward's
+    results at the main-path shape and its launches on the training path."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.ft import ResilientTrainer
+    from repro_torch.kernels.rwkv6.kernel import wkv6_bwd_kernel, wkv6_kernel
+    from repro_torch.kernels.rwkv6.ref import wkv6_bwd_ref, wkv6_ref
+    from repro_torch.models import init_params
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime.planner import plan_for_cell
+    from repro_torch.runtime.train import build_train_step
+
+    dev = torch.device("cuda")
+    held = torch.cuda.memory_allocated()
+    print(f"phase 18: the WKV-6 backward kernel, rwkv6-3b training at full size "
+          f"({held / 2**30:.3f} GiB allocated before the phase)")
+    check(held < 2 * 2**30, "an earlier phase's model is still on the card")
+    names = ("dr", "dk", "dv", "dlogw", "du")
+
+    # (a) the kernel on what the forward keeps, against wkv6_bwd_ref: the
+    # forward's bound 2e-4 on every gradient and its per-row bound over rows
+    # that are not ~0 (dlogw's last row is 0 without dS_last); two calls
+    # bit-identical.  (b) times, at the training shape.
+    bwd = {}
+    for name, B, H, S, hd, strong, with_ds in WKV_BWD_CASES:
+        args = wkv_inputs(dev, B, H, S, hd, strong=strong)
+        g = torch.Generator(device=dev).manual_seed(1)
+        dout = torch.randn(B, H, S, hd, generator=g, device=dev)
+        ds = torch.randn(B, H, hd, hd, generator=g, device=dev) if with_ds else None
+        _, _, seg_state = wkv6_kernel(*args, with_states=True)
+
+        def call():
+            return wkv6_bwd_kernel(*args, seg_state, dout, ds)
+
+        got = call()
+        want = wkv6_bwd_ref(*args, dout, ds)
+        again = call()
+        sync()
+        res, missed = {"tol": WKV_TOL, "row_tol": WKV_ROW_REL_TOL}, []
+        for gname, a, w in zip(names, got, want, strict=True):
+            err = (a - w).abs().max().item()
+            rel = row_rel_err(a, w, floor=FA_BWD_ROW_FLOOR)
+            if not bool(torch.isfinite(a).all()):
+                missed.append(f"{gname}: non-finite")
+            if not torch.allclose(a, w, rtol=WKV_TOL, atol=WKV_TOL):
+                missed.append(f"{gname}: max abs err {err} (tol {WKV_TOL})")
+            if not rel <= WKV_ROW_REL_TOL:
+                missed.append(f"{gname}: per-row error {rel} / rms (tol {WKV_ROW_REL_TOL})")
+            res[f"{gname}_max_abs_err"] = err
+            res[f"{gname}_row_rel_err"] = rel
+        check(not missed, f"{name}: kernel vs plain: {'; '.join(missed)}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again, strict=True)),
+              f"{name}: two calls differ")
+        res["max_abs_err"] = max(res[f"{g}_max_abs_err"] for g in names)
+        rounding = ""
+        if name == WKV_BWD_MAIN:
+            # How far each is from the float64 plain version (max abs error),
+            # dlogw the ill-conditioned one
+            want64 = wkv6_bwd_ref(*(a.double() for a in args), dout.double(),
+                                  None if ds is None else ds.double())
+            rounding = "; vs the fp64 plain version: " + ", ".join(
+                f"{who} {g} {(x.double() - y).abs().max().item():.3e}"
+                for who, got_ in (("fp32 plain", want), ("kernel", got))
+                for g, x, y in zip(names, got_, want64))
+            del want64
+        del got, want, again
+        if name == WKV_BWD_MAIN:
+            res["ms"] = cuda_ms_median(call, 21)
+            # plain: autograd of the plain forward, the backward alone
+            leaves = [a.detach().requires_grad_(True) for a in args]
+            out, _ = wkv6_ref(*leaves)
+            res["plain_ms"] = cuda_ms(
+                lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True), 2)
+            del out, leaves
+            res["bwd_ref_ms"] = cuda_ms(lambda: wkv6_bwd_ref(*args, dout, ds), 1)
+            res["fwd_ms"] = cuda_ms_median(lambda: wkv6_kernel(*args), 21)
+            res["fwd_with_states_ms"] = cuda_ms_median(
+                lambda: wkv6_kernel(*args, with_states=True), 21)
+            res["library_ms"] = None
+            # the least work: drs, dks, dv (three mat-vecs) and the S and G
+            # updates, 2 hd^2 operations each a token-head, in fp32 (the
+            # inputs' type; the kernel's sweeps run fp64, 2x slower on the
+            # card, for dlogw's accuracy); r, k, v, logw, dout, u and the
+            # segment states read once, dr, dk, dv, dlogw, du written once
+            flops = 10 * B * H * S * hd * hd
+            nbytes = 4 * (9 * B * H * S * hd + seg_state.numel() + 2 * H * hd)
+            t_ops, t_mem = flops / FP32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+            res.update(bound_ms=1e3 * max(t_ops, t_mem),
+                       bound_by="operations" if t_ops >= t_mem else "bytes",
+                       bound_arithmetic=f"10 x B*H*S*hd^2 = {flops:.4e} FLOP / "
+                       f"{FP32_PEAK_FLOPS:.3e} FLOP/s = {1e3 * t_ops:.4f} ms; {nbytes} bytes / "
+                       f"{HBM_BYTES_PER_S:.3e} B/s = {1e3 * t_mem:.4f} ms")
+        bwd[name] = res
+        print(f"  (a) {name} B={B} H={H} S={S} hd={hd}{', strong decays' if strong else ''}"
+              f"{', dS_last' if with_ds else ''}: {json.dumps(res)}{rounding} {card}")
+        del args, dout, ds, seg_state
+        torch.cuda.empty_cache()
+
+    # (c) rwkv6-3b at full size: 32 layers, bf16, AdamW, B=4 x S=2048
+    cfg = get_config("rwkv6-3b")
+    B, S = PREFILL_B, PREFILL_S
+    print(f"  (c) {cfg.name} full size ({cfg.n_layers} layers), bf16, AdamW, B={B} x S={S}, "
+          f"{RWKV_TRAIN_STEPS} steps through ResilientTrainer")
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev).train_params()
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = make_optimizer(cfg.optimizer)[0](model.param_tree())
+    plan = plan_for_cell(cfg, S, B, ("data", "model"), 1, kind="train")
+    print(f"      {n_params / 1e9:.3f} B params; DSE plan (model_axis 1, kind train): p1 {plan.p1}, "
+          f"p2 {plan.p2}, dse {plan.meta.get('dse')}; {torch.cuda.memory_allocated() / 2**30:.2f} "
+          "GiB allocated with the optimizer state")
+    step = build_train_step(cfg, plan, base_lr=3e-4, warmup=2, total_steps=100, device=dev)
+    it = make_batch_iterator(cfg, batch=B, seq=S, seed=0)
+    batches = {}
+
+    def batch_fn(s):
+        while s not in batches:
+            i, b = next(it)
+            batches[i] = b
+        return batches[s]
+
+    for s in range(RWKV_TRAIN_STEPS + 1):
+        batch_fn(s)                                  # host data made before the timed run
+    with tempfile.TemporaryDirectory() as ckpt:
+        trainer = ResilientTrainer(train_step=step, batch_fn=batch_fn, ckpt_dir=ckpt,
+                                   ckpt_every=10 * RWKV_TRAIN_STEPS)
+        reset_launches()
+        model, opt, hist = trainer.run(model, opt, n_steps=RWKV_TRAIN_STEPS)
+        sync()
+        launches = {k.__name__.removesuffix("_kernel"): k.launches for k in kernels}
+    check(len(hist) == RWKV_TRAIN_STEPS, f"{len(hist)} steps ran")
+    check(launches["wkv6_bwd"] == RWKV_TRAIN_STEPS * cfg.n_layers,
+          f"{launches['wkv6_bwd']} wkv6 backward calls, expected "
+          f"{RWKV_TRAIN_STEPS * cfg.n_layers}")
+    check(launches["wkv6"] == 2 * RWKV_TRAIN_STEPS * cfg.n_layers,
+          f"{launches['wkv6']} wkv6 forward calls (remat recomputes each layer's forward: "
+          f"expected {2 * RWKV_TRAIN_STEPS * cfg.n_layers})")
+    check(all(n == 0 for k, n in launches.items() if k not in ("wkv6", "wkv6_bwd")),
+          f"another kernel launched on the rwkv training path: {launches}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    check(all(math.isfinite(x) for x in losses + norms), f"non-finite loss {losses} or "
+          f"grad norm {norms}")
+    times = [1e3 * h["time"] for h in hist]
+    step_ms = statistics.median(times[1:])
+    b = batch_fn(RWKV_TRAIN_STEPS)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        model, opt, m = step(model, opt, b)
+        sync()
+    check(math.isfinite(m["grad_norm"].item()) and math.isfinite(m["loss"].item()),
+          "non-finite traced step")
+    groups = train_breakdown(prof, hand=(("wkv6 backward", "wkv6_bwd_"),
+                                         ("wkv6 forward", "wkv6_")))
+    busy = sum(ms for _, ms in groups.values())
+    split = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "wkv6_bwd_" in e.name:
+            kind = e.name.split("wkv6_bwd_")[1].split("(")[0]     # e.g. sweep<64, 2>
+            split[kind] = split.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3
+    del prof
+    # model FLOPs: 6 x (parameters in products) x tokens, plus the WKV
+    # recurrence's 14 hd^2 a token-head a layer (forward 4: r S and the
+    # update; backward 10); remat's recomputed forward is not counted
+    n_mm = sum(p.numel() for n_, p in model.named_parameters()
+               if p.dim() == 2 and not n_.endswith(("embed", ".mu", ".u")))
+    hd = cfg.rwkv_head_dim
+    wkv = 14 * B * S * (cfg.d_model // hd) * hd * hd * cfg.n_layers
+    model_flops = 6 * n_mm * B * S + wkv
+    mfu = model_flops / (step_ms / 1e3) / BF16_PEAK_FLOPS
+    print(f"      losses {[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 4) for x in norms]}")
+    print(f"      step wall {step_ms:.3f} ms (median of steps 2-{RWKV_TRAIN_STEPS}; all "
+          f"{[round(t, 3) for t in times]}), {B * S / (step_ms / 1e3):.1f} tokens/s, MFU "
+          f"{mfu:.4f} (model FLOPs 6 x {n_mm} x {B * S} + 14 x B*S*H*hd^2 x L = "
+          f"{model_flops:.4e} per step / step wall / 989e12), peak {peak:.2f} GiB, per step "
+          f"{launches['wkv6'] // RWKV_TRAIN_STEPS} wkv6 forward calls, "
+          f"{launches['wkv6_bwd'] // RWKV_TRAIN_STEPS} wkv6 backward calls {card}")
+    print(f"      traced step: device busy {busy:.3f} ms: " + ", ".join(
+        f"{kind} {ms:.3f} ms ({n} kernels)" for kind, (n, ms) in groups.items())
+        + f"; the wkv6 backward {100 * groups['wkv6 backward'][1] / busy:.2f} % of it, per call: "
+        + ", ".join(f"{kind} {ms / cfg.n_layers:.3f} ms" for kind, ms in split.items())
+        + f" {card}")
+    train = {"step_ms": step_ms, "tokens_per_s": B * S / (step_ms / 1e3), "mfu": mfu,
+             "peak_gib": peak, "launches": launches, "busy": groups, "bwd_split": split}
+    del model, opt, step, m
+    torch.cuda.empty_cache()
+
+    # (d) the train launcher as a process at full size, then every
+    # per-layer gradient through the kernels in this process
+    launcher_training("rwkv6-3b", card, reset_launches, kernels, sync)
+    return {"bwd": bwd[WKV_BWD_MAIN], "train": train}
 
 
 def main() -> int:
@@ -1469,7 +1706,7 @@ def main() -> int:
     from repro_torch.kernels.qmatmul.kernel import qmatmul_kernel, tma_path
     from repro_torch.kernels.qmatmul.ops import qmatmul
     from repro_torch.kernels.qmatmul.ref import qmatmul_ref, quantize_cols, quantize_rows
-    from repro_torch.kernels.rwkv6.kernel import wkv6_kernel
+    from repro_torch.kernels.rwkv6.kernel import wkv6_bwd_kernel, wkv6_kernel
     from repro_torch.kernels.rwkv6.ref import wkv6_ref
     from repro_torch.launch.serve import serve
     from repro_torch.models import init_params
@@ -1504,7 +1741,7 @@ def main() -> int:
 
     def reset_launches() -> None:
         flash_attention_kernel.launches = flash_attention_bwd_kernel.launches = 0
-        wkv6_kernel.launches = 0
+        wkv6_kernel.launches = wkv6_bwd_kernel.launches = 0
         mamba_scan_kernel.launches = qmatmul_kernel.launches = 0
 
     # ------------------------------------------------------------ phase 1
@@ -1526,6 +1763,8 @@ def main() -> int:
     bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]                  # head dim, dk/dv kernel
     smem = {"wkv6_segment": _build.load_library("wkv6.cu").repro_wkv6_smem_bytes}
     smem["wkv6_segment"].argtypes = [ctypes.c_int, ctypes.c_int]      # head dim, output pass
+    smem["wkv6_bwd_sweep"] = _build.load_library("wkv6_bwd.cu").repro_wkv6_bwd_smem_bytes
+    smem["wkv6_bwd_sweep"].argtypes = [ctypes.c_int, ctypes.c_int]    # head dim, pass
     qmm_smem = _build.load_library("qmatmul.cu").repro_qmatmul_smem_bytes
     qmm_smem.argtypes = []
     for fn in (*smem.values(), qmm_smem, fwd_smem, bwd_smem):
@@ -2124,7 +2363,7 @@ def main() -> int:
 
     # ------------------------------------------------------------ phase 14
     all_kernels = (flash_attention_kernel, flash_attention_bwd_kernel, wkv6_kernel,
-                   mamba_scan_kernel, qmatmul_kernel)
+                   wkv6_bwd_kernel, mamba_scan_kernel, qmatmul_kernel)
     facade_launches = facade_phase(get_config, card, granite_prefill_ms, reset_launches,
                                    all_kernels)
 
@@ -2157,6 +2396,10 @@ def main() -> int:
     for arch in FRONTEND_ARCHS:
         launcher_training(arch, card, reset_launches, all_kernels, sync)
 
+    # ------------------------------------------------------------ phase 18
+    rwkv_training = wkv6_training_phase(get_config, card, reset_launches, all_kernels, cuda_ms,
+                                        cuda_ms_median, sync)
+
     # ------------------------------------------------------------ result
     main_case = results[MAIN_PATH_CASE]
     wkv_case = wkv_results[WKV_MAIN_PATH_CASE]
@@ -2181,6 +2424,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/rwkv6/kernel.py:82",
         "launches": wkv_launches, "facade_launches": facade_launches["wkv6"],
         **{k: wkv_case[k] for k in keys},
+    }, {
+        "name": "wkv6_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/wkv6_bwd.cu",
+        "replaces": "src/repro/kernels/rwkv6/kernel.py:82",
+        "launches": rwkv_training["train"]["launches"]["wkv6_bwd"],
+        "facade_launches": facade_launches["wkv6_bwd"],
+        **{k: rwkv_training["bwd"][k] for k in keys},
     }, {
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/mamba_scan.cu",

@@ -2,7 +2,9 @@
 
 The CPU path of :func:`..ops.wkv6` and the oracle the CUDA kernel is held
 against on the card: the sequential recurrence, token by token, in fp32
-(float64 inputs stay float64, the yardstick for fp32 rounding).
+(float64 inputs stay float64, the yardstick for fp32 rounding).  Its
+gradient, written out (:func:`wkv6_bwd_ref`), is the oracle of the
+backward kernel.
 """
 from __future__ import annotations
 
@@ -138,3 +140,130 @@ def wkv6_chunked_ref(r, k, v, logw, u, chunk=32, block=4, strong_logw=-2.0):
         kd = kc * torch.exp(torch.where(strong, after, total - C))
         state = torch.exp(total).transpose(-1, -2) * state + kd.transpose(-1, -2) @ vc
     return out[:, :, :S], state
+
+
+def _bwd_cotangents(dt, B, H, hd, ds_last, device):
+    if ds_last is None:
+        return torch.zeros(B, H, hd, hd, dtype=dt, device=device)
+    return ds_last.to(dt)
+
+
+def wkv6_bwd_ref(r, k, v, logw, u, dout, ds_last=None):
+    """The gradient of :func:`wkv6_ref`'s ``(out, S_last)`` at ``(dout,
+    ds_last)`` (``None``: zero), token by token: (dr, dk, dv, dlogw
+    [B,H,S,hd], du [H,hd]), fp32 (float64 inputs stay float64).
+
+    A forward sweep keeps every state ``S_{t-1}``; the reverse sweep
+    carries the state's gradient ``G`` from ``G = ds_last``:
+    ``dr_t = S_{t-1} dout_t + u k_t (v_t . dout_t)``, ``dk_t = G v_t + u r_t
+    (v_t . dout_t)``, ``dv_t = G^T k_t + (sum r u k) dout_t``, ``dlogw_t =
+    w_t sum_j G * S_{t-1}``, then ``G = diag(w_t) G + r_t dout_t^T``; ``du``
+    sums ``r k (v . dout)`` over b and t.  dlogw is the per-token product
+    (autograd's form), not the kernel's running sums, which in fp32 are
+    ill-conditioned (``csrc/wkv6_bwd.cu``).  It keeps all S states, so it
+    holds ``B H S hd^2`` values at once.
+    """
+    B, H, S, hd = r.shape
+    dt = torch.promote_types(r.dtype, torch.float32)
+    r, k, v, dout, u = (x.to(dt) for x in (r, k, v, dout, u))
+    w = torch.exp(logw.to(dt))
+    vd = (v * dout).sum(-1, keepdim=True)                       # v_t . dout_t
+    states = []
+    state = torch.zeros(B, H, hd, hd, dtype=dt, device=r.device)
+    for t in range(S):
+        states.append(state)
+        state = w[:, :, t, :, None] * state + k[:, :, t, :, None] * v[:, :, t, None, :]
+    G = _bwd_cotangents(dt, B, H, hd, ds_last, r.device)
+    drs, dks, dv, dlogw = (torch.empty(B, H, S, hd, dtype=dt, device=r.device) for _ in range(4))
+    for t in range(S - 1, -1, -1):
+        prev = states.pop()
+        drs[:, :, t] = torch.einsum("bhij,bhj->bhi", prev, dout[:, :, t])
+        dks[:, :, t] = torch.einsum("bhij,bhj->bhi", G, v[:, :, t])
+        dv[:, :, t] = torch.einsum("bhij,bhi->bhj", G, k[:, :, t])
+        dlogw[:, :, t] = w[:, :, t] * (G * prev).sum(-1)
+        G = w[:, :, t, :, None] * G + r[:, :, t, :, None] * dout[:, :, t, None, :]
+    dv = dv + (r * u[None, :, None] * k).sum(-1, keepdim=True) * dout
+    dr = drs + u[None, :, None] * k * vd
+    dk = dks + u[None, :, None] * r * vd
+    du = (r * k * vd).sum((0, 2))
+    return dr, dk, dv, dlogw, du
+
+
+def wkv6_bwd_segmented_ref(r, k, v, logw, u, dout, ds_last, segment):
+    """The backward kernel's split of the sequence and its arithmetic, in
+    plain PyTorch: the same gradient as :func:`wkv6_bwd_ref`, computed by
+    segments of ``segment`` tokens as ``csrc/wkv6_bwd.cu`` does.  Only the
+    tests use it, to hold the split against the reference on the CPU.
+
+    The forward's split (:func:`wkv6_segmented_ref`'s passes 1-2) gives the
+    state at each segment's end.  Pass 1 runs every segment's ``G`` in
+    reverse from zero to its start, with the segment's decay ``prod w``;
+    pass 2 carries ``G_end[s-1] = diag(decay[s]) G_end[s] + local[s]`` from
+    ``G_end[last] = ds_last``.  Passes 3-4 run in float64 from those fp32
+    states, as the kernel's do: forward from each segment's input state for
+    ``drs`` and ``a = r drs``, in reverse from ``G_end`` for ``dks`` and
+    ``dv``, and ``dlogw_tau = P_e + sum_{tau<t<=e} a_t - sum_{tau<=t<=e}
+    b_t`` inside each segment, ``P_e = sum_j G_end * S_end`` (``ds_last *
+    S_last`` in the last), ``b = k dks``; du sums over b and the segments.
+    A ragged tail is padded with ``r = k = v = dout = logw = 0``, which
+    leaves both states as they are.
+    """
+    B, H, S, hd = r.shape
+    dt = torch.promote_types(r.dtype, torch.float32)
+    f64 = torch.float64
+    n = max(1, -(-S // segment))
+    pad = n * segment - S
+
+    def split(x):
+        return torch.nn.functional.pad(x.to(dt), (0, 0, 0, pad)).reshape(B, H, n, segment, hd)
+
+    r, k, v, logw, dout = (split(x) for x in (r, k, v, logw, dout))
+    w = torch.exp(logw)
+    zeros = torch.zeros(B, H, n, hd, hd, dtype=dt, device=r.device)
+    # the forward's states at the segments' ends (wkv6_segmented_ref, passes 1-2)
+    end = zeros
+    for t in range(segment):
+        end = w[:, :, :, t, :, None] * end + k[:, :, :, t, :, None] * v[:, :, :, t, None, :]
+    fdecay = torch.exp(logw.sum(dim=3))
+    s_end = torch.empty_like(end)
+    carry = torch.zeros(B, H, hd, hd, dtype=dt, device=r.device)
+    for s in range(n):
+        carry = fdecay[:, :, s, :, None] * carry + end[:, :, s]
+        s_end[:, :, s] = carry
+    s_in = torch.cat([torch.zeros_like(s_end[:, :, :1]), s_end[:, :, :-1]], dim=2)
+    # pass 1: each segment's G from zero at its end to its start
+    local, gdecay = zeros, torch.ones(B, H, n, hd, dtype=dt, device=r.device)
+    for t in range(segment - 1, -1, -1):
+        local = w[:, :, :, t, :, None] * local + r[:, :, :, t, :, None] * dout[:, :, :, t, None, :]
+        gdecay = gdecay * w[:, :, :, t]
+    # pass 2: G at each segment's end
+    g_end = torch.empty_like(local)
+    cur = _bwd_cotangents(dt, B, H, hd, ds_last, r.device)
+    for s in range(n - 1, -1, -1):
+        g_end[:, :, s] = cur
+        cur = gdecay[:, :, s, :, None] * cur + local[:, :, s]
+    # passes 3-4 in float64
+    r, k, v, dout, w = (x.to(f64) for x in (r, k, v, dout, w))
+    u = u.to(f64)[None, :, None, None, :]
+    state, drs = s_in.to(f64), torch.empty_like(r)
+    for t in range(segment):
+        drs[:, :, :, t] = torch.einsum("bhsij,bhsj->bhsi", state, dout[:, :, :, t])
+        state = w[:, :, :, t, :, None] * state + k[:, :, :, t, :, None] * v[:, :, :, t, None, :]
+    s_end = torch.cat([s_end[:, :, :-1].to(f64), state[:, :, -1:]], dim=2)   # S_last in fp64
+    G = g_end.to(f64)
+    p_end = (G * s_end).sum(-1)                                  # [B,H,n,hd]
+    dks, dv = torch.empty_like(r), torch.empty_like(r)
+    for t in range(segment - 1, -1, -1):
+        dks[:, :, :, t] = torch.einsum("bhsij,bhsj->bhsi", G, v[:, :, :, t])
+        dv[:, :, :, t] = torch.einsum("bhsij,bhsi->bhsj", G, k[:, :, :, t])
+        G = w[:, :, :, t, :, None] * G + r[:, :, :, t, :, None] * dout[:, :, :, t, None, :]
+    vd = (v * dout).sum(-1, keepdim=True)
+    dv = dv + (r * u * k).sum(-1, keepdim=True) * dout
+    dr = drs + u * k * vd
+    dk = dks + u * r * vd
+    du = (r * k * vd).sum((0, 2, 3))
+    suffix = lambda x: torch.flip(torch.cumsum(torch.flip(x, [3]), 3), [3])   # noqa: E731
+    a_after = torch.nn.functional.pad(suffix(r * drs)[:, :, :, 1:], (0, 0, 0, 1))
+    dlogw = p_end[:, :, :, None] + a_after - suffix(k * dks)
+    back = lambda x: x.reshape(B, H, n * segment, hd)[:, :, :S].to(dt)   # noqa: E731
+    return back(dr), back(dk), back(dv), back(dlogw), du.to(dt)

@@ -19,8 +19,9 @@ from repro_torch.kernels.mamba.ref import mamba_scan_ref
 from repro_torch.kernels.qmatmul.kernel import qmatmul_kernel, tma_path
 from repro_torch.kernels.qmatmul.ops import qmatmul
 from repro_torch.kernels.qmatmul.ref import qmatmul_ref, quantize_cols, quantize_rows
-from repro_torch.kernels.rwkv6.kernel import wkv6_kernel
-from repro_torch.kernels.rwkv6.ref import wkv6_ref
+from repro_torch.kernels.rwkv6.kernel import wkv6_bwd_kernel, wkv6_kernel
+from repro_torch.kernels.rwkv6.ops import wkv6
+from repro_torch.kernels.rwkv6.ref import wkv6_bwd_ref, wkv6_ref
 from repro_torch.models import moe as tmoe
 
 pytestmark = pytest.mark.cuda
@@ -228,6 +229,83 @@ def test_wkv6_kernel_counts_launches(cuda_device):
     before = wkv6_kernel.launches
     wkv6_kernel(*args)
     assert wkv6_kernel.launches == before + 1
+
+
+# (B, H, S, hd, dS_last): the backward at the reference's test shapes, ragged
+# lengths (no multiple of the 8-token chunk or the 256-token segment), one
+# token, several segments at each head dim, with and without a cotangent of
+# S_last, and rwkv6-3b's head count over two segments.
+WKV_BWD_GPU_CASES = [
+    (2, 2, 64, 16, False), (1, 4, 128, 64, True), (2, 1, 96, 32, False), (1, 2, 256, 64, True),
+    (2, 3, 100, 64, True), (1, 3, 1, 64, True), (1, 2, 7, 32, False), (2, 2, 257, 16, True),
+    (1, 2, 700, 32, True), (2, 2, 513, 64, False), (1, 3, 1000, 64, True),
+    (2, 40, 300, 64, False),
+]
+
+
+def _wkv_bwd_case(device, B, H, S, hd, with_ds, strong, seed=0):
+    r, k, v, logw, u = _wkv_inputs(device, B, H, S, hd, seed=seed, strong=strong)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    dout = torch.randn(B, H, S, hd, generator=g, device=device)
+    ds = torch.randn(B, H, hd, hd, generator=g, device=device) if with_ds else None
+    return (r, k, v, logw, u), dout, ds
+
+
+def _assert_wkv_bwd_close(got, want):
+    """Every gradient within the forward's bound (2e-4, relative and
+    absolute: du is a sum over B*S) and per row within WKV_ROW_REL_TOL of
+    the row's rms, over the non-zero rows whose rms reaches 1e-3 of the
+    tensor's (dlogw at the last token is 0 without a cotangent of S_last,
+    and everywhere at S = 1: the absolute bound holds those)."""
+    for name, a, w in zip(("dr", "dk", "dv", "dlogw", "du"), got, want, strict=True):
+        assert a.shape == w.shape and a.dtype == torch.float32, name
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4, msg=name)
+        row_err = (a - w).abs().amax(-1)
+        row_rms = w.pow(2).mean(-1).sqrt()
+        keep = (row_rms > 0) & (row_rms >= 1e-3 * w.pow(2).mean().sqrt())
+        assert (row_err[keep] <= WKV_ROW_REL_TOL * row_rms[keep]).all(), \
+            (name, (row_err[keep] / row_rms[keep]).max().item())
+
+
+@pytest.mark.parametrize("strong", [False, True], ids=["reference", "strong_decays"])
+@pytest.mark.parametrize("case", WKV_BWD_GPU_CASES)
+def test_wkv6_bwd_kernel_matches_plain(cuda_device, case, strong):
+    """The backward kernel on what the forward keeps, against the plain
+    backward: both decay ranges, ragged lengths, dS_last, two calls
+    bit-identical (no atomics; fixed summation order)."""
+    *shape, with_ds = case
+    args, dout, ds = _wkv_bwd_case(cuda_device, *shape, with_ds, strong)
+    _, _, seg_state = wkv6_kernel(*args, with_states=True)
+    got = wkv6_bwd_kernel(*args, seg_state, dout, ds)
+    again = wkv6_bwd_kernel(*args, seg_state, dout, ds)
+    want = wkv6_bwd_ref(*args, dout, ds)
+    torch.cuda.synchronize()
+    _assert_wkv_bwd_close(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(got, again, strict=True))
+
+
+def test_wkv6_autograd_goes_through_both_kernels(cuda_device):
+    """``wkv6`` on transposed [B,S,H,hd] leaves as the model passes them:
+    one forward and one backward launch, gradients in the leaves' layout,
+    matching the plain backward; a loss on S_last alone reaches the kernel
+    as a cotangent of S_last with a zero dout."""
+    B, S, H, hd = 2, 300, 4, 64
+    (r, k, v, logw, u), dout, ds = _wkv_bwd_case(cuda_device, B, H, S, hd, True, False, seed=3)
+    leaves = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in (r, k, v, logw)]
+    uu = u.clone().requires_grad_(True)
+    f0, b0 = wkv6_kernel.launches, wkv6_bwd_kernel.launches
+    out, s_last = wkv6(*(t.transpose(1, 2) for t in leaves), uu)
+    loss = (out * dout).sum() + (s_last * ds).sum()
+    grads = torch.autograd.grad(loss, [*leaves, uu])
+    assert (wkv6_kernel.launches, wkv6_bwd_kernel.launches) == (f0 + 1, b0 + 1)
+    assert all(g.stride() == t.stride() for g, t in zip(grads, leaves))
+    want = wkv6_bwd_ref(r, k, v, logw, u, dout, ds)
+    _assert_wkv_bwd_close([g.transpose(1, 2) for g in grads[:4]] + [grads[4]], want)
+    out, s_last = wkv6(*(t.transpose(1, 2) for t in leaves), uu)
+    grads = torch.autograd.grad((s_last * ds).sum(), [*leaves, uu])
+    want = wkv6_bwd_ref(r, k, v, logw, u, torch.zeros_like(dout), ds)
+    _assert_wkv_bwd_close([g.transpose(1, 2) for g in grads[:4]] + [grads[4]], want)
 
 
 # (B, S, di, N): tests/test_kernels.py MAMBA_CASES, then ragged lengths (no
@@ -592,10 +670,10 @@ def test_model_gradients_through_the_kernels_match_plain_attention(cuda_device):
     assert all(nonzero[id(blk.attn[n])] for blk in model.blocks for n in ("wq", "wk", "wv"))
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b"])
 def test_training_without_a_backward_kernel_raises(cuda_device, arch):
-    """wkv6 / mamba_scan have no backward kernel yet: on the card a call
-    that needs a gradient raises (ROADMAP A17) rather than dropping it."""
+    """mamba_scan has no backward kernel yet: on the card a call that
+    needs a gradient raises (ROADMAP A17) rather than dropping it."""
     import dataclasses
 
     from repro_torch.configs import get_smoke_config
@@ -607,6 +685,39 @@ def test_training_without_a_backward_kernel_raises(cuda_device, arch):
     tokens = torch.zeros(1, 32, dtype=torch.int64, device=cuda_device)
     with pytest.raises(NotImplementedError, match="A17"):
         loss_fn(model, tokens, tokens)
+
+
+def test_rwkv_model_trains_on_the_card(cuda_device):
+    """rwkv6-3b's smoke config at head dim 64 (the kernels' widest), bf16:
+    two train steps through the WKV-6 forward and backward kernels (remat
+    runs the forward twice a layer), every rwkv weight moved, the loss and
+    grad norm finite."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime.planner import plan_for_cell
+    from repro_torch.runtime.train import build_train_step
+
+    cfg = dataclasses.replace(get_smoke_config("rwkv6-3b"), rwkv_head_dim=64,
+                              param_dtype="bfloat16")
+    model = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                        cuda_device).train_params()
+    opt = make_optimizer(cfg.optimizer)[0](model.param_tree())
+    plan = plan_for_cell(cfg, 300, 2, ("data", "model"), 1, kind="train", use_dse=False)
+    step = build_train_step(cfg, plan, base_lr=1e-3, warmup=1, device=cuda_device)
+    before = {n: p.detach().clone() for n, p in model.named_parameters() if ".rwkv." in n}
+    g = torch.Generator().manual_seed(2)
+    f0, b0 = wkv6_kernel.launches, wkv6_bwd_kernel.launches
+    for _ in range(2):
+        toks = torch.randint(0, cfg.vocab, (2, 301), generator=g)
+        model, opt, m = step(model, opt, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+        assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    assert wkv6_bwd_kernel.launches - b0 == 2 * cfg.n_layers
+    assert wkv6_kernel.launches - f0 == 2 * 2 * cfg.n_layers
+    after = dict(model.named_parameters())
+    assert before and all(not torch.equal(before[n], after[n]) for n in before)
 
 
 def test_moe_model_trains_on_the_card(cuda_device):
