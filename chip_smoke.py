@@ -14,7 +14,8 @@ paths:
    kernel and every bf16 flash backward kernel at hd 64 and 128 holds wgmma
    (``HGMMA``) and TMA (``UTMALDG``) instructions, the bf16 backward at hd
    256 ``mma.sync`` (``HMMA``), and every ``qmatmul_tma`` kernel the int8
-   wgmma (``IGMMA``) and TMA with no spills;
+   wgmma (``IGMMA``) and TMA with no spills; the WKV-6 backward's fp64
+   instructions (``DFMA``, ``DMUL``, ``DADD``) by kernel;
 2. flash-attention kernel vs its plain version at every shape the later
    phases give it, phases 16-17's five head layouts included (reference
    bounds: 2e-3 fp32, 2e-2 bf16, plus a per-row bound relative to the
@@ -138,8 +139,9 @@ paths:
     a training forward keeps, against ``wkv6_bwd_ref`` (the forward's bound
     2e-4 on every gradient, and its per-row bound over rows that are not
     ~0; two calls bit-identical) at rwkv6-3b's training shape on the
-    reference's decays and on strong ones, and at a ragged S with a
-    cotangent of S_last; its time beside its bound and the plain
+    reference's decays and on strong ones, at a ragged S with a cotangent
+    of S_last, and at an S below 64 on strong decays with one; its time
+    (median of 21) and each pass's (traced) beside its bound and the plain
     version's (autograd of ``wkv6_ref``), and at the main shape both
     against the float64 plain version; no single PyTorch call computes it,
     so it has no library time; then rwkv6-3b at full size (32 layers,
@@ -354,12 +356,14 @@ FP32_LAYERS, FP32_B, FP32_S, VISION_TEXT = 4, 2, 100, (16, 16)
 LAUNCHER_STEPS = 4
 # Phase 18: the WKV-6 backward kernel against wkv6_bwd_ref, (name, B, H, S,
 # hd, strong decays, a cotangent of S_last): rwkv6-3b's training shape on
-# both decay ranges, then a ragged S over two segments with dS_last.  Then
-# rwkv6-3b trains at full size (32 layers, AdamW) on the card.
+# both decay ranges, then a ragged S over two segments with dS_last, and an
+# S below 64 (one ragged chunk ring, one segment) on strong decays with
+# dS_last.  Then rwkv6-3b trains at full size (32 layers, AdamW) on the card.
 WKV_BWD_CASES = [
     ("rwkv_train", 4, 40, 2048, 64, False, False),
     ("rwkv_train_strong", 4, 40, 2048, 64, True, False),
     ("ragged_ds_last", 2, 40, 300, 64, False, True),
+    ("short_strong_ds_last", 2, 40, 40, 64, True, True),
 ]
 WKV_BWD_MAIN = "rwkv_train"
 RWKV_TRAIN_STEPS = 5
@@ -431,7 +435,8 @@ def ptxas_report(log: str) -> list[tuple[str, str, str]]:
     return rows
 
 
-SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "HMMA")   # bf16 / int8 wgmma, TMA load / store, mma.sync
+# bf16 / int8 wgmma, TMA load / store, mma.sync, then the fp64 FMA, multiply and add
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "HMMA", "DFMA", "DMUL", "DADD")
 
 
 def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
@@ -1553,6 +1558,21 @@ def wkv6_training_phase(get_config, card: str, reset_launches, kernels, cuda_ms,
         del got, want, again
         if name == WKV_BWD_MAIN:
             res["ms"] = cuda_ms_median(call, 21)
+            # each pass (one launch a call): the mean of its traced launches
+            call()
+            sync()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    call()
+                sync()
+            passes = {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA and "wkv6_bwd_" in e.name:
+                    kind = e.name.split("wkv6_bwd_")[1].split("(")[0]     # e.g. sweep<64, 2>
+                    passes.setdefault(kind, []).append(e.time_range.elapsed_us() / 1e3)
+            res["passes_ms"] = {kind: statistics.mean(ms) for kind, ms in passes.items()}
+            res["passes_traced"] = {kind: len(ms) for kind, ms in passes.items()}
+            del prof
             # plain: autograd of the plain forward, the backward alone
             leaves = [a.detach().requires_grad_(True) for a in args]
             out, _ = wkv6_ref(*leaves)
@@ -1804,6 +1824,11 @@ def main() -> int:
           f"qmatmul_tma kernels without int8 wgmma (IGMMA) or TMA (UTMALDG) in their SASS: {tma}")
     check(all("0 bytes spill stores, 0 bytes spill loads" in spills.get(k, "") for k in tma),
           f"qmatmul_tma kernels spill: { {k: spills.get(k) for k in tma} }")
+    # The WKV-6 backward's fp64 instructions by kernel (its S and G sweeps
+    # run in float64 for dlogw's accuracy; a fact, not a check).
+    counts = sass_counts(_build.library_path("wkv6_bwd.cu"))
+    print("  SASS of wkv6_bwd.cu (DFMA, DMUL, DADD): " + ", ".join(
+        f"{k} {v['DFMA']}, {v['DMUL']}, {v['DADD']}" for k, v in sorted(counts.items())))
     # The bf16 backward at hd 64 and 128 must run on wgmma and TMA; at hd 256
     # it keeps mma.sync.
     counts = sass_counts(_build.library_path("flash_attention_bwd.cu"))

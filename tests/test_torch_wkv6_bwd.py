@@ -11,6 +11,8 @@ reference's oracle computes in fp32 whatever it is given; the two agree to
 ~1e-13).  The CUDA kernel itself is held against ``wkv6_bwd_ref`` on the card
 by tests/test_torch_cuda.py and chip_smoke.py phase 18.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -124,6 +126,53 @@ def test_wkv6_bwd_float64_matches_autograd(strong, ds_last):
     for got in (wkv6_bwd_ref(*t, tdo, tds), wkv6_bwd_segmented_ref(*t, tdo, tds, 32)):
         assert all(g.dtype == torch.float64 for g in got)
         _assert_grads_close([g.detach() for g in got], [w.detach() for w in want], TOL64)
+
+
+@pytest.mark.parametrize("ds_last", [False, True], ids=["no_dS_last", "dS_last"])
+@pytest.mark.parametrize("strong", [False, True], ids=["reference", "strong_decays"])
+@pytest.mark.parametrize("S", [1, 40])
+def test_wkv6_bwd_segmented_ref_short_sequence(S, strong, ds_last):
+    """The kernel's split at the kernel's segment length on a sequence
+    shorter than one 64-token block (one ragged segment) against jax.vjp of
+    the reference's oracle, as chip_smoke.py phase 18(a)'s S=40 case holds
+    the kernel on the card."""
+    arrs, dout, ds = _inputs(2, 3, S, 64, seed=6, strong=strong, ds_last=ds_last)
+    want = _jax_grads(arrs, dout, ds)
+    t, tdo, tds = _torch(arrs, dout, ds)
+    got = wkv6_bwd_segmented_ref(*t, tdo, tds, SEGMENT)
+    _assert_grads_close(got, want, TOL)
+
+
+@functools.cache
+def _long_case(strong):
+    """S=2048, H=2, hd=64 on one decay range: the fp32 inputs and the float64
+    plain backward."""
+    arrs, dout, _ = _inputs(1, 2, 2048, 64, seed=8, strong=strong)
+    t, tdo, _ = _torch(arrs, dout, None)
+    want64 = wkv6_bwd_ref(*(x.double() for x in t), tdo.double())
+    return t, tdo, want64
+
+
+def _row_rel_err(got, want, floor=1e-3):
+    """chip_smoke.py's per-row error: max over rows of the row's largest
+    error over its rms, rows under ``floor`` of the tensor's rms left out."""
+    err = (got.double() - want).abs().amax(-1)
+    rms = want.pow(2).mean(-1).sqrt()
+    keep = rms >= floor * want.pow(2).mean().sqrt()
+    return (err[keep] / rms[keep]).max().item()
+
+
+@pytest.mark.parametrize("strong", [False, True], ids=["reference", "strong_decays"])
+def test_wkv6_bwd_dlogw_at_training_length(strong):
+    """At rwkv6-3b's training length (S=2048, hd=64, H=2) in fp32, the
+    kernel's scheme (float64 sweeps, dlogw restarted at each segment's end)
+    keeps dlogw within allclose(2e-4, 2e-4) of the float64 plain backward
+    and within chip_smoke.py's per-row bound (1e-3 of a row's rms), on both
+    decay ranges."""
+    t, tdo, want64 = _long_case(strong)
+    got = wkv6_bwd_segmented_ref(*t, tdo, None, SEGMENT)[3]
+    np.testing.assert_allclose(got.double().numpy(), want64[3].numpy(), **TOL)
+    assert _row_rel_err(got, want64[3]) <= 1e-3
 
 
 def test_autograd_function_routes_both_passes(monkeypatch):
