@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """How far the selective scan's gradient lands from a float64 run, by the
 order and precision it is computed in: the readings behind
-``csrc/mamba_scan_bwd.cu``'s arithmetic.  CPU only, plain PyTorch, ~30 s:
+``csrc/mamba_scan_bwd.cu``'s arithmetic.  CPU only, plain PyTorch, ~40 s
+and ~2 GB:
 
-    PYTHONPATH=src python3 scripts/mamba_bwd_conditioning.py [--batch 4] [--channels 256]
+    PYTHONPATH=src python3 scripts/mamba_bwd_conditioning.py [--batch 4] [--channels 256] \
+        [--sum-channels 2048]
 
 Inputs: B x S=2048 x di channels, N=16, no cotangent of h_last (as in
 training); x, B, C and dy normal, D = 1, on three decay ranges:
@@ -24,12 +26,19 @@ error over the row's rms, rows under 1e-3 of the tensor's rms left out, as
 ``chip_smoke.py``'s ``row_rel_err``; its bound there is 1e-3; dD is one row
 per channel, so it has none):
 
-* ``mamba_scan_bwd_ref`` in fp32, the plain version the kernel is held
-  against on the card;
+* ``mamba_scan_bwd_ref`` in fp32 (its dA and dD sums in float64), the
+  plain version the kernel is held against on the card;
 * ``mamba_scan_bwd_chunked_ref`` in fp32, the kernel's order (chunk states,
-  sub-chunk recompute, block partials), with dA's and dD's per-row sums over
-  the B*S tokens accumulated in fp32 and in float64, each also against the
-  fp32 plain version (the comparison the card makes).
+  sub-chunk recompute, block partials), with dA's and dD's sums over each
+  8-token sub-chunk in fp32 added into per-row totals in fp32 and in float64
+  (the kernel's), each also against the fp32 plain version (the comparison
+  the card makes).
+
+dA's error grows with the number of rows it is read over (the worst of
+di * N sums), so a second study takes dA alone at ``--sum-channels``
+channels: its per-token terms g_t dt_t a_t h_{t-1} in fp32, summed over
+the B*S tokens in reverse by five schemes, against ``mamba_scan_bwd_ref``
+in float64.
 """
 from __future__ import annotations
 
@@ -41,7 +50,7 @@ from pathlib import Path
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
-from repro_torch.kernels.mamba.ref import (mamba_scan_bwd_chunked_ref,  # noqa: E402
+from repro_torch.kernels.mamba.ref import (LOG2E, mamba_scan_bwd_chunked_ref,  # noqa: E402
                                            mamba_scan_bwd_ref, mamba_scan_lanes_ref)
 
 RANGES = ("reference init", "test distribution", "strong decays")
@@ -88,6 +97,7 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=2048)
     ap.add_argument("--channels", type=int, default=256)
+    ap.add_argument("--sum-channels", type=int, default=2048)
     args = ap.parse_args()
     B, S, di, N = args.batch, args.seq, args.channels, 16
     t0 = time.perf_counter()
@@ -105,7 +115,8 @@ def main() -> None:
         rows = [("mamba_scan_bwd_ref, fp32 (the plain version)", plain, None)]
         for acc in (torch.float32, torch.float64):
             got = mamba_scan_bwd_chunked_ref(*x, states, dy, acc_dtype=acc)
-            rows.append((f"kernel order, fp32, dA / dD sums in {str(acc)[6:]}", got, plain))
+            rows.append((f"kernel order, fp32, dA / dD sub-chunk sums into {str(acc)[6:]}",
+                         got, plain))
         for name, got, vs_plain in rows:
             print(f"    {name}:")
             for n, g_, w in zip(NAMES, got, want64):
@@ -113,7 +124,52 @@ def main() -> None:
                 if vs_plain is not None:
                     line += f"; vs fp32 plain {fmt(errors(g_, vs_plain[NAMES.index(n)]))}"
                 print(line)
+    for decays in RANGES:
+        dA_sums(B, S, args.sum_channels, N, decays)
     print(f"({time.perf_counter() - t0:.1f} s)")
+
+
+def dA_sums(B, S, di, N, decays) -> None:
+    """dA's per-token terms in fp32 (the kernel's decay and recurrence),
+    summed over the B*S tokens in reverse by each scheme, against float64."""
+    x, dy = inputs(B, S, di, N, decays)
+    dt, xx, A, Bc, Cc, _ = x
+    A2 = A * torch.tensor(LOG2E)
+    hs, h = [], torch.zeros(B, di, N)
+    for t in range(S):
+        hs.append(h)
+        h = (torch.exp2(dt[:, t, :, None] * A2) * h
+             + (dt[:, t] * xx[:, t])[:, :, None] * Bc[:, t, None, :])
+    g = torch.zeros(B, di, N)
+    terms = torch.empty(S, B, di, N)
+    for t in range(S - 1, -1, -1):
+        g = g + dy[:, t, :, None] * Cc[:, t, None, :]
+        a = torch.exp2(dt[:, t, :, None] * A2)
+        terms[t] = g * (a * hs[t]) * dt[:, t, :, None]
+        g = a * g
+    del hs
+    truth = mamba_scan_bwd_ref(*(v.double() for v in x), dy.double())[2]
+    rev = terms.flip(0)
+
+    def seq(tt, dtype):
+        acc = torch.zeros(tt.shape[1:], dtype=dtype)
+        for v in tt:
+            acc += v.to(dtype)
+        return acc.sum(0)
+
+    def blocks(n):
+        return rev.reshape(S // n, n, B, di, N).sum(1)
+
+    print(f"dA alone, {decays}, B={B} S={S} di={di} N={N} (max |dA| "
+          f"{truth.abs().max().item():.4g}): max |err| / allclose(2e-4) excess against float64")
+    for name, got in (("fp32, sequential", seq(rev, torch.float32)),
+                      ("fp32 sums of 8 tokens, into fp32", seq(blocks(8), torch.float32)),
+                      ("fp32 sums of 64 tokens, into fp32", seq(blocks(64), torch.float32)),
+                      ("fp32 sums of 8 tokens, into float64 (the kernel)",
+                       seq(blocks(8), torch.float64)),
+                      ("float64", seq(rev, torch.float64))):
+        e = errors(got, truth)
+        print(f"    {name:<50} {e[0]:.3e} / {e[1]:+.3e}")
 
 
 if __name__ == "__main__":

@@ -111,6 +111,8 @@ def mamba_scan_bwd_ref(dt, x, A, Bc, Cc, D, dy, dh_last=None):
     ``ddt_t = sum_n g_t (A a_t h_{t-1} + x_t B_t)``, ``dx_t = D dy_t + dt_t
     sum_n g_t B_t``, ``dA = sum_{b,t} g_t dt_t a_t h_{t-1}``, ``dD = sum_{b,t}
     dy_t x_t``.  Nothing divides by a_t, which underflows on strong decays.
+    dA and dD, sums over B*S tokens, are accumulated in float64 (in fp32
+    they drift by ~1e-3 at jamba's B*S = 8,192: scripts/mamba_bwd_conditioning.py).
     """
     B, S, di = x.shape
     N = A.shape[1]
@@ -124,25 +126,26 @@ def mamba_scan_bwd_ref(dt, x, A, Bc, Cc, D, dy, dh_last=None):
     ddt, dx = torch.empty_like(dt), torch.empty_like(x)
     dB, dC = torch.empty(B, S, N, dtype=ft, device=x.device), torch.empty(B, S, N, dtype=ft,
                                                                            device=x.device)
-    dA, dD = torch.zeros_like(A), torch.zeros_like(D)
+    dA = torch.zeros(A.shape, dtype=torch.float64, device=x.device)
+    dD = torch.zeros(D.shape, dtype=torch.float64, device=x.device)
     for t in range(S - 1, -1, -1):
         dt_t, x_t, dy_t = dt[:, t], x[:, t], dy[:, t]
         g = g + dy_t[:, :, None] * Cc[:, t, None, :]
         a = torch.exp(dt_t[:, :, None] * A)
         term = g * a * hs[t - 1] if t else torch.zeros_like(g)
-        dA += (term * dt_t[:, :, None]).sum(0)
+        dA += (term * dt_t[:, :, None]).sum(0).double()
         gB = torch.einsum("bdn,bn->bd", g, Bc[:, t])
         ddt[:, t] = (term * A).sum(-1) + x_t * gB
         dx[:, t] = D * dy_t + dt_t * gB
         dB[:, t] = torch.einsum("bdn,bd->bn", g, dt_t * x_t)
         dC[:, t] = torch.einsum("bdn,bd->bn", hs[t], dy_t)
-        dD += (dy_t * x_t).sum(0)
+        dD += (dy_t * x_t).sum(0).double()
         g = a * g
-    return ddt, dx, dA, dB, dC, dD
+    return ddt, dx, dA.to(ft), dB, dC, dD.to(ft)
 
 
 def mamba_scan_bwd_chunked_ref(dt, x, A, Bc, Cc, D, states, dy, dh_last=None,
-                               acc_dtype=None):
+                               acc_dtype=torch.float64):
     """The backward kernel's order of operations (``csrc/mamba_scan_bwd.cu``),
     in plain PyTorch: the same gradients as :func:`mamba_scan_bwd_ref`, from
     ``states``, the chunk states :func:`mamba_scan_lanes_ref` keeps
@@ -157,13 +160,15 @@ def mamba_scan_bwd_chunked_ref(dt, x, A, Bc, Cc, D, states, dy, dh_last=None,
     (the forward's update, so h_t is the forward's own), ``term = g ah``,
     then ``g *= a_t``.  The decay is ``exp2(dt A log2 e)``.  dB and dC are
     summed over ``BLOCK``-channel blocks, then the blocks' partial sums in
-    block order; dA and dD are summed over each batch row's tokens in
-    ``acc_dtype`` (default: the computing dtype), then over the rows.
+    block order; dA and dD are summed over each sub-chunk's tokens in the
+    computing dtype, those sums over each batch row's sub-chunks in
+    ``acc_dtype`` (float64 as in the kernel; float32 for
+    ``scripts/mamba_bwd_conditioning.py``'s comparison), then over the rows.
     """
     B, S, di = x.shape
     N = A.shape[1]
     ft, (dt, x, A, Bc, Cc, D, dy), dh_last = _promoted(dt, x, A, Bc, Cc, D, dy, dh_last)
-    acc = acc_dtype or ft
+    acc = torch.promote_types(acc_dtype, ft)
     n_chunks = max(1, -(-S // CHUNK))
     if tuple(states.shape) != (B, di, n_chunks - 1, N):
         raise ValueError(f"states {tuple(states.shape)} is not {(B, di, n_chunks - 1, N)}")
@@ -198,6 +203,8 @@ def mamba_scan_bwd_chunked_ref(dt, x, A, Bc, Cc, D, states, dy, dh_last=None,
                 hp.append(h)
                 av.append(a)
                 h = a * h + (dt[:, t] * x[:, t])[:, :, None] * Bc[:, t, None, :]
+            dA_sub = torch.zeros_like(g)
+            dD_sub = torch.zeros(B, di, dtype=ft, device=x.device)
             for i in range(SUB - 1, -1, -1):
                 t = t0 + i
                 dt_t, x_t, dy_t = dt[:, t], x[:, t], dy[:, t]
@@ -206,14 +213,16 @@ def mamba_scan_bwd_chunked_ref(dt, x, A, Bc, Cc, D, states, dy, dh_last=None,
                 dxt = dt_t * x_t
                 h_t = ah + dxt[:, :, None] * Bc[:, t, None, :]
                 term = g * ah
-                dA += (term * dt_t[:, :, None]).to(acc)
+                dA_sub = dA_sub + term * dt_t[:, :, None]
                 gB = (g * Bc[:, t, None, :]).sum(-1)
                 ddt[:, t] = (A * term).sum(-1) + x_t * gB
                 dx[:, t] = D * dy_t + dt_t * gB
                 pB[:, t] = blocks(g * dxt[:, :, None])
                 pC[:, t] = blocks(dy_t[:, :, None] * h_t)
-                dD += (dy_t * x_t).to(acc)
+                dD_sub = dD_sub + dy_t * x_t
                 g = av[i] * g
+            dA += dA_sub.to(acc)
+            dD += dD_sub.to(acc)
     dB, dC = pB[:, :S, 0].clone(), pC[:, :S, 0].clone()
     for b in range(1, n_blocks):
         dB += pB[:, :S, b]
