@@ -5,7 +5,7 @@ order and precision it is computed in: the readings behind
 and ~2 GB:
 
     PYTHONPATH=src python3 scripts/mamba_bwd_conditioning.py [--batch 4] [--channels 256] \
-        [--sum-channels 2048]
+        [--sum-channels 2048] [--width 8192 --width-seq 512]
 
 Inputs: B x S=2048 x di channels, N=16, no cotangent of h_last (as in
 training); x, B, C and dy normal, D = 1, on three decay ranges:
@@ -38,7 +38,11 @@ dA's error grows with the number of rows it is read over (the worst of
 di * N sums), so a second study takes dA alone at ``--sum-channels``
 channels: its per-token terms g_t dt_t a_t h_{t-1} in fp32, summed over
 the B*S tokens in reverse by five schemes, against ``mamba_scan_bwd_ref``
-in float64.
+in float64.  dB and dC sum over the channels, so a third takes them at
+jamba's ``--width`` (B=1, ``--width-seq`` tokens): their per-token terms
+in fp32 (the kernel's decay), summed over the channels by three schemes,
+against float64, and the kernel's scheme against the plain version's
+(terms from ``exp``, one float64 sum).
 """
 from __future__ import annotations
 
@@ -98,6 +102,8 @@ def main() -> None:
     ap.add_argument("--seq", type=int, default=2048)
     ap.add_argument("--channels", type=int, default=256)
     ap.add_argument("--sum-channels", type=int, default=2048)
+    ap.add_argument("--width", type=int, default=8192)
+    ap.add_argument("--width-seq", type=int, default=512)
     args = ap.parse_args()
     B, S, di, N = args.batch, args.seq, args.channels, 16
     t0 = time.perf_counter()
@@ -126,7 +132,61 @@ def main() -> None:
                 print(line)
     for decays in RANGES:
         dA_sums(B, S, args.sum_channels, N, decays)
+    for decays in RANGES[1:]:
+        channel_sums(args.width_seq, args.width, N, decays)
     print(f"({time.perf_counter() - t0:.1f} s)")
+
+
+def channel_sums(S, di, N, decays) -> None:
+    """dB's and dC's per-token terms g_t dt_t x_t and dy_t h_t in fp32,
+    summed over the di channels by each scheme, against float64."""
+    x, dy = inputs(1, S, di, N, decays)
+    dt, xx, A, Bc, Cc, _ = x
+    A2 = A * torch.tensor(LOG2E)
+    per_warp = 32 // (N // 4)
+
+    def run(kernel_decay):
+        hs, h = [], torch.zeros(1, di, N)
+        for t in range(S):
+            hs.append(h)
+            a = (torch.exp2(dt[:, t, :, None] * A2) if kernel_decay
+                 else torch.exp(dt[:, t, :, None] * A))
+            h = a * h + (dt[:, t] * xx[:, t])[:, :, None] * Bc[:, t, None, :]
+        hs.append(h)
+        g = torch.zeros(1, di, N)
+        out = {k: torch.empty(2, 1, S, N, dtype=torch.float64)
+               for k in ("fp32", "kernel", "float64")}
+        for t in range(S - 1, -1, -1):
+            g = g + dy[:, t, :, None] * Cc[:, t, None, :]
+            a = (torch.exp2(dt[:, t, :, None] * A2) if kernel_decay
+                 else torch.exp(dt[:, t, :, None] * A))
+            for q, terms in enumerate((g * (dt[:, t] * xx[:, t])[:, :, None],
+                                       dy[:, t, :, None] * hs[t + 1])):
+                warps = terms.reshape(di // 128, 128 // per_warp, per_warp, N).sum(2)
+                acc32 = torch.zeros(N)
+                for blk in warps:
+                    part = torch.zeros(N)
+                    for w in blk:
+                        part += w
+                    acc32 += part
+                out["fp32"][q, 0, t] = acc32.double()
+                out["kernel"][q, 0, t] = warps.double().sum((0, 1))
+                out["float64"][q, 0, t] = terms.double().sum(1)
+            g = a * g
+        return out
+
+    got, plain = run(True), run(False)["float64"]
+    truth = mamba_scan_bwd_ref(*(v.double() for v in x), dy.double())
+    print(f"dB, dC over the channels, {decays}, B=1 S={S} di={di} N={N} (max |dB| "
+          f"{truth[3].abs().max().item():.4g}): max |err| / allclose(2e-4) excess")
+    for name, key in (("fp32 warps, blocks and their sum", "fp32"),
+                      ("fp32 warps, then float64 (the kernel)", "kernel"),
+                      ("one float64 sum", "float64")):
+        eb, ec = errors(got[key][0], truth[3]), errors(got[key][1], truth[4])
+        print(f"    {name:<40} vs float64: dB {fmt(eb)[:22]}, dC {fmt(ec)[:22]}")
+    eb, ec = errors(got["kernel"][0], plain[0]), errors(got["kernel"][1], plain[1])
+    print(f"    {'the kernel vs the plain version':<40}            dB {fmt(eb)[:22]}, "
+          f"dC {fmt(ec)[:22]}")
 
 
 def dA_sums(B, S, di, N, decays) -> None:

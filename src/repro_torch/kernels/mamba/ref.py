@@ -111,8 +111,9 @@ def mamba_scan_bwd_ref(dt, x, A, Bc, Cc, D, dy, dh_last=None):
     ``ddt_t = sum_n g_t (A a_t h_{t-1} + x_t B_t)``, ``dx_t = D dy_t + dt_t
     sum_n g_t B_t``, ``dA = sum_{b,t} g_t dt_t a_t h_{t-1}``, ``dD = sum_{b,t}
     dy_t x_t``.  Nothing divides by a_t, which underflows on strong decays.
-    dA and dD, sums over B*S tokens, are accumulated in float64 (in fp32
-    they drift by ~1e-3 at jamba's B*S = 8,192: scripts/mamba_bwd_conditioning.py).
+    dA and dD, sums over B*S tokens, and dB and dC, sums over di channels,
+    are accumulated in float64: in fp32 they drift past 2e-4 at jamba's
+    B*S = 8,192 and di = 8,192 (scripts/mamba_bwd_conditioning.py).
     """
     B, S, di = x.shape
     N = A.shape[1]
@@ -137,8 +138,8 @@ def mamba_scan_bwd_ref(dt, x, A, Bc, Cc, D, dy, dh_last=None):
         gB = torch.einsum("bdn,bn->bd", g, Bc[:, t])
         ddt[:, t] = (term * A).sum(-1) + x_t * gB
         dx[:, t] = D * dy_t + dt_t * gB
-        dB[:, t] = torch.einsum("bdn,bd->bn", g, dt_t * x_t)
-        dC[:, t] = torch.einsum("bdn,bd->bn", hs[t], dy_t)
+        dB[:, t] = torch.einsum("bdn,bd->bn", g.double(), (dt_t * x_t).double())
+        dC[:, t] = torch.einsum("bdn,bd->bn", hs[t].double(), dy_t.double())
         dD += (dy_t * x_t).sum(0).double()
         g = a * g
     return ddt, dx, dA.to(ft), dB, dC, dD.to(ft)
@@ -159,8 +160,10 @@ def mamba_scan_bwd_chunked_ref(dt, x, A, Bc, Cc, D, states, dy, dh_last=None,
     them: ``g += dy_t C_t``, ``ah = a_t h_{t-1}``, ``h_t = ah + dt_t x_t B_t``
     (the forward's update, so h_t is the forward's own), ``term = g ah``,
     then ``g *= a_t``.  The decay is ``exp2(dt A log2 e)``.  dB and dC are
-    summed over ``BLOCK``-channel blocks, then the blocks' partial sums in
-    block order; dA and dD are summed over each sub-chunk's tokens in the
+    summed over each warp's channels (32 lanes of N/4 lanes a channel) in
+    the computing dtype, then in float64 over the warps of a
+    ``BLOCK``-channel block and over the blocks in order; dA and dD are
+    summed over each sub-chunk's tokens in the
     computing dtype, those sums over each batch row's sub-chunks in
     ``acc_dtype`` (float64 as in the kernel; float32 for
     ``scripts/mamba_bwd_conditioning.py``'s comparison), then over the rows.
@@ -179,14 +182,17 @@ def mamba_scan_bwd_chunked_ref(dt, x, A, Bc, Cc, D, states, dy, dh_last=None,
     g = torch.zeros(B, di, N, dtype=ft, device=x.device) if dh_last is None else dh_last.clone()
     ddt, dx = torch.empty_like(dt), torch.empty_like(x)
     n_blocks = (di + cpad) // BLOCK
-    pB = torch.empty(B, S + pad, n_blocks, N, dtype=ft, device=x.device)
+    per_warp = 32 // (N // 4)               # channels a warp
+    f64 = torch.promote_types(ft, torch.float64)
+    pB = torch.empty(B, S + pad, n_blocks, N, dtype=f64, device=x.device)
     pC = torch.empty_like(pB)
     dA = torch.zeros(B, di, N, dtype=acc, device=x.device)
     dD = torch.zeros(B, di, dtype=acc, device=x.device)
 
     def blocks(v):                          # [B, di, N] -> [B, n_blocks, N], block sums
         v = torch.nn.functional.pad(v, (0, 0, 0, cpad))
-        return v.reshape(B, n_blocks, BLOCK, N).sum(2)
+        warps = v.reshape(B, n_blocks, BLOCK // per_warp, per_warp, N).sum(3)
+        return warps.to(f64).sum(2)
 
     for k in range(n_chunks - 1, -1, -1):
         h = states[:, :, k - 1].to(ft) if k else torch.zeros_like(g)
@@ -227,4 +233,4 @@ def mamba_scan_bwd_chunked_ref(dt, x, A, Bc, Cc, D, states, dy, dh_last=None,
     for b in range(1, n_blocks):
         dB += pB[:, :S, b]
         dC += pC[:, :S, b]
-    return (ddt[:, :S], dx[:, :S], dA.sum(0).to(ft), dB, dC, dD.sum(0).to(ft))
+    return (ddt[:, :S], dx[:, :S], dA.sum(0).to(ft), dB.to(ft), dC.to(ft), dD.sum(0).to(ft))
