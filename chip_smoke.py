@@ -151,7 +151,29 @@ paths:
     step traced (device time by kind and the backward's kernels); then
     ``python -m repro_torch.launch.train --arch rwkv6-3b`` as a process, 4
     steps at full size, and every per-layer gradient of it non-zero in
-    this process, one backward launch per layer.
+    this process, one backward launch per layer;
+19. the selective-scan backward kernel (``csrc/mamba_scan_bwd.cu``), on the
+    chunk states a training forward keeps, against ``mamba_scan_bwd_ref``
+    (the forward's bound 2e-4 on every gradient and its per-row bound over
+    rows that are not ~0; two calls bit-identical; with bf16 x the kernel's
+    fp32 dx / dB / dC held to the bounds and its bf16 ones equal to them
+    rounded; the forward's chunk states bit-equal to its h) at the tests'
+    shapes, jamba's training shape in the model layout on the reference's
+    test draw and on strong decays, a ragged S with a cotangent of h_last,
+    an S below 64, d_inner no multiple of 128 and N = 4 and 8; its time
+    (median of 21) and each of its two kernels' (traced) beside its bound,
+    the exponential floor and the plain version's (``mamba_scan_bwd_ref``),
+    the forward with and without its states, and at the main shape both
+    against the float64 plain version; no single PyTorch call computes it,
+    so it has no library time; then (c) jamba-v0.1-52b at full width cut
+    to one period (7 mamba + 1 attention layer) with a dense FFN in place
+    of the experts, bf16, AdamW, B=4 x S=2048, 5 steps of
+    ``build_train_step`` through ``ResilientTrainer``: step wall time,
+    tokens/s, MFU, peak memory, launches per step (14 / 7 scan, 2 / 1
+    flash), one more step traced by kind, every per-layer gradient
+    non-zero; (d) the same period with its experts (13.3 B parameters), one
+    gradient at B=1 x S=2048; (e) ``python -m repro_torch.launch.train
+    --arch jamba-v0.1-52b --smoke --device cuda`` as a process, 4 steps.
 
 Any failed check raises and the script exits non-zero without a result.  The
 last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -160,7 +182,8 @@ every ported kernel with its launches on its own main path (flash attention:
 the phase-3 granite-3-8b prefill; its backward: the phase-15(d) training
 run, calls of three kernels each; WKV-6: the phase-7 rwkv6-3b prefill;
 its backward: the phase-18 training run, calls of five kernels each;
-selective scan: the phase-10 jamba prefill; qmatmul: the phase-13 op call)
+selective scan: the phase-10 jamba prefill; its backward: the phase-19(c)
+training run, calls of two kernels each; qmatmul: the phase-13 op call)
 and its times (each also with its launches on phase 14's facade path), and
 the line before that the script's wall time.  Imports nothing of JAX or of
 ``repro``.
@@ -301,7 +324,7 @@ QMM_CASES = [
 QMM_MAIN = (8192, 12800, 4096)    # granite-3-8b FFN up-projection, B=4 x S=2048
 QMM_CLOSE_TOL = 0.02              # the reference's bound (test_qmatmul_quantized_close_to_fp)
 KERNEL_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "wkv6.cu", "wkv6_bwd.cu",
-                  "mamba_scan.cu", "qmatmul.cu")
+                  "mamba_scan.cu", "mamba_scan_bwd.cu", "qmatmul.cu")
 # Phase 14: the facade's problem, the llm pair of BENCH_serving.json on the
 # runtime bridge's default package tpu_v5e(16, (1, 16)), and what the solve
 # and deploy(global_batch=4) must give for it (tests/test_torch_api.py pins
@@ -367,6 +390,30 @@ WKV_BWD_CASES = [
 ]
 WKV_BWD_MAIN = "rwkv_train"
 RWKV_TRAIN_STEPS = 5
+# Phase 19: the selective-scan backward kernel against mamba_scan_bwd_ref,
+# (name, B, S, di, N, dtype, model layout, strong decays, a cotangent of
+# h_last): tests/test_kernels.py MAMBA_CASES, jamba's training shape in the
+# model layout (bf16 x, B / C column slices of one [B, S, R + 2N] tensor) on
+# the reference's test draw and on strong decays, a ragged S with dh_last,
+# an S below one 64-token chunk on strong decays with dh_last, d_inner no
+# multiple of the 128-channel block, and N = 4 and 8.  Then jamba trains at
+# full width cut to one period with a dense FFN (JAMBA_TRAIN), and one
+# period with its experts takes one gradient.
+MAMBA_BWD_CASES = [
+    ("mamba_case0", 2, 64, 128, 8, "float32", False, False, False),
+    ("mamba_case1", 1, 128, 256, 16, "float32", False, False, False),
+    ("mamba_case2", 1, 96, 64, 4, "float32", False, False, False),
+    ("jamba_train", 4, 2048, 8192, 16, "bfloat16", True, False, False),
+    ("jamba_train_strong", 4, 2048, 8192, 16, "bfloat16", True, True, False),
+    ("ragged_dh_last", 2, 1000, 8192, 16, "bfloat16", True, False, True),
+    ("short_strong_dh_last", 2, 40, 8192, 16, "bfloat16", True, True, True),
+    ("ragged_block", 2, 100, 200, 16, "float32", True, False, True),
+    ("state_4", 2, 300, 256, 4, "float32", True, False, True),
+    ("state_8", 2, 300, 384, 8, "bfloat16", True, False, False),
+]
+MAMBA_BWD_MAIN = "jamba_train"
+MAMBA_BWD_NAMES = ("ddt", "dx", "dA", "dB", "dC", "dD")
+JAMBA_TRAIN_LAYERS, JAMBA_TRAIN_STEPS = 8, 5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -544,15 +591,24 @@ def wkv_inputs(dev, B, H, S, hd, seed=0, strong=False):
     return r, k, v, logw, u
 
 
-def mamba_inputs(dev, B, S, di, N, dtype, model_layout, seed=0):
+def mamba_inputs(dev, B, S, di, N, dtype, model_layout, seed=0, strong=False):
     """The reference's test distribution: dt = softplus(normal), x, B, C
-    normal, A = -exp(0.5 normal), D = 1; x, B and C in ``dtype``."""
+    normal, A = -exp(0.5 normal), D = 1; x, B and C in ``dtype``.
+    ``strong``: dt log-uniform in [1e-2, 8] and A = -(1 .. N) on every
+    channel (the models' init) instead, so that exp(dt A) underflows to 0 on
+    some state-tokens."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    dt = torch.nn.functional.softplus(torch.randn(B, S, di, generator=g, device=dev))
+    if strong:
+        lo, hi = math.log(1e-2), math.log(8.0)
+        dt = torch.exp(lo + (hi - lo) * torch.rand(B, S, di, generator=g, device=dev))
+    else:
+        dt = torch.nn.functional.softplus(torch.randn(B, S, di, generator=g, device=dev))
     x = torch.randn(B, S, di, generator=g, device=dev).to(dtype)
     A = -torch.exp(0.5 * torch.randn(di, N, generator=g, device=dev))
+    if strong:
+        A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).repeat(di, 1)
     if model_layout:
         dbc = torch.randn(B, S, 256 + 2 * N, generator=g, device=dev).to(dtype)
         _, Bc, Cc = dbc.split([256, N, N], dim=-1)
@@ -1700,6 +1756,315 @@ def wkv6_training_phase(get_config, card: str, reset_launches, kernels, cuda_ms,
     return {"bwd": bwd[WKV_BWD_MAIN], "train": train}
 
 
+def mamba_bwd_errors(got, want) -> tuple[dict, list[str]]:
+    """The scan backward's six gradients against mamba_scan_bwd_ref: the
+    forward's bound 2e-4 on every one, and its per-row bound over rows whose
+    rms reaches FA_BWD_ROW_FLOOR of the tensor's (dD is one row)."""
+    import torch
+
+    res, missed = {"tol": MAMBA_TOL, "row_tol": MAMBA_ROW_REL_TOL}, []
+    for gname, a, w in zip(MAMBA_BWD_NAMES, got, want, strict=True):
+        err = (a.float() - w.float()).abs().max().item()
+        rel = row_rel_err(a, w, floor=FA_BWD_ROW_FLOOR)
+        if not bool(torch.isfinite(a).all()):
+            missed.append(f"{gname}: non-finite")
+        if not torch.allclose(a.float(), w.float(), rtol=MAMBA_TOL, atol=MAMBA_TOL):
+            missed.append(f"{gname}: max abs err {err} (tol {MAMBA_TOL})")
+        if not rel <= MAMBA_ROW_REL_TOL:
+            missed.append(f"{gname}: per-row error {rel} / rms (tol {MAMBA_ROW_REL_TOL})")
+        res[f"{gname}_max_abs_err"] = err
+        res[f"{gname}_row_rel_err"] = rel
+    res["max_abs_err"] = max(res[f"{g}_max_abs_err"] for g in MAMBA_BWD_NAMES)
+    return res, missed
+
+
+def mamba_bwd_kernel_checks(card: str, cuda_ms, cuda_ms_median, sync) -> dict:
+    """Phase 19 (a) and (b): the selective-scan backward kernel on the chunk
+    states the forward keeps, against mamba_scan_bwd_ref at every case of
+    MAMBA_BWD_CASES (the forward's bounds; two calls bit-identical; with bf16
+    x the kernel's fp32 dx / dB / dC held to them, and its bf16 ones equal
+    to those rounded), then its times at the training shape.  Returns the
+    results per case."""
+    import torch
+
+    from repro_torch.kernels.mamba.kernel import (mamba_scan_bwd_kernel, mamba_scan_kernel,
+                                                  n_state_slots)
+    from repro_torch.kernels.mamba.ref import mamba_scan_bwd_ref
+
+    dev = torch.device("cuda")
+    out = {}
+    for name, B, S, di, N, dt_name, model_layout, strong, with_dh in MAMBA_BWD_CASES:
+        dtype = getattr(torch, dt_name)
+        args = mamba_inputs(dev, B, S, di, N, dtype, model_layout, strong=strong)
+        g = torch.Generator(device=dev).manual_seed(1)
+        dy = torch.randn(B, S, di, generator=g, device=dev)
+        dh = torch.randn(B, di, N, generator=g, device=dev) if with_dh else None
+        y, h_last, states = mamba_scan_kernel(*args, with_states=True)
+        y0, h0 = mamba_scan_kernel(*args)
+        check(torch.equal(y, y0) and torch.equal(h_last, h0),
+              f"{name}: the forward with states differs from the one without")
+        check(tuple(states.shape) == (B, di, n_state_slots(S), N), f"{name}: states {states.shape}")
+        slots = n_state_slots(S)
+        for k in sorted({1, slots}) if slots else ():       # h at token 64k, bit for bit
+            prefix = [t[:, :64 * k] if t.dim() == 3 else t for t in args]
+            check(torch.equal(states[:, :, k - 1], mamba_scan_kernel(*prefix)[1]),
+                  f"{name}: chunk state {k - 1} is not the forward's h at token {64 * k}")
+        del y, h_last, y0, h0
+
+        def call(grad_dtype=None):
+            return mamba_scan_bwd_kernel(*args, states, dy, dh, grad_dtype=grad_dtype)
+
+        got32 = call(torch.float32)
+        got = call() if dtype != torch.float32 else got32
+        again = call()
+        want = mamba_scan_bwd_ref(*args, dy, dh)
+        sync()
+        res, missed = mamba_bwd_errors(got32, want)
+        check(not missed, f"{name}: kernel vs plain: {'; '.join(missed)}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again, strict=True)),
+              f"{name}: two calls differ")
+        check(all(torch.equal(a, b.to(a.dtype)) for a, b in zip(got, got32, strict=True)),
+              f"{name}: the gradients in {dt_name} are not the fp32 ones rounded")
+        check([t.dtype for t in got] == [torch.float32, dtype, torch.float32, dtype, dtype,
+                                         torch.float32], f"{name}: gradient dtypes")
+        rounding = ""
+        if name == MAMBA_BWD_MAIN:
+            # How far each is from the float64 plain version: max abs error /
+            # per-row error
+            want64 = mamba_scan_bwd_ref(*(a.double() for a in args), dy.double(),
+                                        None if dh is None else dh.double())
+            rounding = "; vs the fp64 plain version: " + ", ".join(
+                f"{who} {gn} {(x.double() - w64).abs().max().item():.3e} / "
+                f"{row_rel_err(x, w64, floor=FA_BWD_ROW_FLOOR):.3e}"
+                for who, got_ in (("fp32 plain", want), ("kernel", got32))
+                for gn, x, w64 in zip(MAMBA_BWD_NAMES, got_, want64))
+            del want64
+        del got, got32, again, want
+        if name == MAMBA_BWD_MAIN:
+            res["ms"] = cuda_ms_median(call, 21)
+            # each of the call's two kernels: the mean of its traced launches
+            call()
+            sync()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    call()
+                sync()
+            passes = {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA and "mamba_scan_bwd_" in e.name:
+                    kind = e.name.split("mamba_scan_bwd_")[1].split("<")[0].split("(")[0]
+                    passes.setdefault(kind, []).append(e.time_range.elapsed_us() / 1e3)
+            res["passes_ms"] = {kind: statistics.mean(ms) for kind, ms in passes.items()}
+            res["passes_traced"] = {kind: len(ms) for kind, ms in passes.items()}
+            del prof
+            res["plain_ms"] = cuda_ms(lambda: mamba_scan_bwd_ref(*args, dy, dh), 1)
+            res["fwd_ms"] = cuda_ms_median(lambda: mamba_scan_kernel(*args), 21)
+            res["fwd_with_states_ms"] = cuda_ms_median(
+                lambda: mamba_scan_kernel(*args, with_states=True), 21)
+            res["library_ms"] = None
+            # the least work: per state-token a_t (2), g (2), a h and h_t (3),
+            # the term and its dA (3), the sums over n for ddt and dx (4) and
+            # over the channels for dB and dC (4); per channel-token dt x, ddt,
+            # dx and dD (8).  Bytes: every input read once (B, C: the views'
+            # own elements), the chunk states read, every gradient written.
+            flops = B * S * di * (18 * N + 8)
+            grads_bytes = (4 * B * S * di + args[1].element_size() * (B * S * di + 2 * B * S * N)
+                           + 4 * (di * N + di))
+            nbytes = (sum(t.element_size() * t.numel() for t in args) + 4 * states.numel()
+                      + 4 * dy.numel() + grads_bytes)
+            t_ops, t_mem = flops / FP32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            clk = float(subprocess.run(
+                ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+                 "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                check=True, timeout=60).stdout)
+            res.update(bound_ms=1e3 * max(t_ops, t_mem),
+                       bound_by="operations" if t_ops >= t_mem else "bytes",
+                       bound_arithmetic=f"(18 N + 8) x B*S*di = {flops:.4e} FLOP / "
+                       f"{FP32_PEAK_FLOPS:.3e} FLOP/s = {1e3 * t_ops:.4f} ms; {nbytes} bytes / "
+                       f"{HBM_BYTES_PER_S:.3e} B/s = {1e3 * t_mem:.4f} ms",
+                       context={"exp_floor_ms_per_pass": 1e3 * B * S * di * N
+                                / (sms * SFU_EXP2_PER_CLOCK * clk * 1e6),
+                                "exp_passes": 2, "sm_clock_max_mhz": clk})
+        out[name] = res
+        print(f"  (a) {name} B={B} S={S} di={di} N={N} x {dt_name}"
+              f"{', B/C strided views' if model_layout else ''}"
+              f"{', strong decays' if strong else ''}{', dh_last' if with_dh else ''}: "
+              f"{json.dumps(res)}{rounding} {card}")
+        del args, dy, dh, states
+        torch.cuda.empty_cache()
+    return out
+
+
+def mamba_training_phase(get_config, card: str, reset_launches, kernels, cuda_ms,
+                         cuda_ms_median, sync) -> dict:
+    """Phase 19: the selective-scan backward kernel against its plain
+    version, then jamba-v0.1-52b trained on the card at full width, one
+    period of its layer pattern.  Returns the backward's results at the
+    main-path shape and its launches on the training path."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.ft import ResilientTrainer
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_kernel
+    from repro_torch.kernels.mamba.kernel import mamba_scan_bwd_kernel
+    from repro_torch.launch.train import check_gradients
+    from repro_torch.models import init_params
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime.planner import plan_for_cell
+    from repro_torch.runtime.train import build_train_step
+
+    dev = torch.device("cuda")
+    held = torch.cuda.memory_allocated()
+    print(f"phase 19: the selective-scan backward kernel, jamba-v0.1-52b training at full "
+          f"width ({held / 2**30:.3f} GiB allocated before the phase)")
+    check(held < 2 * 2**30, "an earlier phase's model is still on the card")
+    bwd = mamba_bwd_kernel_checks(card, cuda_ms, cuda_ms_median, sync)
+
+    # (c) one period of jamba at full width, its experts as one dense FFN:
+    # bf16, AdamW, B=4 x S=2048
+    full = get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(full, n_layers=JAMBA_TRAIN_LAYERS, moe=None)
+    kinds = cfg.block_kinds()
+    n_mamba, n_attn = kinds.count("mamba"), kinds.count("attn")
+    B, S = PREFILL_B, PREFILL_S
+    print(f"  (c) {full.name} full width, {cfg.n_layers} layers ({n_mamba} mamba, {n_attn} "
+          f"attention), bf16, AdamW, B={B} x S={S}, {JAMBA_TRAIN_STEPS} steps through "
+          "ResilientTrainer")
+    print(f"      reduced: n_layers {full.n_layers}→{cfg.n_layers}, moe "
+          f"{full.moe.n_experts}×top-{full.moe.top_k} → dense d_ff {cfg.d_ff}")
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(60), dev).train_params()
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = make_optimizer(cfg.optimizer)[0](model.param_tree())
+    plan = plan_for_cell(cfg, S, B, ("data", "model"), 1, kind="train")
+    print(f"      {n_params / 1e9:.3f} B params; DSE plan (model_axis 1, kind train): p1 {plan.p1}, "
+          f"p2 {plan.p2}, dse {plan.meta.get('dse')}; {torch.cuda.memory_allocated() / 2**30:.2f} "
+          "GiB allocated with the optimizer state")
+    step = build_train_step(cfg, plan, base_lr=3e-4, warmup=2, total_steps=100, device=dev)
+    it = make_batch_iterator(cfg, batch=B, seq=S, seed=0)
+    batches = {}
+
+    def batch_fn(s):
+        while s not in batches:
+            i, b = next(it)
+            batches[i] = b
+        return batches[s]
+
+    for s in range(JAMBA_TRAIN_STEPS + 2):
+        batch_fn(s)                                  # host data made before the timed run
+    with tempfile.TemporaryDirectory() as ckpt:
+        trainer = ResilientTrainer(train_step=step, batch_fn=batch_fn, ckpt_dir=ckpt,
+                                   ckpt_every=10 * JAMBA_TRAIN_STEPS)
+        reset_launches()
+        model, opt, hist = trainer.run(model, opt, n_steps=JAMBA_TRAIN_STEPS)
+        sync()
+        launches = {k.__name__.removesuffix("_kernel"): k.launches for k in kernels}
+    check(len(hist) == JAMBA_TRAIN_STEPS, f"{len(hist)} steps ran")
+    want = {"mamba_scan": 2 * n_mamba, "mamba_scan_bwd": n_mamba,
+            "flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
+    for k, per_step in want.items():
+        check(launches[k] == JAMBA_TRAIN_STEPS * per_step,
+              f"{launches[k]} {k} launches in {JAMBA_TRAIN_STEPS} steps, expected "
+              f"{JAMBA_TRAIN_STEPS * per_step} (remat runs each forward twice)")
+    check(all(n == 0 for k, n in launches.items() if k not in want),
+          f"another kernel launched on the jamba training path: {launches}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    check(all(math.isfinite(x) and x > 0 for x in losses + norms),
+          f"non-finite or zero loss {losses} or grad norm {norms}")
+    times = [1e3 * h["time"] for h in hist]
+    step_ms = statistics.median(times[1:])
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        model, opt, m = step(model, opt, batch_fn(JAMBA_TRAIN_STEPS))
+        sync()
+    check(math.isfinite(m["grad_norm"].item()) and math.isfinite(m["loss"].item()),
+          "non-finite traced step")
+    groups = train_breakdown(prof, hand=(("scan backward", "mamba_scan_bwd"),
+                                         ("scan forward", "mamba_scan_fwd"),
+                                         ("flash backward", "fa_bwd"),
+                                         ("flash forward", "fa_fwd")))
+    busy = sum(ms for _, ms in groups.values())
+    del prof
+    # model FLOPs: 6 x (parameters in products) x tokens, plus attention's
+    # 12 x B*H*hd*pairs a layer and the scan's (7 N + 3) forward and
+    # (18 N + 8) backward a channel-token a layer; remat's recomputed
+    # forward is not counted
+    n_mm = sum(p.numel() for n_, p in model.named_parameters()
+               if p.dim() == 2 and not n_.endswith(("embed", "conv_w", "A_log")))
+    N, di = cfg.mamba_d_state, cfg.mamba_expand * cfg.d_model
+    attn = 12 * B * cfg.n_heads * cfg.head_dim * visible_pairs(S, S, True, 0) * n_attn
+    scan = (25 * N + 11) * B * S * di * n_mamba
+    model_flops = 6 * n_mm * B * S + attn + scan
+    mfu = model_flops / (step_ms / 1e3) / BF16_PEAK_FLOPS
+    print(f"      losses {[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 4) for x in norms]}")
+    print(f"      step wall {step_ms:.3f} ms (median of steps 2-{JAMBA_TRAIN_STEPS}; all "
+          f"{[round(t, 3) for t in times]}), {B * S / (step_ms / 1e3):.1f} tokens/s, MFU "
+          f"{mfu:.4f} (model FLOPs 6 x {n_mm} x {B * S} + 12 x B*H*hd*pairs x {n_attn} + "
+          f"(25 N + 11) x B*S*di x {n_mamba} = {model_flops:.4e} per step / step wall / "
+          f"989e12), peak {peak:.2f} GiB, per step " + ", ".join(
+              f"{launches[k] // JAMBA_TRAIN_STEPS} {k}" for k in want) + f" launches {card}")
+    print(f"      traced step: device busy {busy:.3f} ms: " + ", ".join(
+        f"{kind} {ms:.3f} ms ({n} kernels)" for kind, (n, ms) in groups.items())
+        + f"; the scan backward {100 * groups['scan backward'][1] / busy:.2f} % of it {card}")
+    reset_launches()
+    n = check_gradients(model, batch_fn(JAMBA_TRAIN_STEPS + 1), dev)
+    sync()
+    check(mamba_scan_bwd_kernel.launches == n_mamba
+          and flash_attention_bwd_kernel.launches == n_attn,
+          "scan / flash backward launches in one gradient")
+    print(f"      gradient after training (B={B} x S={S}): all {n} per-layer gradients finite "
+          f"and non-zero, {n_mamba} scan backward launches")
+    train = {"step_ms": step_ms, "tokens_per_s": B * S / (step_ms / 1e3), "mfu": mfu,
+             "peak_gib": peak, "launches": launches, "busy": groups}
+    del model, opt, step, m, batches, it
+    torch.cuda.empty_cache()
+
+    # (d) the same period with its experts: one gradient at B=1 x S=2048,
+    # no optimizer
+    cfg_moe = dataclasses.replace(full, n_layers=JAMBA_TRAIN_LAYERS)
+    check(torch.cuda.memory_allocated() < 2 * 2**30, "the training model is still on the card")
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg_moe, torch.Generator(device=dev).manual_seed(61), dev).train_params()
+    n_params = sum(p.numel() for p in model.parameters())
+    held = torch.cuda.memory_allocated() / 2**30
+    _, batch = next(make_batch_iterator(cfg_moe, batch=1, seq=S, seed=1))
+    reset_launches()
+    n = check_gradients(model, batch, dev)
+    sync()
+    check(mamba_scan_bwd_kernel.launches == n_mamba
+          and flash_attention_bwd_kernel.launches == n_attn,
+          "scan / flash backward launches in the MoE gradient")
+    print(f"  (d) {full.name} full width, {cfg_moe.n_layers} layers with "
+          f"{full.moe.n_experts}×top-{full.moe.top_k} experts on every second layer, "
+          f"{n_params / 1e9:.3f} B params ({held:.2f} GiB of bf16 weights), one gradient at "
+          f"B=1 x S={S}: all {n} per-layer gradients finite and non-zero, {n_mamba} scan "
+          f"backward launches, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+    print(f"      reduced: n_layers {full.n_layers}→{cfg_moe.n_layers}, batch 1, no optimizer")
+    del model
+    torch.cuda.empty_cache()
+
+    # (e) the train launcher on the smoke config, as a process on the card
+    with tempfile.TemporaryDirectory() as ckpt:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", full.name, "--smoke",
+               "--device", "cuda", "--steps", str(LAUNCHER_STEPS), "--ckpt-every", "100",
+               "--ckpt-dir", ckpt]
+        proc = subprocess.run(cmd, cwd=REPO, env=dict(os.environ, PYTHONPATH=str(SRC)),
+                              capture_output=True, text=True, timeout=600)
+    shown = " ".join(cmd[1:10])                     # the checkpoint flags left out
+    check(proc.returncode == 0 and "final loss" in proc.stdout,
+          f"{shown} exited {proc.returncode}: {proc.stdout}{proc.stderr[-3000:]}")
+    print(f"  (e) python {shown}: " + " | ".join(
+        line for line in proc.stdout.strip().splitlines() if not line.startswith("plan:"))
+        + f" {card}")
+    return {"bwd": bwd[MAMBA_BWD_MAIN], "train": train}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"no src/repro_torch beside {Path(__file__).name}: run from a checkout",
@@ -1721,7 +2086,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_kernel,
                                                             flash_attention_kernel)
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.mamba.kernel import mamba_scan_kernel
+    from repro_torch.kernels.mamba.kernel import mamba_scan_bwd_kernel, mamba_scan_kernel
     from repro_torch.kernels.mamba.ref import mamba_scan_ref
     from repro_torch.kernels.qmatmul.kernel import qmatmul_kernel, tma_path
     from repro_torch.kernels.qmatmul.ops import qmatmul
@@ -1762,7 +2127,8 @@ def main() -> int:
     def reset_launches() -> None:
         flash_attention_kernel.launches = flash_attention_bwd_kernel.launches = 0
         wkv6_kernel.launches = wkv6_bwd_kernel.launches = 0
-        mamba_scan_kernel.launches = qmatmul_kernel.launches = 0
+        mamba_scan_kernel.launches = mamba_scan_bwd_kernel.launches = 0
+        qmatmul_kernel.launches = 0
 
     # ------------------------------------------------------------ phase 1
     smi = nvidia_smi_line()
@@ -1785,10 +2151,13 @@ def main() -> int:
     smem["wkv6_segment"].argtypes = [ctypes.c_int, ctypes.c_int]      # head dim, output pass
     smem["wkv6_bwd_sweep"] = _build.load_library("wkv6_bwd.cu").repro_wkv6_bwd_smem_bytes
     smem["wkv6_bwd_sweep"].argtypes = [ctypes.c_int, ctypes.c_int]    # head dim, pass
+    scan_bwd_smem = _build.load_library("mamba_scan_bwd.cu").repro_mamba_scan_bwd_smem_bytes
+    scan_bwd_smem.argtypes = [ctypes.c_int]                           # state size
     qmm_smem = _build.load_library("qmatmul.cu").repro_qmatmul_smem_bytes
     qmm_smem.argtypes = []
-    for fn in (*smem.values(), qmm_smem, fwd_smem, bwd_smem):
+    for fn in (*smem.values(), qmm_smem, fwd_smem, bwd_smem, scan_bwd_smem):
         fn.restype = ctypes.c_longlong
+    smem["mamba_scan_bwd_chunk"] = lambda n, *_: scan_bwd_smem(n)
     smem["qmatmul_tma"] = lambda *_: qmm_smem()                       # one size for both outputs
     smem["fa_fwd_bf16"] = lambda hd, stats: fwd_smem(hd)              # both instantiations
     smem["fa_bwd_dq_bf16"] = lambda hd: bwd_smem(hd, 0)
@@ -2388,7 +2757,7 @@ def main() -> int:
 
     # ------------------------------------------------------------ phase 14
     all_kernels = (flash_attention_kernel, flash_attention_bwd_kernel, wkv6_kernel,
-                   wkv6_bwd_kernel, mamba_scan_kernel, qmatmul_kernel)
+                   wkv6_bwd_kernel, mamba_scan_kernel, mamba_scan_bwd_kernel, qmatmul_kernel)
     facade_launches = facade_phase(get_config, card, granite_prefill_ms, reset_launches,
                                    all_kernels)
 
@@ -2424,6 +2793,10 @@ def main() -> int:
     # ------------------------------------------------------------ phase 18
     rwkv_training = wkv6_training_phase(get_config, card, reset_launches, all_kernels, cuda_ms,
                                         cuda_ms_median, sync)
+
+    # ------------------------------------------------------------ phase 19
+    jamba_training = mamba_training_phase(get_config, card, reset_launches, all_kernels,
+                                          cuda_ms, cuda_ms_median, sync)
 
     # ------------------------------------------------------------ result
     main_case = results[MAIN_PATH_CASE]
@@ -2462,6 +2835,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/mamba/kernel.py:61",
         "launches": mamba_launches, "facade_launches": facade_launches["mamba_scan"],
         **{k: mamba_case[k] for k in keys},
+    }, {
+        "name": "mamba_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/mamba_scan_bwd.cu",
+        "replaces": "src/repro/kernels/mamba/kernel.py:61",
+        "launches": jamba_training["train"]["launches"]["mamba_scan_bwd"],
+        "facade_launches": facade_launches["mamba_scan_bwd"],
+        **{k: jamba_training["bwd"][k] for k in keys},
     }, {
         "name": "qmatmul", "route": "cuda",
         "source": "src/repro_torch/csrc/qmatmul.cu",

@@ -110,7 +110,7 @@ def main() -> int:
             res = {"variant": item["name"], "source": item["source"], "note": item.get("note")}
             if item["source"] == "mamba_scan.cu":
                 fn = ctypes.CDLL(lib).repro_mamba_scan_fwd
-                fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
                                + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
                 B, S, di, N = 4, 2048, 8192, 16
                 args = mamba_inputs(dev, B, S, di, N, torch.bfloat16, True)
@@ -119,7 +119,7 @@ def main() -> int:
                 h = torch.empty(B, di, N, device=dev)
                 st = (ctypes.c_longlong * 10)(*dt.stride()[:2], *x.stride()[:2], *Bc.stride(),
                                                *Cc.stride())
-                ptrs = [t.data_ptr() for t in (dt, x, A, Bc, Cc, D, y, h)]
+                ptrs = [t.data_ptr() for t in (dt, x, A, Bc, Cc, D, y, h)] + [None]  # no states
 
                 def call():
                     if fn(N, 1, *ptrs, B, S, di, st, stream) != 0:

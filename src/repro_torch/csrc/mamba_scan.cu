@@ -8,7 +8,10 @@
 //     y_t = C_t . h_t + D_c * x_t
 // returning y [B,S,di] and h_last [B,di,N], both fp32.  The decay and the
 // input term are formed here, so the [B,S,di,N] tensors of the jnp model
-// never exist.
+// never exist.  For training, an instantiation also writes h at the start of
+// every kT-token chunk but the first ([B,di,n_chunks-1,N] fp32), from which
+// the backward (mamba_scan_bwd.cu) recomputes each chunk; the serving
+// instantiation is the same code without those stores.
 //
 // What bounds it on this card, at the jamba prefill shape (B=4, S=2048,
 // di=8192, N=16, x in bf16):
@@ -73,6 +76,7 @@ struct Params {
   const float* D;
   float* y;
   float* h_last;
+  float* states;               // [B,di,n_chunks-1,N], or null: no chunk states
   int B, S, di;
   long long dt_sb, dt_ss;      // strides in elements; the channel dim is unit-stride
   long long x_sb, x_ss;
@@ -171,7 +175,8 @@ __device__ __forceinline__ void store_ch(float* p, const float (&v)[C]) {
 // 4g .. 4g+3 of each, g = tid % L: kCPL independent recurrences that share
 // each token's B and C.  VEC: dt and x rows are 16-byte aligned and di fills
 // whole 16-byte pieces, so they stream by cp.async; otherwise by plain loads.
-template <int N, typename T, bool VEC>
+// STATES: h at the start of chunk k >= 1 goes to slot k - 1 of p.states.
+template <int N, typename T, bool VEC, bool STATES>
 __global__ void __launch_bounds__(kCB / kCPL * N / 4, 2)
 mamba_scan_fwd(const Params p) {
   constexpr int L = N / 4;                  // lanes a channel
@@ -273,6 +278,17 @@ mamba_scan_fwd(const Params p) {
   const bool vec_store = ch + C <= di && di % C == 0;
 
   for (int k = 0; k < n_chunks; ++k) {
+    if constexpr (STATES) {
+      if (k > 0) {
+        float* st = p.states + ((static_cast<long long>(bi) * di + ch) * (n_chunks - 1) + k - 1) * N
+                    + 4 * g;
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          if (ch + c < di)
+            *reinterpret_cast<float4*>(st + static_cast<long long>(c) * (n_chunks - 1) * N) =
+                make_float4(h[c][0], h[c][1], h[c][2], h[c][3]);
+      }
+    }
     cp_async_wait<kStages - 2>();       // this thread's pieces of chunk k landed
     __syncthreads();                    // everyone's landed; chunk k - 1 is done with
     issue(k + kStages - 1);             // into the slot chunk k - 1 used
@@ -331,16 +347,21 @@ mamba_scan_fwd(const Params p) {
       *reinterpret_cast<float4*>(h_out + c * N) = make_float4(h[c][0], h[c][1], h[c][2], h[c][3]);
 }
 
-template <int N, typename T, bool VEC>
+template <int N, typename T, bool VEC, bool STATES>
 int launch(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = Smem<N, T>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(mamba_scan_fwd<N, T, VEC>,
+  cudaError_t err = cudaFuncSetAttribute(mamba_scan_fwd<N, T, VEC, STATES>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid((p.di + kCB - 1) / kCB, p.B);
-  mamba_scan_fwd<N, T, VEC><<<grid, kCB / kCPL * N / 4, smem, stream>>>(p);
+  mamba_scan_fwd<N, T, VEC, STATES><<<grid, kCB / kCPL * N / 4, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int N, typename T, bool VEC>
+int launch_s(const Params& p, cudaStream_t stream) {
+  return p.states ? launch<N, T, VEC, true>(p, stream) : launch<N, T, VEC, false>(p, stream);
 }
 
 template <int N, typename T>
@@ -351,7 +372,7 @@ int launch_t(const Params& p, cudaStream_t stream) {
                    p.dt_ss % 4 == 0 && p.di % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(p.x) % 16 == 0 && p.x_sb % epp == 0 &&
                    p.x_ss % epp == 0 && p.di % epp == 0;
-  return vec ? launch<N, T, true>(p, stream) : launch<N, T, false>(p, stream);
+  return vec ? launch_s<N, T, true>(p, stream) : launch_s<N, T, false>(p, stream);
 }
 
 template <int N>
@@ -368,16 +389,17 @@ int launch_n(int x_dtype, const Params& p, cudaStream_t stream) {
 // dt: [B,S,di] fp32; x: [B,S,di] fp32 (x_dtype 0) or bf16 (1), both with a
 // unit-stride channel dim; A: contiguous [di,N] fp32; Bc, Cc: [B,S,N] in x's
 // dtype, any strides; D: [di] fp32; y: contiguous [B,S,di] fp32; h_last:
-// contiguous [B,di,N] fp32.  strides: (b, s) of dt and x, then (b, s, n) of
-// Bc and Cc.  Returns 0 or the CUDA error of the launch; -1 for a state size
-// or dtype without an instantiation.
+// contiguous [B,di,N] fp32; states: contiguous [B,di,ceil(S/64)-1,N] fp32, or
+// null for none.  strides: (b, s) of dt and x, then (b, s, n) of Bc and Cc.
+// Returns 0 or the CUDA error of the launch; -1 for a state size or dtype
+// without an instantiation.
 extern "C" int repro_mamba_scan_fwd(int d_state, int x_dtype, const void* dt, const void* x,
                                     const void* A, const void* Bc, const void* Cc,
-                                    const void* D, void* y, void* h_last, int B, int S,
-                                    int di, const long long* strides, void* stream) {
+                                    const void* D, void* y, void* h_last, void* states, int B,
+                                    int S, int di, const long long* strides, void* stream) {
   Params p{static_cast<const float*>(dt), x, static_cast<const float*>(A), Bc, Cc,
            static_cast<const float*>(D), static_cast<float*>(y),
-           static_cast<float*>(h_last), B, S, di,
+           static_cast<float*>(h_last), static_cast<float*>(states), B, S, di,
            strides[0], strides[1], strides[2], strides[3],
            strides[4], strides[5], strides[6], strides[7], strides[8], strides[9]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

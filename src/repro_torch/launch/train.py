@@ -13,11 +13,16 @@ a config whose weights, gradients and optimizer state exceed the card.
 
 The frontend stubs train on the data pipeline's embeddings (audio: a frame
 a position; vision: ``frontend_tokens`` patches ahead of the tokens).  The
-run fails if a step's loss or grad norm is not finite.
+run fails if a step's loss or grad norm is not finite.  ``--smoke`` on the
+card widens the smoke config's attention head dim (16) to the flash
+kernels' narrowest (64), as the card tests do:
+
+    python -m repro_torch.launch.train --arch jamba-v0.1-52b --smoke --device cuda --steps 4
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 import os
 import tempfile
@@ -28,6 +33,7 @@ from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.data import make_batch_iterator
 from repro_torch.device import resolve_device
 from repro_torch.ft import ResilientTrainer, StragglerMonitor
+from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
 from repro_torch.models import init_params, loss_fn
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import make_optimizer
@@ -75,6 +81,10 @@ def main(argv: list[str] | None = None) -> list[dict]:
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if device.type == "cuda":
+        if args.smoke and cfg.head_dim < min(HEAD_DIMS):
+            print(f"smoke config on the card: d_head {cfg.head_dim} -> {min(HEAD_DIMS)} "
+                  "(the flash kernels' narrowest head dim)")
+            cfg = dataclasses.replace(cfg, d_head=min(HEAD_DIMS))
         check_training_fits(cfg, torch.cuda.get_device_properties(device).total_memory)
     plan = plan_for_cell(cfg, args.seq, args.batch, ("data", "model"), model_axis=1,
                          kind="train", use_dse=not args.no_dse)

@@ -13,9 +13,10 @@ Dtypes follow the reference: with ``cfg.accum_steps == 1`` gradients stay
 in the parameter dtype (bf16 on the full configs) and clipping casts back
 to it; with ``accum_steps > 1`` the microbatches ``reshape(A, B // A)`` add
 fp32 gradients, divided by A and clipped in fp32.  On the card attention's
-backward is the flash backward kernel and the rwkv layers' the WKV-6
-backward kernel; mamba layers raise (no selective-scan backward kernel
-yet, ROADMAP A17).
+backward is the flash backward kernel (``csrc/flash_attention_bwd.cu``),
+the rwkv layers' the WKV-6 backward kernel (``csrc/wkv6_bwd.cu``) and the
+mamba layers' the selective-scan backward kernel
+(``csrc/mamba_scan_bwd.cu``), each behind its autograd function.
 """
 from __future__ import annotations
 

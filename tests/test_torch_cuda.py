@@ -14,8 +14,9 @@ import torch
 from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_kernel,
                                                         flash_attention_kernel)
 from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
-from repro_torch.kernels.mamba.kernel import mamba_scan_kernel
-from repro_torch.kernels.mamba.ref import mamba_scan_ref
+from repro_torch.kernels.mamba.kernel import mamba_scan_bwd_kernel, mamba_scan_kernel
+from repro_torch.kernels.mamba.ops import mamba_scan
+from repro_torch.kernels.mamba.ref import mamba_scan_bwd_ref, mamba_scan_ref
 from repro_torch.kernels.qmatmul.kernel import qmatmul_kernel, tma_path
 from repro_torch.kernels.qmatmul.ops import qmatmul
 from repro_torch.kernels.qmatmul.ref import qmatmul_ref, quantize_cols, quantize_rows
@@ -379,6 +380,95 @@ def test_mamba_scan_kernel_counts_launches(cuda_device):
     assert mamba_scan_kernel.launches == before + 1
 
 
+# (B, S, di, N, x dtype, a cotangent of h_last): tests/test_kernels.py
+# MAMBA_CASES, then ragged lengths over several 64-token chunks, S below one
+# chunk, one token, d_inner no multiple of the 128-channel block, bf16 x in
+# the model layout at N = 4, 8 and 16.
+MAMBA_BWD_GPU_CASES = [
+    (2, 64, 128, 8, torch.float32, False), (1, 128, 256, 16, torch.float32, False),
+    (1, 96, 64, 4, torch.float32, False), (2, 100, 256, 16, torch.float32, True),
+    (2, 40, 200, 16, torch.bfloat16, True), (1, 1, 128, 8, torch.float32, True),
+    (2, 300, 1000, 16, torch.bfloat16, False), (1, 700, 136, 4, torch.bfloat16, True),
+    (2, 129, 384, 8, torch.bfloat16, True),
+]
+
+
+def _assert_mamba_bwd_close(got, want):
+    """Every gradient within the forward's bound (2e-4, relative and
+    absolute: dA and dD are sums over B*S) and per row within
+    MAMBA_ROW_REL_TOL of the row's rms, over the rows whose rms reaches 1e-3
+    of the tensor's."""
+    for name, a, w in zip(("ddt", "dx", "dA", "dB", "dC", "dD"), got, want, strict=True):
+        assert a.shape == w.shape and a.dtype == torch.float32, name
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4, msg=name)
+        row_err = (a - w).abs().amax(-1)
+        row_rms = w.pow(2).mean(-1).sqrt()
+        keep = (row_rms > 0) & (row_rms >= 1e-3 * w.pow(2).mean().sqrt())
+        assert (row_err[keep] <= MAMBA_ROW_REL_TOL * row_rms[keep]).all(), \
+            (name, (row_err[keep] / row_rms[keep]).max().item())
+
+
+@pytest.mark.parametrize("case", MAMBA_BWD_GPU_CASES)
+def test_mamba_scan_bwd_kernel_matches_plain(cuda_device, case):
+    """The backward kernel on the chunk states the forward keeps, against
+    the plain backward: its fp32 gradients at the forward's bounds, those in
+    x's dtype the fp32 ones rounded, two calls bit-identical (no atomics;
+    fixed summation order)."""
+    *shape, dtype, with_dh = case
+    B, S, di, N = shape
+    args = _mamba_inputs(cuda_device, *shape, dtype=dtype, seed=2)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    dy = torch.randn(B, S, di, generator=g, device=cuda_device)
+    dh = torch.randn(B, di, N, generator=g, device=cuda_device) if with_dh else None
+    _, _, states = mamba_scan_kernel(*args, with_states=True)
+    got32 = mamba_scan_bwd_kernel(*args, states, dy, dh, grad_dtype=torch.float32)
+    got = mamba_scan_bwd_kernel(*args, states, dy, dh)
+    again = mamba_scan_bwd_kernel(*args, states, dy, dh)
+    want = mamba_scan_bwd_ref(*args, dy, dh)
+    torch.cuda.synchronize()
+    _assert_mamba_bwd_close(got32, want)
+    assert all(torch.equal(a, b.to(a.dtype)) for a, b in zip(got, got32, strict=True))
+    assert all(torch.equal(a, b) for a, b in zip(got, again, strict=True))
+
+
+def test_mamba_scan_autograd_goes_through_both_kernels(cuda_device):
+    """``mamba_scan`` on leaves laid out as the model passes them (bf16 x,
+    B and C column slices of one tensor): one forward and one backward
+    launch, gradients in the leaves' dtypes matching the plain backward; a
+    loss on h_last alone reaches the kernel as its cotangent with a zero
+    dy."""
+    B, S, di, N = 2, 200, 256, 16
+    dt, x, A, Bc, Cc, D = _mamba_inputs(cuda_device, B, S, di, N, dtype=torch.bfloat16, seed=4)
+    dbc = Bc._base.detach().clone().requires_grad_(True)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (dt, x, A, D)]
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    dy = torch.randn(B, S, di, generator=g, device=cuda_device)
+    dh = torch.randn(B, di, N, generator=g, device=cuda_device)
+
+    def run():
+        _, b, c = dbc.split([256, N, N], dim=-1)
+        return mamba_scan(leaves[0], leaves[1], leaves[2], b, c, leaves[3])
+
+    f0, b0 = mamba_scan_kernel.launches, mamba_scan_bwd_kernel.launches
+    y, h_last = run()
+    grads = torch.autograd.grad((y * dy).sum() + (h_last * dh).sum(), [*leaves, dbc])
+    assert (mamba_scan_kernel.launches, mamba_scan_bwd_kernel.launches) == (f0 + 1, b0 + 1)
+    assert [t.dtype for t in grads] == [torch.float32, torch.bfloat16, torch.float32,
+                                        torch.float32, torch.bfloat16]
+    args = (dt, x, A, Bc, Cc, D)
+    for loss_dy, loss_dh in ((dy, dh), (torch.zeros_like(dy), dh)):
+        if loss_dy is not dy:
+            y, h_last = run()
+            grads = torch.autograd.grad((h_last * dh).sum(), [*leaves, dbc])
+        ddt, dx, dA, dB, dC, dD = mamba_scan_bwd_kernel(*args, mamba_scan_kernel(
+            *args, with_states=True)[2], loss_dy, loss_dh)
+        for a, w in ((grads[0], ddt), (grads[1], dx), (grads[2], dA), (grads[3], dD),
+                     (grads[4][..., 256:256 + N], dB), (grads[4][..., 256 + N:], dC)):
+            assert torch.equal(a, w)
+        assert (grads[4][..., :256] == 0).all()
+
+
 # (M, N, K, out dtype): tests/test_kernels.py's shapes, benchmarks/
 # kernel_bench.py's 256 x 512 x 256 (2 output tiles: fewer than SMs), ragged
 # M / N / K on the byte-staged mma.sync path (K % 16 nonzero), ragged tiles
@@ -670,21 +760,38 @@ def test_model_gradients_through_the_kernels_match_plain_attention(cuda_device):
     assert all(nonzero[id(blk.attn[n])] for blk in model.blocks for n in ("wq", "wk", "wv"))
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b"])
-def test_training_without_a_backward_kernel_raises(cuda_device, arch):
-    """mamba_scan has no backward kernel yet: on the card a call that
-    needs a gradient raises (ROADMAP A17) rather than dropping it."""
+def test_jamba_model_trains_on_the_card(cuda_device):
+    """jamba's smoke config at head dim 64 (the flash kernels' narrowest),
+    bf16: two train steps through the selective-scan forward and backward
+    kernels (remat runs the forward twice a layer) and the flash kernels,
+    every mamba weight moved, the loss and grad norm finite."""
     import dataclasses
 
     from repro_torch.configs import get_smoke_config
-    from repro_torch.models import init_params, loss_fn
+    from repro_torch.models import init_params
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime.planner import plan_for_cell
+    from repro_torch.runtime.train import build_train_step
 
-    cfg = dataclasses.replace(get_smoke_config(arch), d_head=64, rwkv_head_dim=64)
+    cfg = dataclasses.replace(get_smoke_config("jamba-v0.1-52b"), d_head=64,
+                              param_dtype="bfloat16")
+    n_mamba = cfg.block_kinds().count("mamba")
     model = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
                         cuda_device).train_params()
-    tokens = torch.zeros(1, 32, dtype=torch.int64, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="A17"):
-        loss_fn(model, tokens, tokens)
+    opt = make_optimizer(cfg.optimizer)[0](model.param_tree())
+    plan = plan_for_cell(cfg, 300, 2, ("data", "model"), 1, kind="train", use_dse=False)
+    step = build_train_step(cfg, plan, base_lr=1e-3, warmup=1, device=cuda_device)
+    before = {n: p.detach().clone() for n, p in model.named_parameters() if ".mamba." in n}
+    g = torch.Generator().manual_seed(2)
+    f0, b0 = mamba_scan_kernel.launches, mamba_scan_bwd_kernel.launches
+    for _ in range(2):
+        toks = torch.randint(0, cfg.vocab, (2, 301), generator=g)
+        model, opt, m = step(model, opt, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+        assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    assert mamba_scan_bwd_kernel.launches - b0 == 2 * n_mamba
+    assert mamba_scan_kernel.launches - f0 == 2 * 2 * n_mamba
+    after = dict(model.named_parameters())
+    assert before and all(not torch.equal(before[n], after[n]) for n in before)
 
 
 def test_rwkv_model_trains_on_the_card(cuda_device):

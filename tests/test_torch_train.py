@@ -167,8 +167,10 @@ def _check(records, param_tol=PARAM_TOL, state_tol=STATE_TOL, norm_rtol=LOSS_RTO
     ("paligemma-3b", {"accum_steps": 2}),           # embeddings row-sliced with the labels
     ("musicgen-medium", {"tie_embeddings": True}),  # the table reaches the loss through the head
     ("rwkv6-3b", {}),                               # AdamW through the WKV-6 recurrence
+    ("jamba-v0.1-52b", {"moe": None}),              # AdamW through the selective scan
 ], ids=["granite-adamw", "gemma2-adamw", "granite-accum2", "granite-adafactor-R2",
-        "paligemma-adamw", "musicgen-adamw", "paligemma-accum2", "musicgen-tied", "rwkv6-adamw"])
+        "paligemma-adamw", "musicgen-adamw", "paligemma-accum2", "musicgen-tied", "rwkv6-adamw",
+        "jamba-dense-adamw"])
 def test_train_steps_match_reference(arch, over):
     _check(_run(arch, **over))
 
