@@ -416,6 +416,37 @@ MAMBA_BWD_NAMES = ("ddt", "dx", "dA", "dB", "dC", "dD")
 JAMBA_TRAIN_LAYERS, JAMBA_TRAIN_STEPS = 8, 5
 
 
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device ms of ``fn`` over ``iters`` calls between two events,
+    after one warm-up call (which also builds a kernel at first use)."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def cuda_ms_median(fn, reps: int) -> float:
+    """Median over ``reps`` launches, each between its own two events."""
+    import torch
+
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(start.elapsed_time(end) for start, end in events)
+
+
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
@@ -1778,6 +1809,19 @@ def mamba_bwd_errors(got, want) -> tuple[dict, list[str]]:
     return res, missed
 
 
+def scan_bwd_split(prof) -> dict[str, list[float]]:
+    """Device ms of each launch of the scan backward's two kernels in a
+    trace, by kernel (``chunk``: the sweep, ``sum``: the partials' sums)."""
+    import torch
+
+    split = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "mamba_scan_bwd_" in e.name:
+            kind = e.name.split("mamba_scan_bwd_")[1].split("<")[0].split("(")[0]
+            split.setdefault(kind, []).append(e.time_range.elapsed_us() / 1e3)
+    return split
+
+
 def mamba_bwd_kernel_checks(card: str, cuda_ms, cuda_ms_median, sync) -> dict:
     """Phase 19 (a) and (b): the selective-scan backward kernel on the chunk
     states the forward keeps, against mamba_scan_bwd_ref at every case of
@@ -1843,17 +1887,16 @@ def mamba_bwd_kernel_checks(card: str, cuda_ms, cuda_ms_median, sync) -> dict:
         if name == MAMBA_BWD_MAIN:
             res["ms"] = cuda_ms_median(call, 21)
             # each of the call's two kernels: the mean of its traced launches
+            # (a trace of the device alone kept none of them after the
+            # earlier phases; with the host's activity it keeps them)
             call()
             sync()
-            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
                 for _ in range(5):
                     call()
                 sync()
-            passes = {}
-            for e in prof.events():
-                if e.device_type == torch.autograd.DeviceType.CUDA and "mamba_scan_bwd_" in e.name:
-                    kind = e.name.split("mamba_scan_bwd_")[1].split("<")[0].split("(")[0]
-                    passes.setdefault(kind, []).append(e.time_range.elapsed_us() / 1e3)
+            passes = scan_bwd_split(prof)
             res["passes_ms"] = {kind: statistics.mean(ms) for kind, ms in passes.items()}
             res["passes_traced"] = {kind: len(ms) for kind, ms in passes.items()}
             del prof
@@ -1989,6 +2032,7 @@ def mamba_training_phase(get_config, card: str, reset_launches, kernels, cuda_ms
                                          ("flash backward", "fa_bwd"),
                                          ("flash forward", "fa_fwd")))
     busy = sum(ms for _, ms in groups.values())
+    split = {kind: sum(ms) / n_mamba for kind, ms in scan_bwd_split(prof).items()}
     del prof
     # model FLOPs: 6 x (parameters in products) x tokens, plus attention's
     # 12 x B*H*hd*pairs a layer and the scan's (7 N + 3) forward and
@@ -2011,7 +2055,8 @@ def mamba_training_phase(get_config, card: str, reset_launches, kernels, cuda_ms
               f"{launches[k] // JAMBA_TRAIN_STEPS} {k}" for k in want) + f" launches {card}")
     print(f"      traced step: device busy {busy:.3f} ms: " + ", ".join(
         f"{kind} {ms:.3f} ms ({n} kernels)" for kind, (n, ms) in groups.items())
-        + f"; the scan backward {100 * groups['scan backward'][1] / busy:.2f} % of it {card}")
+        + f"; the scan backward {100 * groups['scan backward'][1] / busy:.2f} % of it, per "
+        "call: " + ", ".join(f"{kind} {ms:.3f} ms" for kind, ms in split.items()) + f" {card}")
     reset_launches()
     n = check_gradients(model, batch_fn(JAMBA_TRAIN_STEPS + 1), dev)
     sync()
@@ -2021,7 +2066,7 @@ def mamba_training_phase(get_config, card: str, reset_launches, kernels, cuda_ms
     print(f"      gradient after training (B={B} x S={S}): all {n} per-layer gradients finite "
           f"and non-zero, {n_mamba} scan backward launches")
     train = {"step_ms": step_ms, "tokens_per_s": B * S / (step_ms / 1e3), "mfu": mfu,
-             "peak_gib": peak, "launches": launches, "busy": groups}
+             "peak_gib": peak, "launches": launches, "busy": groups, "bwd_split": split}
     del model, opt, step, m, batches, it
     torch.cuda.empty_cache()
 
@@ -2100,29 +2145,6 @@ def main() -> int:
 
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
-
-    def cuda_ms(fn, iters: int) -> float:
-        fn()                                    # warm-up (and first-use build)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
-
-    def cuda_ms_median(fn, reps: int) -> float:
-        """Median over ``reps`` launches, each between its own two events."""
-        fn()
-        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-                  for _ in range(reps)]
-        for start, end in events:
-            start.record()
-            fn()
-            end.record()
-        sync()
-        return statistics.median(start.elapsed_time(end) for start, end in events)
 
     def reset_launches() -> None:
         flash_attention_kernel.launches = flash_attention_bwd_kernel.launches = 0

@@ -11,7 +11,8 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"] + [
     REPO / "scripts" / name
     for name in ("wkv6_strong_decay.py", "kernel_variants.py", "prefill_prediction.py",
-                 "wkv6_bwd_conditioning.py", "wkv6_bwd_precision.py")]
+                 "wkv6_bwd_conditioning.py", "wkv6_bwd_precision.py",
+                 "mamba_bwd_conditioning.py", "mamba_bwd_phase.py")]
 BANNED = ("jax", "jaxlib", "repro")
 
 
