@@ -161,7 +161,7 @@ paths:
     shapes, jamba's training shape in the model layout on the reference's
     test draw and on strong decays, a ragged S with a cotangent of h_last,
     an S below 64, d_inner no multiple of 128 and N = 4 and 8; its time
-    (median of 21) and each of its two kernels' (traced) beside its bound,
+    (median of 21; each of its two kernels' traced in (c)) beside its bound,
     the exponential floor and the plain version's (``mamba_scan_bwd_ref``),
     the forward with and without its states, and at the main shape both
     against the float64 plain version; no single PyTorch call computes it,
@@ -1809,25 +1809,13 @@ def mamba_bwd_errors(got, want) -> tuple[dict, list[str]]:
     return res, missed
 
 
-def scan_bwd_split(prof) -> dict[str, list[float]]:
-    """Device ms of each launch of the scan backward's two kernels in a
-    trace, by kernel (``chunk``: the sweep, ``sum``: the partials' sums)."""
-    import torch
-
-    split = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and "mamba_scan_bwd_" in e.name:
-            kind = e.name.split("mamba_scan_bwd_")[1].split("<")[0].split("(")[0]
-            split.setdefault(kind, []).append(e.time_range.elapsed_us() / 1e3)
-    return split
-
-
 def mamba_bwd_kernel_checks(card: str, cuda_ms, cuda_ms_median, sync) -> dict:
     """Phase 19 (a) and (b): the selective-scan backward kernel on the chunk
     states the forward keeps, against mamba_scan_bwd_ref at every case of
     MAMBA_BWD_CASES (the forward's bounds; two calls bit-identical; with bf16
     x the kernel's fp32 dx / dB / dC held to them, and its bf16 ones equal
-    to those rounded), then its times at the training shape.  Returns the
+    to those rounded), then its times at the training shape (each of its
+    two kernels' is traced in the training step, phase 19(c)).  Returns the
     results per case."""
     import torch
 
@@ -1885,21 +1873,8 @@ def mamba_bwd_kernel_checks(card: str, cuda_ms, cuda_ms_median, sync) -> dict:
             del want64
         del got, got32, again, want
         if name == MAMBA_BWD_MAIN:
+            # each of its two kernels' time: traced in the training step, (c)
             res["ms"] = cuda_ms_median(call, 21)
-            # each of the call's two kernels: the mean of its traced launches
-            # (a trace of the device alone kept none of them after the
-            # earlier phases; with the host's activity it keeps them)
-            call()
-            sync()
-            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts) as prof:
-                for _ in range(5):
-                    call()
-                sync()
-            passes = scan_bwd_split(prof)
-            res["passes_ms"] = {kind: statistics.mean(ms) for kind, ms in passes.items()}
-            res["passes_traced"] = {kind: len(ms) for kind, ms in passes.items()}
-            del prof
             res["plain_ms"] = cuda_ms(lambda: mamba_scan_bwd_ref(*args, dy, dh), 1)
             res["fwd_ms"] = cuda_ms_median(lambda: mamba_scan_kernel(*args), 21)
             res["fwd_with_states_ms"] = cuda_ms_median(
@@ -2032,7 +2007,14 @@ def mamba_training_phase(get_config, card: str, reset_launches, kernels, cuda_ms
                                          ("flash backward", "fa_bwd"),
                                          ("flash forward", "fa_fwd")))
     busy = sum(ms for _, ms in groups.values())
-    split = {kind: sum(ms) / n_mamba for kind, ms in scan_bwd_split(prof).items()}
+    # the backward's two kernels a call (chunk: the sweep; sum: the partials'
+    # sums).  A short trace of the calls alone, begun at a profile's start,
+    # kept none of their launches after the earlier phases; this one keeps all.
+    split = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "mamba_scan_bwd_" in e.name:
+            kind = e.name.split("mamba_scan_bwd_")[1].split("<")[0]
+            split[kind] = split.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3 / n_mamba
     del prof
     # model FLOPs: 6 x (parameters in products) x tokens, plus attention's
     # 12 x B*H*hd*pairs a layer and the scan's (7 N + 3) forward and
