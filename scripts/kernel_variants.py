@@ -5,10 +5,11 @@
     python3 scripts/kernel_variants.py scripts/qmatmul_ablations.json
     python3 scripts/kernel_variants.py scripts/flash_bwd_ablations.json
     python3 scripts/kernel_variants.py scripts/flash_bwd_mutations.json
+    python3 scripts/kernel_variants.py scripts/scan_bwd_ablations.json
 
 Each entry of the spec is ``{"name", "source", "edits", "note"}``: ``source`` is a
 file under ``src/repro_torch/csrc`` (``mamba_scan.cu``, ``wkv6.cu``,
-``qmatmul.cu`` or ``flash_attention_bwd.cu``) and ``edits`` a list of ``[old, new]`` text replacements,
+``qmatmul.cu``, ``flash_attention_bwd.cu`` or ``mamba_scan_bwd.cu``) and ``edits`` a list of ``[old, new]`` text replacements,
 each of which must match.  Every variant is built with the flags of
 ``kernels/_build.py`` (one ``nvcc`` each, in parallel) into a scratch
 directory, called through the same C interface as the kernel, and timed
@@ -20,8 +21,12 @@ granite-3-8b's FFN up-projection (M=8192, K=4096, N=12800, fp32 out) on
 its wgmma / TMA path, with the [N,K] scratch holding w transposed before
 the timing, the flash backward at granite-3-8b's training shape (B=4,
 H=32, KV=8, S=2048, hd=128, bf16, causal; q, k, v transposed views as the
-model passes them), on what a training forward of the built kernel keeps.
-A flash-backward variant goes through the wrapper in place of the kernel.
+model passes them), on what a training forward of the built kernel keeps,
+the selective-scan backward at jamba's training shape (B=4, S=2048,
+di=8192, N=16, x bf16, B / C strided views, ``chip_smoke.mamba_inputs``) on
+the reference's test draw and on strong decays, on the chunk states of the
+forward kernel.  A flash-backward or scan-backward variant goes through the
+wrapper in place of the kernel.
 A variant that removes work gives wrong outputs on purpose;
 the max abs difference from the plain version is printed beside each time
 so that the two kinds stand apart.  A flash-backward entry with ``cases``
@@ -88,6 +93,8 @@ def main() -> int:
                             nvidia_smi_line, wkv_inputs)
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.mamba import kernel as mk
+    from repro_torch.kernels.mamba.ref import mamba_scan_bwd_ref
     from repro_torch.kernels.mamba.ref import mamba_scan_ref
     from repro_torch.kernels.qmatmul.ref import qmatmul_ref
     from repro_torch.kernels.rwkv6.kernel import SEGMENT
@@ -101,6 +108,7 @@ def main() -> int:
     qmm = None    # qmatmul's inputs, plain output and w transposed, made once
     fab = None    # the flash backward's inputs and plain gradients, made once
     fa_cases = {}  # (case, dtype) -> inputs and plain gradients, made once
+    scan_bwd = {}  # decay range -> the scan backward's inputs, states and plain gradients
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(8) as pool:
         built = list(pool.map(lambda item: build(item, Path(tmp)), spec))
         for item, (lib, err) in zip(spec, built):
@@ -193,6 +201,31 @@ def main() -> int:
                         del got
                 finally:
                     fa._bwd = as_is
+            elif item["source"] == "mamba_scan_bwd.cu":
+                # the variant goes through the wrapper in place of the kernel
+                variant = ctypes.CDLL(lib).repro_mamba_scan_bwd
+                variant.argtypes, variant.restype = mk._bwd().argtypes, mk._bwd().restype
+                as_is, mk._bwd = mk._bwd, lambda: variant
+                try:
+                    B, S, di, N = 4, 2048, 8192, 16
+                    for which in ("reference", "strong"):
+                        if which not in scan_bwd:
+                            args = mamba_inputs(dev, B, S, di, N, torch.bfloat16, True,
+                                                strong=which == "strong")
+                            g = torch.Generator(device=dev).manual_seed(1)
+                            dy = torch.randn(B, S, di, generator=g, device=dev)
+                            states = mk.mamba_scan_kernel(*args, with_states=True)[2]
+                            scan_bwd[which] = (args, states, dy, mamba_scan_bwd_ref(*args, dy))
+                        args, states, dy, want = scan_bwd[which]
+                        res[f"ms_{which}"] = events_ms(
+                            torch, lambda: mk.mamba_scan_bwd_kernel(*args, states, dy))
+                        got = mk.mamba_scan_bwd_kernel(*args, states, dy,
+                                                       grad_dtype=torch.float32)
+                        res[f"max_abs_diff_{which}"] = max(
+                            (a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+                        del got
+                finally:
+                    mk._bwd = as_is
             else:
                 fn = ctypes.CDLL(lib).repro_wkv6_fwd
                 fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4

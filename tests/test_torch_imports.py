@@ -12,7 +12,7 @@ PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chi
     REPO / "scripts" / name
     for name in ("wkv6_strong_decay.py", "kernel_variants.py", "prefill_prediction.py",
                  "wkv6_bwd_conditioning.py", "wkv6_bwd_precision.py",
-                 "mamba_bwd_conditioning.py", "mamba_bwd_phase.py")]
+                 "mamba_bwd_conditioning.py", "mamba_bwd_phase.py", "sass_loops.py")]
 BANNED = ("jax", "jaxlib", "repro")
 
 
