@@ -14,8 +14,10 @@ paths:
    kernel and every bf16 flash backward kernel at hd 64 and 128 holds wgmma
    (``HGMMA``) and TMA (``UTMALDG``) instructions, the bf16 backward at hd
    256 ``mma.sync`` (``HMMA``), and every ``qmatmul_tma`` kernel the int8
-   wgmma (``IGMMA``) and TMA with no spills; the WKV-6 backward's fp64
-   instructions (``DFMA``, ``DMUL``, ``DADD``) by kernel;
+   wgmma (``IGMMA``) and TMA with no spills, and every selective-scan
+   backward sweep kernel TMA loads and stores (``UTMALDG``, ``UTMASTG``)
+   with no spills; the WKV-6 backward's fp64 instructions (``DFMA``,
+   ``DMUL``, ``DADD``) by kernel;
 2. flash-attention kernel vs its plain version at every shape the later
    phases give it, phases 16-17's five head layouts included (reference
    bounds: 2e-3 fp32, 2e-2 bf16, plus a per-row bound relative to the
@@ -1903,7 +1905,9 @@ def mamba_bwd_kernel_checks(card: str, cuda_ms, cuda_ms_median, sync) -> dict:
                        f"{HBM_BYTES_PER_S:.3e} B/s = {1e3 * t_mem:.4f} ms",
                        context={"exp_floor_ms_per_pass": 1e3 * B * S * di * N
                                 / (sms * SFU_EXP2_PER_CLOCK * clk * 1e6),
-                                "exp_passes": 2, "sm_clock_max_mhz": clk})
+                                # the chunk's forward over all but its last
+                                # sub-chunk, then every sub-chunk's recompute
+                                "exp_passes": 2 - 1 / 8, "sm_clock_max_mhz": clk})
         out[name] = res
         print(f"  (a) {name} B={B} S={S} di={di} N={N} x {dt_name}"
               f"{', B/C strided views' if model_layout else ''}"
@@ -2156,12 +2160,13 @@ def main() -> int:
     smem["wkv6_bwd_sweep"] = _build.load_library("wkv6_bwd.cu").repro_wkv6_bwd_smem_bytes
     smem["wkv6_bwd_sweep"].argtypes = [ctypes.c_int, ctypes.c_int]    # head dim, pass
     scan_bwd_smem = _build.load_library("mamba_scan_bwd.cu").repro_mamba_scan_bwd_smem_bytes
-    scan_bwd_smem.argtypes = [ctypes.c_int]                           # state size
+    scan_bwd_smem.argtypes = [ctypes.c_int] * 3                       # state size, x, out dtype
     qmm_smem = _build.load_library("qmatmul.cu").repro_qmatmul_smem_bytes
     qmm_smem.argtypes = []
     for fn in (*smem.values(), qmm_smem, fwd_smem, bwd_smem, scan_bwd_smem):
         fn.restype = ctypes.c_longlong
-    smem["mamba_scan_bwd_chunk"] = lambda n, *_: scan_bwd_smem(n)
+    smem["mamba_scan_bwd_chunk"] = lambda n, x_bf16, f32_out: scan_bwd_smem(
+        n, x_bf16, x_bf16 and not f32_out)
     smem["qmatmul_tma"] = lambda *_: qmm_smem()                       # one size for both outputs
     smem["fa_fwd_bf16"] = lambda hd, stats: fwd_smem(hd)              # both instantiations
     smem["fa_bwd_dq_bf16"] = lambda hd: bwd_smem(hd, 0)
@@ -2173,7 +2178,7 @@ def main() -> int:
             for name, regs, spill in ptxas_report(log.read_text()):
                 spills[name] = spill
                 base = name.split("<")[0]
-                targs = [int(a) if a.isdigit() else int(a == "true")
+                targs = [int(a) if a.isdigit() else int(a in ("true", "__nv_bfloat16"))
                          for a in name.split("<")[-1].rstrip(">").split(", ")]
                 dyn = (f", {smem[base](*targs)} bytes dynamic shared memory"
                        if base in smem else "")
@@ -2202,6 +2207,16 @@ def main() -> int:
     counts = sass_counts(_build.library_path("wkv6_bwd.cu"))
     print("  SASS of wkv6_bwd.cu (DFMA, DMUL, DADD): " + ", ".join(
         f"{k} {v['DFMA']}, {v['DMUL']}, {v['DADD']}" for k, v in sorted(counts.items())))
+    # The scan backward stages its ring and stores ddt / dx by TMA (UTMALDG,
+    # UTMASTG) and must not spill: its sweep holds 128 registers a thread.
+    counts = sass_counts(_build.library_path("mamba_scan_bwd.cu"))
+    chunk = {k: v for k, v in counts.items() if k.startswith("mamba_scan_bwd_chunk")}
+    print("  SASS of mamba_scan_bwd.cu (UTMALDG, UTMASTG, DADD): " + ", ".join(
+        f"{k} {v['UTMALDG']}, {v['UTMASTG']}, {v['DADD']}" for k, v in sorted(chunk.items())))
+    check(len(chunk) == 9 and all(v["UTMALDG"] > 0 and v["UTMASTG"] > 0 for v in chunk.values()),
+          f"scan backward kernels without TMA (UTMALDG, UTMASTG) in their SASS: {chunk}")
+    check(all("0 bytes spill stores, 0 bytes spill loads" in spills.get(k, "") for k in chunk),
+          f"scan backward kernels spill: { {k: spills.get(k) for k in chunk} }")
     # The bf16 backward at hd 64 and 128 must run on wgmma and TMA; at hd 256
     # it keeps mma.sync.
     counts = sass_counts(_build.library_path("flash_attention_bwd.cu"))

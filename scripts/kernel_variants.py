@@ -33,8 +33,8 @@ so that the two kinds stand apart.  A flash-backward entry with ``cases``
 (``[[name, dtype], ...]``, names of ``chip_smoke.FA_BWD_CASES``) is not
 timed: it runs at each case's shape and inputs and is held to
 ``chip_smoke.py`` phase 15(a)'s bounds, which must fail a variant that
-computes something else.  One JSON line per variant, then the card's name
-and power limit.
+computes something else.  One JSON line per variant (with its kernels'
+registers and spills from ptxas), then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -50,7 +50,7 @@ REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "src" / "repro_torch" / "csrc"
 
 
-def build(item: dict, out: Path) -> tuple[str, str | None]:
+def build(item: dict, out: Path) -> tuple[str, bool, str]:
     from repro_torch.kernels import _build
 
     text = (CSRC / item["source"]).read_text()
@@ -62,7 +62,7 @@ def build(item: dict, out: Path) -> tuple[str, str | None]:
     src.write_text(text)
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(CSRC), "-o", str(lib),
                            str(src)], capture_output=True, text=True)
-    return str(lib), None if proc.returncode == 0 else (proc.stdout + proc.stderr)[-3000:]
+    return str(lib), proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def events_ms(torch, fn, iters: int = 20, reps: int = 3) -> list[float]:
@@ -90,7 +90,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO / "src"))
     sys.path.insert(1, str(REPO))
     from chip_smoke import (FA_BWD_CASES, fa_bwd_errors, fa_bwd_inputs, mamba_inputs,
-                            nvidia_smi_line, wkv_inputs)
+                            nvidia_smi_line, ptxas_report, wkv_inputs)
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     from repro_torch.kernels.mamba import kernel as mk
@@ -111,11 +111,12 @@ def main() -> int:
     scan_bwd = {}  # decay range -> the scan backward's inputs, states and plain gradients
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(8) as pool:
         built = list(pool.map(lambda item: build(item, Path(tmp)), spec))
-        for item, (lib, err) in zip(spec, built):
-            if err is not None:
-                print(json.dumps({"variant": item["name"], "build": "failed"}), err)
+        for item, (lib, ok, log) in zip(spec, built):
+            if not ok:
+                print(json.dumps({"variant": item["name"], "build": "failed"}), log[-3000:])
                 return 1
-            res = {"variant": item["name"], "source": item["source"], "note": item.get("note")}
+            res = {"variant": item["name"], "source": item["source"], "note": item.get("note"),
+                   "ptxas": {name: f"{regs}; {spill}" for name, regs, spill in ptxas_report(log)}}
             if item["source"] == "mamba_scan.cu":
                 fn = ctypes.CDLL(lib).repro_mamba_scan_fwd
                 fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3

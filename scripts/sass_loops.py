@@ -1,17 +1,16 @@
 #!/usr/bin/env python3
 """Instruction counts of a built CUDA kernel's loops, from its SASS.
 
-    python3 scripts/sass_loops.py mamba_scan_bwd.cu [--kernel NAME] [--src DIR] [--dump FILE]
+    python3 scripts/sass_loops.py mamba_scan_bwd.cu [--kernel NAME]
 
-Builds ``csrc/<source>`` as the port does (``kernels/_build.py``; ``--src``
-takes the ``src`` directory of another checkout, a ``git archive`` of a
-parent commit), disassembles it with ``cuobjdump -sass`` and, for each
+Builds ``csrc/<source>`` as the port does (``kernels/_build.py``),
+disassembles it with ``cuobjdump -sass`` and, for each
 kernel whose name contains ``--kernel`` (all when empty), prints its
 instruction count and one JSON line per loop: a loop is the span from a
 backward branch's target to the branch, so an outer loop's count includes
 its inner loops'.  Each line counts the span's instructions by class
 (shuffles, selects, special-function unit, fp32 and fp64 arithmetic,
-shared and global memory, barriers), which is how an instruction count per
+shared and global memory, barriers) and by opcode, which is how an instruction count per
 token is read off a kernel: divide the count of the loop that runs once per
 sub-chunk by the tokens it covers.  Needs the CUDA toolkit (``nvcc``,
 ``cuobjdump``), not a card.
@@ -92,14 +91,16 @@ def classify(insns) -> dict[str, int]:
     return dict(sorted(c.items()))
 
 
+def opcodes(insns) -> dict[str, int]:
+    return dict(Counter(op for _, op, _ in insns).most_common())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("source")
     ap.add_argument("--kernel", default="")
-    ap.add_argument("--src", type=Path, default=REPO / "src")
-    ap.add_argument("--dump", type=Path, help="also write the whole SASS listing here")
     args = ap.parse_args()
-    sys.path.insert(0, str(args.src.resolve()))
+    sys.path.insert(0, str(REPO / "src"))
     from repro_torch.kernels import _build
 
     _build.build(args.source)
@@ -107,9 +108,6 @@ def main() -> int:
     tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    if args.dump:
-        args.dump.parent.mkdir(parents=True, exist_ok=True)
-        args.dump.write_text(sass)
     for name, k in parse(sass).items():
         if args.kernel not in name:
             continue
@@ -119,7 +117,8 @@ def main() -> int:
         for start, end in loops(k):
             span = [i for i in insns if start <= i[0] <= end]
             print(json.dumps({"kernel": name, "loop": [hex(start), hex(end)],
-                              "instructions": len(span), "by_class": classify(span)}))
+                              "instructions": len(span), "by_class": classify(span),
+                              "by_opcode": opcodes(span)}))
     return 0
 
 

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the flash-attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): mbarriers, TMA loads,
+// (flash_attention.cu, flash_attention_bwd.cu) and the selective-scan
+// backward (mamba_scan_bwd.cu): mbarriers, TMA loads,
 // 128-byte-swizzle shared-memory descriptors, warpgroup matrix multiplies
 // (wgmma) on bf16, and the host-side encoding of TMA tensor maps.  Every
 // function is inline in an anonymous namespace, so each including source

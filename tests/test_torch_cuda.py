@@ -383,13 +383,15 @@ def test_mamba_scan_kernel_counts_launches(cuda_device):
 # (B, S, di, N, x dtype, a cotangent of h_last): tests/test_kernels.py
 # MAMBA_CASES, then ragged lengths over several 64-token chunks, S below one
 # chunk, one token, d_inner no multiple of the 128-channel block, bf16 x in
-# the model layout at N = 4, 8 and 16.
+# the model layout at N = 4, 8 and 16 (N = 4's 8-byte rows of B / C take
+# plain loads), and rows of dt, x and dy that are not 16-byte aligned (di =
+# 130), which take plain loads in place of cp.async.
 MAMBA_BWD_GPU_CASES = [
     (2, 64, 128, 8, torch.float32, False), (1, 128, 256, 16, torch.float32, False),
     (1, 96, 64, 4, torch.float32, False), (2, 100, 256, 16, torch.float32, True),
     (2, 40, 200, 16, torch.bfloat16, True), (1, 1, 128, 8, torch.float32, True),
     (2, 300, 1000, 16, torch.bfloat16, False), (1, 700, 136, 4, torch.bfloat16, True),
-    (2, 129, 384, 8, torch.bfloat16, True),
+    (2, 129, 384, 8, torch.bfloat16, True), (2, 200, 130, 16, torch.bfloat16, True),
 ]
 
 
