@@ -175,7 +175,23 @@ paths:
     flash), one more step traced by kind, every per-layer gradient
     non-zero; (d) the same period with its experts (13.3 B parameters), one
     gradient at B=1 x S=2048; (e) ``python -m repro_torch.launch.train
-    --arch jamba-v0.1-52b --smoke --device cuda`` as a process, 4 steps.
+    --arch jamba-v0.1-52b --smoke --device cuda`` as a process, 4 steps;
+20. the dry-run (``launch/dryrun.py``) against the card, (a)-(c) in a
+    process of their own with expandable segments (``python3 chip_smoke.py
+    --phase-20``): (a) the card's name, SMs and memory against the
+    dry-run's constants, and the flash backward's split rule in Python
+    against the C function at 540 shapes; (b) one call of each kernel
+    function at its main-path shape (the forwards with and without what
+    training keeps, the backward also at granite-20b's MQA): the
+    allocator's rise equal to the meta tracker's peak, byte for byte; (c)
+    whole steps, granite-3-8b's B=4 x S=2048 prefill at full size, its
+    16-layer training, rwkv6-3b's training and jamba's dense period: the
+    predicted peak within 5 % of the measured one, ``kernel_calls`` equal
+    to the launches here and in phases 3, 15(d), 18(c) and 19(c); beside
+    them (d) ``python -m repro_torch.launch.dryrun --all`` (one line a
+    cell) and (e) the CLI's ``solve``, ``serve --mix``, ``serve --llm``
+    and ``strategies`` and ``examples/serve_batched_torch.py`` and
+    ``examples/train_lm_torch.py`` as processes, each exiting 0.
 
 Any failed check raises and the script exits non-zero without a result.  The
 last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -276,7 +292,6 @@ WKV_TOL = 2e-4             # the reference's bound (tests/test_kernels.py)
 # sums cancel (the fp32 plain version is as far from a float64 run), ~1e-6
 # elsewhere; a dropped or doubled chunk, or a wrong decay, moves a row by O(1).
 WKV_ROW_REL_TOL = 1e-3
-WKV_CHUNK = 32             # the reference's chunk, for the operation count
 WKV_MAIN_PATH_CASE = "rwkv_prefill"
 # (name, B, S, di, N, dtype, model layout): tests/test_kernels.py MAMBA_CASES,
 # the jamba prefill shape (phase 10) and the phase-11 shape; then the edges of
@@ -416,6 +431,35 @@ MAMBA_BWD_CASES = [
 MAMBA_BWD_MAIN = "jamba_train"
 MAMBA_BWD_NAMES = ("ddt", "dx", "dA", "dB", "dC", "dD")
 JAMBA_TRAIN_LAYERS, JAMBA_TRAIN_STEPS = 8, 5
+# Phase 20: the dry-run on the meta device held to the card.  (b) one call of
+# each kernel function at its main-path shape (PERF.md's table), the forwards
+# with and without what training keeps, and the backward at granite-20b's MQA,
+# whose split allocates fp32 partial sums: (name, kernel, args) built by
+# ``p20_kernel_calls``.  (c) whole steps, (name, arch, layers or None for all,
+# kind, B, S): a full prefill and the training runs of phases 15(d), 18(c) and
+# 19(c) (jamba: one period, a dense FFN).  The predicted peak within
+# P20_PEAK_TOL of the measured one.
+P20_CELLS = [
+    ("granite_prefill", "granite-3-8b", None, "prefill", 4, 2048),
+    ("granite_train", "granite-3-8b", TRAIN_LAYERS, "train", TRAIN_BATCH, TRAIN_SEQ),
+    ("rwkv_train", "rwkv6-3b", None, "train", PREFILL_B, PREFILL_S),
+    ("jamba_period_dense", "jamba-v0.1-52b", JAMBA_TRAIN_LAYERS, "train", PREFILL_B, PREFILL_S),
+]
+P20_PEAK_TOL = 0.05
+# (d) and (e): processes started beside (a)-(c).  The front doors (the CLI's
+# four commands, the two model examples with few steps) and the dry-run of
+# every registry cell.
+P20_COMMANDS = [
+    ("cli solve", ["-m", "repro_torch", "solve", "--mix", "alexnet", "--hw", "mcm16", "--json"]),
+    ("cli serve --mix", ["-m", "repro_torch", "serve", "--mix", "alexnet:1,resnet18:1",
+                         "--hw", "mcm16", "--requests", "200"]),
+    ("cli serve --llm", ["-m", "repro_torch", "serve", "--llm", "granite-3-8b:1,gemma2-9b:1",
+                         "--llm-smoke", "--hw", "mcm16", "--requests", "100"]),
+    ("cli strategies", ["-m", "repro_torch", "strategies"]),
+    ("serve_batched_torch.py", ["examples/serve_batched_torch.py"]),
+    ("train_lm_torch.py", ["examples/train_lm_torch.py", "--steps", "40"]),
+]
+P20_DRYRUN = ["-m", "repro_torch.launch.dryrun", "--all"]
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -462,36 +506,40 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip()
 
 
-def visible_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
-    """(q, k) pairs the causal / window masks leave visible."""
-    total = 0
-    for q in range(Sq):
-        hi = min(q, Skv - 1) if causal else Skv - 1
-        lo = max(q - window + 1, 0) if window > 0 else 0
-        total += max(hi - lo + 1, 0)
-    return total
-
-
 _TEMPLATE_ARG = r"L([ib])(\d+)E|(f)|13(__nv_bfloat16)"   # int / bool literal, float, bf16
+
+
+def _template_args(tail: str) -> str:
+    args = []
+    for kind, v, f, bf16 in re.findall(_TEMPLATE_ARG, tail):
+        if kind:
+            args.append(("true" if v == "1" else "false") if kind == "b" else v)
+        else:
+            args.append("float" if f else bf16)
+    return "<" + ", ".join(args) + ">"
 
 
 def kernel_name(mangled: str) -> str:
     """``fa_fwd_bf16<128>`` or ``qmatmul_tma<float>`` from a mangled kernel
-    symbol of the port: the length-prefixed name followed by template
+    symbol of the port: the last of its length-prefixed names (after any
+    namespace, whose generated name may hold digits) followed by template
     arguments (``I...E``)."""
+    m = re.match(r"_ZN?", mangled)
+    pos, name = (m.end(), None) if m else (0, None)
+    while m and pos < len(mangled) and mangled[pos].isdigit():
+        digits = re.match(r"\d+", mangled[pos:]).group()
+        pos += len(digits)
+        name, pos = mangled[pos:pos + int(digits)], pos + int(digits)
+    if name and re.fullmatch(r"[A-Za-z_]\w*", name):
+        tail = re.match(rf"I((?:{_TEMPLATE_ARG})+)E", mangled[pos:])
+        return name + (_template_args(tail.group(1)) if tail else "")
     for run in re.finditer(r"\d+", mangled):
         for i in range(len(run.group())):
             n, start = int(run.group()[i:]), run.end()
             name = mangled[start:start + n]
             tail = re.match(rf"I((?:{_TEMPLATE_ARG})+)E", mangled[start + n:])
             if n and tail and re.fullmatch(r"[A-Za-z_]\w*", name):
-                args = []
-                for kind, v, f, bf16 in re.findall(_TEMPLATE_ARG, tail.group(1)):
-                    if kind:
-                        args.append(("true" if v == "1" else "false") if kind == "b" else v)
-                    else:
-                        args.append("float" if f else bf16)
-                return name + "<" + ", ".join(args) + ">"
+                return name + _template_args(tail.group(1))
     for run in re.finditer(r"\d+", mangled):        # a plain function: <n><name>E
         for i in range(len(run.group())):
             n, start = int(run.group()[i:]), run.end()
@@ -1041,9 +1089,12 @@ def training_phase(get_config, card: str, reset_launches, kernels, cuda_ms, cuda
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import make_batch_iterator
     from repro_torch.ft import ResilientTrainer
-    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_kernel,
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_cost,
+                                                            flash_attention_bwd_kernel,
                                                             flash_attention_kernel)
+    from repro_torch.kernels.cost import visible_pairs
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.launch.hlo_analysis import kernel_bound
     from repro_torch.models import init_kv_cache, init_params, loss_fn
     from repro_torch.tree import leaf_layers
     from repro_torch.optim import make_optimizer
@@ -1085,15 +1136,13 @@ def training_phase(get_config, card: str, reset_launches, kernels, cuda_ms, cuda
             if dt == "bfloat16":
                 res["ms"] = cuda_ms_median(call, 21)
                 pairs = visible_pairs(S, S, causal, window)
-                flops = 5 * 2 * B * H * hd * pairs      # q k^T, dO v^T, P^T dO, dS^T q, dS k
-                nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, do, q, k, v))
-                t_ops, t_mem = flops / BF16_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
-                res.update(bound_ms=1e3 * max(t_ops, t_mem),
-                           bound_by="operations" if t_ops >= t_mem else "bytes",
+                cost = flash_attention_bwd_cost(q, k, v, causal, window)
+                bound_s, bound_by = kernel_bound(cost)
+                res.update(bound_ms=1e3 * bound_s, bound_by=bound_by,
                            bound_arithmetic=f"5 products x 2 x B*H*hd*pairs = 10 x {B}*{H}*{hd}*"
-                           f"{pairs} = {flops:.4e} FLOP / {BF16_PEAK_FLOPS:.3e} FLOP/s = "
-                           f"{1e3 * t_ops:.4f} ms; {nbytes} bytes / {HBM_BYTES_PER_S:.3e} B/s = "
-                           f"{1e3 * t_mem:.4f} ms")
+                           f"{pairs} = {cost.flops:.4e} FLOP / {BF16_PEAK_FLOPS:.3e} FLOP/s = "
+                           f"{1e3 * cost.flops / BF16_PEAK_FLOPS:.4f} ms; {cost.bytes} bytes / "
+                           f"{HBM_BYTES_PER_S:.3e} B/s = {1e3 * cost.bytes / HBM_BYTES_PER_S:.4f} ms")
                 # SDPA has no softcap and takes a window only as a dense mask:
                 # under them its causal backward is a different function
                 leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -1584,8 +1633,9 @@ def wkv6_training_phase(get_config, card: str, reset_launches, kernels, cuda_ms,
 
     from repro_torch.data import make_batch_iterator
     from repro_torch.ft import ResilientTrainer
-    from repro_torch.kernels.rwkv6.kernel import wkv6_bwd_kernel, wkv6_kernel
+    from repro_torch.kernels.rwkv6.kernel import wkv6_bwd_cost, wkv6_bwd_kernel, wkv6_kernel
     from repro_torch.kernels.rwkv6.ref import wkv6_bwd_ref, wkv6_ref
+    from repro_torch.launch.hlo_analysis import kernel_bound
     from repro_torch.models import init_params
     from repro_torch.optim import make_optimizer
     from repro_torch.runtime.planner import plan_for_cell
@@ -1678,14 +1728,13 @@ def wkv6_training_phase(get_config, card: str, reset_launches, kernels, cuda_ms,
             # inputs' type; the kernel's sweeps run fp64, 2x slower on the
             # card, for dlogw's accuracy); r, k, v, logw, dout, u and the
             # segment states read once, dr, dk, dv, dlogw, du written once
-            flops = 10 * B * H * S * hd * hd
-            nbytes = 4 * (9 * B * H * S * hd + seg_state.numel() + 2 * H * hd)
-            t_ops, t_mem = flops / FP32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
-            res.update(bound_ms=1e3 * max(t_ops, t_mem),
-                       bound_by="operations" if t_ops >= t_mem else "bytes",
-                       bound_arithmetic=f"10 x B*H*S*hd^2 = {flops:.4e} FLOP / "
-                       f"{FP32_PEAK_FLOPS:.3e} FLOP/s = {1e3 * t_ops:.4f} ms; {nbytes} bytes / "
-                       f"{HBM_BYTES_PER_S:.3e} B/s = {1e3 * t_mem:.4f} ms")
+            cost = wkv6_bwd_cost(*args, seg_state)
+            bound_s, bound_by = kernel_bound(cost)
+            res.update(bound_ms=1e3 * bound_s, bound_by=bound_by,
+                       bound_arithmetic=f"10 x B*H*S*hd^2 = {cost.flops:.4e} FLOP / "
+                       f"{FP32_PEAK_FLOPS:.3e} FLOP/s = {1e3 * cost.flops / FP32_PEAK_FLOPS:.4f} "
+                       f"ms; {cost.bytes} bytes / {HBM_BYTES_PER_S:.3e} B/s = "
+                       f"{1e3 * cost.bytes / HBM_BYTES_PER_S:.4f} ms")
         bwd[name] = res
         print(f"  (a) {name} B={B} H={H} S={S} hd={hd}{', strong decays' if strong else ''}"
               f"{', dS_last' if with_ds else ''}: {json.dumps(res)}{rounding} {card}")
@@ -1821,9 +1870,10 @@ def mamba_bwd_kernel_checks(card: str, cuda_ms, cuda_ms_median, sync) -> dict:
     results per case."""
     import torch
 
-    from repro_torch.kernels.mamba.kernel import (mamba_scan_bwd_kernel, mamba_scan_kernel,
-                                                  n_state_slots)
+    from repro_torch.kernels.mamba.kernel import (mamba_scan_bwd_cost, mamba_scan_bwd_kernel,
+                                                  mamba_scan_kernel, n_state_slots)
     from repro_torch.kernels.mamba.ref import mamba_scan_bwd_ref
+    from repro_torch.launch.hlo_analysis import kernel_bound
 
     dev = torch.device("cuda")
     out = {}
@@ -1887,22 +1937,18 @@ def mamba_bwd_kernel_checks(card: str, cuda_ms, cuda_ms_median, sync) -> dict:
             # over the channels for dB and dC (4); per channel-token dt x, ddt,
             # dx and dD (8).  Bytes: every input read once (B, C: the views'
             # own elements), the chunk states read, every gradient written.
-            flops = B * S * di * (18 * N + 8)
-            grads_bytes = (4 * B * S * di + args[1].element_size() * (B * S * di + 2 * B * S * N)
-                           + 4 * (di * N + di))
-            nbytes = (sum(t.element_size() * t.numel() for t in args) + 4 * states.numel()
-                      + 4 * dy.numel() + grads_bytes)
-            t_ops, t_mem = flops / FP32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+            cost = mamba_scan_bwd_cost(*args, states)
+            bound_s, bound_by = kernel_bound(cost)
             sms = torch.cuda.get_device_properties(0).multi_processor_count
             clk = float(subprocess.run(
                 ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
                  "--format=csv,noheader,nounits"], capture_output=True, text=True,
                 check=True, timeout=60).stdout)
-            res.update(bound_ms=1e3 * max(t_ops, t_mem),
-                       bound_by="operations" if t_ops >= t_mem else "bytes",
-                       bound_arithmetic=f"(18 N + 8) x B*S*di = {flops:.4e} FLOP / "
-                       f"{FP32_PEAK_FLOPS:.3e} FLOP/s = {1e3 * t_ops:.4f} ms; {nbytes} bytes / "
-                       f"{HBM_BYTES_PER_S:.3e} B/s = {1e3 * t_mem:.4f} ms",
+            res.update(bound_ms=1e3 * bound_s, bound_by=bound_by,
+                       bound_arithmetic=f"(18 N + 8) x B*S*di = {cost.flops:.4e} FLOP / "
+                       f"{FP32_PEAK_FLOPS:.3e} FLOP/s = {1e3 * cost.flops / FP32_PEAK_FLOPS:.4f} "
+                       f"ms; {cost.bytes} bytes / {HBM_BYTES_PER_S:.3e} B/s = "
+                       f"{1e3 * cost.bytes / HBM_BYTES_PER_S:.4f} ms",
                        context={"exp_floor_ms_per_pass": 1e3 * B * S * di * N
                                 / (sms * SFU_EXP2_PER_CLOCK * clk * 1e6),
                                 # the chunk's forward over all but its last
@@ -1931,6 +1977,7 @@ def mamba_training_phase(get_config, card: str, reset_launches, kernels, cuda_ms
     from repro_torch.data import make_batch_iterator
     from repro_torch.ft import ResilientTrainer
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_kernel
+    from repro_torch.kernels.cost import visible_pairs
     from repro_torch.kernels.mamba.kernel import mamba_scan_bwd_kernel
     from repro_torch.launch.train import check_gradients
     from repro_torch.models import init_params
@@ -2096,6 +2143,240 @@ def mamba_training_phase(get_config, card: str, reset_launches, kernels, cuda_ms
     return {"bwd": bwd[MAMBA_BWD_MAIN], "train": train}
 
 
+def p20_kernel_calls(dev):
+    """(name, kernel, args, kwargs) of phase 20(b)'s calls on ``dev``."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import (SavedForward,
+                                                            flash_attention_bwd_kernel,
+                                                            flash_attention_kernel)
+    from repro_torch.kernels.mamba.kernel import mamba_scan_bwd_kernel, mamba_scan_kernel
+    from repro_torch.kernels.qmatmul.kernel import qmatmul_kernel
+    from repro_torch.kernels.rwkv6.kernel import wkv6_bwd_kernel, wkv6_kernel
+
+    calls = []
+    for name, B, H, KV, S, hd, causal, window, cap in FA_BWD_CASES:
+        if name not in ("granite_train", "granite20b_mqa"):
+            continue
+        *qkv, do = fa_bwd_inputs(dev, B, H, KV, S, hd, cap, torch.bfloat16)
+        mask = dict(causal=causal, window=window, softcap=cap)
+        saved = SavedForward(*flash_attention_kernel(*qkv, with_lse=True, **mask))
+        if name == "granite_train":
+            calls += [("flash_attention", flash_attention_kernel, qkv, mask),
+                      ("flash_attention with_lse", flash_attention_kernel, qkv,
+                       dict(with_lse=True, **mask))]
+        calls.append((f"flash_attention_bwd {name}", flash_attention_bwd_kernel,
+                      [*qkv, do, saved], mask))
+    args = wkv_inputs(dev, 4, 40, 2048, 64)
+    seg_state = wkv6_kernel(*args, with_states=True)[2]
+    calls += [("wkv6", wkv6_kernel, args, {}),
+              ("wkv6 with_states", wkv6_kernel, args, dict(with_states=True)),
+              ("wkv6_bwd", wkv6_bwd_kernel, [*args, seg_state, torch.randn_like(args[0])], {})]
+    args = mamba_inputs(dev, 4, 2048, 8192, 16, torch.bfloat16, True)
+    states = mamba_scan_kernel(*args, with_states=True)[2]
+    dy = torch.randn(args[1].shape, dtype=torch.float32, device=dev)
+    calls += [("mamba_scan", mamba_scan_kernel, args, {}),
+              ("mamba_scan with_states", mamba_scan_kernel, args, dict(with_states=True)),
+              ("mamba_scan_bwd", mamba_scan_bwd_kernel, [*args, states, dy], {})]
+    M, N, K = QMM_MAIN
+    g = torch.Generator(device=dev).manual_seed(20)
+    calls.append(("qmatmul", qmatmul_kernel,
+                  [torch.randint(-127, 128, (M, K), generator=g, device=dev, dtype=torch.int8),
+                   torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8),
+                   torch.rand(M, generator=g, device=dev), torch.rand(N, generator=g, device=dev)],
+                  {}))
+    return calls
+
+
+def phase20_card() -> int:
+    """Phase 20 (a)-(c), in a process of its own whose allocator maps
+    expandable segments, where each block is its request rounded up to 512
+    bytes (the rule the dry-run's tracker counts by); prints its lines and,
+    last, a JSON object of the kernel calls each cell's step made."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"   # before CUDA starts
+    import gc
+
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.kernel import (_DTYPE_CODES, H100_SMS, _bwd_split,
+                                                            kv_split)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import CARD_NAME, CARD_TOTAL_MEMORY
+    from repro_torch.models import init_params
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime.planner import plan_for_cell
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    card = f"[{nvidia_smi_line()}]"
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:     # built already by phase 1
+        list(pool.map(_build.build, KERNEL_SOURCES))
+    # (a) the card's constants and the split rule
+    props = torch.cuda.get_device_properties(dev)
+    name = torch.cuda.get_device_name(dev)
+    print(f"  (a) {name}: {props.multi_processor_count} SMs, total_memory {props.total_memory} "
+          f"bytes; the dry-run's constants: {CARD_NAME}, {H100_SMS} SMs, {CARD_TOTAL_MEMORY} bytes")
+    check(name == CARD_NAME and props.total_memory == CARD_TOTAL_MEMORY
+          and props.multi_processor_count == H100_SMS,
+          "the dry-run's card constants (launch/hlo_analysis.py, flash kernel.py) are not this card's")
+    grid = [(dt, hd, B, H, KV, S) for dt in (torch.float32, torch.bfloat16) for hd in (64, 128, 256)
+            for B in (1, 2, 4) for H, KV in ((32, 8), (48, 1), (16, 8), (40, 8), (24, 24), (8, 1))
+            for S in (64, 256, 1000, 2048, 8192)]
+    split = _bwd_split()
+    bad = [c for c in grid if split(_DTYPE_CODES[c[0]], *c[1:]) != kv_split(*c)]
+    splits = sorted({kv_split(*c) for c in grid})
+    check(not bad, f"kv_split's Python copy differs from the C rule at {bad[:5]}")
+    print(f"  (a) kv_split: the Python copy equals repro_flash_attention_bwd_split at {len(grid)} "
+          f"(dtype, hd, B, H, KV, Skv), granite-20b's MQA among them; splits seen {splits}")
+
+    # (b) one call of each kernel function: the allocator's rise against the
+    # tracker's peak on meta
+    # cuBLAS' workspaces, before any baseline: one a thread, so also the
+    # autograd engine's backward thread
+    x = torch.ones(256, 256, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    ((x @ x).float() @ x.float().detach()).sum().backward()
+    del x
+    sync()
+    meta = torch.device("meta")
+
+    def on_meta(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(meta)
+        if isinstance(a, tuple):                       # SavedForward
+            return type(a)(*(None if t is None else t.to(meta) for t in a))
+        return a
+
+    bad = []
+    for what, fn, args, kw in p20_kernel_calls(dev):
+        fn(*args, **kw)                                          # first call: nothing lazy left
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(*args, **kw)
+        sync()
+        rise = torch.cuda.max_memory_allocated() - base
+        del out
+        margs = [on_meta(a) for a in args]
+        with dryrun.StorageTracker() as t:
+            out = fn(*margs, **kw)
+        del out
+        if t.peak != rise:
+            bad.append(what)
+        print(f"  (b) {what}: the allocator rose {rise} bytes on the card, the meta tracker's "
+              f"peak {t.peak} bytes ({'equal' if t.peak == rise else 'DIFFERENT'})")
+        del args, margs
+    check(not bad, f"(b) the meta tracker's peak is not the card's allocation for {bad}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) whole steps: the predicted peak against the measured one
+    calls, bad = {}, []
+    for cell, arch, layers, kind, B, S in P20_CELLS:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers or full.n_layers)
+        if cell == "jamba_period_dense":
+            cfg = dataclasses.replace(cfg, moe=None)
+        plan = plan_for_cell(cfg, S, B, dryrun.MESH_AXES, 1, kind=kind, use_dse=False)
+        t0 = time.perf_counter()
+        pred = dryrun.trace_step(cfg, S, B, kind, plan)
+        trace_s = time.perf_counter() - t0
+        sync()
+        base = torch.cuda.memory_allocated()
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        opt = None
+        if kind == "train":
+            model.train_params()
+            opt = make_optimizer(cfg.optimizer)[0](model.param_tree())
+        g = torch.Generator(device=dev).manual_seed(1)
+        inputs = {n: (torch.randint(0, cfg.vocab, t.shape, generator=g, device=dev,
+                                    dtype=t.dtype) if not t.is_floating_point()
+                      else torch.randn(t.shape, generator=g, device=dev).to(t.dtype))
+                  for n, t in dryrun.cell_inputs(cfg, S, B, kind, meta).items()}
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernel_functions():
+            fn.launches = 0
+        out = dryrun.run_step(cfg, plan, kind, S, B, model, opt, inputs, dev)
+        sync()
+        measured = torch.cuda.max_memory_allocated() - base
+        launched = {fn.__name__: fn.launches for fn in kernel_functions() if fn.launches}
+        del model, opt, inputs, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        peak = pred["memory_analysis"]["peak_bytes"]
+        calls[cell] = pred["kernel_calls"]
+        if launched != pred["kernel_calls"] or abs(peak / measured - 1) > P20_PEAK_TOL:
+            bad.append(cell)
+        print(f"  (c) {cell} ({arch}, {cfg.n_layers} layers, {kind} B={B} x S={S}): predicted "
+              f"peak {peak} bytes ({peak / 2**30:.3f} GiB), measured {measured} bytes "
+              f"({measured / 2**30:.3f} GiB), predicted / measured {peak / measured:.5f} "
+              f"(tol {P20_PEAK_TOL:.0%}); kernel_calls {pred['kernel_calls']}, the card's "
+              f"launches {launched}; trace {trace_s:.2f} s; roofline "
+              f"{pred['roofline']['dominant']} {pred['roofline']['bound_s'] * 1e3:.3f} ms {card}")
+    check(not bad, f"(c) predicted and measured peaks or kernel calls disagree for {bad}")
+    print(json.dumps({"p20_kernel_calls": calls}))
+    return 0
+
+
+def kernel_functions() -> tuple:
+    """The seven kernel functions; the dry-run names them by ``__name__``."""
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_kernel,
+                                                            flash_attention_kernel)
+    from repro_torch.kernels.mamba.kernel import mamba_scan_bwd_kernel, mamba_scan_kernel
+    from repro_torch.kernels.qmatmul.kernel import qmatmul_kernel
+    from repro_torch.kernels.rwkv6.kernel import wkv6_bwd_kernel, wkv6_kernel
+
+    return (flash_attention_kernel, flash_attention_bwd_kernel, wkv6_kernel, wkv6_bwd_kernel,
+            mamba_scan_kernel, mamba_scan_bwd_kernel, qmatmul_kernel)
+
+
+def dryrun_phase(card: str, phase_launches: dict) -> None:
+    """Phase 20: (a)-(c) in a process of its own (``phase20_card``), beside
+    it (d) the dry-run of every registry cell and (e) the CLI and the two
+    model examples as processes; every one must exit 0.  ``phase_launches``:
+    the launches a step of each (c) cell made in the earlier phases, which
+    the dry-run's kernel_calls must equal."""
+    print("phase 20: the dry-run on the meta device against the card; the CLI and the "
+          "examples")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(P20_COMMANDS) + 1) as pool:
+        side = {name: pool.submit(subprocess.run, [sys.executable, *cmd], cwd=REPO, env=env,
+                                  capture_output=True, text=True, timeout=900)
+                for name, cmd in [("dryrun --all", P20_DRYRUN), *P20_COMMANDS]}
+        child = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--phase-20"],
+                               cwd=REPO, env=env, capture_output=True, text=True, timeout=900)
+        print(child.stdout.rstrip())
+        check(child.returncode == 0, f"phase 20 (a)-(c) exited {child.returncode}: "
+                                     f"{child.stderr[-3000:]}")
+        calls = json.loads(child.stdout.strip().splitlines()[-1])["p20_kernel_calls"]
+        for cell, want in phase_launches.items():
+            check(calls[cell] == want, f"(c) {cell}: the dry-run's kernel_calls {calls[cell]}, "
+                                       f"the launches a step made in its phase {want}")
+        print("  (c) kernel_calls = the launches a step made in phases 3, 15(d), 18(c), 19(c): "
+              + "; ".join(f"{c} {w}" for c, w in phase_launches.items()))
+        done = {name: f.result() for name, f in side.items()}
+    dr = done.pop("dryrun --all")
+    check(dr.returncode == 0 and "all cells passed" in dr.stdout,
+          f"dryrun --all exited {dr.returncode}: {dr.stdout[-2000:]}{dr.stderr[-2000:]}")
+    lines = dr.stdout.splitlines()
+    cells = [(a.removeprefix("=== "), b.strip().removeprefix("ok: "))
+             for a, b in zip(lines, lines[1:]) if a.startswith("=== ")]
+    for tag, line in cells:
+        print(f"  (d) {tag}: {line}")
+    print(f"  (d) python -m repro_torch.launch.dryrun --all: {len(cells)} cells, all passed")
+    for name, proc in done.items():
+        check(proc.returncode == 0, f"(e) {name} exited {proc.returncode}: "
+                                    f"{proc.stdout[-1500:]}{proc.stderr[-1500:]}")
+        tail = " | ".join(proc.stdout.strip().splitlines()[-3:])
+        print(f"  (e) {name}: exit 0; {tail[:300]}")
+    print(f"  phase 20 wall {time.perf_counter() - t0:.1f} s {card}")
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"no src/repro_torch beside {Path(__file__).name}: run from a checkout",
@@ -2115,15 +2396,18 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_kernel,
+                                                            flash_attention_cost,
                                                             flash_attention_kernel)
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.mamba.kernel import mamba_scan_bwd_kernel, mamba_scan_kernel
+    from repro_torch.kernels.mamba.kernel import (mamba_scan_bwd_kernel, mamba_scan_cost,
+                                                  mamba_scan_kernel)
     from repro_torch.kernels.mamba.ref import mamba_scan_ref
-    from repro_torch.kernels.qmatmul.kernel import qmatmul_kernel, tma_path
+    from repro_torch.kernels.qmatmul.kernel import qmatmul_cost, qmatmul_kernel, tma_path
     from repro_torch.kernels.qmatmul.ops import qmatmul
     from repro_torch.kernels.qmatmul.ref import qmatmul_ref, quantize_cols, quantize_rows
-    from repro_torch.kernels.rwkv6.kernel import wkv6_bwd_kernel, wkv6_kernel
+    from repro_torch.kernels.rwkv6.kernel import wkv6_bwd_kernel, wkv6_cost, wkv6_kernel
     from repro_torch.kernels.rwkv6.ref import wkv6_ref
+    from repro_torch.launch.hlo_analysis import HwConstants, kernel_bound
     from repro_torch.launch.serve import serve
     from repro_torch.models import init_params
     from repro_torch.runtime.planner import plan_for_cell
@@ -2131,6 +2415,10 @@ def main() -> int:
 
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
+    hw = HwConstants()
+    check((hw.peak_flops, hw.int8_ops, hw.fp32_flops, hw.hbm_bw)
+          == (BF16_PEAK_FLOPS, INT8_PEAK_OPS, FP32_PEAK_FLOPS, HBM_BYTES_PER_S),
+          "the script's peaks are not the dry-run's (launch/hlo_analysis.py HwConstants)")
 
     def reset_launches() -> None:
         flash_attention_kernel.launches = flash_attention_bwd_kernel.launches = 0
@@ -2264,14 +2552,10 @@ def main() -> int:
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, is_causal=causal and mask is None,
                 enable_gqa=H != KV), 10 if big else 50)
-        flops = 4 * B * H * hd * visible_pairs(S, S, causal, window)
-        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-        t_ops = flops / (BF16_PEAK_FLOPS if dtype == torch.bfloat16 else FP32_PEAK_FLOPS)
-        t_mem = nbytes / HBM_BYTES_PER_S
+        bound_s, bound_by = kernel_bound(flash_attention_cost(q, k, v, causal, window))
         results[name] = {
             "max_abs_err": err, "row_rel_err": rel, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": 1e3 * max(t_ops, t_mem),
-            "bound_by": "operations" if t_ops >= t_mem else "bytes",
+            "bound_ms": 1e3 * bound_s, "bound_by": bound_by,
         }
         print(f"  {name}: B={B} H={H} KV={KV} S={S} hd={hd} causal={causal} "
               f"window={window} softcap={cap} {dt}: tol {tol}, row tol {ROW_REL_TOL} {json.dumps(results[name])} "
@@ -2403,15 +2687,11 @@ def main() -> int:
         big = B * H * S > 2 ** 16
         ms = cuda_ms(lambda: wkv6_kernel(*args), 20 if big else 50)
         plain_ms = cuda_ms(lambda: wkv6_ref(*args), 2 if big else 5)
-        T = min(WKV_CHUNK, S)
-        flops = B * H * S * (4 * T * hd + 4 * hd * hd)          # chunk form at chunk T
-        nbytes = 4 * (5 * B * H * S * hd + H * hd + B * H * hd * hd)
-        t_ops, t_mem = flops / FP32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+        bound_s, bound_by = kernel_bound(wkv6_cost(*args))      # chunk form at 32 tokens
         wkv_results[name] = {
             "max_abs_err": max(errs), "row_rel_err": max(rels), "ms": ms,
             "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": 1e3 * max(t_ops, t_mem),
-            "bound_by": "operations" if t_ops >= t_mem else "bytes",
+            "bound_ms": 1e3 * bound_s, "bound_by": bound_by,
         }
         print(f"  {name}: B={B} H={H} S={S} hd={hd}"
               f"{', strong decays' if strong else ''}: tol {WKV_TOL}, row tol "
@@ -2533,17 +2813,11 @@ def main() -> int:
         big = B * S * di > 2 ** 22
         ms = cuda_ms(lambda: mamba_scan_kernel(*args), 20 if big else 50)
         plain_ms = cuda_ms(lambda: mamba_scan_ref(*args), 2 if big else 5)
-        # per state update: dt*A, exp, a*h + bx, (dt x)*B, y += C h; per
-        # (token, channel): dt*x, y + D x
-        flops = B * S * di * (7 * N + 3)
-        nbytes = (sum(t.element_size() * t.numel() for t in args)     # B, C: views' own elements
-                  + 4 * (B * S * di + B * di * N))                    # y, h_last
-        t_ops, t_mem = flops / FP32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+        bound_s, bound_by = kernel_bound(mamba_scan_cost(*args))
         mamba_results[name] = {
             "max_abs_err": max(errs), "row_rel_err": max(rels), "ms": ms,
             "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": 1e3 * max(t_ops, t_mem),
-            "bound_by": "operations" if t_ops >= t_mem else "bytes",
+            "bound_ms": 1e3 * bound_s, "bound_by": bound_by,
         }
         if name == MAMBA_MAIN_PATH_CASE:
             # A second floor beside bound_ms: one exponential per state
@@ -2762,10 +3036,8 @@ def main() -> int:
             w_kmajor = args[1].t().contiguous()     # [N,K]: the layout cuBLASLt's int8 path takes
             int_mm_kmajor_ms = cuda_ms_median(lambda: torch._int_mm(args[0], w_kmajor.t()), 11)
             del xb, wb, w_kmajor
-            t_ops = 2 * m * n * k / INT8_PEAK_OPS
-            t_mem = (m * k + k * n + 4 * (m + n) + got.element_size() * m * n) / HBM_BYTES_PER_S
-            res["bound_ms"] = 1e3 * max(t_ops, t_mem)
-            res["bound_by"] = "operations" if t_ops >= t_mem else "bytes"
+            bound_s, res["bound_by"] = kernel_bound(qmatmul_cost(args[0], args[1], got.dtype))
+            res["bound_ms"] = 1e3 * bound_s
             res["context"] = {"bf16_matmul_ms": bf16_ms, "int_mm_only_ms": int_mm_ms,
                               "int_mm_kmajor_ms": int_mm_kmajor_ms}
         qmm_results[name] = res
@@ -2816,6 +3088,17 @@ def main() -> int:
     # ------------------------------------------------------------ phase 19
     jamba_training = mamba_training_phase(get_config, card, reset_launches, all_kernels,
                                           cuda_ms, cuda_ms_median, sync)
+
+    # ------------------------------------------------------------ phase 20
+    def per_step(launches: dict, steps: int) -> dict:
+        return {f"{k}_kernel": n // steps for k, n in launches.items() if n}
+
+    dryrun_phase(card, {
+        "granite_prefill": {"flash_attention_kernel": launches},
+        "granite_train": per_step(training["train"]["launches"], TRAIN_STEPS),
+        "rwkv_train": per_step(rwkv_training["train"]["launches"], RWKV_TRAIN_STEPS),
+        "jamba_period_dense": per_step(jamba_training["train"]["launches"], JAMBA_TRAIN_STEPS),
+    })
 
     # ------------------------------------------------------------ result
     main_case = results[MAIN_PATH_CASE]
@@ -2878,4 +3161,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(phase20_card() if sys.argv[1:] == ["--phase-20"] else main())

@@ -17,6 +17,11 @@ backward kernel; it differentiates its jnp attention): a pass for D, then dq
 and dk / dv in two kernels, no atomics, the same bits on every run.  It
 takes what a training forward (``with_lse=True``) keeps: the output, each
 row's log-sum-exp and, in bf16, the output's residual.
+
+On meta tensors (the dry-run) both wrappers run their checks and
+allocations, then return before the launch (``kernels/cost.py``); the
+backward sizes its split scratch from :func:`kv_split`, a copy of the C
+rule at the card's SM count.
 """
 from __future__ import annotations
 
@@ -28,9 +33,11 @@ from typing import NamedTuple
 import torch
 
 from .._build import load_library
+from ..cost import KernelCost, meta_call, nbytes, unit_of, visible_pairs
 
 HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+H100_SMS = 132   # the SMs of an H100 SXM, which the C rule reads from the device
 
 
 class SavedForward(NamedTuple):
@@ -45,6 +52,43 @@ def lse_rows(sq: int) -> int:
     """Rows of the log-sum-exp buffer: Sq rounded up to the kernels' 128-row
     tiles (the backward writes the rows past Sq)."""
     return -(-sq // 128) * 128
+
+
+def kv_split(dtype: torch.dtype, head_dim: int, B: int, H: int, KV: int, Skv: int,
+             sms: int = H100_SMS) -> int:
+    """Chunks of a group's heads the bf16 dk / dv kernel splits into: a copy
+    of ``kv_split`` in ``csrc/flash_attention_bwd.cu`` (which reads ``sms``
+    from the device) for meta tensors, held to it on the card by
+    ``chip_smoke.py`` phase 20."""
+    if dtype != torch.bfloat16 or head_dim not in (64, 128):
+        return 1
+    tiles = -(-Skv // 128) * B * KV
+    if tiles >= sms:
+        return 1
+    return min(-(-sms // tiles), H // KV)
+
+
+def flash_attention_cost(q, k, v, causal: bool = True, window: int = 0,
+                         with_lse: bool = False) -> KernelCost:
+    """The forward's least work: q k^T and P v over the visible pairs (2
+    products of 2 hd operations a pair and head); q, k, v read and the
+    output written once (with ``with_lse`` also the log-sum-exp and, in
+    bf16, the residual)."""
+    B, H, Sq, hd = q.shape
+    pairs = visible_pairs(Sq, k.shape[2], causal, window)
+    out = nbytes(q) * (2 if with_lse and q.dtype == torch.bfloat16 else 1)
+    lse = 4 * B * H * lse_rows(Sq) if with_lse else 0
+    return KernelCost(4 * B * H * hd * pairs, nbytes(q, k, v) + out + lse, unit_of(q.dtype))
+
+
+def flash_attention_bwd_cost(q, k, v, causal: bool = True, window: int = 0) -> KernelCost:
+    """The backward's least work: q k^T, dO v^T, P^T dO, dS^T q and dS k
+    over the visible pairs (5 products); q, k, v and dO read, dq, dk and dv
+    written once."""
+    B, H, Sq, hd = q.shape
+    pairs = visible_pairs(Sq, k.shape[2], causal, window)
+    return KernelCost(10 * B * H * hd * pairs, nbytes(q, k, v, q) + nbytes(q, k, v),
+                      unit_of(q.dtype))
 
 
 @functools.cache
@@ -103,9 +147,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} has no kernel instantiation {HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
+        if t.device.type not in ("cuda", "meta") or t.device != q.device:
             raise ValueError(f"{name} is on {t.device}: the kernel takes tensors on "
-                             "one CUDA device")
+                             "one CUDA device (or meta)")
         if not _layout_ok(t):
             raise ValueError(f"{name} strides {t.stride()} / alignment not supported: "
                              "head dim must be unit-stride, other strides multiples of 8")
@@ -141,6 +185,10 @@ def flash_attention_kernel(
         if q.dtype == torch.bfloat16:
             o_res = torch.empty_like(o)
     if o.numel() == 0:
+        return SavedForward(o, lse, o_res) if with_lse else o
+    if q.device.type == "meta":
+        meta_call("flash_attention_kernel",
+                  flash_attention_cost(q, k, v, causal, window, with_lse))
         return SavedForward(o, lse, o_res) if with_lse else o
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3]
@@ -220,12 +268,20 @@ def flash_attention_bwd_kernel(
     ptrs = (ctypes.c_void_p * 9)(*(None if t is None else t.data_ptr() for t in tensors))
     strides = (ctypes.c_longlong * 27)(*(s for t in tensors
                                          for s in (t.stride()[:3] if t is not None else (0,) * 3)))
+    # a group too few blocks cover is split over more, into fp32 partial sums
+    meta = q.device.type == "meta"
+    if meta:
+        split = kv_split(q.dtype, hd, B, H, KV, Skv)
+    else:
+        with torch.cuda.device(q.device):
+            split = _bwd_split()(_DTYPE_CODES[q.dtype], hd, B, H, KV, Skv)
+    part = (torch.empty(2 * split * B * KV * Skv * hd, dtype=torch.float32, device=q.device)
+            if split > 1 else None)
+    if meta:
+        meta_call("flash_attention_bwd_kernel", flash_attention_bwd_cost(q, k, v, causal, window))
+        return dq, dk, dv
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        # a group too few blocks cover is split over more, into fp32 partial sums
-        split = _bwd_split()(_DTYPE_CODES[q.dtype], hd, B, H, KV, Skv)
-        part = (torch.empty(2 * split * B * KV * Skv * hd, dtype=torch.float32, device=q.device)
-                if split > 1 else None)
         err = _bwd()(
             _DTYPE_CODES[q.dtype], hd, ptrs, saved.lse.data_ptr(), stats.data_ptr(),
             lse_rows(Sq), None if part is None else part.data_ptr(), B, H, KV, Sq, Skv,

@@ -46,7 +46,8 @@ def flash_attention(
     A CPU tensor goes to :func:`attention_ref` (differentiated by autograd);
     any other goes to the kernels, which launch or raise (there is no
     fallback to the plain version): the forward kernel, and the backward
-    kernel when a gradient flows back through the call.
+    kernel when a gradient flows back through the call.  A meta tensor
+    takes the kernels' route too, which allocates and launches nothing.
     """
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal, window, softcap)

@@ -16,6 +16,9 @@ takes the state at the start of every ``CHUNK``-token chunk, which the
 forward writes on its way with ``with_states=True``, and runs two CUDA
 kernels (the reverse sweep per block of channels, then the fixed-order sums
 of its partials); it counts a call once.  Its header says what bounds it.
+
+On meta tensors (the dry-run) both wrappers run their checks and
+allocations, then return before the launch (``kernels/cost.py``).
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import functools
 import torch
 
 from .._build import load_library
+from ..cost import KernelCost, meta_call, nbytes
 from .ref import BLOCK, CHUNK
 
 STATE_SIZES = (4, 8, 16)
@@ -58,6 +62,33 @@ def n_state_slots(S: int) -> int:
     return max(1, -(-S // CHUNK)) - 1
 
 
+def mamba_scan_cost(dt, x, A, Bc, Cc, D, with_states: bool = False) -> KernelCost:
+    """The forward's least work, fp32: per state update dt*A, exp, a*h + bx,
+    (dt x)*B and y += C h (7 operations), per channel-token dt*x and y + D x;
+    every input read once (B, C: the views' own elements), y and h_last
+    (and the chunk states) written once."""
+    B, S, di = x.shape
+    N = A.shape[1]
+    states = 4 * B * di * n_state_slots(S) * N if with_states else 0
+    return KernelCost(B * S * di * (7 * N + 3),
+                      nbytes(dt, x, A, Bc, Cc, D) + 4 * (B * S * di + B * di * N) + states,
+                      "fp32")
+
+
+def mamba_scan_bwd_cost(dt, x, A, Bc, Cc, D, states, grad_dtype=None) -> KernelCost:
+    """The backward's least work, fp32: per state-token a_t (2), g (2), a h
+    and h_t (3), the term and its dA (3), the sums over n for ddt and dx (4)
+    and over the channels for dB and dC (4); per channel-token dt x, ddt, dx
+    and dD (8).  Every input read once (B, C: the views' own elements), the
+    chunk states and dy read, every gradient written once."""
+    B, S, di = x.shape
+    N = A.shape[1]
+    g = (grad_dtype or x.dtype).itemsize
+    grads = 4 * B * S * di + g * (B * S * di + 2 * B * S * N) + 4 * (di * N + di)
+    return KernelCost(B * S * di * (18 * N + 8),
+                      nbytes(dt, x, A, Bc, Cc, D, states) + 4 * B * S * di + grads, "fp32")
+
+
 def _check(dt, x, A, Bc, Cc, D) -> None:
     if x.dim() != 3 or dt.shape != x.shape:
         raise ValueError(f"expected dt, x [B,S,di] of one shape; got "
@@ -83,9 +114,9 @@ def _check(dt, x, A, Bc, Cc, D) -> None:
             raise ValueError(f"{name} is {t.dtype}, x is {x.dtype}: the kernel takes "
                              "one dtype for x, Bc and Cc")
     for name, t in (("dt", dt), ("x", x), ("A", A), ("Bc", Bc), ("Cc", Cc), ("D", D)):
-        if t.device.type != "cuda" or t.device != x.device:
+        if t.device.type not in ("cuda", "meta") or t.device != x.device:
             raise ValueError(f"{name} is on {t.device}: the kernel takes tensors on "
-                             "one CUDA device")
+                             "one CUDA device (or meta)")
     for name, t in (("dt", dt), ("x", x)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} strides {t.stride()}: the channel dim must be "
@@ -114,6 +145,9 @@ def mamba_scan_kernel(dt: torch.Tensor, x: torch.Tensor, A: torch.Tensor, Bc: to
               if with_states else None)
     out = (y, h_last, states) if with_states else (y, h_last)
     if B * di == 0:
+        return out
+    if x.device.type == "meta":
+        meta_call("mamba_scan_kernel", mamba_scan_cost(dt, x, A, Bc, Cc, D, with_states))
         return out
     strides = (ctypes.c_longlong * 10)(
         *dt.stride()[:2], *x.stride()[:2], *Bc.stride(), *Cc.stride(),
@@ -182,6 +216,10 @@ def mamba_scan_bwd_kernel(dt: torch.Tensor, x: torch.Tensor, A: torch.Tensor, Bc
     f64 = dict(dtype=torch.float64, device=dev)
     pB, pC = (torch.empty(B, S, n_blocks, N, **f64) for _ in range(2))   # per-block dB, dC
     pA, pD = torch.empty(B, di, N, **f64), torch.empty(B, di, **f64)     # per-row dA, dD
+    if dev.type == "meta":
+        meta_call("mamba_scan_bwd_kernel",
+                  mamba_scan_bwd_cost(dt, x, A, Bc, Cc, D, states, out_dtype))
+        return grads
     strides = (ctypes.c_longlong * 12)(
         *dt.stride()[:2], *x.stride()[:2], *Bc.stride(), *Cc.stride(), *dy.stride()[:2])
     ptr = lambda t: None if t is None else t.data_ptr()    # noqa: E731

@@ -41,9 +41,11 @@ def mamba_scan(dt: torch.Tensor, x: torch.Tensor, A: torch.Tensor, Bc: torch.Ten
     A CPU tensor goes to :func:`mamba_scan_ref` (differentiated by
     autograd); any other goes to the kernels, which launch or raise (there
     is no fallback to the plain version): the forward kernel, and the
-    backward kernel when a gradient flows back through the call.  The
-    reference's ``block_d`` and ``chunk`` are tiling choices that do not
-    change the result; the kernels' are fixed, and they take any ``S``.
+    backward kernel when a gradient flows back through the call.  A meta
+    tensor takes the kernels' route too, which allocates and launches
+    nothing.  The reference's ``block_d`` and ``chunk`` are tiling choices
+    that do not change the result; the kernels' are fixed, and they take any
+    ``S``.
     """
     if x.device.type == "cpu":
         return mamba_scan_ref(dt, x, A, Bc, Cc, D)

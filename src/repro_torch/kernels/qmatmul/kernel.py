@@ -14,6 +14,10 @@ A call takes one of two paths, chosen by :func:`tma_path` from the shape and
 x's alignment alone: the transpose of w into an [N,K] scratch and the
 ``wgmma`` / TMA kernel where TMA can describe x (K % 16 == 0, x 16-byte
 aligned), else the byte-staged ``mma.sync`` kernel.
+
+On meta tensors (the dry-run) the wrapper runs its checks and allocations,
+the transposed ``wt`` included, then returns before the launch
+(``kernels/cost.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import functools
 import torch
 
 from .._build import load_library
+from ..cost import KernelCost, meta_call, nbytes
 
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -40,6 +45,14 @@ def tma_path(K: int, x_ptr: int) -> bool:
     row of x and of the transposed w (K bytes) and x's base on 16-byte
     bounds.  Otherwise the byte-staged ``mma.sync`` kernel takes it."""
     return K % 16 == 0 and x_ptr % 16 == 0
+
+
+def qmatmul_cost(x, w, out_dtype: torch.dtype = torch.float32) -> KernelCost:
+    """The least work: 2 M N K int8 operations; x, w and the two scales read,
+    the [M, N] output written once."""
+    (M, K), N = x.shape, w.shape[1]
+    return KernelCost(2 * M * N * K, nbytes(x, w) + 4 * (M + N) + out_dtype.itemsize * M * N,
+                      "int8")
 
 
 def check_blocks(block_m: int, block_n: int, block_k: int) -> None:
@@ -72,9 +85,9 @@ def _check(x, w, x_scale, w_scale, out_dtype) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for name, t in tensors:
-        if t.device.type != "cuda" or t.device != x.device:
+        if t.device.type not in ("cuda", "meta") or t.device != x.device:
             raise ValueError(f"{name} is on {t.device}: the kernel takes tensors on "
-                             "one CUDA device")
+                             "one CUDA device (or meta)")
 
 
 def qmatmul_kernel(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
@@ -100,6 +113,9 @@ def qmatmul_kernel(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
     tma = tma_path(K, x.data_ptr())
     # w transposed by the first launch: the K-major B operand of 8-bit wgmma
     wt = torch.empty(N, K, dtype=torch.int8, device=x.device) if tma else None
+    if x.device.type == "meta":
+        meta_call("qmatmul_kernel", qmatmul_cost(x, w, out_dtype))
+        return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = _fwd()(x.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),

@@ -17,7 +17,8 @@ def qmatmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
 
     ``impl="ref"`` is the plain version on any device.  Otherwise a CPU
     tensor goes to :func:`qmatmul_ref`, and any other to the kernel, which
-    launches or raises (there is no fallback to the plain version).
+    launches or raises (there is no fallback to the plain version); a meta
+    tensor takes the kernel's route too, which allocates and launches nothing.
 
     The blocks are checked as the reference checks them (each dimension a
     multiple of ``min(block, dim)``, so M = 100 passes with the default 128

@@ -19,6 +19,9 @@ segments' input states the forward computes on its way
 (``with_states=True``) and runs five CUDA kernels over the same segments
 (its header says what bounds it and why its sweeps run in float64); it
 too counts a call once.
+
+On meta tensors (the dry-run) both wrappers run their checks and
+allocations, then return before the launch (``kernels/cost.py``).
 """
 from __future__ import annotations
 
@@ -28,9 +31,37 @@ import functools
 import torch
 
 from .._build import load_library
+from ..cost import KernelCost, meta_call, nbytes
 
 HEAD_DIMS = (16, 32, 64)
 SEGMENT = 256   # tokens per segment: a multiple of the kernel's 32-token chunk
+CHUNK = 32      # tokens per chunk of the kernel's chunk form
+
+
+def n_segment_slots(S: int) -> int:
+    """Segment input states the forward keeps: one per segment but the first."""
+    return max(1, -(-S // SEGMENT)) - 1
+
+
+def wkv6_cost(r, k, v, logw, u, with_states: bool = False) -> KernelCost:
+    """The forward's least work, fp32: the chunk form at chunk T = min(32,
+    S), 4 T hd + 4 hd^2 operations a token and head; r, k, v, logw and u
+    read, the output and S_last (and the segment states) written once."""
+    B, H, S, hd = r.shape
+    T = min(CHUNK, S)
+    states = 4 * B * H * n_segment_slots(S) * hd * hd if with_states else 0
+    return KernelCost(B * H * S * (4 * T * hd + 4 * hd * hd),
+                      nbytes(r, k, v, logw, u, r) + 4 * B * H * hd * hd + states, "fp32")
+
+
+def wkv6_bwd_cost(r, k, v, logw, u, seg_state) -> KernelCost:
+    """The backward's least work, fp32: dr, dk, dv (three mat-vecs) and the
+    S and G updates, 2 hd^2 operations each a token and head; r, k, v, logw,
+    dout, u and the segment states read, dr, dk, dv, dlogw and du written
+    once."""
+    B, H, S, hd = r.shape
+    return KernelCost(10 * B * H * S * hd * hd,
+                      4 * (9 * B * H * S * hd + seg_state.numel() + 2 * H * hd), "fp32")
 
 
 @functools.cache
@@ -58,9 +89,9 @@ def _bwd():
 def _check_operand(name: str, t: torch.Tensor, device: torch.device) -> None:
     if t.dtype != torch.float32:
         raise ValueError(f"{name} is {t.dtype}: the kernel takes float32")
-    if t.device.type != "cuda" or t.device != device:
+    if t.device.type not in ("cuda", "meta") or t.device != device:
         raise ValueError(f"{name} is on {t.device}: the kernel takes tensors on "
-                         "one CUDA device")
+                         "one CUDA device (or meta)")
     # 16-byte vector loads: unit-stride head dim, aligned rows
     if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:-1]) or t.data_ptr() % 16:
         raise ValueError(f"{name} strides {t.stride()} / alignment not supported: "
@@ -98,11 +129,14 @@ def wkv6_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.T
     B, H, S, hd = r.shape
     out = torch.empty_like(r)      # same strides as r (dense, non-overlapping)
     s_last = torch.empty(B, H, hd, hd, dtype=torch.float32, device=r.device)
-    slots = max(1, -(-S // SEGMENT)) - 1          # segments before the last
+    slots = n_segment_slots(S)
     seg_state = torch.empty(B, H, slots, hd, hd, dtype=torch.float32, device=r.device)
     if B * H == 0:
         return (out, s_last, seg_state) if with_states else (out, s_last)
     seg_decay = torch.empty(B, H, slots, hd, dtype=torch.float32, device=r.device)
+    if r.device.type == "meta":
+        meta_call("wkv6_kernel", wkv6_cost(r, k, v, logw, u, with_states))
+        return (out, s_last, seg_state) if with_states else (out, s_last)
     strides = (ctypes.c_longlong * 16)(
         *r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *logw.stride()[:3],
         *out.stride()[:3], u.stride(0),
@@ -138,7 +172,7 @@ def wkv6_bwd_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: tor
     if dout.stride(-1) != 1 or any(s % 4 for s in dout.stride()[:-1]) or dout.data_ptr() % 16:
         dout = dout.contiguous()
     _check_operand("dout", dout, r.device)
-    slots = max(1, -(-S // SEGMENT)) - 1
+    slots = n_segment_slots(S)
     if tuple(seg_state.shape) != (B, H, slots, hd, hd) or not seg_state.is_contiguous():
         raise ValueError(f"seg_state {tuple(seg_state.shape)} is not a contiguous "
                          f"{(B, H, slots, hd, hd)}")
@@ -162,6 +196,9 @@ def wkv6_bwd_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: tor
     ptot = torch.empty(B, H, hd, **f64) if ds_last is not None else None
     abuf = torch.empty(B, H, S, hd, **f64)
     du_part = torch.empty(B, H, n_seg, hd, **f64)
+    if r.device.type == "meta":
+        meta_call("wkv6_bwd_kernel", wkv6_bwd_cost(r, k, v, logw, u, seg_state))
+        return (*grads, du)
     strides = (ctypes.c_longlong * 28)(
         *(s for t in (r, k, v, logw, dout, *grads) for s in t.stride()[:3]), u.stride(0))
     ptr = lambda t: None if t is None else t.data_ptr()    # noqa: E731

@@ -40,9 +40,11 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
     A CPU tensor goes to :func:`wkv6_ref` (differentiated by autograd); any
     other goes to the kernels, which launch or raise (there is no fallback
     to the plain version): the forward kernel, and the backward kernel
-    when a gradient flows back through the call.  The reference's ``chunk``
-    is a tiling choice that does not change the result (its
-    chunk-invariance test); the kernel's chunk is fixed at 32 tokens.
+    when a gradient flows back through the call.  A meta tensor takes the
+    kernels' route too, which allocates and launches nothing.  The
+    reference's ``chunk`` is a tiling choice that does not change the
+    result (its chunk-invariance test); the kernel's chunk is fixed at 32
+    tokens.
     """
     if r.device.type == "cpu":
         return wkv6_ref(r, k, v, logw, u)

@@ -46,7 +46,12 @@ def _masked_attention(q, k, v, mask, cap, dtype):
 
 def runs_from_offsets(positions: torch.Tensor) -> bool:
     """Whether each row is ``p0_b + 0..S-1``: one comparison on the
-    positions' device (on the card, one host sync)."""
+    positions' device (on the card, one host sync).  Meta positions hold no
+    values to compare, so they raise (the dry-run passes no positions)."""
+    if positions.device.type == "meta":
+        raise NotImplementedError(
+            "explicit prefill positions on the meta device: whether each row runs "
+            "p0 + 0..S-1 depends on their values, which meta tensors do not hold")
     S = positions.shape[1]
     steps = torch.arange(S, device=positions.device, dtype=positions.dtype)
     return torch.equal(positions, positions[:, :1] + steps)

@@ -289,18 +289,27 @@ class DecoderLM(nn.Module):
         return self._logits(x), caches
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
+def init_params(cfg: ModelConfig, generator: torch.Generator | None,
                 device: str | torch.device = "cuda") -> DecoderLM:
     """Random model with the reference's init scales, drawn from ``generator``
     (on its own device) and stored on ``device`` in ``cfg.param_dtype``
     (``w0``, ``u``, ``A_log``, ``D``, the MoE router and the norm weights in
-    fp32, as in the reference)."""
+    fp32, as in the reference).
+
+    On ``device="meta"`` (the dry-run) the leaves have their names, shapes
+    and dtypes and no values, and nothing is drawn: ``generator`` is then
+    ``None``, and only then."""
     check_supported(cfg)
     dev = resolve_device(device)
+    if (generator is None) != (dev.type == "meta"):
+        raise ValueError(f"generator {generator} on device {dev}: a meta model draws "
+                         "nothing (generator=None), any other needs a generator")
     dtype = getattr(torch, cfg.param_dtype)
     d, H, KV, hd, ff = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
 
     def normal(shape, scale, dt=dtype):
+        if generator is None:
+            return torch.empty(shape, dtype=dt, device=dev)
         # scaled in place: one fp32 temporary at a time (llama4's fp32 expert
         # weights are 21 GB a leaf)
         t = torch.randn(shape, generator=generator, device=generator.device)
@@ -346,7 +355,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
     def rwkv_block():                      # scales of the reference's init_rwkv
         rhd, lora, s = cfg.rwkv_head_dim, 64, d ** -0.5
-        mu = torch.rand((5, d), generator=generator, device=generator.device)
+        mu = (torch.empty((5, d), device=dev) if generator is None
+              else torch.rand((5, d), generator=generator, device=generator.device))
         return {"rwkv": {
             "mu": mu.to(dev, dtype),
             "wr": normal((d, d), s), "wk": normal((d, d), s), "wv": normal((d, d), s),

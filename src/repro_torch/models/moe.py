@@ -61,7 +61,7 @@ def _products_fp32(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     dtype.  On the card a bf16 product accumulates and returns fp32 on the
     tensor cores (``bmm`` with ``out_dtype``, which exists only for CUDA); the
     CPU multiplies the operands cast to fp32, the same function up to the
-    order of the sum."""
+    order of the sum.  Meta tensors (the dry-run) take the card's form."""
     if xe.device.type == "cpu":
         return torch.matmul(xe.float(), w.float())
     return _BmmFp32.apply(xe, w)
