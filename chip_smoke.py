@@ -187,7 +187,11 @@ paths:
     whole steps, granite-3-8b's B=4 x S=2048 prefill at full size, its
     16-layer training, rwkv6-3b's training and jamba's dense period: the
     predicted peak within 5 % of the measured one, ``kernel_calls`` equal
-    to the launches here and in phases 3, 15(d), 18(c) and 19(c); beside
+    to the launches here and in phases 3, 15(d), 18(c) and 19(c), the free
+    memory against the dry-run's ``CARD_USABLE_MEMORY``, the reserved peak
+    above the prediction by no more than ``RESERVED_MARGIN``; then (c)
+    again in a process with the default allocator, its reserved peak held
+    to the same margin; beside
     them (d) ``python -m repro_torch.launch.dryrun --all`` (one line a
     cell) and (e) the CLI's ``solve``, ``serve --mix``, ``serve --llm``
     and ``strategies`` and ``examples/serve_batched_torch.py`` and
@@ -456,6 +460,9 @@ P20_COMMANDS = [
     ("cli serve --llm", ["-m", "repro_torch", "serve", "--llm", "granite-3-8b:1,gemma2-9b:1",
                          "--llm-smoke", "--hw", "mcm16", "--requests", "100"]),
     ("cli strategies", ["-m", "repro_torch", "strategies"]),
+]
+# the two that use the card start once (a)-(c) has read the card's free memory
+P20_EXAMPLES = [
     ("serve_batched_torch.py", ["examples/serve_batched_torch.py"]),
     ("train_lm_torch.py", ["examples/train_lm_torch.py", "--steps", "40"]),
 ]
@@ -533,20 +540,7 @@ def kernel_name(mangled: str) -> str:
     if name and re.fullmatch(r"[A-Za-z_]\w*", name):
         tail = re.match(rf"I((?:{_TEMPLATE_ARG})+)E", mangled[pos:])
         return name + (_template_args(tail.group(1)) if tail else "")
-    for run in re.finditer(r"\d+", mangled):
-        for i in range(len(run.group())):
-            n, start = int(run.group()[i:]), run.end()
-            name = mangled[start:start + n]
-            tail = re.match(rf"I((?:{_TEMPLATE_ARG})+)E", mangled[start + n:])
-            if n and tail and re.fullmatch(r"[A-Za-z_]\w*", name):
-                return name + _template_args(tail.group(1))
-    for run in re.finditer(r"\d+", mangled):        # a plain function: <n><name>E
-        for i in range(len(run.group())):
-            n, start = int(run.group()[i:]), run.end()
-            name = mangled[start:start + n]
-            if n and re.fullmatch(r"[A-Za-z]\w*", name) and mangled[start + n:start + n + 1] == "E":
-                return name
-    return mangled
+    return mangled          # not walked: the SASS and ptxas checks then fail by name
 
 
 def ptxas_report(log: str) -> list[tuple[str, str, str]]:
@@ -2188,13 +2182,17 @@ def p20_kernel_calls(dev):
     return calls
 
 
-def phase20_card() -> int:
+def phase20_card(default_allocator: bool = False) -> int:
     """Phase 20 (a)-(c), in a process of its own whose allocator maps
     expandable segments, where each block is its request rounded up to 512
     bytes (the rule the dry-run's tracker counts by); prints its lines and,
-    last, a JSON object of the kernel calls each cell's step made."""
+    last, a JSON object of the kernel calls each cell's step made.  With
+    ``default_allocator`` only (c), under the default allocator.  Either
+    way each step's reserved peak is held to ``RESERVED_MARGIN`` above the
+    dry-run's peak."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"   # before CUDA starts
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = (                # before CUDA starts
+        f"expandable_segments:{not default_allocator}")
     import gc
 
     import torch
@@ -2202,10 +2200,9 @@ def phase20_card() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention.kernel import (_DTYPE_CODES, H100_SMS, _bwd_split,
-                                                            kv_split)
     from repro_torch.launch import dryrun
-    from repro_torch.launch.hlo_analysis import CARD_NAME, CARD_TOTAL_MEMORY
+    from repro_torch.launch.hlo_analysis import (CARD_TOTAL_MEMORY, CARD_USABLE_MEMORY,
+                                                 RESERVED_MARGIN)
     from repro_torch.models import init_params
     from repro_torch.optim import make_optimizer
     from repro_torch.runtime.planner import plan_for_cell
@@ -2215,6 +2212,98 @@ def phase20_card() -> int:
     card = f"[{nvidia_smi_line()}]"
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:     # built already by phase 1
         list(pool.map(_build.build, KERNEL_SOURCES))
+    # cuBLAS' workspaces, before any baseline: one a thread, so also the
+    # autograd engine's backward thread
+    x = torch.ones(256, 256, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    ((x @ x).float() @ x.float().detach()).sum().backward()
+    del x
+    sync()
+    meta = torch.device("meta")
+    if not default_allocator:
+        p20_kernels(dev, sync, meta)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) whole steps: the predicted peak against the measured one
+    held = int(os.environ.get("P20_HELD_ELSEWHERE", 0))     # by the script's main process
+    usable = torch.cuda.mem_get_info()[0] + held
+    print(f"  (c) usable: mem_get_info() reads {usable - held} bytes free, every kernel loaded "
+          f"and cuBLAS' workspaces made, {held} more held by the parent process; the dry-run's "
+          f"CARD_USABLE_MEMORY {CARD_USABLE_MEMORY}")
+    calls, bad, margins = {}, [], {}
+    for cell, arch, layers, kind, B, S in P20_CELLS:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers or full.n_layers)
+        if cell == "jamba_period_dense":
+            cfg = dataclasses.replace(cfg, moe=None)
+        plan = plan_for_cell(cfg, S, B, dryrun.MESH_AXES, 1, kind=kind, use_dse=False)
+        t0 = time.perf_counter()
+        pred = dryrun.trace_step(cfg, S, B, kind, plan)
+        trace_s = time.perf_counter() - t0
+        sync()
+        base, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        opt = None
+        if kind == "train":
+            model.train_params()
+            opt = make_optimizer(cfg.optimizer)[0](model.param_tree())
+        g = torch.Generator(device=dev).manual_seed(1)
+        inputs = {n: (torch.randint(0, cfg.vocab, t.shape, generator=g, device=dev,
+                                    dtype=t.dtype) if not t.is_floating_point()
+                      else torch.randn(t.shape, generator=g, device=dev).to(t.dtype))
+                  for n, t in dryrun.cell_inputs(cfg, S, B, kind, meta).items()}
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernel_functions():
+            fn.launches = 0
+        out = dryrun.run_step(cfg, plan, kind, S, B, model, opt, inputs, dev)
+        sync()
+        measured = torch.cuda.max_memory_allocated() - base
+        reserved = torch.cuda.max_memory_reserved() - base_reserved
+        launched = {fn.__name__: fn.launches for fn in kernel_functions() if fn.launches}
+        del model, opt, inputs, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        peak = pred["memory_analysis"]["peak_bytes"]
+        calls[cell] = pred["kernel_calls"]
+        margins[cell] = reserved / peak - 1
+        off = margins[cell] > RESERVED_MARGIN or (not default_allocator
+                                                  and abs(peak / measured - 1) > P20_PEAK_TOL)
+        if launched != pred["kernel_calls"] or off:
+            bad.append(cell)
+        print(f"  (c{' default allocator' if default_allocator else ''}) {cell} ({arch}, "
+              f"{cfg.n_layers} layers, {kind} B={B} x S={S}): predicted "
+              f"peak {peak} bytes ({peak / 2**30:.3f} GiB), measured {measured} bytes "
+              f"({measured / 2**30:.3f} GiB), predicted / measured {peak / measured:.5f} "
+              f"(tol {P20_PEAK_TOL:.0%}); reserved {reserved} bytes ({reserved / 2**30:.3f} "
+              f"GiB), {margins[cell]:+.5f} of the prediction; kernel_calls "
+              f"{pred['kernel_calls']}, the card's launches {launched}; trace {trace_s:.2f} s; "
+              f"roofline {pred['roofline']['dominant']} "
+              f"{pred['roofline']['bound_s'] * 1e3:.3f} ms {card}")
+    if default_allocator:
+        check(not bad, f"(c) under the default allocator the reserved peak is more than "
+                       f"RESERVED_MARGIN {RESERVED_MARGIN} above the prediction, or the "
+                       f"kernel calls disagree, for {bad}")
+    else:
+        check(not bad, f"(c) predicted and measured peaks, the reserved peak or the kernel "
+                       f"calls disagree for {bad}")
+        check(0 <= usable - CARD_USABLE_MEMORY <= 0.01 * CARD_TOTAL_MEMORY,
+              f"CARD_USABLE_MEMORY {CARD_USABLE_MEMORY} is not within 1 % below the "
+              f"{usable} bytes this process can allocate")
+    print(json.dumps({"p20_kernel_calls": calls, "p20_reserved_margins": margins}))
+    return 0
+
+
+def p20_kernels(dev, sync, meta) -> None:
+    """Phase 20 (a) the card's constants and the split rule; (b) one call of
+    each kernel function, the allocator's rise against the tracker's peak."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import (_DTYPE_CODES, H100_SMS, _bwd_split,
+                                                            kv_split)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import CARD_NAME, CARD_TOTAL_MEMORY
+
     # (a) the card's constants and the split rule
     props = torch.cuda.get_device_properties(dev)
     name = torch.cuda.get_device_name(dev)
@@ -2235,13 +2324,6 @@ def phase20_card() -> int:
 
     # (b) one call of each kernel function: the allocator's rise against the
     # tracker's peak on meta
-    # cuBLAS' workspaces, before any baseline: one a thread, so also the
-    # autograd engine's backward thread
-    x = torch.ones(256, 256, device=dev, dtype=torch.bfloat16, requires_grad=True)
-    ((x @ x).float() @ x.float().detach()).sum().backward()
-    del x
-    sync()
-    meta = torch.device("meta")
 
     def on_meta(a):
         if isinstance(a, torch.Tensor):
@@ -2270,56 +2352,6 @@ def phase20_card() -> int:
               f"peak {t.peak} bytes ({'equal' if t.peak == rise else 'DIFFERENT'})")
         del args, margs
     check(not bad, f"(b) the meta tracker's peak is not the card's allocation for {bad}")
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # (c) whole steps: the predicted peak against the measured one
-    calls, bad = {}, []
-    for cell, arch, layers, kind, B, S in P20_CELLS:
-        full = get_config(arch)
-        cfg = dataclasses.replace(full, n_layers=layers or full.n_layers)
-        if cell == "jamba_period_dense":
-            cfg = dataclasses.replace(cfg, moe=None)
-        plan = plan_for_cell(cfg, S, B, dryrun.MESH_AXES, 1, kind=kind, use_dse=False)
-        t0 = time.perf_counter()
-        pred = dryrun.trace_step(cfg, S, B, kind, plan)
-        trace_s = time.perf_counter() - t0
-        sync()
-        base = torch.cuda.memory_allocated()
-        model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-        opt = None
-        if kind == "train":
-            model.train_params()
-            opt = make_optimizer(cfg.optimizer)[0](model.param_tree())
-        g = torch.Generator(device=dev).manual_seed(1)
-        inputs = {n: (torch.randint(0, cfg.vocab, t.shape, generator=g, device=dev,
-                                    dtype=t.dtype) if not t.is_floating_point()
-                      else torch.randn(t.shape, generator=g, device=dev).to(t.dtype))
-                  for n, t in dryrun.cell_inputs(cfg, S, B, kind, meta).items()}
-        sync()
-        torch.cuda.reset_peak_memory_stats()
-        for fn in kernel_functions():
-            fn.launches = 0
-        out = dryrun.run_step(cfg, plan, kind, S, B, model, opt, inputs, dev)
-        sync()
-        measured = torch.cuda.max_memory_allocated() - base
-        launched = {fn.__name__: fn.launches for fn in kernel_functions() if fn.launches}
-        del model, opt, inputs, out
-        gc.collect()
-        torch.cuda.empty_cache()
-        peak = pred["memory_analysis"]["peak_bytes"]
-        calls[cell] = pred["kernel_calls"]
-        if launched != pred["kernel_calls"] or abs(peak / measured - 1) > P20_PEAK_TOL:
-            bad.append(cell)
-        print(f"  (c) {cell} ({arch}, {cfg.n_layers} layers, {kind} B={B} x S={S}): predicted "
-              f"peak {peak} bytes ({peak / 2**30:.3f} GiB), measured {measured} bytes "
-              f"({measured / 2**30:.3f} GiB), predicted / measured {peak / measured:.5f} "
-              f"(tol {P20_PEAK_TOL:.0%}); kernel_calls {pred['kernel_calls']}, the card's "
-              f"launches {launched}; trace {trace_s:.2f} s; roofline "
-              f"{pred['roofline']['dominant']} {pred['roofline']['bound_s'] * 1e3:.3f} ms {card}")
-    check(not bad, f"(c) predicted and measured peaks or kernel calls disagree for {bad}")
-    print(json.dumps({"p20_kernel_calls": calls}))
-    return 0
 
 
 def kernel_functions() -> tuple:
@@ -2335,25 +2367,42 @@ def kernel_functions() -> tuple:
 
 
 def dryrun_phase(card: str, phase_launches: dict) -> None:
-    """Phase 20: (a)-(c) in a process of its own (``phase20_card``), beside
-    it (d) the dry-run of every registry cell and (e) the CLI and the two
-    model examples as processes; every one must exit 0.  ``phase_launches``:
+    """Phase 20: (a)-(c) in a process of its own (``phase20_card``), then (c)
+    again under the default allocator in another; beside them (d) the
+    dry-run of every registry cell and (e) the CLI and the two model
+    examples as processes; every one must exit 0.  ``phase_launches``:
     the launches a step of each (c) cell made in the earlier phases, which
     the dry-run's kernel_calls must equal."""
+    import gc
+
+    import torch
+
     print("phase 20: the dry-run on the meta device against the card; the CLI and the "
           "examples")
-    env = dict(os.environ, PYTHONPATH=str(SRC))
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    # what this process still holds on the card (its context, its kernels),
+    # which (c) adds back to the free memory it reads
+    env = dict(os.environ, PYTHONPATH=str(SRC), P20_HELD_ELSEWHERE=str(total - free))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(P20_COMMANDS) + 1) as pool:
-        side = {name: pool.submit(subprocess.run, [sys.executable, *cmd], cwd=REPO, env=env,
-                                  capture_output=True, text=True, timeout=900)
-                for name, cmd in [("dryrun --all", P20_DRYRUN), *P20_COMMANDS]}
-        child = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--phase-20"],
-                               cwd=REPO, env=env, capture_output=True, text=True, timeout=900)
-        print(child.stdout.rstrip())
-        check(child.returncode == 0, f"phase 20 (a)-(c) exited {child.returncode}: "
-                                     f"{child.stderr[-3000:]}")
-        calls = json.loads(child.stdout.strip().splitlines()[-1])["p20_kernel_calls"]
+    with ThreadPoolExecutor(len(P20_COMMANDS) + len(P20_EXAMPLES) + 1) as pool:
+        def start(commands):
+            return {name: pool.submit(subprocess.run, [sys.executable, *cmd], cwd=REPO, env=env,
+                                      capture_output=True, text=True, timeout=900)
+                    for name, cmd in commands}
+
+        side = start([("dryrun --all", P20_DRYRUN), *P20_COMMANDS])
+        for mode in ([], ["default"]):       # expandable segments, then the default allocator
+            child = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--phase-20",
+                                    *mode], cwd=REPO, env=env, capture_output=True, text=True,
+                                   timeout=900)
+            print(child.stdout.rstrip())
+            check(child.returncode == 0, f"phase 20 {mode or '(a)-(c)'} exited "
+                                         f"{child.returncode}: {child.stderr[-3000:]}")
+            if not mode:
+                calls = json.loads(child.stdout.strip().splitlines()[-1])["p20_kernel_calls"]
+                side.update(start(P20_EXAMPLES))
         for cell, want in phase_launches.items():
             check(calls[cell] == want, f"(c) {cell}: the dry-run's kernel_calls {calls[cell]}, "
                                        f"the launches a step made in its phase {want}")
@@ -3161,4 +3210,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(phase20_card() if sys.argv[1:] == ["--phase-20"] else main())
+    if sys.argv[1:2] == ["--phase-20"]:
+        sys.exit(phase20_card(default_allocator=sys.argv[2:] == ["default"]))
+    sys.exit(main())

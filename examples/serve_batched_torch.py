@@ -7,7 +7,7 @@ Loads a reduced gemma2 (local/global alternating attention + softcaps),
 prefills a batch of prompts, then streams tokens with the decode step --
 the same step the decode_32k dry-run cells trace at scale.
 
-    PYTHONPATH=src python examples/serve_batched_torch.py [--device cpu] [--new 48]
+    PYTHONPATH=src python examples/serve_batched_torch.py [--device cpu]
 """
 import argparse
 import time
@@ -22,11 +22,8 @@ from repro_torch.runtime.serve import build_decode_step, greedy_generate
 
 ap = argparse.ArgumentParser()
 ap.add_argument("--device", default="cuda")
-ap.add_argument("--batch", type=int, default=8)
-ap.add_argument("--prompt", type=int, default=24)
-ap.add_argument("--new", type=int, default=48)
 args = ap.parse_args()
-BATCH, PROMPT, NEW = args.batch, args.prompt, args.new
+BATCH, PROMPT, NEW = 8, 24, 48
 
 dev = resolve_device(args.device)
 cfg = get_smoke_config("gemma2-9b")

@@ -6,8 +6,7 @@ The PyTorch port's copy of ``examples/train_lm.py``, on one card
 Builds a granite-family model scaled to ~100M params, lets the Scope DSE
 pick the WSP/ISP plan, and runs the fault-tolerant training loop (with a
 mid-run injected failure to demonstrate checkpoint restart) on the device.
-Loss drops from ~uniform (ln V ~ 8.3) toward the Markov-chain floor; a run
-of 100 steps or more checks that it dropped.
+Loss drops from ~uniform (ln V ~ 8.3) toward the Markov-chain floor.
 
     PYTHONPATH=src python examples/train_lm_torch.py [--steps 300] [--device cpu]
 """
@@ -82,5 +81,4 @@ for h in hist:
 print(f"\nloss: {hist[0]['loss']:.3f} -> {hist[-1]['loss']:.3f} "
       f"(uniform = {math.log(cfg.vocab):.3f})")
 assert all(math.isfinite(h["loss"]) for h in hist), "non-finite loss"
-if args.steps >= 100:
-    assert hist[-1]["loss"] < hist[0]["loss"] - 1.0, "expected a clear loss drop"
+assert hist[-1]["loss"] < hist[0]["loss"] - 1.0, "expected a clear loss drop"

@@ -54,18 +54,17 @@ def lse_rows(sq: int) -> int:
     return -(-sq // 128) * 128
 
 
-def kv_split(dtype: torch.dtype, head_dim: int, B: int, H: int, KV: int, Skv: int,
-             sms: int = H100_SMS) -> int:
+def kv_split(dtype: torch.dtype, head_dim: int, B: int, H: int, KV: int, Skv: int) -> int:
     """Chunks of a group's heads the bf16 dk / dv kernel splits into: a copy
-    of ``kv_split`` in ``csrc/flash_attention_bwd.cu`` (which reads ``sms``
-    from the device) for meta tensors, held to it on the card by
-    ``chip_smoke.py`` phase 20."""
+    of ``kv_split`` in ``csrc/flash_attention_bwd.cu`` (which reads the SM
+    count from the device; here ``H100_SMS``) for meta tensors, held to it on
+    the card by ``chip_smoke.py`` phase 20."""
     if dtype != torch.bfloat16 or head_dim not in (64, 128):
         return 1
     tiles = -(-Skv // 128) * B * KV
-    if tiles >= sms:
+    if tiles >= H100_SMS:
         return 1
-    return min(-(-sms // tiles), H // KV)
+    return min(-(-H100_SMS // tiles), H // KV)
 
 
 def flash_attention_cost(q, k, v, causal: bool = True, window: int = 0,

@@ -9,12 +9,15 @@ For each cell this shows, without hardware:
     runs once, every hand kernel through its wrapper's meta route;
   * whether it fits one card (``memory_analysis``): a storage tracker adds
     each new storage's bytes, rounded up as the CUDA caching allocator
-    rounds, and takes them off when the storage dies; its peak is judged
-    against the card's memory;
+    rounds with expandable segments, and takes them off when the storage
+    dies; ``fits`` holds its peak, grown by what the allocator reserves
+    above it, against what a process can allocate on the card;
   * the roofline inputs (``cost_analysis``): the aten products' flops from
     ``torch.utils.flop_counter.FlopCounterMode``, the unfused bytes of every
     aten operation's inputs and outputs, and each hand kernel's own count
-    (``kernels/cost.py``), with ``kernel_calls`` per kernel.
+    (``kernels/cost.py``), with ``kernel_calls`` per kernel.  The compute
+    term takes the aten products at the bf16 peak (the cells' weights are
+    bf16) and each kernel's operations at the peak of its own unit.
 
 The reference lowers once with ``scan_unroll=2`` to correct XLA's count of a
 scan body; the port runs every layer in Python, so every layer is counted
@@ -51,7 +54,9 @@ from ..optim import make_optimizer
 from ..runtime.planner import plan_for_cell
 from ..runtime.serve import build_decode_step, build_prefill_step
 from ..runtime.train import build_train_step
-from .hlo_analysis import CARD_NAME, CARD_TOTAL_MEMORY, kernel_bound, roofline_terms
+from .hlo_analysis import (CARD_NAME, CARD_TOTAL_MEMORY, CARD_USABLE_MEMORY,
+                           RESERVED_MARGIN, HwConstants, kernel_bound, roofline_terms,
+                           unit_peak)
 
 MESH_AXES = ("data", "model")
 ALLOC_ROUND = 512            # the CUDA caching allocator's block size unit
@@ -217,14 +222,16 @@ def trace_step(cfg: ModelConfig, S: int, B: int, kind: str, plan) -> dict:
     kernels: dict[str, dict] = {}
     for name, c in calls:
         kernel_calls[name] = kernel_calls.get(name, 0) + 1
-        k = kernels.setdefault(name, {"flops": 0.0, "bytes": 0.0, "bound_s": 0.0})
+        k = kernels.setdefault(name, {"flops": 0.0, "bytes": 0.0, "compute_s": 0.0,
+                                      "bound_s": 0.0})
         k["flops"] += c.flops
         k["bytes"] += c.bytes
+        k["compute_s"] += c.flops / unit_peak(c.unit)
         k["bound_s"] += kernel_bound(c)[0]
     aten_flops = float(flops.get_total_flops())
     k_flops = sum(k["flops"] for k in kernels.values())
     k_bytes = sum(k["bytes"] for k in kernels.values())
-    total_flops = aten_flops + k_flops
+    k_compute_s = sum(k["compute_s"] for k in kernels.values())
     total_bytes = float(tracker.bytes_accessed) + k_bytes
     return {
         "trace_s": trace_s,
@@ -233,16 +240,21 @@ def trace_step(cfg: ModelConfig, S: int, B: int, kind: str, plan) -> dict:
             "output_size_bytes": nbytes(*new_out.values()),
             "temp_size_bytes": tracker.peak - held,       # the most held above the arguments
             "peak_bytes": tracker.peak,
+            "allocator": "expandable_segments",          # the rule peak_bytes follows
+            "reserved_margin": RESERVED_MARGIN,           # reserved above it, either allocator
             "card": CARD_NAME,
             "card_total_memory": CARD_TOTAL_MEMORY,
-            "fits": tracker.peak <= CARD_TOTAL_MEMORY,
+            "card_usable_memory": CARD_USABLE_MEMORY,
+            "fits": tracker.peak * (1 + RESERVED_MARGIN) <= CARD_USABLE_MEMORY,
         },
-        "cost_analysis": {"flops": total_flops, "bytes accessed": total_bytes,
+        "cost_analysis": {"flops": aten_flops + k_flops, "bytes accessed": total_bytes,
                           "aten_flops": aten_flops, "kernel_flops": k_flops,
                           "kernel_bytes": k_bytes},
         "kernel_calls": kernel_calls,
         "kernels": kernels,
-        "roofline": roofline_terms(total_flops, total_bytes, 0.0, 1),
+        # the kernels' time at their own units' peaks, as flops at the bf16 peak
+        "roofline": roofline_terms(aten_flops + k_compute_s * HwConstants().peak_flops,
+                                   total_bytes, 0.0, 1),
     }
 
 

@@ -9,7 +9,10 @@ comes with the multi-card runtime (ROADMAP A13); the collective term is 0.
 
 The constants are the H100 SXM data sheet's dense peaks and HBM3 rate; the
 card's name and memory, as ``chip_smoke.py`` phase 20 reads them, stand
-beside them.
+beside them.  The dry-run's peak is what the allocator hands out with
+expandable segments (each block its request rounded up to 512 bytes); what
+it reserves from the card, with those segments or without, is more, by at
+most ``RESERVED_MARGIN`` of that peak on phase 20(c)'s steps.
 """
 from __future__ import annotations
 
@@ -19,6 +22,15 @@ from ..kernels.cost import KernelCost
 
 CARD_NAME = "NVIDIA H100 80GB HBM3"
 CARD_TOTAL_MEMORY = 85_017_493_504   # torch.cuda.get_device_properties(0).total_memory
+# what one process's step can allocate: torch.cuda.mem_get_info()'s free bytes
+# once the CUDA context is up, every kernel loaded and cuBLAS' workspaces made
+# (84,213,432,320 read), rounded down to 64 MiB
+CARD_USABLE_MEMORY = 84_154_515_456
+# the allocator's reserved peak over a step above the dry-run's peak, as a
+# share of that peak: 0.040 to 0.105 over phase 20(c)'s four steps under
+# either allocator in two runs (the default allocator's varies from run to
+# run: jamba's period 0.076, then 0.105), with room for that spread
+RESERVED_MARGIN = 0.15
 
 
 @dataclass(frozen=True)
@@ -56,10 +68,14 @@ def roofline_terms(
     }
 
 
+def unit_peak(unit: str, hw: HwConstants = HwConstants()) -> float:
+    """Operations a second of the unit that runs a kernel's work."""
+    return {"bf16": hw.peak_flops, "fp32": hw.fp32_flops, "int8": hw.int8_ops}[unit]
+
+
 def kernel_bound(cost: KernelCost, hw: HwConstants = HwConstants()) -> tuple[float, str]:
     """(seconds, "operations" or "bytes"): the least time the card takes for
     a kernel's work, its operations over the peak of their unit or its bytes
     over HBM, whichever is longer."""
-    peak = {"bf16": hw.peak_flops, "fp32": hw.fp32_flops, "int8": hw.int8_ops}[cost.unit]
-    t_ops, t_mem = cost.flops / peak, cost.bytes / hw.hbm_bw
+    t_ops, t_mem = cost.flops / unit_peak(cost.unit, hw), cost.bytes / hw.hbm_bw
     return max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes"

@@ -258,7 +258,26 @@ def test_training_cell_kernel_calls():
     moments = 8 * sum(p.numel() for p in params)                     # AdamW's m, v in fp32
     batch = 2 * 4 * 2048 * 4                                         # int32 tokens, labels
     assert mem["argument_size_bytes"] == weights + moments + 4 + batch   # + the step count
-    assert mem["fits"] and mem["peak_bytes"] > mem["argument_size_bytes"]
+    assert mem["peak_bytes"] > mem["argument_size_bytes"]
+    assert mem["fits"] == (mem["peak_bytes"] * (1 + mem["reserved_margin"])
+                           <= mem["card_usable_memory"]) is True
+
+
+def test_roofline_takes_each_kernel_at_its_own_units_peak():
+    """rwkv6-3b at full width cut to 2 layers, B=4 x S=2048, training: the
+    WKV-6 kernels run in fp32, so the compute term holds their operations
+    at the fp32 peak and the aten products at the bf16 one."""
+    cfg = dataclasses.replace(get_config("rwkv6-3b"), n_layers=2)
+    plan = plan_for_cell(cfg, 2048, 4, dryrun.MESH_AXES, 1, kind="train", use_dse=False)
+    res = dryrun.trace_step(cfg, 2048, 4, "train", plan)
+    hw, kernels = HwConstants(), res["kernels"]
+    assert sorted(kernels) == ["wkv6_bwd_kernel", "wkv6_kernel"]
+    for k in kernels.values():
+        assert k["compute_s"] == pytest.approx(k["flops"] / hw.fp32_flops, rel=1e-12)
+    want = (res["cost_analysis"]["aten_flops"] / hw.peak_flops
+            + sum(k["flops"] for k in kernels.values()) / hw.fp32_flops)
+    assert res["roofline"]["compute_s"] == pytest.approx(want, rel=1e-12)
+    assert res["roofline"]["compute_s"] > res["cost_analysis"]["flops"] / hw.peak_flops
 
 
 def test_roofline_terms_equal_the_reference():
