@@ -195,7 +195,21 @@ paths:
     them (d) ``python -m repro_torch.launch.dryrun --all`` (one line a
     cell) and (e) the CLI's ``solve``, ``serve --mix``, ``serve --llm``
     and ``strategies`` and ``examples/serve_batched_torch.py`` and
-    ``examples/train_lm_torch.py`` as processes, each exiting 0.
+    ``examples/train_lm_torch.py`` as processes, each exiting 0;
+21. the serving steps on (data, model) meshes of ranks: the flash kernel
+    with a query offset (a WSP rank's queries at their positions) against
+    its plain version in fp32 and bf16 at the ranks' calls below, an
+    offset inside gemma2's window included; then granite-3-8b at full
+    width cut to 8 layers (B=4 x S=2048, bf16) on (2, 2) and (1, 4) under
+    ISP, WSP, the mixed plan and the plan ``plan_for_cell(...,
+    model_axis=m)`` chooses, and gemma2-9b at full width cut to 4 layers
+    (B=1 x S=8192) on (1, 4) under the mixed plan: 4 ranks, processes
+    sharing the card over gloo (``launch/mesh.run_ranks``), each its
+    shard; each rank's prefill logits and 8 decode steps against its rows
+    and vocab columns of the one-rank run of the same seeded weights on
+    the card, its flash launches, its collectives equal to the dry-run's
+    count for its coordinates; prefill wall, collective bytes by kind,
+    each rank's memory rise beside the dry-run's.
 
 Any failed check raises and the script exits non-zero without a result.  The
 last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -206,7 +220,8 @@ run, calls of three kernels each; WKV-6: the phase-7 rwkv6-3b prefill;
 its backward: the phase-18 training run, calls of five kernels each;
 selective scan: the phase-10 jamba prefill; its backward: the phase-19(c)
 training run, calls of two kernels each; qmatmul: the phase-13 op call)
-and its times (each also with its launches on phase 14's facade path), and
+and its times (each also with its launches on phase 14's facade path;
+flash also with one rank's launches in phase 21's WSP prefill), and
 the line before that the script's wall time.  Imports nothing of JAX or of
 ``repro``.
 """
@@ -467,6 +482,42 @@ P20_EXAMPLES = [
     ("train_lm_torch.py", ["examples/train_lm_torch.py", "--steps", "40"]),
 ]
 P20_DRYRUN = ["-m", "repro_torch.launch.dryrun", "--all"]
+# Phase 21: the serving steps on a (data, model) mesh of ranks, 4 processes
+# that share the one card and meet over gloo (one start for every cell: the
+# (2, 2) mesh is built over the same 4 processes).  (arch, layers, B, S,
+# mesh shape, plans): each plan by name ("dse" is the one plan_for_cell(...,
+# model_axis=m) chooses, run unless it is one of the others).  Granite's
+# mixed plan turns at repeat 2 of 4; gemma2 at 4 layers (2 repeats of local
+# + global, so that a transition exists) at S=8192, so that a WSP rank's
+# window reaches into another rank's positions.  Depth is cut to keep the
+# phase near 90 s: every layer's collectives cross the host.
+P21_AXES = ("data", "model")
+P21_WORLD = (1, 4)
+P21_CELLS = [
+    ("granite-3-8b", 4, 4, 2048, (2, 2), ("ISP", "WSP", "mixed", "dse")),
+    ("granite-3-8b", 4, 4, 2048, (1, 4), ("ISP", "WSP", "mixed", "dse")),
+    ("gemma2-9b", 4, 1, 8192, (1, 4), ("mixed",)),
+]
+P21_STEPS = 8
+# Mesh logits against the one-rank logits of the same bf16 weights, both on
+# the card: max abs difference within the flash kernel's bf16 bound times the
+# largest one-rank logit.  The two differ only in the order of bf16 sums (the
+# row-parallel partials added in fp32, other product shapes); a wrong mask,
+# position, shard or cache entry moves logits by O(1) of that scale.
+P21_LOGIT_TOL = 2e-2
+# The flash kernel with a query offset against its plain version, in fp32 and
+# bf16 (2e-3 / 2e-2, and phase 2's per-row bound): (name, B, H, KV, Sq, Skv,
+# q_offset, hd, window, softcap).  The WSP ranks' calls of the cells above
+# (the last rank's, and a middle one), gemma2's local layer at an offset
+# inside its 4096 window and its global layer, and a ragged small case.
+P21_FA_CASES = [
+    ("granite_2x2_rank1", 2, 32, 8, 1024, 2048, 1024, 128, 0, 0.0),
+    ("granite_1x4_rank3", 4, 32, 8, 512, 2048, 1536, 128, 0, 0.0),
+    ("granite_1x4_rank1", 4, 32, 8, 512, 1024, 512, 128, 0, 0.0),
+    ("gemma2_local_rank3", 1, 16, 8, 2048, 8192, 6144, 256, 4096, 50.0),
+    ("gemma2_global_rank2", 1, 16, 8, 2048, 6144, 4096, 256, 0, 50.0),
+    ("ragged_window", 1, 4, 2, 100, 137, 37, 64, 64, 0.0),
+]
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -2426,6 +2477,245 @@ def dryrun_phase(card: str, phase_launches: dict) -> None:
     print(f"  phase 20 wall {time.perf_counter() - t0:.1f} s {card}")
 
 
+def mesh_plan_kwargs(cfg, B: int, S: int, m: int, names) -> dict:
+    """Each named plan of a phase-21 cell as ShardPlan keywords: ISP, WSP,
+    mixed (WSP, then ISP from the middle repeat) and "dse", the plan
+    plan_for_cell chooses at model axis m (left out where it is one of the
+    others, which the caller prints)."""
+    from repro_torch.runtime.planner import plan_for_cell
+
+    fixed = {"ISP": {"p1": "ISP", "p2": "ISP", "transition_repeat": None},
+             "WSP": {"p1": "WSP", "p2": "WSP", "transition_repeat": None},
+             "mixed": {"p1": "WSP", "p2": "ISP",
+                       "transition_repeat": cfg.pattern_repeats // 2}}
+    plans = {n: fixed[n] for n in names if n != "dse"}
+    if "dse" in names:
+        p = plan_for_cell(cfg, S, B, P21_AXES, model_axis=m, kind="prefill")
+        kw = {"p1": p.p1, "p2": p.p2, "transition_repeat": p.transition_repeat}
+        same = [n for n, v in plans.items() if v == kw]
+        print(f"  {cfg.name} ({cfg.n_layers} layers) at model axis {m}: plan_for_cell "
+              f"chooses {kw} (t_layers {p.meta['t_layers']})"
+              + (f" = the {same[0]} plan" if same else ""))
+        if not same:
+            plans["dse"] = kw
+    return plans
+
+
+def p21_rank(world, cells: list, steps: int) -> list:
+    """One rank of phase 21 (a process of its own on the shared card): each
+    cell, ``(arch, layers, B, S, mesh shape, plans, seed)``, on its mesh
+    over the same processes; its :func:`p21_cell` results."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+
+    out = []
+    for arch, layers, B, S, shape, plans, seed in cells:
+        mesh = world if tuple(shape) == world.dims else make_mesh(shape, P21_AXES, world.device)
+        out.append(p21_cell(mesh, arch, layers, B, S, plans, seed, steps))
+        torch.cuda.empty_cache()
+    return out
+
+
+def p21_cell(mesh, arch: str, layers: int, B: int, S: int, plans: dict, seed: int,
+             steps: int) -> dict:
+    """One rank of a phase-21 cell.
+
+    The whole model from the seed, then, one rank at a time (each holds a
+    full-vocab fp32 logit tensor meanwhile), its one-rank prefill and
+    ``steps`` decode steps from the prefill's caches: this rank's rows and
+    vocab columns of their logits.  Then per plan: the rank's shard, the
+    mesh prefill (wall time, flash launches, the allocator's rise, the
+    collectives) and the decode steps from the rank's pieces of the same
+    caches, each against the one-rank logits, and the dry-run's prediction
+    for this rank (``trace_step`` on a meta rank at these coordinates):
+    its collectives and its peak.  Raises on any failed check."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_kv_cache, init_params
+    from repro_torch.runtime.serve import build_decode_step, build_prefill_step
+    from repro_torch.runtime.sharding import ShardPlan, rank_shard, shard_caches, shard_model
+
+    dev = mesh.device
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    whole = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=torch.Generator().manual_seed(seed + 1))
+    dtoks = torch.randint(0, cfg.vocab, (steps, B, 1),
+                          generator=torch.Generator().manual_seed(seed + 2))
+    place = rank_shard(cfg, ShardPlan(P21_AXES), mesh)     # rows and vocab: the same for all
+    rows = slice(place.dpi * B // place.dp, (place.dpi + 1) * B // place.dp)
+    v0, v1 = place.vocab
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            with torch.inference_mode():
+                logits, pre = whole(tokens.to(dev), collect_cache=True)
+                ref = logits[rows, :, v0:v1].clone()
+                del logits
+                caches = init_kv_cache(cfg, B, S + steps, torch.bfloat16, dev)
+                for full, part in zip(caches, pre):
+                    for n in full:
+                        full[n][:, :, :S] = part[n]
+                del pre
+                start = tuple({n: t.clone() for n, t in c.items()} for c in caches)
+                dref = []
+                for t in range(steps):
+                    lg, caches = whole.decode_step(dtoks[t].to(dev),
+                                                   torch.full((B,), S + t, device=dev), caches)
+                    dref.append(lg[rows, :, v0:v1].clone())
+                del caches, lg
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    scale = ref.abs().max().item()
+    dscale = max(d.abs().max().item() for d in dref)
+    out = {}
+    for name, kw in plans.items():
+        plan = ShardPlan(P21_AXES, **kw)
+        model = shard_model(whole, plan, mesh)
+        prefill = build_prefill_step(cfg, plan, dev, mesh)
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        mesh.comm.reset()
+        flash_attention_kernel.launches = 0
+        t0 = time.perf_counter()
+        local = prefill(model, tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = flash_attention_kernel.launches
+        rise = torch.cuda.max_memory_allocated() - before
+        calls = dict(mesh.comm.calls)
+        stats = mesh.comm.stats()
+        check(bool(torch.isfinite(local).all()), f"{arch} {name}: non-finite mesh logits")
+        err = (local - ref).abs().max().item()
+        del local
+        decode = build_decode_step(cfg, plan, B, S + steps, dev, mesh)
+        state = shard_caches(start, model.shard)
+        derr, dcalls = 0.0, None
+        dist.barrier()
+        t0 = time.perf_counter()
+        for t in range(steps):
+            mesh.comm.reset()
+            lg, state = decode(model, dtoks[t], torch.full((B,), S + t), state)
+            if t == 0:
+                dcalls = dict(mesh.comm.calls)
+            derr = max(derr, (lg - dref[t]).abs().max().item())
+        torch.cuda.synchronize()
+        dwall = time.perf_counter() - t0
+        del state, model
+        meta = make_mesh(mesh.dims, mesh.axis_names, meta=True, coords=mesh.coords)
+        pred = dryrun.trace_step(cfg, S, B, "prefill", plan, meta)
+        pcalls = dict(meta.comm.calls)
+        meta = make_mesh(mesh.dims, mesh.axis_names, meta=True, coords=mesh.coords)
+        dryrun.trace_step(cfg, S + steps, B, "decode", plan, meta)
+        where = f"{arch} {tuple(mesh.dims)} {name} rank {mesh.rank}"
+        check(launches == layers, f"{where}: {launches} flash launches, expected {layers}")
+        check(err <= P21_LOGIT_TOL * scale,
+              f"{where}: prefill logits max abs err {err} > {P21_LOGIT_TOL} x {scale}")
+        check(derr <= P21_LOGIT_TOL * dscale,
+              f"{where}: decode logits max abs err {derr} > {P21_LOGIT_TOL} x {dscale}")
+        check(calls == pcalls, f"{where}: prefill collectives {calls} vs the dry-run's {pcalls}")
+        check(dcalls == dict(meta.comm.calls),
+              f"{where}: decode collectives {dcalls} vs the dry-run's {meta.comm.calls}")
+        mem = pred["memory_analysis"]
+        out[name] = {"wall_s": wall, "decode_s": dwall, "launches": launches, "err": err,
+                     "scale": scale, "decode_err": derr, "decode_scale": dscale,
+                     "bytes_by_kind": stats["bytes_by_kind"],
+                     "count_by_kind": stats["count_by_kind"], "rise": rise,
+                     "pred_temp": mem["temp_size_bytes"], "pred_peak": mem["peak_bytes"],
+                     "args": mem["argument_size_bytes"]}
+    return out
+
+
+def mesh_phase(get_config, card: str, sync) -> int:
+    """Phase 21; returns the flash launches of one rank's WSP prefill of
+    granite-3-8b on the (1, 4) mesh (the phase's main path)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_cost,
+                                                            flash_attention_kernel)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.launch.hlo_analysis import kernel_bound
+    from repro_torch.launch.mesh import run_ranks
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    print("phase 21: the serving steps on (data, model) meshes of ranks sharing the card "
+          "over gloo; the flash kernel with a query offset")
+    for name, B, H, KV, Sq, Skv, off, hd, window, cap in P21_FA_CASES:
+        for dt, tol in (("float32", 2e-3), ("bfloat16", 2e-2)):
+            dtype = getattr(torch, dt)
+            g = torch.Generator(device=dev).manual_seed(21)
+            q = torch.randn(B, H, Sq, hd, generator=g, device=dev).to(dtype)
+            k = torch.randn(B, KV, Skv, hd, generator=g, device=dev).to(dtype)
+            v = torch.randn(B, KV, Skv, hd, generator=g, device=dev).to(dtype)
+            with torch.inference_mode():
+                got = flash_attention_kernel(q, k, v, causal=True, window=window, softcap=cap,
+                                             q_offset=off)
+                want = attention_ref(q, k, v, True, window, cap, q_offset=off)
+            sync()
+            err = (got.float() - want.float()).abs().max().item()
+            rel = row_rel_err(got, want)
+            check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+                  f"{name} {dt}: offset kernel vs plain max abs err {err} (tol {tol})")
+            check(rel <= ROW_REL_TOL, f"{name} {dt}: per-row error {rel} (tol {ROW_REL_TOL})")
+            timed = ""
+            if dtype == torch.bfloat16:
+                ms = cuda_ms(lambda: flash_attention_kernel(q, k, v, causal=True, window=window,
+                                                            softcap=cap, q_offset=off), 20)
+                bound_s, by = kernel_bound(flash_attention_cost(q, k, v, True, window,
+                                                                q_offset=off))
+                timed = f"; {ms:.4f} ms, bound {1e3 * bound_s:.4f} ms ({by}) {card}"
+            print(f"  flash q_offset {name}: B={B} H={H} KV={KV} Sq={Sq} Skv={Skv} "
+                  f"offset={off} hd={hd} window={window} softcap={cap} {dt}: max abs err "
+                  f"{err:.3e} (tol {tol}), row {rel:.3e} (tol {ROW_REL_TOL}){timed}")
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+    cells = []
+    for i, (arch, layers, B, S, shape, names) in enumerate(P21_CELLS):
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        cells.append((arch, layers, B, S, shape, mesh_plan_kwargs(cfg, B, S, shape[1], names),
+                      210 + i))
+    n = P21_WORLD[0] * P21_WORLD[1]
+    t0 = time.perf_counter()
+    ranks = run_ranks(p21_rank, P21_WORLD, P21_AXES, cells, P21_STEPS, device="cuda",
+                      threads=2)
+    print(f"  {n} ranks ran every cell in {time.perf_counter() - t0:.1f} s (start, init, "
+          f"one-rank references, every plan)")
+    mesh_launches = None
+    for i, (arch, layers, B, S, shape, plans, _) in enumerate(cells):
+        full = get_config(arch)
+        print(f"  {arch} full width, layers {full.n_layers}→{layers}, bf16, B={B} x S={S} on a "
+              f"{shape} (data, model) mesh: {n} ranks sharing one card over gloo")
+        for name, kw in plans.items():
+            per = [r[i][name] for r in ranks]
+            wall = max(p["wall_s"] for p in per)
+            print(f"  {name} {kw}: prefill wall {wall * 1e3:.1f} ms (slowest rank), "
+                  f"{P21_STEPS} decode steps {max(p['decode_s'] for p in per) * 1e3:.1f} ms; "
+                  f"max abs err vs one rank: prefill {max(p['err'] for p in per):.3e} "
+                  f"(scale {per[0]['scale']:.3e}), decode "
+                  f"{max(p['decode_err'] for p in per):.3e}; flash launches a rank "
+                  f"{per[0]['launches']}; {n} ranks sharing one card over gloo {card}")
+            print(f"    collectives a rank (result bytes by kind, = the dry-run's count): "
+                  f"{json.dumps(per[0]['bytes_by_kind'])} calls "
+                  f"{json.dumps(per[0]['count_by_kind'])}")
+            print("    prefill memory rise a rank (measured / dry-run temp): " + ", ".join(
+                f"r{r} {p['rise'] / 2**30:.3f} / {p['pred_temp'] / 2**30:.3f} GiB"
+                for r, p in enumerate(per))
+                + f"; dry-run peak {per[0]['pred_peak'] / 2**30:.3f} GiB (args "
+                  f"{per[0]['args'] / 2**30:.3f})")
+            if arch == "granite-3-8b" and shape == (1, 4) and name == "WSP":
+                mesh_launches = per[0]["launches"]
+    print(f"  phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return mesh_launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"no src/repro_torch beside {Path(__file__).name}: run from a checkout",
@@ -3149,6 +3439,9 @@ def main() -> int:
         "jamba_period_dense": per_step(jamba_training["train"]["launches"], JAMBA_TRAIN_STEPS),
     })
 
+    # ------------------------------------------------------------ phase 21
+    mesh_launches = mesh_phase(get_config, card, sync)
+
     # ------------------------------------------------------------ result
     main_case = results[MAIN_PATH_CASE]
     wkv_case = wkv_results[WKV_MAIN_PATH_CASE]
@@ -3159,6 +3452,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
         "launches": launches, "facade_launches": facade_launches["flash_attention"],
+        "mesh_launches": mesh_launches,
         **{k: main_case[k] for k in keys},
     }, {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -3209,7 +3503,30 @@ def main() -> int:
     return 0
 
 
+def phase21_card() -> int:
+    """``python3 chip_smoke.py --phase-21``: phase 21 alone (the flash
+    library built first)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch.cuda.is_available() is False: this smoke run needs a GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+
+    smi = nvidia_smi_line()
+    print(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"flash_attention.cu built in {_build.build('flash_attention.cu'):.3f} s")
+    mesh_phase(get_config, f"[{smi}]", torch.cuda.synchronize)
+    print(f"total wall time {time.perf_counter() - T_START:.1f} s")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase-21"]:
+        sys.exit(phase21_card())
     if sys.argv[1:2] == ["--phase-20"]:
         sys.exit(phase20_card(default_allocator=sys.argv[2:] == ["default"]))
     sys.exit(main())

@@ -1229,7 +1229,8 @@ class Solution:
 class Deployment:
     """Runtime-facing view of a solution: per-model ShardPlans.
 
-    ``build_steps`` builds the torch serving steps on one device
+    ``build_steps`` builds the torch serving steps on one device, or for
+    the calling rank of ``mesh``
     (:func:`repro_torch.runtime.serve.build_multimodel_steps`).
     """
     cfgs: tuple
@@ -1242,13 +1243,13 @@ class Deployment:
 
     def build_steps(self, batch: int | None = None,
                     max_len: int | None = None, with_decode: bool = True,
-                    device: str = "cuda"):
+                    device: str = "cuda", mesh=None):
         from .runtime.serve import build_multimodel_steps
 
         return build_multimodel_steps(
             list(self.cfgs), self.plans,
             batch=batch, max_len=max_len, with_decode=with_decode,
-            device=device,
+            device=device, mesh=mesh,
         )
 
 

@@ -5,6 +5,11 @@
 // softmax(softcap(q k^T / sqrt(hd)) masked) v with causal mask kpos <= qpos,
 // sliding window kpos > qpos - window, GQA head h -> h / (H / KV), and an
 // online softmax whose running max, sum and accumulator are fp32.
+// Query row i sits at position i + q_offset and key row j at position j:
+// a rank of a sequence-sharded (WSP) prefill passes its first position as
+// q_offset, with the keys of every position up to its last.  The masks,
+// the key range and the skipping of fully masked tiles all take the query's
+// position; the rows are read and written at their own index.
 //
 // What bounds it on this card: at the prefill shapes of the serving path
 // (granite-3-8b B=4 S=2048 hd=128; gemma2-9b S=8192 hd=256) the work is
@@ -78,6 +83,7 @@ struct Params {
   long long v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
   int causal, window;
+  int q_offset;                 // position of query row 0 (keys start at 0)
   float softcap, scale;
   // What the backward takes from a training forward (null when serving):
   // each row's base-2 log-sum-exp, log2 sum_k exp2(y log2 e) (+inf for a
@@ -93,7 +99,8 @@ __device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
          (p.window <= 0 || kpos > qpos - p.window);
 }
 
-// First key and one past the last key any row of [q_lo, q_last] can see.
+// First key and one past the last key any query position of [q_lo, q_last]
+// can see.
 __device__ __forceinline__ void key_range(const Params& p, int q_lo, int q_last,
                                           int& k_begin, int& k_end) {
   k_begin = p.window > 0 ? max(0, q_lo - p.window + 1) : 0;
@@ -178,7 +185,7 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
     x.q0 = (p.causal ? q_tiles - 1 - z : z) * BQ;
     x.kvh = x.h / (p.H / p.KV);
     int k_begin, k_end;
-    key_range(p, x.q0, min(x.q0 + BQ, p.Sq) - 1, k_begin, k_end);
+    key_range(p, x.q0 + p.q_offset, min(x.q0 + BQ, p.Sq) - 1 + p.q_offset, k_begin, k_end);
     x.k_first = (k_begin / BK) * BK;
     x.n_tiles = k_end > x.k_first ? (k_end - x.k_first + BK - 1) / BK : 0;
     return x;
@@ -235,6 +242,7 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, t = lane % 4;
     int wq_lo, qr0, qr1;     // this warpgroup's first row and this thread's rows
+    const int qo = p.q_offset;   // row r's query position is r + qo
     const float sl2 = p.scale * kLog2e;
     const float cap_in = p.softcap > 0.f ? p.scale / p.softcap : 0.f;
     const float cap_out = p.softcap * kLog2e;
@@ -282,13 +290,13 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
       }
       const float to_log2 = p.softcap > 0.f ? 1.f : sl2;
       // A tile every row of the warpgroup sees in full needs no mask.
-      const bool full = k0 + BK <= p.Skv && (!p.causal || k0 + BK - 1 <= wq_lo) &&
-                        (p.window <= 0 || k0 > wq_lo + 63 - p.window);
+      const bool full = k0 + BK <= p.Skv && (!p.causal || k0 + BK - 1 <= wq_lo + qo) &&
+                        (p.window <= 0 || k0 > wq_lo + qo + 63 - p.window);
       if (!full) {
 #pragma unroll
         for (int e = 0; e < BK / 2; ++e) {
           const int kpos = k0 + (e / 4) * 8 + 2 * t + (e & 1);
-          if (!visible(p, (e & 2) ? qr1 : qr0, kpos)) sc[e] = -INFINITY;
+          if (!visible(p, ((e & 2) ? qr1 : qr0) + qo, kpos)) sc[e] = -INFINITY;
         }
       }
       float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -501,7 +509,7 @@ __global__ void __launch_bounds__(kThreads) fa_fwd_f32(Params p) {
   }
 
   int k_begin, k_end;
-  key_range(p, q_lo, min(q_lo + BQ, p.Sq) - 1, k_begin, k_end);
+  key_range(p, q_lo + p.q_offset, min(q_lo + BQ, p.Sq) - 1 + p.q_offset, k_begin, k_end);
   for (int k0 = (k_begin / BK) * BK; k0 < k_end; k0 += BK) {
     __syncthreads();
     for (int i = threadIdx.x; i < BK * HD; i += kThreads) {
@@ -529,7 +537,7 @@ __global__ void __launch_bounds__(kThreads) fa_fwd_f32(Params p) {
 
 #pragma unroll
     for (int i = 0; i < R; ++i) {
-      const int qpos = q_lo + ty + 8 * i;
+      const int qpos = q_lo + ty + 8 * i + p.q_offset;
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -631,7 +639,8 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  strides: 12 element strides, (batch,
-// head, seq) for q, k, v and o in that order.  lse: null (serving), or fp32
+// head, seq) for q, k, v and o in that order.  q_offset: the position of
+// query row 0 (>= 0; keys count from 0).  lse: null (serving), or fp32
 // [B, H, lse_ld] for each row's base-2 log-sum-exp (training); then in bf16
 // o_res (o's strides) takes o's residual.  Returns a cudaError_t value, -1
 // for a dtype / head-dim pair with no instantiation, or -2 when a TMA tensor
@@ -642,12 +651,12 @@ extern "C" int repro_flash_attention_fwd(int dtype, int head_dim, const void* q,
                                          float* lse, void* o_res, long long lse_ld,
                                          int B, int H, int KV, int Sq, int Skv,
                                          const long long* strides, int causal,
-                                         int window, float softcap, float scale,
-                                         void* stream) {
+                                         int window, int q_offset, float softcap,
+                                         float scale, void* stream) {
   Params p{q, k, v, o, B, H, KV, Sq, Skv,
            strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
            strides[6], strides[7], strides[8], strides[9], strides[10], strides[11],
-           causal, window, softcap, scale, lse, o_res, lse_ld};
+           causal, window, q_offset, softcap, scale, lse, o_res, lse_ld};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && lse != nullptr) {
     switch (head_dim) {

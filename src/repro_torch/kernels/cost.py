@@ -34,10 +34,10 @@ def unit_of(dtype: torch.dtype) -> str:
     return "bf16" if dtype == torch.bfloat16 else "fp32"
 
 
-def visible_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
-    """(q, k) pairs the causal / window masks leave visible, query and key
-    positions both counted from 0."""
-    q = np.arange(Sq, dtype=np.int64)
+def visible_pairs(Sq: int, Skv: int, causal: bool, window: int, q_offset: int = 0) -> int:
+    """(q, k) pairs the causal / window masks leave visible, key positions
+    counted from 0 and query positions from ``q_offset``."""
+    q = np.arange(q_offset, q_offset + Sq, dtype=np.int64)
     hi = np.minimum(q, Skv - 1) if causal else np.full(Sq, Skv - 1, dtype=np.int64)
     lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(Sq, dtype=np.int64)
     return int(np.maximum(hi - lo + 1, 0).sum())

@@ -68,13 +68,13 @@ def kv_split(dtype: torch.dtype, head_dim: int, B: int, H: int, KV: int, Skv: in
 
 
 def flash_attention_cost(q, k, v, causal: bool = True, window: int = 0,
-                         with_lse: bool = False) -> KernelCost:
+                         with_lse: bool = False, q_offset: int = 0) -> KernelCost:
     """The forward's least work: q k^T and P v over the visible pairs (2
-    products of 2 hd operations a pair and head); q, k, v read and the
-    output written once (with ``with_lse`` also the log-sum-exp and, in
-    bf16, the residual)."""
+    products of 2 hd operations a pair and head; query positions from
+    ``q_offset``); q, k, v read and the output written once (with
+    ``with_lse`` also the log-sum-exp and, in bf16, the residual)."""
     B, H, Sq, hd = q.shape
-    pairs = visible_pairs(Sq, k.shape[2], causal, window)
+    pairs = visible_pairs(Sq, k.shape[2], causal, window, q_offset)
     out = nbytes(q) * (2 if with_lse and q.dtype == torch.bfloat16 else 1)
     lse = 4 * B * H * lse_rows(Sq) if with_lse else 0
     return KernelCost(4 * B * H * hd * pairs, nbytes(q, k, v) + out + lse, unit_of(q.dtype))
@@ -119,7 +119,7 @@ def _fwd():
         [ctypes.c_int, ctypes.c_int]
         + [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
         + [ctypes.c_int] * 5
-        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_int,
            ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -164,6 +164,7 @@ def flash_attention_kernel(
     window: int = 0,
     softcap: float = 0.0,
     with_lse: bool = False,
+    q_offset: int = 0,
 ) -> torch.Tensor | SavedForward:
     """Launch the CUDA kernel on q's current stream; raises on any input the
     kernel does not take and on any launch error.
@@ -172,8 +173,15 @@ def flash_attention_kernel(
     kernel takes, and the call returns it as a :class:`SavedForward`; bf16
     then runs the forward's training instantiation, whose P v also takes
     the product of P's bf16 residual.  Without it (serving) nothing else is
-    written.
+    written.  ``q_offset`` is the position of query row 0 (keys start at
+    0): a rank of a sequence-sharded prefill passes its first position.
+    The backward takes no offset, so training calls take none either.
     """
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset}: query positions start at 0 or later")
+    if q_offset and with_lse:
+        raise NotImplementedError("the flash backward with a query offset (training on a "
+                                  "sequence-sharded mesh): ROADMAP A13c")
     _check(q, k, v)
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
@@ -187,7 +195,7 @@ def flash_attention_kernel(
         return SavedForward(o, lse, o_res) if with_lse else o
     if q.device.type == "meta":
         meta_call("flash_attention_kernel",
-                  flash_attention_cost(q, k, v, causal, window, with_lse))
+                  flash_attention_cost(q, k, v, causal, window, with_lse, q_offset))
         return SavedForward(o, lse, o_res) if with_lse else o
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3]
@@ -199,7 +207,7 @@ def flash_attention_kernel(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(),
             None if o_res is None else o_res.data_ptr(), lse_rows(Sq),
-            B, H, KV, Sq, Skv, strides, int(causal), int(window),
+            B, H, KV, Sq, Skv, strides, int(causal), int(window), int(q_offset),
             float(softcap), 1.0 / math.sqrt(hd), stream,
         )
     if err == -2:

@@ -40,6 +40,7 @@ def flash_attention(
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """q [B,H,Sq,hd], k/v [B,KV,Skv,hd] -> [B,H,Sq,hd] in q's dtype.
 
@@ -48,8 +49,17 @@ def flash_attention(
     fallback to the plain version): the forward kernel, and the backward
     kernel when a gradient flows back through the call.  A meta tensor
     takes the kernels' route too, which allocates and launches nothing.
+    ``q_offset`` puts query row 0 at that position (keys start at 0); the
+    backward takes none, so a call that needs a gradient raises with one,
+    on every device.
     """
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal, window, softcap)
     keep = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if q_offset and keep:
+        raise NotImplementedError("the flash backward with a query offset (training on a "
+                                  "sequence-sharded mesh): ROADMAP A13c")
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal, window, softcap, q_offset)
+    if q_offset:
+        return flash_attention_kernel(q, k, v, causal=causal, window=window, softcap=softcap,
+                                      q_offset=q_offset)
     return _FlashAttention.apply(q, k, v, causal, window, softcap, keep)

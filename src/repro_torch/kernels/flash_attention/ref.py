@@ -1,8 +1,10 @@
 """Plain PyTorch flash attention (port of ``repro/kernels/flash_attention/ref.py``).
 
 The CPU path of :func:`..ops.flash_attention` and the oracle the CUDA kernel
-is held against on the card.  Identical masking semantics to the kernel:
-query and key positions both count from 0, masked logits are ``NEG_INF``.
+is held against on the card.  Identical masking semantics to the kernel: key
+positions count from 0, query positions from ``q_offset`` (0 in the
+reference, which has no offset; a rank of a sequence-sharded prefill passes
+its first position), masked logits are ``NEG_INF``.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ def attention_ref(
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
@@ -30,7 +33,7 @@ def attention_ref(
     s = torch.einsum("bhsd,bhtd->bhst", q.float(), kf) / math.sqrt(hd)
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
-    qpos = torch.arange(Sq, device=q.device)[:, None]
+    qpos = torch.arange(q_offset, q_offset + Sq, device=q.device)[:, None]
     kpos = torch.arange(Skv, device=q.device)[None, :]
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
     if causal:

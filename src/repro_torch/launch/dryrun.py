@@ -22,12 +22,21 @@ For each cell this shows, without hardware:
 The reference lowers once with ``scan_unroll=2`` to correct XLA's count of a
 scan body; the port runs every layer in Python, so every layer is counted
 and there is no ``corrected`` block.  ``lower_s`` / ``compile_s`` become
-``trace_s``.  One card has no mesh: ``--multi-pod`` and any mesh but 1 x 1
-raise (ROADMAP A13).
+``trace_s``.
+
+``--mesh DxM`` traces the cell on one rank of a (data, model) mesh: the
+plan from ``plan_for_cell`` at model axis M, the rank's shard of the model
+(``runtime/sharding.shard_model``) and its pieces of the inputs and caches,
+its peak, and its collectives recorded on the meta route
+(``runtime/collectives.py``) as ``collective_stats``, which feed the
+roofline's collective term.  Serving cells only; a cell the rank-local
+execution does not cover (training, MoE, mamba / rwkv on a model axis)
+is reported as skipped.  ``--multi-pod`` raises (ROADMAP A13c).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-3-8b --shape train_4k
   python -m repro_torch.launch.dryrun --all
+  python -m repro_torch.launch.dryrun --arch granite-3-8b --shape prefill_32k --mesh 2x4
 """
 from __future__ import annotations
 
@@ -53,10 +62,12 @@ from ..models.model import init_kv_cache, init_params
 from ..optim import make_optimizer
 from ..runtime.planner import plan_for_cell
 from ..runtime.serve import build_decode_step, build_prefill_step
+from ..runtime.sharding import shard_model
 from ..runtime.train import build_train_step
 from .hlo_analysis import (CARD_NAME, CARD_TOTAL_MEMORY, CARD_USABLE_MEMORY,
-                           RESERVED_MARGIN, HwConstants, kernel_bound, roofline_terms,
-                           unit_peak)
+                           RESERVED_MARGIN, HwConstants, collective_stats, kernel_bound,
+                           roofline_terms, unit_peak)
+from .mesh import make_mesh
 
 MESH_AXES = ("data", "model")
 ALLOC_ROUND = 512            # the CUDA caching allocator's block size unit
@@ -142,10 +153,12 @@ class StorageTracker(TorchDispatchMode):
         return out
 
 
-def cell_inputs(cfg: ModelConfig, S: int, B: int, kind: str, device="meta") -> dict:
+def cell_inputs(cfg: ModelConfig, S: int, B: int, kind: str, device="meta",
+                model=None) -> dict:
     """Every model input of the cell, as the reference's ``input_specs``:
     int32 token ids and labels, bf16 frontend embeddings, and for decode
-    one token, its write position and the caches of S positions."""
+    one token, its write position and the caches of S positions (``model``'s
+    own caches where given: a rank's pieces on a mesh)."""
     i32 = dict(dtype=torch.int32, device=device)
     if kind in ("train", "prefill"):
         batch = {}
@@ -161,13 +174,22 @@ def cell_inputs(cfg: ModelConfig, S: int, B: int, kind: str, device="meta") -> d
         if kind == "train":
             batch["labels"] = torch.empty(B, S, **i32)
         return batch
+    caches = (init_kv_cache(cfg, B, S, torch.bfloat16, device) if model is None
+              else model.init_kv_cache(B, S, torch.bfloat16))
     return {"token": torch.empty(B, 1, **i32), "position": torch.empty(B, **i32),
-            "caches": init_kv_cache(cfg, B, S, torch.bfloat16, device)}
+            "caches": caches}
 
 
-def cell_arguments(cfg: ModelConfig, S: int, B: int, kind: str, device="meta"):
+def cell_arguments(cfg: ModelConfig, S: int, B: int, kind: str, device="meta", whole=None,
+                   plan=None, mesh=None):
     """(model, optimizer state or None, inputs) of the cell on ``device``,
-    the model with no values drawn (``init_params(cfg, None, "meta")``)."""
+    the model with no values drawn (``init_params(cfg, None, "meta")``), or
+    on a ``mesh`` the rank's shard of ``whole`` under ``plan``."""
+    if mesh is not None and mesh.size > 1:
+        if kind == "train":
+            raise NotImplementedError("the train step on a mesh: ROADMAP A13c")
+        model = shard_model(whole, plan, mesh)
+        return model, None, cell_inputs(cfg, S, B, kind, device, model)
     model = init_params(cfg, None, device)
     opt = None
     if kind == "train":
@@ -185,36 +207,44 @@ def argument_tensors(model, opt, inputs) -> list[torch.Tensor]:
     return out
 
 
-def run_step(cfg, plan, kind, S, B, model, opt, inputs, device):
+def run_step(cfg, plan, kind, S, B, model, opt, inputs, device, mesh=None):
     if kind == "train":
         step = build_train_step(cfg, plan, device=device)
         return step(model, opt, inputs)
     if kind == "prefill":
-        step = build_prefill_step(cfg, plan, device)
+        step = build_prefill_step(cfg, plan, device, mesh)
         if cfg.frontend == "audio_stub":
             return step(model, inputs["frontend_embeds"])
         if cfg.frontend == "vision_stub":
             return step(model, inputs["tokens"], inputs["frontend_embeds"])
         return step(model, inputs["tokens"])
-    step = build_decode_step(cfg, plan, batch=B, max_len=S, device=device)
+    step = build_decode_step(cfg, plan, batch=B, max_len=S, device=device, mesh=mesh)
     return step(model, inputs["token"], inputs["position"], inputs["caches"])
 
 
-def trace_step(cfg: ModelConfig, S: int, B: int, kind: str, plan) -> dict:
+def trace_step(cfg: ModelConfig, S: int, B: int, kind: str, plan, mesh=None) -> dict:
     """Build the cell's arguments on meta and run its step once under the
     storage tracker and the flop counter; the memory, cost, kernel-call and
-    roofline figures of the run."""
+    roofline figures of the run.  With a ``mesh`` (a meta rank of it,
+    ``make_mesh(..., meta=True)``) the figures are that rank's: its shard
+    (cut from a whole meta model built outside the tracker), its inputs,
+    and the collectives it records."""
+    sharded = mesh is not None and mesh.size > 1
+    whole = init_params(cfg, None, "meta") if sharded else None
     tracker = StorageTracker()
     with tracker:
-        model, opt, inputs = cell_arguments(cfg, S, B, kind)
+        model, opt, inputs = cell_arguments(cfg, S, B, kind, "meta", whole, plan, mesh)
+    del whole
     arg_tensors = argument_tensors(model, opt, inputs)
     arg_storages = {t.untyped_storage()._cdata for t in arg_tensors if t.device.type == "meta"}
     tracker.reset_peak()
     held = tracker.live
     flops = FlopCounterMode(display=False, custom_mapping={torch.ops.aten.bmm: _bmm_flops})
     t0 = time.perf_counter()
+    if sharded:
+        mesh.comm.reset()
     with kernel_cost.tally() as calls, flops, tracker:
-        out = run_step(cfg, plan, kind, S, B, model, opt, inputs, "meta")
+        out = run_step(cfg, plan, kind, S, B, model, opt, inputs, "meta", mesh)
     trace_s = time.perf_counter() - t0
     new_out = {t.untyped_storage()._cdata: t for t in _tensors(out)
                if t.device.type == "meta" and t.untyped_storage()._cdata not in arg_storages}
@@ -233,6 +263,7 @@ def trace_step(cfg: ModelConfig, S: int, B: int, kind: str, plan) -> dict:
     k_bytes = sum(k["bytes"] for k in kernels.values())
     k_compute_s = sum(k["compute_s"] for k in kernels.values())
     total_bytes = float(tracker.bytes_accessed) + k_bytes
+    coll = collective_stats(mesh.comm) if sharded else None
     return {
         "trace_s": trace_s,
         "memory_analysis": {
@@ -252,29 +283,37 @@ def trace_step(cfg: ModelConfig, S: int, B: int, kind: str, plan) -> dict:
                           "kernel_bytes": k_bytes},
         "kernel_calls": kernel_calls,
         "kernels": kernels,
+        "collectives": None if coll is None else coll.to_dict(),
         # the kernels' time at their own units' peaks, as flops at the bf16 peak
         "roofline": roofline_terms(aten_flops + k_compute_s * HwConstants().peak_flops,
-                                   total_bytes, 0.0, 1),
+                                   total_bytes, 0.0 if coll is None else coll.total_bytes,
+                                   1 if mesh is None else mesh.size),
     }
 
 
-def run_cell(arch: str, shape: str, multi_pod: bool = False, use_dse: bool = True) -> dict:
-    """The reference's ``run_cell`` on one card: the cell's plan from
-    ``plan_for_cell`` at model axis 1, then :func:`trace_step`."""
+def run_cell(arch: str, shape: str, multi_pod: bool = False, use_dse: bool = True,
+             mesh_shape: tuple[int, int] = (1, 1)) -> dict:
+    """The reference's ``run_cell``: the cell's plan from ``plan_for_cell``
+    at the mesh's model axis, then :func:`trace_step` on one card, or on the
+    first rank of a (data, model) mesh of ``mesh_shape``."""
     if multi_pod:
-        raise NotImplementedError("a multi-pod mesh needs the multi-card runtime (ROADMAP A13)")
+        raise NotImplementedError("a multi-pod mesh in the dry-run: ROADMAP A13c")
     # per full batch, as the reference lowers it (accumulation only trades
     # temporary memory for steps)
     cfg = dataclasses.replace(get_config(arch), accum_steps=1)
     S, B, kind = SHAPES[shape]
-    plan = plan_for_cell(cfg, S, B, MESH_AXES, model_axis=1, kind=kind, use_dse=use_dse)
+    plan = plan_for_cell(cfg, S, B, MESH_AXES, model_axis=mesh_shape[1], kind=kind,
+                         use_dse=use_dse)
+    if B < mesh_shape[0]:
+        plan = dataclasses.replace(plan, use_dp=False)   # as the reference (long_500k)
+    mesh = make_mesh(mesh_shape, MESH_AXES, meta=True)
     result = {
         "arch": arch, "shape": shape, "kind": kind,
-        "mesh": {"axes": list(MESH_AXES), "shape": [1, 1], "chips": 1},
+        "mesh": {"axes": list(MESH_AXES), "shape": list(mesh_shape), "chips": mesh.size},
         "plan": {"p1": plan.p1, "p2": plan.p2, "transition_repeat": plan.transition_repeat,
                  "dse_meta": dict(plan.meta)},
     }
-    result.update(trace_step(cfg, S, B, kind, plan))
+    result.update(trace_step(cfg, S, B, kind, plan, mesh))
     return result
 
 
@@ -293,10 +332,12 @@ def main(argv=None) -> None:
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--no-dse", action="store_true")
+    ap.add_argument("--mesh", default="1x1", help="DxM: trace a rank of a data x model mesh")
     ap.add_argument("--out-dir", default=OUT_DIR)
     args = ap.parse_args(argv)
     if args.multi_pod:
-        raise NotImplementedError("--multi-pod needs the multi-card runtime (ROADMAP A13)")
+        raise NotImplementedError("--multi-pod in the dry-run: ROADMAP A13c")
+    mesh_shape = tuple(int(x) for x in args.mesh.split("x"))
 
     if args.all:
         todo = cells()
@@ -307,13 +348,18 @@ def main(argv=None) -> None:
     os.makedirs(args.out_dir, exist_ok=True)
     failures = []
     for arch, shape in todo:
-        tag = f"{arch}__{shape}__card1"
+        tag = (f"{arch}__{shape}__card1" if mesh_shape == (1, 1)
+               else f"{arch}__{shape}__mesh{mesh_shape[0]}x{mesh_shape[1]}")
         print(f"=== {tag}", flush=True)
         try:
-            res = run_cell(arch, shape, use_dse=not args.no_dse)
+            res = run_cell(arch, shape, use_dse=not args.no_dse, mesh_shape=mesh_shape)
             with open(os.path.join(args.out_dir, tag + ".json"), "w") as f:
                 json.dump(res, f, indent=1)
             print(f"    ok: {summary(res)}", flush=True)
+        except NotImplementedError as e:
+            if mesh_shape == (1, 1):
+                raise
+            print(f"    skipped: {e}", flush=True)
         except Exception as e:  # noqa: BLE001
             failures.append((tag, str(e)))
             traceback.print_exc()

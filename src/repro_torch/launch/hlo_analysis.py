@@ -4,8 +4,10 @@
 The reference parses compiled XLA HLO for its collectives' bytes.  torch has
 no HLO: the dry-run (``launch/dryrun.py``) counts a step's work from the aten
 operations it dispatches and from each hand kernel's own count
-(``kernels/cost.py``).  One card has no collectives, so ``collective_stats``
-comes with the multi-card runtime (ROADMAP A13); the collective term is 0.
+(``kernels/cost.py``), and :func:`collective_stats` reads a rank's
+collectives from the recorder they went through
+(``runtime/collectives.Collectives``): the same fields, each op's result
+bytes by kind, as the reference sums them from HLO.  One rank issues none.
 
 The constants are the H100 SXM data sheet's dense peaks and HBM3 rate; the
 card's name and memory, as ``chip_smoke.py`` phase 20 reads them, stand
@@ -16,7 +18,7 @@ most ``RESERVED_MARGIN`` of that peak on phase 20(c)'s steps.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from ..kernels.cost import KernelCost
 
@@ -33,11 +35,39 @@ CARD_USABLE_MEMORY = 84_154_515_456
 RESERVED_MARGIN = 0.15
 
 
+COLLECTIVE_KINDS = (
+    "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+    "collective-permute",
+)
+
+
+@dataclass
+class CollectiveStats:
+    bytes_by_kind: dict = field(default_factory=dict)
+    count_by_kind: dict = field(default_factory=dict)
+
+    @property
+    def total_bytes(self) -> float:
+        return float(sum(self.bytes_by_kind.values()))
+
+    def to_dict(self):
+        return {"bytes_by_kind": self.bytes_by_kind,
+                "count_by_kind": self.count_by_kind,
+                "total_bytes": self.total_bytes}
+
+
+def collective_stats(comm) -> CollectiveStats:
+    """The result bytes and count of every collective ``comm`` (a rank's
+    :class:`~repro_torch.runtime.collectives.Collectives`) recorded, by kind."""
+    s = comm.stats()
+    return CollectiveStats(dict(s["bytes_by_kind"]), dict(s["count_by_kind"]))
+
+
 @dataclass(frozen=True)
 class HwConstants:
     peak_flops: float = 989e12       # bf16 dense tensor cores / card
     hbm_bw: float = 3.35e12          # bytes/s / card (HBM3)
-    link_bw: float = 450e9           # bytes/s / card, one direction of NVLink 4 (unused on one card)
+    link_bw: float = 450e9           # bytes/s / card, one direction of NVLink 4
     fp32_flops: float = 67e12        # fp32 outside the tensor cores
     int8_ops: float = 1979e12        # int8 dense tensor cores
 

@@ -4,7 +4,7 @@ Port of ``repro.launch.train`` for one card: config -> Scope DSE plan
 (``plan_for_cell(kind="train")``) -> train step -> synthetic data ->
 fault-tolerant loop with checkpointing.  The same flags, plus ``--device``
 (default ``cuda``; the CPU only when asked for).  ``--mesh`` other than
-``1x1`` raises (multi-GPU is ROADMAP A13).  Before it allocates, it refuses
+``1x1`` raises (the train step on a mesh is ROADMAP A13c).  Before it allocates, it refuses
 a config whose weights, gradients and optimizer state exceed the card.
 
     python -m repro_torch.launch.train --arch granite-3-8b --smoke --device cpu --steps 20
@@ -77,7 +77,7 @@ def main(argv: list[str] | None = None) -> list[dict]:
     args = ap.parse_args(argv)
 
     if tuple(int(x) for x in args.mesh.split("x")) != (1, 1):
-        raise NotImplementedError(f"--mesh {args.mesh}: multi-GPU training is ROADMAP A13")
+        raise NotImplementedError(f"--mesh {args.mesh}: the train step on a mesh is ROADMAP A13c")
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if device.type == "cuda":

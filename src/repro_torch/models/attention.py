@@ -5,6 +5,15 @@ PyTorch port of ``repro/models/attention.py``.  Prefill goes through
 hand-written CUDA kernel on the card, its plain version on the CPU -- as the
 reference's module docstring intends for the TPU.  Decode has no kernel in
 the reference and is plain tensor code here too.
+
+``attention_prefill_isp`` / ``attention_prefill_wsp`` /
+``attention_decode_mesh`` are a rank's attention on a model axis
+(``runtime/sharding.py``): its own heads on the whole sequence, ending in
+an all-reduce (ISP); every head on its own positions, the weights and the
+other ranks' keys and values all-gathered, the queries at their positions
+through the flash call's ``q_offset`` (WSP); and decode over a cache
+sharded on time, each rank scoring its own positions and the ranks
+combining their softmax sums by all-reduce.
 """
 from __future__ import annotations
 
@@ -13,7 +22,7 @@ import torch
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import attention_ref
 from .config import ModelConfig
-from .layers import apply_rope, dense, rope_freqs, softcap
+from .layers import apply_rope, dense, dense_fp32, rope_freqs, softcap
 
 NEG_INF = -2.0e38
 
@@ -151,3 +160,117 @@ def attention_decode(
         valid &= j > position[:, None] - window
     out = _masked_attention(q, cache_k, cache_v, valid[:, None, :], cfg.attn_softcap, x.dtype)
     return dense(out, params["wo"]), (cache_k, cache_v)
+
+
+def attention_prefill_isp(params: dict, x: torch.Tensor, cfg: ModelConfig, shard,
+                          window: int = 0, plain: bool = False, tag: str = "") -> torch.Tensor:
+    """This rank's query heads and the kv heads they read (``params``: its
+    column blocks of wq / wk / wv and row block of wo) over the whole
+    sequence ``x`` [B, S, d]; the output projection's partial sums are
+    added over the model axis."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = _split_heads(dense(x, params["wq"]), shard.n_heads, hd)
+    k = _split_heads(dense(x, params["wk"]), shard.n_kv_heads, hd)
+    v = _split_heads(dense(x, params["wv"]), shard.n_kv_heads, hd)
+    cos, sin = rope_freqs(torch.arange(S, device=x.device).expand(B, S), hd, cfg.rope_theta)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    attend = attention_ref if plain else flash_attention
+    out = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 causal=True, window=window, softcap=cfg.attn_softcap)
+    out = out.transpose(1, 2).reshape(B, S, shard.n_heads * hd)
+    return shard.comm.all_reduce(dense_fp32(out, params["wo"]), tag=f"{tag}:attn").to(x.dtype)
+
+
+def _gather_kv_cols(w: torch.Tensor, shard, tag: str) -> torch.Tensor:
+    """The whole [d, KV*hd] wk / wv from the ranks' kv-head columns, each kv
+    head once (ranks that share one hold the same columns)."""
+    g = shard.comm.all_gather(w[None], dim=0, tag=tag)          # [m, d, kvl * hd]
+    owners = shard.kv_owners()
+    if len(owners) != shard.m:
+        g = g[owners]
+    return g.permute(1, 0, 2).reshape(w.shape[0], -1)
+
+
+def attention_prefill_wsp(params: dict, x: torch.Tensor, cfg: ModelConfig, shard,
+                          window: int = 0, plain: bool = False, tag: str = "") -> torch.Tensor:
+    """Every head over this rank's positions ``x`` [B, Sl, d] (positions
+    ``r*Sl ..``): the weights all-gathered at use, the keys and values of
+    every position up to this rank's last gathered from the ranks (the
+    halo), the queries attending at their positions (``q_offset``)."""
+    B, Sl, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    comm = shard.comm
+    wq = comm.all_gather(params["wq"], dim=1, tag=f"{tag}:wq")
+    wk = _gather_kv_cols(params["wk"], shard, f"{tag}:wk")
+    wv = _gather_kv_cols(params["wv"], shard, f"{tag}:wv")
+    q = _split_heads(dense(x, wq), H, hd)
+    k = _split_heads(dense(x, wk), KV, hd)
+    v = _split_heads(dense(x, wv), KV, hd)
+    p0 = shard.r * Sl
+    pos = torch.arange(p0, p0 + Sl, device=x.device).expand(B, Sl)
+    cos, sin = rope_freqs(pos, hd, cfg.rope_theta)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    kv = comm.all_gather(torch.stack([k, v]), dim=2, tag=f"{tag}:kv")   # [2, B, m*Sl, KV, hd]
+    keys, values = kv[0, :, :p0 + Sl], kv[1, :, :p0 + Sl]
+    attend = attention_ref if plain else flash_attention
+    out = attend(q.transpose(1, 2), keys.transpose(1, 2), values.transpose(1, 2),
+                 causal=True, window=window, softcap=cfg.attn_softcap, q_offset=p0)
+    out = out.transpose(1, 2).reshape(B, Sl, H * hd)
+    return dense(out, comm.all_gather(params["wo"], dim=0, tag=f"{tag}:wo"))
+
+
+def attention_decode_mesh(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                          cache_k: torch.Tensor, cache_v: torch.Tensor, position: torch.Tensor,
+                          shard, window: int = 0, tag: str = "") -> torch.Tensor:
+    """One-token decode on a model axis, the cache sharded over time.
+
+    ``cache_k`` / ``cache_v`` [B, Tl, KV, hd] hold positions ``r*Tl ..`` of
+    every kv head.  The ranks all-gather every head's query and the new key
+    and value; the rank that holds ``position`` writes them (in place); each
+    rank scores its positions, and the ranks combine the softmax by
+    all-reduce: the max, then the sums and the weighted values.  The
+    output projection runs on this rank's heads, its partial sums added
+    over the model axis."""
+    B = x.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hl, kvl, m = shard.n_heads, shard.n_kv_heads, shard.m
+    comm = shard.comm
+    q = _split_heads(dense(x, params["wq"]), hl, hd)
+    k = _split_heads(dense(x, params["wk"]), kvl, hd)
+    v = _split_heads(dense(x, params["wv"]), kvl, hd)
+    cos, sin = rope_freqs(position[:, None], hd, cfg.rope_theta)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    qkv = torch.cat([q.reshape(B, -1), k.reshape(B, -1), v.reshape(B, -1)], dim=-1)
+    g = comm.all_gather(qkv[None], dim=0, tag=f"{tag}:qkv")     # [m, B, (hl + 2 kvl) hd]
+    qa = g[:, :, :hl * hd].reshape(m, B, hl, hd).transpose(0, 1).reshape(B, H, hd)
+    owners = shard.kv_owners()
+
+    def new_kv(lo):
+        t = g[owners, :, lo:lo + kvl * hd].reshape(len(owners), B, kvl, hd)
+        return t.transpose(0, 1).reshape(B, KV, hd)
+
+    ka, va = new_kv(hl * hd), new_kv((hl + kvl) * hd)
+    Tl = cache_k.shape[1]
+    t0 = shard.r * Tl
+    local = position - t0
+    own = ((local >= 0) & (local < Tl))[:, None, None]
+    bidx = torch.arange(B, device=x.device)
+    li = local.clamp(0, Tl - 1)
+    cache_k[bidx, li] = torch.where(own, ka.to(cache_k.dtype), cache_k[bidx, li])
+    cache_v[bidx, li] = torch.where(own, va.to(cache_v.dtype), cache_v[bidx, li])
+
+    j = t0 + torch.arange(Tl, device=x.device)[None, :]
+    valid = j <= position[:, None]
+    if window > 0:
+        valid &= j > position[:, None] - window
+    scores = attention_scores(qa[:, None], cache_k, hd ** -0.5, cfg.attn_softcap)  # [B,H,1,Tl]
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    top = comm.all_reduce(scores.amax(dim=-1), op="max", tag=f"{tag}:max")        # [B,H,1]
+    p = torch.exp(scores - top[..., None])
+    o = torch.einsum("bkgst,btkh->bskgh", p.reshape(B, KV, H // KV, 1, Tl), cache_v.float())
+    sums = torch.cat([p.sum(dim=-1).reshape(B, H, 1), o.reshape(B, H, hd)], dim=-1)
+    sums = comm.all_reduce(sums, tag=f"{tag}:sum")
+    out = (sums[..., 1:] / sums[..., :1])[:, shard.heads[0]:shard.heads[1]]
+    out = out.reshape(B, 1, hl * hd).to(x.dtype)
+    return comm.all_reduce(dense_fp32(out, params["wo"]), tag=f"{tag}:attn").to(x.dtype)

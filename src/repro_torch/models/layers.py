@@ -1,6 +1,9 @@
 """Shared primitive layers (PyTorch port of ``repro/models/layers.py``).
 
 Weights keep the JAX layout ``[d_in, d_out]``, so ``dense`` is ``x @ w``.
+``ffn_isp`` / ``ffn_wsp`` are a rank's FFN on a model axis
+(``runtime/sharding.py``): column- then row-parallel with an all-reduce,
+or the weights all-gathered at use.
 """
 from __future__ import annotations
 
@@ -60,3 +63,37 @@ def ffn(params: dict, x: torch.Tensor, gated: bool) -> torch.Tensor:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(dense(x, params["w1"]), approximate="tanh")
     return dense(h, params["w2"])
+
+
+def dense_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``dense`` returned in fp32, not rounded to x's dtype: a row-parallel
+    product's partial sum, which the ranks then add.  On the card a bf16
+    product accumulates and returns fp32 on the tensor cores (``bmm`` with
+    ``out_dtype``, CUDA only); the CPU multiplies the operands cast to fp32.
+    Meta tensors take the card's form."""
+    if x.device.type == "cpu":
+        return torch.matmul(x.float(), w.float())
+    flat = x.reshape(1, -1, x.shape[-1])
+    out = torch.bmm(flat, w[None], out_dtype=torch.float32)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def ffn_isp(params: dict, x: torch.Tensor, gated: bool, shard, tag: str) -> torch.Tensor:
+    """This rank's FFN columns (``w1`` / ``w3``) and ``w2`` rows on the whole
+    sequence, the partial products summed over the model axis."""
+    if gated:
+        h = F.silu(dense(x, params["w1"])) * dense(x, params["w3"])
+    else:
+        h = F.gelu(dense(x, params["w1"]), approximate="tanh")
+    out = shard.comm.all_reduce(dense_fp32(h, params["w2"]), tag=f"{tag}:ffn")
+    return out.to(x.dtype)
+
+
+def ffn_wsp(params: dict, x: torch.Tensor, gated: bool, shard, tag: str) -> torch.Tensor:
+    """The whole FFN on this rank's positions, its weights all-gathered."""
+    comm = shard.comm
+    full = {"w1": comm.all_gather(params["w1"], dim=1, tag=f"{tag}:w1"),
+            "w2": comm.all_gather(params["w2"], dim=0, tag=f"{tag}:w2")}
+    if gated:
+        full["w3"] = comm.all_gather(params["w3"], dim=1, tag=f"{tag}:w3")
+    return ffn(full, x, gated)

@@ -4,9 +4,15 @@ Layers run in a Python loop (the reference scans over pattern repeats with
 stacked params).  Layer ``l`` is pattern slot ``l % P`` of repeat ``l // P``;
 caches keep the reference's stacked layout, one dict of ``[R, ...]`` tensors
 per pattern slot: ``{"k", "v"}`` of ``[R, B, T, KV, hd]`` for attention,
-``{"S", "shift", "shift_ffn"}`` for rwkv, ``{"h", "conv"}`` for mamba.  One
-card has no sharding, so the reference's ``constrain`` /
-``transition_repeat`` hooks have no counterpart here.
+``{"S", "shift", "shift_ffn"}`` for rwkv, ``{"h", "conv"}`` for mamba.
+
+On a mesh (``runtime/sharding.shard_model``) a model holds one rank's
+pieces and a ``shard`` (:class:`~repro_torch.runtime.sharding.RankShard`);
+it takes the global inputs, keeps its batch rows, and on a model axis runs
+the reference's zones rank-locally where the reference runs its layers
+under two sharding constraints (``constrain`` / ``constrain2`` at
+``transition_repeat``): each layer under its zone's partition, ISP or WSP,
+with a transition between the two, and vocab-sharded logits.
 
 ``attn``, ``local`` and ``mamba`` blocks take a dense or an MoE FFN (MoE on
 the layers ``cfg.is_moe_block`` names); ``rwkv`` blocks carry their own
@@ -23,9 +29,10 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import tree as pytree
 from ..device import resolve_device
-from .attention import attention_decode, attention_prefill, runs_from_offsets
+from .attention import (attention_decode, attention_decode_mesh, attention_prefill,
+                        attention_prefill_isp, attention_prefill_wsp, runs_from_offsets)
 from .config import ModelConfig
-from .layers import dense, embed, ffn, rmsnorm, softcap
+from .layers import dense, embed, ffn, ffn_isp, ffn_wsp, rmsnorm, softcap
 from .moe import moe_ffn
 from .rwkv import rwkv_channel_mix, rwkv_time_mix
 from .ssm import mamba_decode, mamba_prefill
@@ -90,6 +97,26 @@ class AttnBlock(_FfnBlock):
         a, _ = attention_decode(self.attn, h, self.cfg, cache["k"], cache["v"], position,
                                 self.window)
         return self._ffn(x + a)
+
+    def prefill_mesh(self, x, partition, shard, plain_attention=False, tag=""):
+        """One rank's layer on a model axis: ``x`` is the whole sequence
+        under ISP, this rank's positions under WSP."""
+        h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
+        if partition == "ISP":
+            attend, mlp = attention_prefill_isp, ffn_isp
+        else:
+            attend, mlp = attention_prefill_wsp, ffn_wsp
+        x = x + attend(self.attn, h, self.cfg, shard, self.window, plain_attention, tag)
+        h2 = rmsnorm(x, self.ln2, self.cfg.norm_eps)
+        return x + mlp(self.ffn, h2, self.cfg.ffn_gated, shard, tag)
+
+    def decode_mesh(self, x, position, cache, shard, tag=""):
+        """One rank's decode step of the layer (ISP, the cache sharded on time)."""
+        h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
+        x = x + attention_decode_mesh(self.attn, h, self.cfg, cache["k"], cache["v"], position,
+                                      shard, self.window, tag)
+        h2 = rmsnorm(x, self.ln2, self.cfg.norm_eps)
+        return x + ffn_isp(self.ffn, h2, self.cfg.ffn_gated, shard, tag)
 
 
 class RwkvBlock(nn.Module):
@@ -163,6 +190,7 @@ class DecoderLM(nn.Module):
         )
         self.final_ln = _frozen(params["final_ln"])
         self.lm_head = None if cfg.tie_embeddings else _frozen(params["lm_head"])
+        self.shard = None     # a rank's placement on a mesh (runtime/sharding.shard_model)
 
     @property
     def device(self) -> torch.device:
@@ -249,6 +277,12 @@ class DecoderLM(nn.Module):
         attention through the plain version on any device; it exists for the
         checks that hold the kernels against it, not for use.
         """
+        sh = self.shard
+        if sh is not None:
+            tokens, frontend_embeds, positions = (sh.rows(t) for t in
+                                                  (tokens, frontend_embeds, positions))
+            if sh.m > 1:
+                return self._forward_mesh(tokens, collect_cache, positions, plain_attention)
         P = len(self.cfg.expanded_pattern)
         x = self.embed_inputs(tokens, frontend_embeds)
         # one test (one host sync on the card) for every attention layer
@@ -271,8 +305,54 @@ class DecoderLM(nn.Module):
             )
         return self._logits(x), caches
 
+    def _embed_mesh(self, tokens, partition: str) -> torch.Tensor:
+        """The first hidden state on a model axis, in ``partition``'s layout:
+        each rank looks up the tokens in its vocab rows (zeros elsewhere) and
+        the ranks add them, by all-reduce, or by reduce-scatter over the
+        sequence into a WSP zone's positions."""
+        sh = self.shard
+        lo, hi = sh.vocab
+        inside = (tokens >= lo) & (tokens < hi)
+        part = self.embed[(tokens - lo).clamp(0, hi - lo - 1)] * inside[..., None]
+        if partition == "WSP":
+            return sh.comm.reduce_scatter(sh.pad_seq(part), dim=1, tag="embed")
+        return sh.comm.all_reduce(part, tag="embed")
+
+    def _forward_mesh(self, tokens, collect_cache, positions, plain_attention):
+        """The prefill of one rank of a model axis: zone by zone, each layer
+        under its partition; WSP -> ISP all-gathers the sequence (the
+        transition), and a WSP last zone gathers it before the head."""
+        if collect_cache or positions is not None:
+            raise NotImplementedError(
+                "a mesh prefill collects no caches and takes no explicit positions (the "
+                "reference's prefill step collects none); shard a one-rank prefill's caches "
+                "with runtime.sharding.shard_caches")
+        sh = self.shard
+        S = tokens.shape[1]
+        current = sh.plan.p1                 # the reference constrains the embedding in zone 1
+        x = self._embed_mesh(tokens, current)
+        for layer, blk in enumerate(self.blocks):
+            partition = sh.partition(layer)
+            if partition != current:
+                x = (sh.gather_seq(x, S, "transition") if current == "WSP"
+                     else sh.seq_shard(x))
+                current = partition
+            x = blk.prefill_mesh(x, partition, sh, plain_attention, f"blk{layer}")
+        if current == "WSP":
+            x = sh.gather_seq(x, S, "logits")
+        return self._logits(x), None
+
     def init_kv_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
-        return init_kv_cache(self.cfg, batch, max_len, dtype, self.device)
+        """Zero caches of a ``batch`` x ``max_len`` decode; on a mesh this
+        rank's pieces of them (its batch rows; on a model axis its block of
+        the time axis, ``max_len`` over the model ranks rounded up)."""
+        sh = self.shard
+        if sh is None:
+            return init_kv_cache(self.cfg, batch, max_len, dtype, self.device)
+        rows = batch // sh.dp
+        if rows * sh.dp != batch:
+            raise ValueError(f"batch {batch} does not split over the {sh.dp} data ranks")
+        return init_kv_cache(self.cfg, rows, sh.chunk(max_len), dtype, self.device)
 
     def decode_step(self, token: torch.Tensor, position: torch.Tensor, caches: tuple):
         """One autoregressive step: token [B,1], position [B] write index.
@@ -282,6 +362,16 @@ class DecoderLM(nn.Module):
         layer gets its own slice ``[r]`` of its slot's stacked state.
         """
         P = len(self.cfg.expanded_pattern)
+        sh = self.shard
+        if sh is not None:
+            token, position = sh.rows(token), sh.rows(position)
+            if sh.m > 1:
+                x = self._embed_mesh(token, "ISP")          # decode: the ISP zone
+                for layer, blk in enumerate(self.blocks):
+                    r, pi = divmod(layer, P)
+                    x = blk.decode_mesh(x, position, {n: t[r] for n, t in caches[pi].items()},
+                                        sh, f"blk{layer}")
+                return self._logits(x), caches
         x = embed(token, self.embed)
         for layer, blk in enumerate(self.blocks):
             r, pi = divmod(layer, P)

@@ -1,1 +1,1 @@
-"""Serving runtime on one card: plans and prefill / decode steps."""
+"""Serving runtime: plans, placements across a mesh of ranks, prefill / decode steps."""

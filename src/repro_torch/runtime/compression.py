@@ -6,7 +6,8 @@ stateless quantize -> dequantize the train step applies with
 leaf, so a stacked leaf (one pattern slot's R layers) is passed as the list
 of its layers and shares one scale.  ``ef_compress`` is the error-feedback
 variant; ``psum_compressed``, the compressed data-parallel all-reduce,
-needs a process group the port does not have yet (ROADMAP A13).
+runs over a mesh's data axis and comes with the pipeline runtime (ROADMAP
+A13b).
 """
 from __future__ import annotations
 
@@ -54,4 +55,4 @@ def ef_compress(g: torch.Tensor, residual: torch.Tensor):
 def psum_compressed(g: torch.Tensor, residual: torch.Tensor, axis_name: str):
     """Compressed DP all-reduce with error feedback: needs a process group
     (multi-GPU), not ported yet."""
-    raise NotImplementedError("psum_compressed needs a process group: ROADMAP A13")
+    raise NotImplementedError("psum_compressed over a mesh's data axis: ROADMAP A13b")

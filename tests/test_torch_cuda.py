@@ -136,6 +136,37 @@ def test_flash_attention_bf16_kernel_edges(cuda_device, case, layout):
     assert (row_err <= 0.1 * row_rms).all(), (row_err / row_rms).max().item()
 
 
+# (B, H, KV, Sq, Skv, q_offset, hd, window, softcap): a WSP rank's call --
+# its queries at positions q_offset.. against the keys up to its last -- in
+# the middle and at the end of a sequence, with a window that reaches into
+# the other ranks' keys, a softcap, ragged tiles and an offset that is no
+# multiple of a tile; each in fp32 and bf16.
+FA_OFFSET_CASES = [
+    (2, 8, 2, 256, 512, 256, 128, 0, 0.0),
+    (1, 4, 2, 200, 777, 577, 64, 0, 30.0),
+    (1, 4, 2, 300, 1200, 900, 256, 512, 50.0),
+    (2, 4, 4, 129, 300, 171, 128, 100, 0.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FA_OFFSET_CASES)
+def test_flash_attention_kernel_query_offset(cuda_device, case, dtype):
+    B, H, KV, Sq, Skv, off, hd, window, cap = case
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn(B, H, Sq, hd, generator=g, device=cuda_device).to(dtype)
+    k = torch.randn(B, KV, Skv, hd, generator=g, device=cuda_device).to(dtype)
+    v = torch.randn(B, KV, Skv, hd, generator=g, device=cuda_device).to(dtype)
+    out = flash_attention_kernel(q, k, v, causal=True, window=window, softcap=cap, q_offset=off)
+    ref = attention_ref(q, k, v, True, window, cap, q_offset=off)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    row_err = (out.float() - ref.float()).abs().amax(-1)
+    row_rms = ref.float().pow(2).mean(-1).sqrt()
+    assert (row_err <= 0.1 * row_rms).all(), (row_err / row_rms).max().item()
+
+
 def test_flash_attention_kernel_takes_model_layout(cuda_device):
     """A transposed [B,S,H,hd] view goes in without a copy and the output
     keeps that layout."""

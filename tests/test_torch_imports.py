@@ -12,7 +12,8 @@ PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chi
     REPO / "scripts" / name
     for name in ("wkv6_strong_decay.py", "kernel_variants.py", "prefill_prediction.py",
                  "wkv6_bwd_conditioning.py", "wkv6_bwd_precision.py",
-                 "mamba_bwd_conditioning.py", "mamba_bwd_phase.py", "sass_loops.py")] + [
+                 "mamba_bwd_conditioning.py", "mamba_bwd_phase.py", "sass_loops.py",
+                 "flash_fwd_turns.py")] + [
     REPO / "examples" / name
     for name in ("quickstart_torch.py", "multimodel_serve_torch.py", "serve_batched_torch.py",
                  "train_lm_torch.py")]
@@ -43,7 +44,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.runtime.train, repro_torch.runtime.compression, repro_torch.optim, "
             "repro_torch.ckpt, repro_torch.ft, repro_torch.data, repro_torch.launch.dryrun, "
             "repro_torch.launch.hlo_analysis, repro_torch.kernels.cost, repro_torch.core.energy, "
-            "repro_torch.__main__, repro_torch.multimodel.cli; "
+            "repro_torch.__main__, repro_torch.multimodel.cli, repro_torch.launch.mesh, "
+            "repro_torch.runtime.collectives, repro_torch.runtime.sharding; "
             "from repro_torch import scope; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
