@@ -209,7 +209,22 @@ paths:
     and vocab columns of the one-rank run of the same seeded weights on
     the card, its flash launches, its collectives equal to the dry-run's
     count for its coordinates; prefill wall, collective bytes by kind,
-    each rank's memory rise beside the dry-run's.
+    each rank's memory rise beside the dry-run's;
+22. the merged pipeline (``runtime/pipeline.py``) on (stage, data) meshes
+    of the same 4 ranks sharing the card over gloo (``python3
+    chip_smoke.py --phase-22`` runs it alone): (a) ``psum_compressed`` over
+    a data axis of 4, a granite-3-8b FFN weight's gradient a rank, each
+    rank's mean and residual bit-equal to the reference's formula reckoned
+    on the host in numpy; (b) granite-3-8b at full size (40 layers, bf16),
+    B=8 x S=2048 as 4 microbatches of 2 rows, pipelined on (4, 1) and (2,
+    2): each rank's logits against the one-rank forward of its rows, its
+    flash launches, its collectives equal to a count from the shapes, the
+    walls beside one rank's forward of the whole batch; (c) SGD steps of
+    ``build_pipeline_train_step`` at full width cut to 8 layers (3 steps on
+    (4, 1), 1 on (2, 2)): the first step's loss, every gradient and every
+    updated parameter against the one-rank plain step, every gradient
+    non-zero, flash forward and backward launches, the collectives, each
+    rank's peak beside the meta step's prediction, the step walls.
 
 Any failed check raises and the script exits non-zero without a result.  The
 last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -221,7 +236,8 @@ its backward: the phase-18 training run, calls of five kernels each;
 selective scan: the phase-10 jamba prefill; its backward: the phase-19(c)
 training run, calls of two kernels each; qmatmul: the phase-13 op call)
 and its times (each also with its launches on phase 14's facade path;
-flash also with one rank's launches in phase 21's WSP prefill), and
+flash also with one rank's launches in phase 21's WSP prefill and in phase
+22's pipelined prefill on (4, 1)), and
 the line before that the script's wall time.  Imports nothing of JAX or of
 ``repro``.
 """
@@ -518,6 +534,40 @@ P21_FA_CASES = [
     ("gemma2_global_rank2", 1, 16, 8, 2048, 6144, 4096, 256, 0, 50.0),
     ("ragged_window", 1, 4, 2, 100, 137, 37, 64, 64, 0.0),
 ]
+# Phase 22: the merged pipeline (runtime/pipeline.py), the 4 ranks of phase
+# 21 sharing the card over gloo.  (a) psum_compressed over a data axis of 4,
+# one granite-3-8b FFN weight's gradient a rank (bf16, rank i's drawn at
+# scale 0.01 (i + 1), so the ranks' int8 scales differ).  (b) granite-3-8b
+# at full size, B=8 x S=2048 as n_micro = 4 microbatches of 2 rows, on each
+# (stage, data) mesh; each rank's logits against the one-rank forward of its
+# rows within P21_LOGIT_TOL.  (c) SGD steps at full width, depth cut by the
+# meta sizing (p22_meta_peak): at 8 layers the 4 ranks' steps hold 48.1 GiB
+# together and one rank's plain step, taken while the others hold only their
+# stages, 39.5 GiB; at 12 layers 62.7-66.5 and 54.0, too close to the card's
+# 78 GiB with 4 CUDA contexts and gloo's fp32 copies on top.  On each mesh:
+# (shape, steps).
+P22_AXES = ("stage", "data")
+P22_WORLD = (4, 1)
+P22_ARCH = "granite-3-8b"
+P22_N_MICRO, P22_MB, P22_S = 4, 2, 2048
+P22_FWD_MESHES = ((4, 1), (2, 2))
+P22_TRAIN_LAYERS = 8
+P22_TRAIN = (((4, 1), 3), ((2, 2), 1))
+P22_LR = 5e-2                             # the reference's test step
+P22_PSUM_SHAPE = (4096, 12800)            # granite-3-8b's w1 [d, d_ff]
+# (c) the first pipelined step against the one-rank step (loss_fn, autograd,
+# the same SGD update) of the same bf16 weights and batch.  The two sum the
+# same products in another order: the one-rank step's products span all 8
+# rows, the pipeline's one microbatch at a time, accumulated into .grad in
+# bf16 and summed over data in fp32.  So each gradient leaf within
+# P22_GRAD_TOL of its largest element (phase 21's logit bound: bf16 sums in
+# another order); the loss within one bf16 rounding (2^-8) of its value, as
+# the logits it averages carry one; each updated parameter within one bf16
+# ulp of its value (2^-7 |p|: the rounding of p - lr g may fall on the other
+# side) plus lr times the gradient bound.  A gradient counted once a stage,
+# or missing a stage's part, moves a leaf by O(1) of its scale.
+P22_GRAD_TOL = 2e-2
+P22_LOSS_RTOL = 2 ** -8
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -2716,6 +2766,413 @@ def mesh_phase(get_config, card: str, sync) -> int:
     return mesh_launches
 
 
+def p22_expected_calls(cfg, shape: tuple, stage: int, n_micro: int, mb: int, S: int,
+                       train: bool, dt: int = 2) -> dict:
+    """{(kind, axis, tag): [calls, bytes]} of one rank's pipelined forward or
+    train step on a (stage, data) ``shape``, counted from the shapes: per
+    stage boundary ``n_micro`` forward edges (and in training ``n_micro``
+    gradient edges) of ``mb / n_data x S x d`` values, the hidden states'
+    all-reduce over ``stage``; in training the gradients' all-reduces over
+    ``data`` (the stage's layers, each an attention block with a gated FFN,
+    the final norm and the head; stage 0 also the embedding lookup's part),
+    the lookup's part over ``stage`` and the loss."""
+    ns, nd = shape
+    d, H, KV, hd, ff = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    act = (mb // nd) * S * d * dt
+    calls = {}
+    if stage > 0:
+        calls[("collective-permute", "stage", "fwd")] = [n_micro, n_micro * act]
+    if ns > 1:
+        calls[("all-reduce", "stage", "hidden")] = [1, n_micro * act]
+    if not train:
+        return calls
+    if stage < ns - 1:
+        calls[("collective-permute", "stage", "bwd")] = [n_micro, n_micro * act]
+    table = cfg.padded_vocab * d * dt
+    if nd > 1:
+        layers = cfg.n_layers // ns
+        weights = layers * [d * H * hd, d * KV * hd, d * KV * hd, H * hd * d, d * ff, ff * d,
+                            d * ff] + [d * cfg.padded_vocab] + [cfg.padded_vocab * d] * (stage == 0)
+        norms = 2 * layers + 1                   # ln1, ln2 a layer, final_ln: fp32
+        calls[("all-reduce", "data", "grad")] = [len(weights) + norms,
+                                                 sum(weights) * dt + norms * d * 4]
+        calls[("all-reduce", "data", "loss")] = [1, 4]
+    if ns > 1:
+        calls[("all-reduce", "stage", "grad")] = [1, table]
+    return calls
+
+
+def p22_psum(mesh, shape: tuple, seed: int) -> dict:
+    """(a) One rank's ``psum_compressed`` over the data axis, then the
+    reference's formula reckoned on the host in numpy from every rank's
+    gradient and residual (drawn again here from their seeds): the int8
+    values under each rank's scale, their int32 sum, then this rank's mean
+    ``sum * s / n`` and residual ``corrected - q * s`` (rounded once, as the
+    reference's compiled form); both bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.runtime.compression import psum_compressed
+
+    dev, n, me = mesh.device, mesh.shape["data"], mesh.index("data")
+
+    def drawn(i):
+        g = torch.Generator(device=dev).manual_seed(seed + i)
+        grad = (torch.randn(shape, generator=g, device=dev) * (0.01 * (i + 1))).bfloat16()
+        return grad, 1e-4 * torch.randn(shape, generator=g, device=dev)
+
+    grad, resid = drawn(me)
+    mesh.comm.reset()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    mean, new_res = psum_compressed(grad, resid, "data", mesh.comm)
+    sync()
+    wall = time.perf_counter() - t0
+    calls = dict(mesh.comm.calls)
+    summed, mine = 0, None
+    for i in range(n):
+        g, r = (t.float().cpu().numpy() for t in drawn(i))
+        corrected = g + r
+        s = np.maximum(np.abs(corrected).max(), np.float32(1e-12)) / np.float32(127)
+        q = np.clip(np.rint(corrected / s), -127, 127).astype(np.int32)
+        summed = summed + q
+        if i == me:
+            mine = corrected, q, s
+    corrected, q, s = mine
+    want_mean = torch.from_numpy((summed.astype(np.float32) * s) / np.float32(n)).bfloat16()
+    want_res = (corrected.astype(np.float64) - q.astype(np.float64) * np.float64(s)).astype(
+        np.float32)
+    exact = (torch.equal(mean.cpu(), want_mean)
+             and np.array_equal(new_res.cpu().numpy(), want_res))
+    check(exact, f"psum_compressed on data rank {me}: mean or residual differ from the host's "
+                 f"reckoning (mean max abs diff "
+                 f"{(mean.cpu().float() - want_mean.float()).abs().max().item()})")
+    want_calls = {("all-reduce", "data", "psum_compressed"): [1, q.size * 4]}
+    check(calls == want_calls, f"psum_compressed recorded {calls}, expected {want_calls}")
+    return {"scale": float(s), "wall_s": wall, "int32_bytes": q.size * 4,
+            "mean_head": mean.flatten()[:4].float().tolist()}
+
+
+def p22_forward(mesh, cfg, n_micro: int, mb: int, S: int, seed: int, time_one_rank: bool) -> dict:
+    """(b) One rank of a pipelined forward.  In turns, each rank builds the
+    whole model from the seed, runs the one-rank forward of its rows of
+    each microbatch, keeps those logits and its stage (``StageModel``) and
+    drops the rest; with ``time_one_rank`` rank 0 also times the one-rank
+    forward of the whole batch.  Then the pipelined forward twice: the
+    first run's logits against the one-rank ones, its flash launches and
+    collectives against a count from the shapes, both runs' walls."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro_torch.models import init_params
+    from repro_torch.runtime.pipeline import StageModel, pipeline_forward
+
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    ns, nd = mesh.shape["stage"], mesh.shape["data"]
+    s, d = mesh.index("stage"), mesh.index("data")
+    rows = slice(d * mb // nd, (d + 1) * mb // nd)
+    tokens = torch.randint(0, cfg.vocab, (n_micro, mb, S),
+                           generator=torch.Generator().manual_seed(seed + 1))
+    ref, one_rank, stage = [], [], None
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            whole = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+            with torch.inference_mode():
+                ref = [whole(tokens[m, rows].to(dev))[0] for m in range(n_micro)]
+                if time_one_rank and mesh.rank == 0:
+                    flat = tokens.reshape(-1, S).to(dev)
+                    for _ in range(3):
+                        sync()
+                        t0 = time.perf_counter()
+                        out = whole(flat)[0]
+                        sync()
+                        one_rank.append(time.perf_counter() - t0)
+                        del out
+            stage = StageModel(whole, ns, s)
+            del whole
+            if cuda:
+                torch.cuda.empty_cache()
+        dist.barrier()
+    walls = []
+    for run in range(2):
+        sync()
+        dist.barrier()
+        flash_attention_kernel.launches = 0
+        mesh.comm.reset()
+        t0 = time.perf_counter()
+        local = pipeline_forward(stage, tokens, mesh, ns)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        if run == 0:
+            launches = flash_attention_kernel.launches
+            calls = dict(mesh.comm.calls)
+            check(tuple(local.shape) == (n_micro, mb // nd, S, cfg.padded_vocab)
+                  and bool(torch.isfinite(local).all()),
+                  f"pipelined logits {tuple(local.shape)} or non-finite")
+            err = max((local[m] - ref[m]).abs().max().item() for m in range(n_micro))
+            scale = max(r.abs().max().item() for r in ref)
+            equal = all(torch.equal(local[m], ref[m]) for m in range(n_micro))
+        del local
+    where = f"{tuple(mesh.dims)} rank {mesh.rank} (stage {s}, data {d})"
+    layers = len(stage.layers)
+    want = p22_expected_calls(cfg, mesh.dims, s, n_micro, mb, S, False,
+                              stage.embed.element_size())
+    check(err <= P21_LOGIT_TOL * scale,
+          f"{where}: pipelined logits max abs err {err} > {P21_LOGIT_TOL} x {scale}")
+    check(calls == want, f"{where}: collectives {calls}, counted from the shapes {want}")
+    if cuda:
+        check(launches == layers * n_micro,
+              f"{where}: {launches} flash launches, expected {layers} x {n_micro}")
+    del stage, ref
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"walls_s": walls, "launches": launches, "calls": calls, "err": err, "scale": scale,
+            "bit_equal": equal, "layers": layers, "one_rank_s": one_rank}
+
+
+def p22_meta_peak(cfg, dims: tuple, coords: tuple, n_micro: int, mb: int, S: int,
+                  lr: float) -> tuple[int, dict]:
+    """(c)'s prediction for the rank at ``coords``: one train step of its
+    stage on the meta device under the dry-run's storage tracker, the peak
+    bytes (the stage's parameters, held before the step, plus the most the
+    step holds above them) and the collectives it records."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.runtime.pipeline import StageModel, build_pipeline_train_step
+
+    mesh = make_mesh(dims, P22_AXES, meta=True, coords=coords)
+    stage = StageModel(init_params(cfg, None, "meta"), dims[0], coords[0])
+    held = sum(dryrun.StorageTracker.rounded(p.untyped_storage().nbytes())
+               for p in stage.parameters())
+    tokens = torch.zeros((n_micro, mb, S), dtype=torch.int64)
+    step = build_pipeline_train_step(cfg, mesh, dims[0], n_micro, lr)
+    with dryrun.StorageTracker() as t:
+        step(stage, {"tokens": tokens, "labels": tokens})
+    return held + t.peak, dict(mesh.comm.calls)
+
+
+def p22_train(mesh, cfg, n_micro: int, mb: int, S: int, steps: int, seed: int) -> dict:
+    """(c) One rank of the pipelined SGD step.  The meta prediction of its
+    peak first; then in turns each rank builds the model, runs the one-rank
+    plain step (``loss_fn``, autograd, the same update) and keeps its
+    stage's gradients and updated parameters on the host, and its stage.
+    Then ``steps`` pipelined steps: the first against the plain one (loss,
+    every gradient leaf, every parameter; the bounds above), its flash
+    launches, collectives and peak; every step's loss finite and every
+    gradient non-zero."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_kernel,
+                                                            flash_attention_kernel)
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.runtime.pipeline import StageModel, build_pipeline_train_step
+
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    ns, nd = mesh.shape["stage"], mesh.shape["data"]
+    s, d = mesh.index("stage"), mesh.index("data")
+    gen = torch.Generator().manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (n_micro, mb, S), generator=gen)
+    labels = torch.randint(0, cfg.vocab, (n_micro, mb, S), generator=gen)
+    predicted, pred_calls = p22_meta_peak(cfg, mesh.dims, mesh.coords, n_micro, mb, S, P22_LR)
+    plain, stage, plain_loss = {}, None, None
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            whole = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+            whole.train_params()
+            stage = StageModel(whole, ns, s)
+            mine = {id(p) for p in stage.parameters()}
+            flat = list(whole.parameters())
+            loss = loss_fn(whole, tokens.reshape(-1, S).to(dev), labels.reshape(-1, S).to(dev))
+            grads = torch.autograd.grad(loss, flat)
+            plain_loss = loss.item()
+            with torch.no_grad():
+                for p, g in zip(flat, grads):
+                    if id(p) in mine:
+                        new = (p.float() - P22_LR * g.float()).to(p.dtype)
+                        plain[id(p)] = (g.cpu(), new.cpu())
+            del whole, flat, grads, loss
+            if cuda:
+                torch.cuda.empty_cache()
+        dist.barrier()
+    step = build_pipeline_train_step(cfg, mesh, ns, n_micro, P22_LR)
+    batch = {"tokens": tokens, "labels": labels}
+    params = list(stage.parameters())
+    held = sum(p.untyped_storage().nbytes() for p in params)
+    if cuda:
+        sync()
+        base = torch.cuda.memory_allocated() - held
+        torch.cuda.reset_peak_memory_stats()
+    where = f"{tuple(mesh.dims)} rank {mesh.rank} (stage {s}, data {d})"
+    walls, losses = [], []
+    for i in range(steps):
+        sync()
+        dist.barrier()
+        flash_attention_kernel.launches = flash_attention_bwd_kernel.launches = 0
+        mesh.comm.reset()
+        t0 = time.perf_counter()
+        stage, loss = step(stage, batch)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        check(math.isfinite(losses[-1]), f"{where}: step {i} loss {losses[-1]}")
+        zero = [n for n, p in stage.named_parameters() if not bool(p.grad.ne(0).any())]
+        check(not zero, f"{where}: step {i}: zero gradients {zero}")
+        if i:
+            continue
+        peak = torch.cuda.max_memory_allocated() - base if cuda else 0
+        launches = (flash_attention_kernel.launches, flash_attention_bwd_kernel.launches)
+        calls = dict(mesh.comm.calls)
+        worst = {"grad": 0.0, "grad_leaf": None, "param_excess": 0.0}
+        bad = []
+        with torch.no_grad():
+            for name, p in stage.named_parameters():
+                g_plain, p_plain = (t.to(dev) for t in plain[id(p)])
+                gscale = g_plain.float().abs().max().item()
+                gerr = (p.grad.float() - g_plain.float()).abs().max().item()
+                bound = 2 ** -7 * p_plain.float().abs() + P22_LR * P22_GRAD_TOL * gscale
+                excess = ((p.float() - p_plain.float()).abs() - bound).max().item()
+                if gerr / gscale > worst["grad"]:
+                    worst["grad"], worst["grad_leaf"] = gerr / gscale, name
+                worst["param_excess"] = max(worst["param_excess"], excess)
+                if gerr > P22_GRAD_TOL * gscale or excess > 0:
+                    bad.append((name, gerr / gscale, excess))
+                del g_plain, p_plain, bound
+        check(not bad, f"{where}: first step's leaves out of bound against the one-rank step "
+                       f"(name, grad err / scale, param excess): {bad[:5]}")
+        check(abs(losses[0] - plain_loss) <= P22_LOSS_RTOL * abs(plain_loss),
+              f"{where}: loss {losses[0]} vs the one-rank step's {plain_loss}")
+    layers = len(stage.layers)
+    want = p22_expected_calls(cfg, mesh.dims, s, n_micro, mb, S, True,
+                              stage.embed.element_size())
+    check(calls == want, f"{where}: collectives {calls}, counted from the shapes {want}")
+    check(calls == pred_calls, f"{where}: collectives {calls}, the meta step's {pred_calls}")
+    if cuda:
+        check(launches == (layers * n_micro,) * 2,
+              f"{where}: flash launches (forward, backward) {launches}, expected "
+              f"{layers} x {n_micro} each")
+    del stage, plain
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"walls_s": walls, "losses": losses, "plain_loss": plain_loss, "launches": launches,
+            "calls": calls, "worst": worst, "peak": peak, "predicted": predicted,
+            "layers": layers}
+
+
+def p22_rank(world, specs: dict) -> dict:
+    """One rank of phase 22 (a process of its own on the shared card): (a),
+    (b) on each forward mesh, (c) on each training mesh, each mesh over the
+    same processes; their results."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+
+    def on(shape):
+        return world if tuple(shape) == world.dims else make_mesh(shape, P22_AXES, world.device)
+
+    out = {"psum": p22_psum(make_mesh((1, world.size), P22_AXES, world.device),
+                            specs["psum_shape"], 220)}
+    n_micro, mb, S = specs["batch"]
+    out["forward"] = [p22_forward(on(shape), specs["forward_cfg"], n_micro, mb, S, 221, i == 0)
+                      for i, shape in enumerate(specs["forward_meshes"])]
+    if world.device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["train"] = [p22_train(on(shape), specs["train_cfg"], n_micro, mb, S, steps, 222)
+                    for shape, steps in specs["train"]]
+    return out
+
+
+def pipeline_phase(get_config, card: str) -> int:
+    """Phase 22; returns the flash launches of one rank's pipelined prefill
+    of granite-3-8b on the (4, 1) mesh (the phase's main path)."""
+    from repro_torch.launch.mesh import run_ranks
+
+    t_phase = time.perf_counter()
+    full = get_config(P22_ARCH)
+    specs = {"batch": (P22_N_MICRO, P22_MB, P22_S), "psum_shape": P22_PSUM_SHAPE,
+             "forward_cfg": full,
+             "forward_meshes": P22_FWD_MESHES, "train": P22_TRAIN,
+             "train_cfg": dataclasses.replace(full, n_layers=P22_TRAIN_LAYERS, remat=False)}
+    print(f"phase 22: the merged pipeline (runtime/pipeline.py): {P22_ARCH}, B="
+          f"{P22_N_MICRO * P22_MB} x S={P22_S} as {P22_N_MICRO} microbatches of {P22_MB} rows, "
+          f"on (stage, data) meshes of 4 ranks sharing the card over gloo: every byte crosses "
+          f"the host, so no time here is a multi-GPU time")
+    return p22_report(run_ranks(p22_rank, P22_WORLD, P22_AXES, specs, device="cuda",
+                                threads=2), specs, card, t_phase)
+
+
+def p22_report(ranks: list, specs: dict, card: str, t_phase: float) -> int:
+    """Print phase 22's readings from every rank's results; the cross-rank
+    checks.  Returns the flash launches of rank 0's first forward mesh."""
+    n_micro, mb, S = specs["batch"]
+    psum = [r["psum"] for r in ranks]
+    scales = [p["scale"] for p in psum]
+    check(len(set(scales)) == len(scales), f"(a) the ranks' int8 scales do not differ: {scales}")
+    print(f"  (a) psum_compressed over a data axis of {len(ranks)}, a {specs['psum_shape']} bf16 "
+          f"gradient a rank: each rank's mean and residual bit-equal to the reference's formula "
+          f"reckoned on the host (int32 sum, then sum * own scale / n); scales "
+          f"{[f'{x:.6e}' for x in scales]}, so the means differ ({[p['mean_head'][0] for p in psum]}"
+          f" first element); int32 bytes moved a rank {psum[0]['int32_bytes']} (recorded); wall "
+          f"{max(p['wall_s'] for p in psum) * 1e3:.1f} ms {card}")
+    cfg = specs["forward_cfg"]
+    for i, shape in enumerate(specs["forward_meshes"]):
+        per = [r["forward"][i] for r in ranks]
+        walls = [max(p["walls_s"][k] for p in per) for k in range(2)]
+        print(f"  (b) {cfg.name} full size ({cfg.n_layers} layers, {cfg.param_dtype}) on (stage, data) "
+              f"{shape}: {per[0]['layers']} layers a stage, {n_micro + shape[0] - 1} beats; "
+              f"pipelined forward wall {walls[0] * 1e3:.1f} / {walls[1] * 1e3:.1f} ms (runs 1 / "
+              f"2, slowest rank); logits vs the one-rank forward of each rank's rows: max abs "
+              f"err {max(p['err'] for p in per):.3e} (bound {P21_LOGIT_TOL} x "
+              f"{max(p['scale'] for p in per):.3e}), bit-equal on "
+              f"{sum(p['bit_equal'] for p in per)} of {len(per)} ranks; flash launches a rank "
+              f"{[p['launches'] for p in per]}; {len(ranks)} ranks sharing one card over gloo "
+              f"{card}")
+        for r, p in enumerate(per):
+            print(f"    rank {r} collectives (result bytes, = the count from the shapes): "
+                  + json.dumps({f"{k}/{a}/{t}": v for (k, a, t), v in p["calls"].items()}))
+        if i == 0 and per[0]["one_rank_s"]:
+            print(f"    one rank's {cfg.n_layers}-layer forward of the whole B="
+                  f"{n_micro * mb} x S={S} (no pipeline, no host hop), 3 runs: "
+                  + ", ".join(f"{w * 1e3:.1f}" for w in per[0]["one_rank_s"]) + f" ms {card}")
+    tcfg = specs["train_cfg"]
+    print(f"  (c) SGD steps (lr {P22_LR}), {tcfg.name} full width, reduced: n_layers "
+          f"{cfg.n_layers}→{tcfg.n_layers} (the meta sizing: the 4 ranks' steps, and one rank's "
+          f"plain step beside the other stages, fit the card), {tcfg.param_dtype}, "
+          f"B={n_micro * mb} x S={S}, no remat; bounds: each "
+          f"gradient leaf within {P22_GRAD_TOL} of its largest element, the loss within "
+          f"{P22_LOSS_RTOL:.4g} of its value, each parameter within one bf16 ulp + lr x that")
+    for i, (shape, steps) in enumerate(specs["train"]):
+        per = [r["train"][i] for r in ranks]
+        print(f"  (c) {shape}: {per[0]['layers']} layers a stage, {steps} step(s): step walls "
+              + ", ".join(f"{max(p['walls_s'][k] for p in per) * 1e3:.1f}" for k in range(steps))
+              + f" ms (slowest rank); losses {per[0]['losses']} (one-rank step "
+              f"{per[0]['plain_loss']:.6f}); worst gradient err / scale "
+              + ", ".join(f"r{r} {p['worst']['grad']:.3e} ({p['worst']['grad_leaf']})"
+                          for r, p in enumerate(per))
+              + f"; worst parameter excess over its "
+              f"bound {max(p['worst']['param_excess'] for p in per):.3e}; flash launches a rank "
+              f"(forward, backward) {[p['launches'] for p in per]}; {len(ranks)} ranks sharing "
+              f"one card over gloo {card}")
+        for r, p in enumerate(per):
+            kinds = {}
+            for (k, a, t), (n, b) in p["calls"].items():
+                kinds[f"{k}/{a}/{t}"] = [n, b]
+            print(f"    rank {r}: peak predicted {p['predicted']} B ({p['predicted'] / 2**30:.3f} "
+                  f"GiB), measured {p['peak']} B ({p['peak'] / 2**30:.3f} GiB); collectives "
+                  f"(= the count from the shapes and the meta step's): {json.dumps(kinds)}")
+    print(f"  phase 22: {time.perf_counter() - t_phase:.1f} s")
+    return ranks[0]["forward"][0]["launches"]
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"no src/repro_torch beside {Path(__file__).name}: run from a checkout",
@@ -3442,6 +3899,9 @@ def main() -> int:
     # ------------------------------------------------------------ phase 21
     mesh_launches = mesh_phase(get_config, card, sync)
 
+    # ------------------------------------------------------------ phase 22
+    pipeline_launches = pipeline_phase(get_config, card)
+
     # ------------------------------------------------------------ result
     main_case = results[MAIN_PATH_CASE]
     wkv_case = wkv_results[WKV_MAIN_PATH_CASE]
@@ -3452,7 +3912,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
         "launches": launches, "facade_launches": facade_launches["flash_attention"],
-        "mesh_launches": mesh_launches,
+        "mesh_launches": mesh_launches, "pipeline_launches": pipeline_launches,
         **{k: main_case[k] for k in keys},
     }, {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -3524,9 +3984,34 @@ def phase21_card() -> int:
     return 0
 
 
+def phase22_card() -> int:
+    """``python3 chip_smoke.py --phase-22``: phase 22 alone (the flash
+    forward and backward libraries built first)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch.cuda.is_available() is False: this smoke run needs a GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+
+    smi = nvidia_smi_line()
+    print(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with ThreadPoolExecutor(2) as pool:
+        took = list(pool.map(_build.build, ("flash_attention.cu", "flash_attention_bwd.cu")))
+    print(f"flash_attention.cu, flash_attention_bwd.cu built in {took[0]:.3f}, {took[1]:.3f} s")
+    pipeline_phase(get_config, f"[{smi}]")
+    print(f"total wall time {time.perf_counter() - T_START:.1f} s")
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase-21"]:
         sys.exit(phase21_card())
+    if sys.argv[1:2] == ["--phase-22"]:
+        sys.exit(phase22_card())
     if sys.argv[1:2] == ["--phase-20"]:
         sys.exit(phase20_card(default_allocator=sys.argv[2:] == ["default"]))
     sys.exit(main())

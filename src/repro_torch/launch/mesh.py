@@ -63,7 +63,8 @@ class Mesh:
         if self.comm is None:
             route = "meta" if self.backend == "meta" else "dist"
             self.comm = Collectives(self.shape, self.groups, route,
-                                    stage=self.backend == "gloo" and self.device.type == "cuda")
+                                    stage=self.backend == "gloo" and self.device.type == "cuda",
+                                    index=dict(zip(self.axis_names, self.coords)))
 
     @property
     def shape(self) -> dict[str, int]:

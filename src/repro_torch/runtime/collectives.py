@@ -7,7 +7,8 @@ itself, through one :class:`Collectives` per mesh, which counts every
 call and its bytes by kind, axis and tag as it goes (a bounded tally, so a
 serving loop may run on with it).  The bytes are the reference's
 measure: those of each op's *result* (an all-gather's gathered tensor, an
-all-reduce's tensor, a reduce-scatter's shard), in the result's dtype.
+all-reduce's tensor, a reduce-scatter's shard, a collective-permute's
+received tensor), in the result's dtype.
 
 Routes:
 
@@ -35,16 +36,18 @@ def _nbytes(shape, dtype: torch.dtype) -> int:
 
 
 class Collectives:
-    """All-reduce, all-gather and reduce-scatter over the axes of one rank's
-    mesh; ``calls`` maps ``(kind, axis, tag)`` to ``[calls, bytes]`` since
-    the last :meth:`reset` (kind ``"all-gather"``, ``"all-reduce"`` or
-    ``"reduce-scatter"``; tag the caller's)."""
+    """All-reduce, all-gather, reduce-scatter and permute over the axes of
+    one rank's mesh, whose coordinate on each axis is ``index``; ``calls``
+    maps ``(kind, axis, tag)`` to ``[calls, bytes]`` since the last
+    :meth:`reset` (kind ``"all-gather"``, ``"all-reduce"``,
+    ``"reduce-scatter"`` or ``"collective-permute"``; tag the caller's)."""
 
     def __init__(self, sizes: dict[str, int], groups: dict, route: str = "dist",
-                 stage: bool = False):
+                 stage: bool = False, index: dict[str, int] | None = None):
         if route not in ("dist", "meta"):
             raise ValueError(f"route {route!r}: 'dist' or 'meta'")
         self.sizes = dict(sizes)
+        self.index = dict(index or {a: 0 for a in sizes})
         self.groups = groups
         self.route = route
         self.stage = stage
@@ -154,3 +157,48 @@ class Collectives:
             dist.reduce_scatter_tensor(out, moved, group=group)
             out = out.movedim(0, dim).contiguous()
         return self._back(out, x).to(x.dtype)
+
+    def permute(self, x: torch.Tensor, axis: str, pairs, tag: str = "") -> torch.Tensor | None:
+        """``jax.lax.ppermute`` over ``axis``: for each ``(src, dst)`` of
+        ``pairs`` (coordinates on the axis; each at most once a source and
+        once a destination) the ``x`` of rank ``src`` arrives at rank
+        ``dst``.  Returns what this rank receives, a new tensor of ``x``'s
+        shape and dtype, or ``None`` where no pair ends here (ppermute's
+        zeros, left out).  A receiving rank's ``x`` gives only the shape and
+        dtype.  Recorded on each receiving rank, with the bytes it receives."""
+        n = self._size(axis)
+        pairs = [(int(s), int(d)) for s, d in pairs]
+        for end in (0, 1):
+            ranks = [p[end] for p in pairs]
+            if len(set(ranks)) != len(ranks) or not all(0 <= r < n for r in ranks):
+                raise ValueError(f"permute pairs {pairs} over the {n} ranks of {axis!r}: "
+                                 "each rank at most once a source and once a destination")
+        me = self.index[axis]
+        dst = next((d for s, d in pairs if s == me), None)
+        src = next((s for s, d in pairs if d == me), None)
+        if src == me:                        # a rank's edge to itself moves nothing
+            return x
+        if src is None and dst is None:
+            return None
+        if src is not None:
+            self._record("collective-permute", axis, tag, x.shape, x.dtype)
+        if self.route == "meta":
+            return None if src is None else torch.empty_like(x)
+        group = self.groups[axis]
+        # 16-bit floats travel as their bytes, as all_gather sends them
+        raw = x.is_floating_point() and x.element_size() == 2 and x.dim() > 0
+        works, buf = [], None
+        if src is not None:
+            shape = (*x.shape[:-1], 2 * x.shape[-1]) if raw else x.shape
+            buf = torch.empty(shape, dtype=torch.uint8 if raw else x.dtype,
+                              device="cpu" if self.stage else x.device)
+            works.append(dist.irecv(buf, src=dist.get_global_rank(group, src), group=group))
+        if dst is not None:
+            out = self._host(x.detach()).contiguous()
+            works.append(dist.isend(out.view(torch.uint8) if raw else out,
+                                    dst=dist.get_global_rank(group, dst), group=group))
+        for w in works:
+            w.wait()
+        if buf is None:
+            return None
+        return self._back(buf.view(x.dtype) if raw else buf, x)

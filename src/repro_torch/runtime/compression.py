@@ -5,9 +5,8 @@ stateless quantize -> dequantize the train step applies with
 ``compress=True``; its scale comes from the amax over the reference's whole
 leaf, so a stacked leaf (one pattern slot's R layers) is passed as the list
 of its layers and shares one scale.  ``ef_compress`` is the error-feedback
-variant; ``psum_compressed``, the compressed data-parallel all-reduce,
-runs over a mesh's data axis and comes with the pipeline runtime (ROADMAP
-A13b).
+variant; ``psum_compressed`` is the compressed data-parallel all-reduce
+over a mesh axis.  As in the reference, no train step calls it.
 """
 from __future__ import annotations
 
@@ -46,13 +45,30 @@ def compress_decompress(g: torch.Tensor | Sequence[torch.Tensor]):
 
 
 def ef_compress(g: torch.Tensor, residual: torch.Tensor):
-    """Error-feedback compression: returns (q, scale, new_residual)."""
+    """Error-feedback compression: returns (q, scale, new_residual).
+
+    ``new_residual = corrected - q * scale`` rounded once, as the reference
+    computes it compiled (XLA fuses the product and the difference into a
+    multiply-add; ``psum_compressed`` only runs compiled there).  The
+    float64 difference is that: ``q * scale`` is exact in float64, and so
+    is its difference from ``corrected``, which is within half a scale of
+    it or ``corrected`` itself where ``q`` is 0."""
     corrected = g.float() + residual
     q, s = quantize_int8(corrected)
-    return q, s, corrected - dequantize_int8(q, s)
+    return q, s, (corrected.double() - q.double() * s.double()).float()
 
 
-def psum_compressed(g: torch.Tensor, residual: torch.Tensor, axis_name: str):
-    """Compressed DP all-reduce with error feedback: needs a process group
-    (multi-GPU), not ported yet."""
-    raise NotImplementedError("psum_compressed over a mesh's data axis: ROADMAP A13b")
+def psum_compressed(g: torch.Tensor, residual: torch.Tensor, axis: str, comm):
+    """Compressed DP all-reduce with error feedback over ``axis`` of
+    ``comm`` (a mesh's :class:`~repro_torch.runtime.collectives.Collectives`):
+    returns ``(mean in g's dtype, new_residual)``.
+
+    Each rank quantizes ``g + residual`` to int8 under its own scale, the
+    ranks sum the int8 values exactly as int32, and each rank dequantizes
+    the sum with **its own** scale ``s`` and divides by the axis size ``n``:
+    ``sum * s / n``.  That is the reference's arithmetic, quirk included:
+    ranks whose scales differ get different means."""
+    q, s, new_res = ef_compress(g, residual)
+    summed = comm.all_reduce(q.to(torch.int32), axis=axis, tag="psum_compressed")
+    mean = summed.float() * s / comm.sizes[axis]
+    return mean.to(g.dtype), new_res

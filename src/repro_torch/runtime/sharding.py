@@ -448,15 +448,15 @@ class RankShard:
 
 
 def _mesh_layout(cfg: ModelConfig, plan: ShardPlan, mesh) -> tuple[int, int, int, int]:
-    """(m, r, dp, dpi) of this rank."""
+    """(m, r, dp, dpi) of this rank.  An axis that is neither ``model`` nor
+    one of the plan's data axes (a ``stage`` axis) is replicated, as GSPMD
+    replicates over an axis no ``PartitionSpec`` names: ranks that differ
+    only there compute the same."""
     shape = mesh.shape
     for axis in plan.dp:
         if axis not in shape:
             raise ValueError(f"the plan's data axis {axis!r} is not an axis of the mesh "
                              f"{tuple(shape)}")
-    if "stage" in shape and shape["stage"] > 1:
-        raise NotImplementedError("pipeline stages on a mesh (runtime/pipeline.py): "
-                                  "ROADMAP A13b")
     m = shape.get("model", 1)
     r = mesh.index("model") if "model" in shape else 0
     dp, dpi = 1, 0

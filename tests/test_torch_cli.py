@@ -108,7 +108,9 @@ def test_quickstart_prints_what_the_reference_prints(capsys, monkeypatch):
     # 30 steps of 32 x 8 tokens, where the example's own check (a loss drop
     # of more than 1 nat) holds on the CPU: 8.739 -> 6.816
     ("train_lm_torch.py", ["--steps", "30", "--batch", "32", "--seq", "8"]),
-], ids=["serve_batched", "train_lm"])
+    # 8 gloo ranks on the CPU; the example's own check is the reference's 2e-3
+    ("scope_pipeline_torch.py", []),
+], ids=["serve_batched", "train_lm", "scope_pipeline"])
 def test_model_examples_run_on_the_cpu(script, args, capsys, monkeypatch):
     out = _run(script, ["--device", "cpu", *args], capsys, monkeypatch)
     assert out and "nan" not in out.lower()

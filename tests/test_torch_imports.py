@@ -16,7 +16,7 @@ PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chi
                  "flash_fwd_turns.py")] + [
     REPO / "examples" / name
     for name in ("quickstart_torch.py", "multimodel_serve_torch.py", "serve_batched_torch.py",
-                 "train_lm_torch.py")]
+                 "train_lm_torch.py", "scope_pipeline_torch.py")]
 BANNED = ("jax", "jaxlib", "repro")
 
 

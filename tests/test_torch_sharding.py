@@ -8,6 +8,8 @@ activation layouts, entry for entry.
 The reference's placement functions read only ``mesh.shape``, so a
 stand-in with that dict serves for both packages; the shapes are the
 reference's abstract trees (``jax.eval_shape``) and the port's meta model.
+A ``stage`` axis, which no spec names, is replicated: gloo ranks on a
+(stage, data, model) mesh serve as the (data, model) mesh's.
 """
 import dataclasses
 import functools
@@ -15,19 +17,23 @@ import types
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 from jax.sharding import PartitionSpec as JP
 from repro.configs import get_config as jget_config
+from repro.configs import get_smoke_config as jget_smoke_config
 from repro.models import init_kv_cache as jinit_kv_cache
 from repro.models import init_params as jinit_params
 from repro.optim import make_optimizer as jmake_optimizer
 from repro.runtime import sharding as jsh
 
-from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.launch.mesh import run_ranks
 from repro_torch.models.model import init_kv_cache, init_params
 from repro_torch.optim import make_optimizer
 from repro_torch.runtime import sharding as tsh
+from torch_parity import prefill_on_rank
 
 MESHES = {
     "2x4": ((2, 4), ("data", "model")),
@@ -167,3 +173,22 @@ def test_plan_dataclass_matches():
         for use_dp in (True, False):
             assert tsh.ShardPlan(axes, use_dp=use_dp).dp == jsh.ShardPlan(axes,
                                                                           use_dp=use_dp).dp
+
+
+def test_a_stage_axis_is_replicated():
+    """On a (stage 2, data 1, model 2) mesh the smoke granite-3-8b prefill
+    runs as on (data 1, model 2): no PartitionSpec names ``stage``, so the
+    ranks that differ only there compute the same logits and collectives
+    as the (1, 2) mesh's rank at their model coordinate, bit for bit."""
+    params = jax.tree.map(np.asarray, jinit_params(jget_smoke_config("granite-3-8b"),
+                                                   jax.random.PRNGKey(0)))
+    tokens = np.random.default_rng(5).integers(0, 128, (2, 12)).astype(np.int32)
+    staged = run_ranks(prefill_on_rank, (2, 1, 2), ("stage", "data", "model"),
+                       "granite-3-8b", params, tokens, device="cpu", verbose=False)
+    flat = run_ranks(prefill_on_rank, (1, 2), ("data", "model"), "granite-3-8b", params,
+                     tokens, device="cpu", verbose=False)
+    for rank, (logits, calls) in enumerate(staged):
+        want_logits, want_calls = flat[rank % 2]
+        assert logits.shape == (2, 12, get_smoke_config("granite-3-8b").padded_vocab // 2)
+        np.testing.assert_array_equal(logits, want_logits)
+        assert calls == want_calls and calls

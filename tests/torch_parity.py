@@ -134,3 +134,87 @@ def serve_rows_on_rank(mesh, arch, params, tokens, caches, dtoks, max_len):
         lg, state = decode(model, torch.from_numpy(tok), torch.full((B,), S + t), state)
         dec.append(gather_logits(lg, model.shard).numpy())
     return calls, gather_logits(logits, model.shard).numpy(), np.stack(dec)
+
+
+# What a rank of tests/test_torch_pipeline.py runs: the merged pipeline on a
+# (stage, data) mesh.
+
+def stage_params(model) -> dict:
+    """A StageModel's parameters as numpy: ``{"embed", "final_ln"[,
+    "lm_head"], "layers": {layer: {dotted name: array}}}``."""
+    out = {n: getattr(model, n).detach().numpy().copy()
+           for n in ("embed", "final_ln", "lm_head") if getattr(model, n) is not None}
+    out["layers"] = {li: {n: p.detach().numpy().copy() for n, p in blk.named_parameters()}
+                     for li, blk in zip(model.layers, model.blocks)}
+    return out
+
+
+def pipeline_on_rank(mesh, payload, n_steps, lr, psum_inputs):
+    """On this rank of a (stage, data) mesh: for every arch of ``payload``
+    (``{arch: (n_layers, params, tokens, labels, train)}``, the reference's
+    numpy arrays), the pipelined forward (this rank's logits, the gathered
+    ones, the collectives it recorded) and, where ``train``, ``n_steps``
+    SGD steps (the losses, the stage's parameters after the first and the
+    last, the first step's collectives); then ``psum_compressed`` on this
+    rank's data row of ``psum_inputs``, ``(gradients [rounds, n_data, ...],
+    first residuals [n_data, ...])``, each round's residual the last one's
+    result."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.runtime.compression import psum_compressed
+    from repro_torch.runtime.pipeline import (StageModel, build_pipeline_train_step,
+                                              gather_pipeline_logits, pipeline_forward)
+
+    ns = mesh.shape["stage"]
+    out = {}
+    for arch, (n_layers, params, tokens, labels, train) in payload.items():
+        cfg = dataclasses.replace(get_smoke_config(arch), n_layers=n_layers, remat=False)
+        model = StageModel(params_from_jax(cfg, params, "cpu"), ns, mesh.index("stage"))
+        mesh.comm.reset()
+        local = pipeline_forward(model, torch.from_numpy(tokens), mesh, ns)
+        res = {"local_shape": tuple(local.shape), "calls": dict(mesh.comm.calls),
+               "logits": gather_pipeline_logits(local, mesh).numpy()}
+        if train:
+            step = build_pipeline_train_step(cfg, mesh, ns, tokens.shape[0], lr)
+            batch = {"tokens": tokens, "labels": labels}
+            losses = []
+            for i in range(n_steps):
+                mesh.comm.reset()
+                model, loss = step(model, batch)
+                losses.append(loss.item())
+                if i == 0:
+                    res["step_calls"] = dict(mesh.comm.calls)
+                    res["params_1"] = stage_params(model)
+            res["losses"] = losses
+            res["params_n"] = stage_params(model)
+        out[arch] = res
+    mesh.comm.reset()
+    gs, r0 = psum_inputs
+    r = torch.from_numpy(r0[mesh.index("data")])
+    rounds = []
+    for g in gs:
+        mean, r = psum_compressed(torch.from_numpy(g[mesh.index("data")]), r, "data", mesh.comm)
+        rounds.append((mean.numpy(), r.numpy()))
+    out["psum"] = {"rounds": rounds, "calls": dict(mesh.comm.calls)}
+    return out
+
+
+def prefill_on_rank(mesh, arch, params, tokens):
+    """The smoke ``arch``'s prefill step on this rank under the default
+    (ISP) plan over the mesh's own axes: the rank's logits and the
+    collectives it recorded."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.runtime.serve import build_prefill_step
+    from repro_torch.runtime.sharding import ShardPlan, shard_model
+
+    cfg = get_smoke_config(arch)
+    plan = ShardPlan(mesh.axis_names)
+    model = shard_model(params_from_jax(cfg, params, "cpu"), plan, mesh)
+    mesh.comm.reset()
+    logits = build_prefill_step(cfg, plan, "cpu", mesh)(model, torch.from_numpy(tokens))
+    return logits.numpy(), dict(mesh.comm.calls)
