@@ -1,6 +1,7 @@
 """The WKV-6 backward on the CPU: the port's plain backward
-(``wkv6_bwd_ref``) and the backward kernel's split in plain PyTorch
-(``wkv6_bwd_segmented_ref``) against ``jax.vjp`` of the reference's oracle
+(``wkv6_bwd_ref``) and the backward kernel's split and chunk arithmetic in
+plain PyTorch (``wkv6_bwd_chunked_ref``) against ``jax.vjp`` of the
+reference's oracle
 (``repro.kernels.rwkv6.ref.wkv6_ref``), and the autograd function that
 routes the card's gradient through the kernels.
 
@@ -22,7 +23,7 @@ import torch
 from repro.kernels.rwkv6.ref import wkv6_ref as jax_wkv6_ref
 from repro_torch.kernels.rwkv6 import ops
 from repro_torch.kernels.rwkv6.kernel import SEGMENT, wkv6_bwd_kernel
-from repro_torch.kernels.rwkv6.ref import (wkv6_bwd_ref, wkv6_bwd_segmented_ref, wkv6_ref,
+from repro_torch.kernels.rwkv6.ref import (wkv6_bwd_chunked_ref, wkv6_bwd_ref, wkv6_ref,
                                            wkv6_segmented_ref)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -35,18 +36,40 @@ SHAPES = [(2, 2, 64, 16), (1, 4, 128, 64), (2, 1, 96, 32), (1, 2, 256, 64),
           (2, 3, 100, 64), (1, 2, 300, 32)]
 
 
+STRONG_LOGW = -2.0   # the forward's strong-decay threshold (csrc/wkv6.cu)
+DECAYS = ("reference", "strong", "weakest_fp32", "half_strong")
+
+
+def _logw(rng, shape, decays):
+    """log w on one of scripts/wkv6_bwd_conditioning.py's four ranges: the
+    reference's (w uniform in (0.7, 0.999)); strong (log-uniform over [1e-3,
+    0.999], channels 3, 19, ... at -50); log w uniform in [STRONG_LOGW,
+    log 0.999] (the weakest the forward calls strong); and in every token
+    half the channels, at random, log-uniform in [1e-3, e^STRONG_LOGW), the
+    other half as the last."""
+    if decays == "strong":
+        logw = rng.uniform(np.log(1e-3), np.log(0.999), shape)
+        logw[..., 3::16] = -50.0
+        return logw
+    if decays == "reference":
+        return np.log(rng.uniform(0.7, 0.999, shape))
+    logw = rng.uniform(STRONG_LOGW, np.log(0.999), shape)
+    if decays == "half_strong":
+        low = rng.uniform(np.log(1e-3), STRONG_LOGW, shape)
+        half = rng.random(shape).argsort(-1) < shape[-1] // 2
+        logw = np.where(half, low, logw)
+    return logw
+
+
 def _inputs(B, H, S, hd, seed=0, strong=False, ds_last=False):
     """The reference's test distribution (tests/test_torch_wkv6.py): r, k, v
-    normal, decay uniform in (0.7, 0.999) as log w, u * 0.3; ``strong``:
-    log w log-uniform over [1e-3, 0.999] with channels 3, 19, ... at -50.
+    normal, decay uniform in (0.7, 0.999) as log w, u * 0.3; ``strong``
+    (True, or one of ``DECAYS``): log w on that range of :func:`_logw`.
     Then dout normal and, with ``ds_last``, a normal cotangent of S_last."""
     rng = np.random.default_rng(seed)
     r, k, v = (rng.standard_normal((B, H, S, hd)).astype(np.float32) for _ in range(3))
-    if strong:
-        logw = rng.uniform(np.log(1e-3), np.log(0.999), (B, H, S, hd))
-        logw[..., 3::16] = -50.0
-    else:
-        logw = np.log(rng.uniform(0.7, 0.999, (B, H, S, hd)))
+    decays = "strong" if strong is True else strong or "reference"
+    logw = _logw(rng, (B, H, S, hd), decays)
     u = (rng.standard_normal((H, hd)) * 0.3).astype(np.float32)
     dout = rng.standard_normal((B, H, S, hd)).astype(np.float32)
     ds = rng.standard_normal((B, H, hd, hd)).astype(np.float32) if ds_last else None
@@ -90,24 +113,32 @@ def test_wkv6_bwd_ref_matches_jax_vjp(shape, strong, ds_last):
     _assert_grads_close(got, want, TOL)
 
 
-@pytest.mark.parametrize("segment", [8, 32, 64, SEGMENT])
+# (chunk, block, segment): the kernel's (16, 128, SEGMENT), then shorter and
+# longer chunks, and blocks and segments short enough that the sequences
+# span many of each
+CHUNKINGS = [(16, 128, SEGMENT), (4, 8, 16), (8, 32, 64), (32, 64, 128)]
+
+
+@pytest.mark.parametrize("chunking", CHUNKINGS, ids=lambda c: "c{}_b{}_s{}".format(*c))
 @pytest.mark.parametrize("case", [
     ((1, 4, 128, 64), False, False), ((2, 3, 100, 64), False, True),
     ((1, 2, 300, 32), True, True), ((2, 1, 96, 32), True, False),
     ((1, 2, 257, 16), False, True),
 ], ids=["wkv_case1", "ragged_dS_last", "ragged_strong_dS_last", "wkv_case2_strong",
         "segment_plus_one"])
-def test_wkv6_bwd_segmented_ref_matches_jax_vjp(case, segment):
-    """The kernel's split (segment-local G, its carry, float64 sweeps from
-    the fp32 segment states, dlogw restarted at each segment's end from
-    sum_j G_end * S_end) against jax.vjp of the reference's oracle, at one
-    to 38 segments, whole or ragged, on both decay ranges, with and without
-    a cotangent of S_last."""
+def test_wkv6_bwd_chunked_ref_matches_jax_vjp(case, chunking):
+    """The kernel's split and chunk arithmetic in fp32 (block-local G, its
+    carry, S forward from the segments' input states, the pair form inside
+    each chunk) against jax.vjp of the reference's oracle, at one to 38
+    blocks, whole or ragged, on both decay ranges, with and without a
+    cotangent of S_last."""
     shape, strong, ds_last = case
     arrs, dout, ds = _inputs(*shape, seed=2, strong=strong, ds_last=ds_last)
     want = _jax_grads(arrs, dout, ds)
     t, tdo, tds = _torch(arrs, dout, ds)
-    got = wkv6_bwd_segmented_ref(*t, tdo, tds, segment)
+    chunk, block, segment = chunking
+    got = wkv6_bwd_chunked_ref(*t, tdo, tds, chunk=chunk, block=block, segment=segment)
+    assert all(g.dtype == torch.float32 for g in got)
     _assert_grads_close(got, want, TOL)
 
 
@@ -115,15 +146,17 @@ def test_wkv6_bwd_segmented_ref_matches_jax_vjp(case, segment):
 @pytest.mark.parametrize("strong", [False, True], ids=["reference", "strong_decays"])
 def test_wkv6_bwd_float64_matches_autograd(strong, ds_last):
     """In float64 both plain backwards agree with autograd of the port's
-    plain forward to 1e-10: the formulas are exact, including dlogw's
-    running sums (segment 32: 3 segments, a ragged one)."""
+    plain forward to 1e-10: the formulas are exact, including dlogw's pair
+    form (chunks of 8 in blocks of 16 and segments of 32: 5 blocks, a ragged
+    one)."""
     arrs, dout, ds = _inputs(2, 3, 70, 16, seed=3, strong=strong, ds_last=ds_last)
     t, tdo, tds = _torch(arrs, dout, ds, torch.float64)
     leaves = [x.clone().requires_grad_(True) for x in t]
     out, s_last = wkv6_ref(*leaves)
     loss = (out * tdo).sum() + (0 if tds is None else (s_last * tds).sum())
     want = torch.autograd.grad(loss, leaves)
-    for got in (wkv6_bwd_ref(*t, tdo, tds), wkv6_bwd_segmented_ref(*t, tdo, tds, 32)):
+    for got in (wkv6_bwd_ref(*t, tdo, tds),
+                wkv6_bwd_chunked_ref(*t, tdo, tds, chunk=8, block=16, segment=32)):
         assert all(g.dtype == torch.float64 for g in got)
         _assert_grads_close([g.detach() for g in got], [w.detach() for w in want], TOL64)
 
@@ -131,23 +164,23 @@ def test_wkv6_bwd_float64_matches_autograd(strong, ds_last):
 @pytest.mark.parametrize("ds_last", [False, True], ids=["no_dS_last", "dS_last"])
 @pytest.mark.parametrize("strong", [False, True], ids=["reference", "strong_decays"])
 @pytest.mark.parametrize("S", [1, 40])
-def test_wkv6_bwd_segmented_ref_short_sequence(S, strong, ds_last):
-    """The kernel's split at the kernel's segment length on a sequence
-    shorter than one 64-token block (one ragged segment) against jax.vjp of
-    the reference's oracle, as chip_smoke.py phase 18(a)'s S=40 case holds
-    the kernel on the card."""
+def test_wkv6_bwd_chunked_ref_short_sequence(S, strong, ds_last):
+    """The kernel's split and chunks (16 tokens, blocks of 128) on a
+    sequence shorter than one block (one ragged block, S=1: one token of a
+    chunk) against jax.vjp of the reference's oracle, as chip_smoke.py phase
+    18(a)'s S=40 case holds the kernel on the card."""
     arrs, dout, ds = _inputs(2, 3, S, 64, seed=6, strong=strong, ds_last=ds_last)
     want = _jax_grads(arrs, dout, ds)
     t, tdo, tds = _torch(arrs, dout, ds)
-    got = wkv6_bwd_segmented_ref(*t, tdo, tds, SEGMENT)
+    got = wkv6_bwd_chunked_ref(*t, tdo, tds)
     _assert_grads_close(got, want, TOL)
 
 
 @functools.cache
-def _long_case(strong):
-    """S=2048, H=2, hd=64 on one decay range: the fp32 inputs and the float64
+def _long_case(decays):
+    """S=2048, H=1, hd=64 on one decay range: the fp32 inputs and the float64
     plain backward."""
-    arrs, dout, _ = _inputs(1, 2, 2048, 64, seed=8, strong=strong)
+    arrs, dout, _ = _inputs(1, 1, 2048, 64, seed=8, strong=decays)
     t, tdo, _ = _torch(arrs, dout, None)
     want64 = wkv6_bwd_ref(*(x.double() for x in t), tdo.double())
     return t, tdo, want64
@@ -162,15 +195,16 @@ def _row_rel_err(got, want, floor=1e-3):
     return (err[keep] / rms[keep]).max().item()
 
 
-@pytest.mark.parametrize("strong", [False, True], ids=["reference", "strong_decays"])
-def test_wkv6_bwd_dlogw_at_training_length(strong):
-    """At rwkv6-3b's training length (S=2048, hd=64, H=2) in fp32, the
-    kernel's scheme (float64 sweeps, dlogw restarted at each segment's end)
+@pytest.mark.parametrize("decays", DECAYS)
+def test_wkv6_bwd_dlogw_at_training_length(decays):
+    """At rwkv6-3b's training length (S=2048, hd=64, H=1) in fp32, the
+    kernel's arithmetic (the pair form in chunks of 16, fp32 throughout)
     keeps dlogw within allclose(2e-4, 2e-4) of the float64 plain backward
-    and within chip_smoke.py's per-row bound (1e-3 of a row's rms), on both
-    decay ranges."""
-    t, tdo, want64 = _long_case(strong)
-    got = wkv6_bwd_segmented_ref(*t, tdo, None, SEGMENT)[3]
+    and within chip_smoke.py's per-row bound (1e-3 of a row's rms), on all
+    four of scripts/wkv6_bwd_conditioning.py's decay ranges (the fp32
+    running sums tried before missed the per-row bound on strong decays)."""
+    t, tdo, want64 = _long_case(decays)
+    got = wkv6_bwd_chunked_ref(*t, tdo)[3]
     np.testing.assert_allclose(got.double().numpy(), want64[3].numpy(), **TOL)
     assert _row_rel_err(got, want64[3]) <= 1e-3
 
@@ -194,7 +228,7 @@ def test_autograd_function_routes_both_passes(monkeypatch):
         calls["bwd"] += 1
         assert seg_state.numel() == 0
         calls["ds_last"] = ds_last
-        return wkv6_bwd_segmented_ref(r, k, v, logw, u, dout, ds_last, SEGMENT)
+        return wkv6_bwd_chunked_ref(r, k, v, logw, u, dout, ds_last)
 
     monkeypatch.setattr(ops, "wkv6_kernel", fwd)
     monkeypatch.setattr(ops, "wkv6_bwd_kernel", bwd)
@@ -229,8 +263,8 @@ def test_wkv6_bwd_kernel_raises_on_cpu_tensors():
 def test_model_gradients_through_the_autograd_function(monkeypatch):
     """rwkv6-3b's smoke config under remat, on the CPU, with every WKV-6
     call routed through ``_WKV6`` (its kernels replaced by the kernels'
-    splits in plain PyTorch, ``wkv6_segmented_ref`` / ``wkv6_bwd_segmented_ref``
-    at 16-token segments): the loss and every per-layer gradient equal the
+    splits in plain PyTorch, ``wkv6_segmented_ref`` at 16-token segments /
+    ``wkv6_bwd_chunked_ref`` at 4-token chunks in 8-token blocks): the loss and every per-layer gradient equal the
     CPU route's (autograd of the plain version) within 2e-4 of each leaf's
     largest gradient, the S_last cotangent of every call is None, and each
     call's backward runs once (remat recomputes the forward, the backward
@@ -255,7 +289,8 @@ def test_model_gradients_through_the_autograd_function(monkeypatch):
 
     def bwd(r, k, v, logw, u, seg_state, dout, ds_last=None):
         seen.append(ds_last)
-        return wkv6_bwd_segmented_ref(r, k, v, logw, u, dout, ds_last, 16)
+        return wkv6_bwd_chunked_ref(r, k, v, logw, u, dout, ds_last, chunk=4, block=8,
+                                    segment=16)
 
     def routed(r, k, v, logw, u):
         keep = torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, logw, u))
