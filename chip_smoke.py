@@ -17,7 +17,10 @@ paths:
    wgmma (``IGMMA``) and TMA with no spills, and every selective-scan
    backward sweep kernel TMA loads and stores (``UTMALDG``, ``UTMASTG``)
    with no spills; the WKV-6 backward's fp64 instructions (``DFMA``,
-   ``DMUL``, ``DADD``) by kernel;
+   ``DMUL``, ``DADD``) by kernel, and those of the chunked fp32 backward
+   tried in its place (``scripts/wkv6_bwd_chunked.cu``, built beside the
+   port's kernels for phase 18(b)): none but its du sums' ``DADD``, and its
+   tensor-core products (``HMMA``) in its G and chunk passes;
 2. flash-attention kernel vs its plain version at every shape the later
    phases give it, phases 16-17's five head layouts included (reference
    bounds: 2e-3 fp32, 2e-2 bf16, plus a per-row bound relative to the
@@ -141,12 +144,16 @@ paths:
     a training forward keeps, against ``wkv6_bwd_ref`` (the forward's bound
     2e-4 on every gradient, and its per-row bound over rows that are not
     ~0; two calls bit-identical) at rwkv6-3b's training shape on the
-    reference's decays and on strong ones, at a ragged S with a cotangent
-    of S_last, and at an S below 64 on strong decays with one; its time
-    (median of 21) and each pass's (traced) beside its bound and the plain
-    version's (autograd of ``wkv6_ref``), and at the main shape both
-    against the float64 plain version; no single PyTorch call computes it,
-    so it has no library time; then rwkv6-3b at full size (32 layers,
+    reference's decays, on strong ones and on half-strong ones, at a ragged
+    S with a cotangent of S_last, and at an S below 64 on strong decays
+    with one; the chunked fp32 backward tried in its place
+    (``scripts/wkv6_bwd_chunked.cu``, not kept) beside it on every case,
+    its errors and bits recorded; at the training shape both against the
+    float64 plain version too, and the kernel's time (median of 21) in turns
+    with the chunked one's on every decay range, each of the kernel's passes
+    traced, beside its bound and the plain version's (autograd of
+    ``wkv6_ref``); no single PyTorch call computes it, so it has no
+    library time; then rwkv6-3b at full size (32 layers,
     bf16, AdamW, B=4 x S=2048), 5 steps of ``build_train_step`` through
     ``ResilientTrainer``: step wall time, tokens/s, MFU, peak memory,
     launches per step (64 forward and 32 backward WKV-6 calls), one more
@@ -430,17 +437,22 @@ PREFILL_B, PREFILL_S = 4, 2048
 FP32_LAYERS, FP32_B, FP32_S, VISION_TEXT = 4, 2, 100, (16, 16)
 LAUNCHER_STEPS = 4
 # Phase 18: the WKV-6 backward kernel against wkv6_bwd_ref, (name, B, H, S,
-# hd, strong decays, a cotangent of S_last): rwkv6-3b's training shape on
-# both decay ranges, then a ragged S over two segments with dS_last, and an
-# S below 64 (one ragged chunk ring, one segment) on strong decays with
-# dS_last.  Then rwkv6-3b trains at full size (32 layers, AdamW) on the card.
+# hd, decays (``wkv_inputs``' strong), a cotangent of S_last): rwkv6-3b's
+# training shape on the reference's, strong and half-strong decays, then a
+# ragged S over two segments with dS_last, and an S below 64 (one ragged
+# chunk ring, one segment) on strong decays with dS_last.  The chunked fp32
+# backward tried in its place (WKV_BWD_ATTEMPT) runs beside it on every
+# case and in turns with it at the training shape.  Then rwkv6-3b trains at
+# full size (32 layers, AdamW) on the card.
 WKV_BWD_CASES = [
     ("rwkv_train", 4, 40, 2048, 64, False, False),
     ("rwkv_train_strong", 4, 40, 2048, 64, True, False),
+    ("rwkv_train_half_strong", 4, 40, 2048, 64, "half_strong", False),
     ("ragged_ds_last", 2, 40, 300, 64, False, True),
     ("short_strong_ds_last", 2, 40, 40, 64, True, True),
 ]
 WKV_BWD_MAIN = "rwkv_train"
+WKV_BWD_ATTEMPT = "wkv6_bwd_chunked.cu"   # under scripts/, built and called by wkv6_bwd_precision.py
 RWKV_TRAIN_STEPS = 5
 # Phase 19: the selective-scan backward kernel against mamba_scan_bwd_ref,
 # (name, B, S, di, N, dtype, model layout, strong decays, a cotangent of
@@ -568,6 +580,16 @@ P22_PSUM_SHAPE = (4096, 12800)            # granite-3-8b's w1 [d, d_ff]
 # or missing a stage's part, moves a leaf by O(1) of its scale.
 P22_GRAD_TOL = 2e-2
 P22_LOSS_RTOL = 2 ** -8
+
+
+def _script(name: str):
+    """``scripts/<name>.py`` as a module (the scripts are not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, REPO / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -743,13 +765,17 @@ def fa_bwd_errors(got, want, dtype) -> tuple[dict, list[str]]:
 
 STRONG_W_MIN = 1e-3        # strong decays: w log-uniform in [1e-3, 0.999] ...
 STRONG_PINNED_LOGW = -50.0  # ... and every 16th channel at this log w
+STRONG_LOGW = -2.0          # the forward's strong-decay threshold (csrc/wkv6.cu)
 
 
 def wkv_inputs(dev, B, H, S, hd, seed=0, strong=False):
     """The reference's test distribution: r, k, v normal, decay uniform in
     (0.7, 0.999) as log w, u * 0.3.  ``strong``: decay log-uniform in
     [1e-3, 0.999] instead, with channels 3, 19, ... pinned at log w = -50,
-    decays whose 32-token sums overflow ``exp`` in fp32."""
+    decays whose 32-token sums overflow ``exp`` in fp32.  ``"half_strong"``:
+    in every token half the channels, at random, log-uniform in [1e-3,
+    e^STRONG_LOGW), the other half log w uniform in [STRONG_LOGW, log
+    0.999] (scripts/wkv6_bwd_conditioning.py's fourth range)."""
     import math
 
     import torch
@@ -757,7 +783,13 @@ def wkv_inputs(dev, B, H, S, hd, seed=0, strong=False):
     g = torch.Generator(device=dev).manual_seed(seed)
     r, k, v = (torch.randn(B, H, S, hd, generator=g, device=dev) for _ in range(3))
     u_draw = torch.rand(B, H, S, hd, generator=g, device=dev)
-    if strong:
+    if strong == "half_strong":
+        lo = math.log(STRONG_W_MIN)
+        logw = STRONG_LOGW + (math.log(0.999) - STRONG_LOGW) * u_draw
+        low = lo + (STRONG_LOGW - lo) * torch.rand(B, H, S, hd, generator=g, device=dev)
+        half = torch.rand(B, H, S, hd, generator=g, device=dev).argsort(-1) < hd // 2
+        logw = torch.where(half, low, logw)
+    elif strong:
         lo, hi = math.log(STRONG_W_MIN), math.log(0.999)
         logw = lo + (hi - lo) * u_draw
         logw[..., 3::16] = STRONG_PINNED_LOGW
@@ -1746,7 +1778,11 @@ def wkv6_training_phase(get_config, card: str, reset_launches, kernels, cuda_ms,
     # (a) the kernel on what the forward keeps, against wkv6_bwd_ref: the
     # forward's bound 2e-4 on every gradient and its per-row bound over rows
     # that are not ~0 (dlogw's last row is 0 without dS_last); two calls
-    # bit-identical.  (b) times, at the training shape.
+    # bit-identical; the chunked fp32 backward tried in its place beside it,
+    # its readings recorded.  (b) at the training shape, both against the
+    # float64 plain version, and timed in turns.
+    precision = _script("wkv6_bwd_precision")
+    attempt, _ = precision.load_chunked_record()
     bwd = {}
     for name, B, H, S, hd, strong, with_ds in WKV_BWD_CASES:
         args = wkv_inputs(dev, B, H, S, hd, strong=strong)
@@ -1758,9 +1794,13 @@ def wkv6_training_phase(get_config, card: str, reset_launches, kernels, cuda_ms,
         def call():
             return wkv6_bwd_kernel(*args, seg_state, dout, ds)
 
+        def call_attempt():
+            return precision.chunked_record_bwd(attempt, *args, seg_state, dout, ds)
+
         got = call()
         want = wkv6_bwd_ref(*args, dout, ds)
         again = call()
+        other, other_again = call_attempt(), call_attempt()
         sync()
         res, missed = {"tol": WKV_TOL, "row_tol": WKV_ROW_REL_TOL}, []
         for gname, a, w in zip(names, got, want, strict=True):
@@ -1778,20 +1818,37 @@ def wkv6_training_phase(get_config, card: str, reset_launches, kernels, cuda_ms,
         check(all(torch.equal(a, b) for a, b in zip(got, again, strict=True)),
               f"{name}: two calls differ")
         res["max_abs_err"] = max(res[f"{g}_max_abs_err"] for g in names)
+        chunked = {"bit_identical": all(torch.equal(a, b) for a, b in zip(other, other_again)),
+                   "missed": []}
+        for gname, a, w in zip(names, other, want, strict=True):
+            chunked[f"{gname}_max_abs_err"] = (a - w).abs().max().item()
+            chunked[f"{gname}_row_rel_err"] = row_rel_err(a, w, floor=FA_BWD_ROW_FLOOR)
+            if not (bool(torch.isfinite(a).all())
+                    and torch.allclose(a, w, rtol=WKV_TOL, atol=WKV_TOL)
+                    and chunked[f"{gname}_row_rel_err"] <= WKV_ROW_REL_TOL):
+                chunked["missed"].append(gname)
         rounding = ""
-        if name == WKV_BWD_MAIN:
-            # How far each is from the float64 plain version (max abs error),
-            # dlogw the ill-conditioned one
+        timed = name.startswith(WKV_BWD_MAIN)
+        if timed:
+            # How far each is from the float64 plain version (max abs error;
+            # dlogw, the ill-conditioned one, also per row)
             want64 = wkv6_bwd_ref(*(a.double() for a in args), dout.double(),
                                   None if ds is None else ds.double())
             rounding = "; vs the fp64 plain version: " + ", ".join(
                 f"{who} {g} {(x.double() - y).abs().max().item():.3e}"
-                for who, got_ in (("fp32 plain", want), ("kernel", got))
+                for who, got_ in (("fp32 plain", want), ("kernel", got), ("chunked", other))
                 for g, x, y in zip(names, got_, want64))
+            res["dlogw_row_rel_err_vs_fp64"] = row_rel_err(got[3], want64[3], floor=FA_BWD_ROW_FLOOR)
+            chunked["dlogw_row_rel_err_vs_fp64"] = row_rel_err(other[3], want64[3],
+                                                               floor=FA_BWD_ROW_FLOOR)
             del want64
-        del got, want, again
-        if name == WKV_BWD_MAIN:
-            res["ms"] = cuda_ms_median(call, 21)
+        del got, want, again, other, other_again
+        if timed:
+            # in turns with the chunked fp32 backward: this, chunked, chunked, this
+            turns = [cuda_ms_median(f, 21) for f in (call, call_attempt, call_attempt, call)]
+            res["ms"] = statistics.median([turns[0], turns[3]])
+            chunked["ms"] = statistics.median(turns[1:3])
+            res["turns_ms"] = {"kernel": [turns[0], turns[3]], "chunked": turns[1:3]}
             # each pass (one launch a call): the mean of its traced launches
             call()
             sync()
@@ -1807,6 +1864,7 @@ def wkv6_training_phase(get_config, card: str, reset_launches, kernels, cuda_ms,
             res["passes_ms"] = {kind: statistics.mean(ms) for kind, ms in passes.items()}
             res["passes_traced"] = {kind: len(ms) for kind, ms in passes.items()}
             del prof
+        if name == WKV_BWD_MAIN:
             # plain: autograd of the plain forward, the backward alone
             leaves = [a.detach().requires_grad_(True) for a in args]
             out, _ = wkv6_ref(*leaves)
@@ -1831,8 +1889,10 @@ def wkv6_training_phase(get_config, card: str, reset_launches, kernels, cuda_ms,
                        f"ms; {cost.bytes} bytes / {HBM_BYTES_PER_S:.3e} B/s = "
                        f"{1e3 * cost.bytes / HBM_BYTES_PER_S:.4f} ms")
         bwd[name] = res
-        print(f"  (a) {name} B={B} H={H} S={S} hd={hd}{', strong decays' if strong else ''}"
-              f"{', dS_last' if with_ds else ''}: {json.dumps(res)}{rounding} {card}")
+        decays = "" if not strong else ", strong decays" if strong is True else f", {strong} decays"
+        print(f"  (a) {name} B={B} H={H} S={S} hd={hd}{decays}"
+              f"{', dS_last' if with_ds else ''}: {json.dumps(res)}{rounding}; "
+              f"scripts/{WKV_BWD_ATTEMPT}: {json.dumps(chunked)} {card}")
         del args, dout, ds, seg_state
         torch.cuda.empty_cache()
 
@@ -3231,8 +3291,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:     # one nvcc per source
+    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) as pool:     # one nvcc per source
+        attempt = pool.submit(_build.build, WKV_BWD_ATTEMPT, REPO / "scripts")   # phase 18(b)
         took = dict(zip(KERNEL_SOURCES, pool.map(_build.build, KERNEL_SOURCES)))
+        took[f"scripts/{WKV_BWD_ATTEMPT}"] = attempt.result()
     print("kernel build: " + ", ".join(f"{src} {t:.3f} s" for src, t in took.items())
           + f" (wall {time.perf_counter() - t0:.3f} s, in parallel)")
     fwd_smem = _build.load_library("flash_attention.cu").repro_flash_attention_smem_bytes
@@ -3291,6 +3353,21 @@ def main() -> int:
     counts = sass_counts(_build.library_path("wkv6_bwd.cu"))
     print("  SASS of wkv6_bwd.cu (DFMA, DMUL, DADD): " + ", ".join(
         f"{k} {v['DFMA']}, {v['DMUL']}, {v['DADD']}" for k, v in sorted(counts.items())))
+    # The chunked fp32 backward tried in its place runs in fp32, its
+    # products on the tensor cores (TF32 mma.sync: HMMA) in its G and chunk
+    # passes; its only float64 work is du's fixed-order sums (DADD).
+    attempt_lib = _build.library_path(WKV_BWD_ATTEMPT, REPO / "scripts")
+    for name, regs, spill in ptxas_report(attempt_lib.with_suffix(".log").read_text()):
+        print(f"  ptxas scripts/{WKV_BWD_ATTEMPT} {name}: {regs}; {spill or 'no spill report'}")
+    counts = sass_counts(attempt_lib)
+    print(f"  SASS of scripts/{WKV_BWD_ATTEMPT} (HMMA, DFMA, DMUL, DADD): " + ", ".join(
+        f"{k} {v['HMMA']}, {v['DFMA']}, {v['DMUL']}, {v['DADD']}"
+        for k, v in sorted(counts.items())))
+    check(len(counts) == 12 and all(
+        v["DFMA"] == v["DMUL"] == 0 and (v["DADD"] == 0 or k.startswith("wkv6_bwd_du"))
+        and (v["HMMA"] > 0 or not k.startswith(("wkv6_bwd_local", "wkv6_bwd_chunks")))
+        for k, v in counts.items()),
+        f"{WKV_BWD_ATTEMPT}: float64 outside du's sums, or products off the tensor cores: {counts}")
     # The scan backward stages its ring and stores ddt / dx by TMA (UTMALDG,
     # UTMASTG) and must not spill: its sweep holds 128 registers a thread.
     counts = sass_counts(_build.library_path("mamba_scan_bwd.cu"))

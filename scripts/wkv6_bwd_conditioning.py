@@ -1,11 +1,10 @@
 #!/usr/bin/env python3
 """How far WKV-6's dlogw lands from a float64 run, by the form and the
 precision it is computed in: the readings behind ``csrc/wkv6_bwd.cu``'s
-chunked fp32 form (``wkv6_bwd_chunked_ref``), and behind the two designs it
-replaced or was tried against: the float64 sweeps of the kernel before it
-(``scripts/wkv6_bwd_fp64.cu``, :func:`segmented_float64_bwd`) and the fp32
-running sums tried and not kept (``scripts/wkv6_bwd_fp32.cu``).  CPU only,
-plain PyTorch, ~2 min (~10 min at ``--heads 40``):
+float64 sweeps, and behind the two fp32 designs tried in their place and
+not kept: the running sums (``scripts/wkv6_bwd_fp32.cu``) and the chunked
+pair form (``scripts/wkv6_bwd_chunked.cu``, ``wkv6_bwd_chunked_ref``).  CPU
+only, plain PyTorch, ~40 s (~4 min at ``--heads 40``):
 
     PYTHONPATH=src python3 scripts/wkv6_bwd_conditioning.py [--heads 8] [--seq 2048]
 
@@ -30,11 +29,12 @@ the row's rms, rows under 1e-3 of the tensor's rms left out, as
 * ``wkv6_bwd_ref`` in fp32 (the per-token product ``w_t sum_j G_t S_{t-1}``,
   the plain version the kernel is held against);
 * the pair form, ``wkv6_bwd_chunked_ref`` in fp32 at chunks of 16 (the
-  kernel's), 32 and 64 tokens, with every gradient against the fp32 plain
-  version at 16;
-* :func:`segmented_float64_bwd`, the scheme of the float64 kernel it
-  replaced: float64 sweeps from the fp32 segment states, dlogw restarted at
-  each segment's end;
+  chunked kernel's), 32 and 64 tokens, with every gradient against the fp32
+  plain version at 16; then at 16 with every product over j, i or the
+  chunk's tokens split into TF32 terms as that kernel's tensor cores take
+  them (``matmul_3xtf32``);
+* ``wkv6_bwd_segmented_ref``, the kernel's scheme: float64 sweeps from the
+  fp32 segment states, dlogw restarted at each segment's end;
 * the fp32 running-sum design (:func:`fp32_sweeps_dlogw`): fp32 states,
   products and ``P_e = sum_j G_e * S_e``, fp64 running sums restarted every
   R tokens, R = 16 .. 256.
@@ -50,8 +50,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 from repro_torch.kernels.rwkv6.kernel import SEGMENT  # noqa: E402
-from repro_torch.kernels.rwkv6.ref import (_bwd_cotangents, wkv6_bwd_chunked_ref,  # noqa: E402
-                                           wkv6_bwd_ref)
+from repro_torch.kernels.rwkv6.ref import (matmul_3xtf32, wkv6_bwd_chunked_ref,  # noqa: E402
+                                           wkv6_bwd_ref, wkv6_bwd_segmented_ref)
 
 RESTARTS = (16, 32, 64, 128, 256)
 CHUNKS = (16, 32, 64)   # the pair form's chunk; the kernel's is 16
@@ -59,86 +59,6 @@ HEAD_GROUP = 2          # heads a call of the chunked form takes at once (its me
 RANGES = ("reference", "strong", "weakest fp32", "half strong")
 NAMES = ("dr", "dk", "dv", "dlogw", "du")
 STRONG_LOGW = -2.0   # the forward's strong-decay threshold (csrc/wkv6.cu, wkv6_chunked_ref)
-
-
-def segmented_float64_bwd(r, k, v, logw, u, dout, ds_last, segment):
-    """The float64 kernel's split and arithmetic (``scripts/wkv6_bwd_fp64.cu``,
-    the port's WKV-6 backward before the chunked fp32 one), in plain
-    PyTorch: the same gradient as :func:`wkv6_bwd_ref`, by segments of
-    ``segment`` tokens.
-
-    The forward's split (:func:`wkv6_segmented_ref`'s passes 1-2) gives the
-    state at each segment's end.  Pass 1 runs every segment's ``G`` in
-    reverse from zero to its start, with the segment's decay ``prod w``;
-    pass 2 carries ``G_end[s-1] = diag(decay[s]) G_end[s] + local[s]`` from
-    ``G_end[last] = ds_last``.  Passes 3-4 run in float64 from those fp32
-    states, as the kernel's do: forward from each segment's input state for
-    ``drs`` and ``a = r drs``, in reverse from ``G_end`` for ``dks`` and
-    ``dv``, and ``dlogw_tau = P_e + sum_{tau<t<=e} a_t - sum_{tau<=t<=e}
-    b_t`` inside each segment, ``P_e = sum_j G_end * S_end`` (``ds_last *
-    S_last`` in the last), ``b = k dks``; du sums over b and the segments.
-    A ragged tail is padded with ``r = k = v = dout = logw = 0``, which
-    leaves both states as they are.
-    """
-    B, H, S, hd = r.shape
-    dt = torch.promote_types(r.dtype, torch.float32)
-    f64 = torch.float64
-    n = max(1, -(-S // segment))
-    pad = n * segment - S
-
-    def split(x):
-        return torch.nn.functional.pad(x.to(dt), (0, 0, 0, pad)).reshape(B, H, n, segment, hd)
-
-    r, k, v, logw, dout = (split(x) for x in (r, k, v, logw, dout))
-    w = torch.exp(logw)
-    zeros = torch.zeros(B, H, n, hd, hd, dtype=dt, device=r.device)
-    # the forward's states at the segments' ends (wkv6_segmented_ref, passes 1-2)
-    end = zeros
-    for t in range(segment):
-        end = w[:, :, :, t, :, None] * end + k[:, :, :, t, :, None] * v[:, :, :, t, None, :]
-    fdecay = torch.exp(logw.sum(dim=3))
-    s_end = torch.empty_like(end)
-    carry = torch.zeros(B, H, hd, hd, dtype=dt, device=r.device)
-    for s in range(n):
-        carry = fdecay[:, :, s, :, None] * carry + end[:, :, s]
-        s_end[:, :, s] = carry
-    s_in = torch.cat([torch.zeros_like(s_end[:, :, :1]), s_end[:, :, :-1]], dim=2)
-    # pass 1: each segment's G from zero at its end to its start
-    local, gdecay = zeros, torch.ones(B, H, n, hd, dtype=dt, device=r.device)
-    for t in range(segment - 1, -1, -1):
-        local = w[:, :, :, t, :, None] * local + r[:, :, :, t, :, None] * dout[:, :, :, t, None, :]
-        gdecay = gdecay * w[:, :, :, t]
-    # pass 2: G at each segment's end
-    g_end = torch.empty_like(local)
-    cur = _bwd_cotangents(dt, B, H, hd, ds_last, r.device)
-    for s in range(n - 1, -1, -1):
-        g_end[:, :, s] = cur
-        cur = gdecay[:, :, s, :, None] * cur + local[:, :, s]
-    # passes 3-4 in float64
-    r, k, v, dout, w = (x.to(f64) for x in (r, k, v, dout, w))
-    u = u.to(f64)[None, :, None, None, :]
-    state, drs = s_in.to(f64), torch.empty_like(r)
-    for t in range(segment):
-        drs[:, :, :, t] = torch.einsum("bhsij,bhsj->bhsi", state, dout[:, :, :, t])
-        state = w[:, :, :, t, :, None] * state + k[:, :, :, t, :, None] * v[:, :, :, t, None, :]
-    s_end = torch.cat([s_end[:, :, :-1].to(f64), state[:, :, -1:]], dim=2)   # S_last in fp64
-    G = g_end.to(f64)
-    p_end = (G * s_end).sum(-1)                                  # [B,H,n,hd]
-    dks, dv = torch.empty_like(r), torch.empty_like(r)
-    for t in range(segment - 1, -1, -1):
-        dks[:, :, :, t] = torch.einsum("bhsij,bhsj->bhsi", G, v[:, :, :, t])
-        dv[:, :, :, t] = torch.einsum("bhsij,bhsi->bhsj", G, k[:, :, :, t])
-        G = w[:, :, :, t, :, None] * G + r[:, :, :, t, :, None] * dout[:, :, :, t, None, :]
-    vd = (v * dout).sum(-1, keepdim=True)
-    dv = dv + (r * u * k).sum(-1, keepdim=True) * dout
-    dr = drs + u * k * vd
-    dk = dks + u * r * vd
-    du = (r * k * vd).sum((0, 2, 3))
-    suffix = lambda x: torch.flip(torch.cumsum(torch.flip(x, [3]), 3), [3])   # noqa: E731
-    a_after = torch.nn.functional.pad(suffix(r * drs)[:, :, :, 1:], (0, 0, 0, 1))
-    dlogw = p_end[:, :, :, None] + a_after - suffix(k * dks)
-    back = lambda x: x.reshape(B, H, n * segment, hd)[:, :, :S].to(dt)   # noqa: E731
-    return back(dr), back(dk), back(dv), back(dlogw), du.to(dt)
 
 
 def running_sum_dlogw(r, k, v, logw, dout, state_dt, prod_dt):
@@ -218,12 +138,12 @@ def fp32_sweeps_dlogw(r, k, v, logw, dout, segment, restart):
     return dlogw.reshape(B, H, n * segment, hd)[:, :, :S]
 
 
-def chunked(r, k, v, logw, u, dout, chunk):
+def chunked(r, k, v, logw, u, dout, chunk, mm=torch.matmul):
     """``wkv6_bwd_chunked_ref`` in fp32, HEAD_GROUP heads at a time."""
     parts = [wkv6_bwd_chunked_ref(r[:, h:h + HEAD_GROUP], k[:, h:h + HEAD_GROUP],
                                   v[:, h:h + HEAD_GROUP], logw[:, h:h + HEAD_GROUP],
                                   u[h:h + HEAD_GROUP], dout[:, h:h + HEAD_GROUP], chunk=chunk,
-                                  block=max(chunk, SEGMENT // 2), segment=SEGMENT)
+                                  block=max(chunk, SEGMENT // 2), segment=SEGMENT, mm=mm)
              for h in range(0, r.shape[1], HEAD_GROUP)]
     return [torch.cat([p[n] for p in parts], dim=1 if n < 4 else 0) for n in range(5)]
 
@@ -296,8 +216,15 @@ def main() -> None:
                     f"{n} {fmt(errors(g, w))}" for n, g, w in zip(NAMES, got, plain)))
                 print("    every gradient vs fp64: " + "; ".join(
                     f"{n} {fmt(errors(g, w))}" for n, g, w in zip(NAMES, got, want64)))
-        got = segmented_float64_bwd(*x, dout, None, SEGMENT)
-        print(f"  {'float64 sweeps (the kernel before), R=' + str(SEGMENT):<62} "
+        got = chunked(*x, dout, CHUNKS[0], matmul_3xtf32)
+        print(f"  {f'pair form, chunk {CHUNKS[0]}, products 3xTF32':<62} vs fp64: "
+              f"{fmt(errors(got[3], want64[3]))}; vs fp32 plain: {fmt(errors(got[3], plain[3]))}")
+        print("    every gradient vs fp32 plain: " + "; ".join(
+            f"{n} {fmt(errors(g, w))}" for n, g, w in zip(NAMES, got, plain)))
+        print("    every gradient vs fp64: " + "; ".join(
+            f"{n} {fmt(errors(g, w))}" for n, g, w in zip(NAMES, got, want64)))
+        got = wkv6_bwd_segmented_ref(*x, dout, None, SEGMENT)
+        print(f"  {'segmented as the kernel (float64 sweeps), R=' + str(SEGMENT):<62} "
               f"vs fp64: {fmt(errors(got[3], want64[3]))}; "
               f"vs fp32 plain: {fmt(errors(got[3], plain[3]))}")
         for R in RESTARTS:

@@ -1,66 +1,100 @@
 #!/usr/bin/env python3
 """The WKV-6 backward kernel (``csrc/wkv6_bwd.cu``, float64 sweeps) beside
-the fp32 design tried in its place and not kept (``scripts/wkv6_bwd_fp32.cu``),
-each against the plain version on one NVIDIA GPU:
+the two fp32 designs tried in its place and not kept, each against the
+plain version on one NVIDIA GPU:
 
     python3 scripts/wkv6_bwd_precision.py     # from the repo root; one card, nvcc
 
-``wkv6_bwd_fp32.cu`` takes the port's C interface plus two arguments:
-``restart`` (its fp32 sweeps restart dlogw's sums every ``restart`` =
-``RESTART`` tokens) and ``strong_logw`` (a (b, h, segment) where some
-token has more than half its channels' log decay below it sweeps in
-float64, any other in fp32).  It runs at three settings: ``-inf`` (every
-segment fp32: the design as first set out), ``STRONG_LOGW`` (the hybrid)
-and ``inf`` (every segment float64).  At each of ``chip_smoke.py``'s
-``WKV_BWD_CASES`` the port's kernel and each setting are held against
-``wkv6_bwd_ref`` in fp32 with phase 18(a)'s bounds (every element within
-``allclose(2e-4, 2e-4)``, every row above 1e-3 of the tensor's rms within
-1e-3 of its rms; ``missed`` lists what fails), two calls must give the same
-bits, and at rwkv6-3b's training shape (both decay ranges) dlogw is also
-read against the float64 plain version and each is timed (median of 21
-calls queued back to back) with each of its passes (``torch.profiler``, the
-mean of 5 calls' launches).  Prints both kernels' ptxas reports (registers,
-spills), then one JSON line per case, then the card's name and power limit.
-Exits 0 when every launch ran, whatever the bounds say (the readings are
-the result).
+* ``scripts/wkv6_bwd_chunked.cu``: the chunked pair form in fp32, its
+  products on the tensor cores in three TF32 terms; it takes the port's C
+  interface with its own scratch, and :func:`chunked_record_bwd` calls it
+  (``chip_smoke.py`` phase 18(b) times it beside the port's kernel the same
+  way);
+* ``scripts/wkv6_bwd_fp32.cu``: the fp32 running sums.  It takes the port's
+  C interface plus two arguments: ``restart`` (its fp32 sweeps restart
+  dlogw's sums every ``restart`` = ``RESTART`` tokens) and ``strong_logw`` (a
+  (b, h, segment) where some token has more than half its channels' log
+  decay below it sweeps in float64, any other in fp32).  It runs at three
+  settings: ``-inf`` (every segment fp32), ``STRONG_LOGW`` (the hybrid) and
+  ``inf`` (every segment float64).
+
+At each of ``chip_smoke.py``'s ``WKV_BWD_CASES`` every kernel is held
+against ``wkv6_bwd_ref`` in fp32 with phase 18(a)'s bounds (every element
+within ``allclose(2e-4, 2e-4)``, every row above 1e-3 of the tensor's rms
+within 1e-3 of its rms; ``missed`` lists what fails), two calls must give
+the same bits, and at rwkv6-3b's training shape (every decay range) dlogw
+is also read against the float64 plain version and each is timed (median of
+21 calls queued back to back) with each of its passes (``torch.profiler``,
+the mean of 5 calls' launches).  Prints each kernel's ptxas report
+(registers, spills), then one JSON line per case, then the card's name and
+power limit.  Exits 0 when every launch ran, whatever the bounds say (the
+readings are the result).
 """
 from __future__ import annotations
 
 import ctypes
 import json
 import statistics
-import subprocess
 import sys
-import tempfile
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 NAMES = ("dr", "dk", "dv", "dlogw", "du")
 RESTART = 64         # the fp32 sweeps restart dlogw's sums every RESTART tokens (divides SEGMENT)
 STRONG_LOGW = -2.0   # the hybrid's threshold, the forward's strong-decay one
+CHUNKED_BLOCK = 128  # tokens per block of the chunked kernel (its kBlock)
 
 
-def build_attempt(out: Path):
-    """nvcc of ``wkv6_bwd_fp32.cu`` with the port's flags: (its entry
-    point, the ptxas report)."""
+def chunked_record_bwd(fn, r, k, v, logw, u, seg_state, dout, ds_last):
+    """The chunked fp32 kernel (``scripts/wkv6_bwd_chunked.cu``, entry point
+    ``fn``) on [B,H,S,hd] fp32 inputs with the forward's ``seg_state``, with
+    its own scratch (G at the end of every 128-token block and the blocks'
+    decays, du's block parts, fp32) and outputs in the inputs' strides: (dr,
+    dk, dv, dlogw, du)."""
+    import torch
+
+    from repro_torch.kernels.rwkv6.kernel import SEGMENT
+
+    B, H, S, hd = r.shape
+    n_blk = -(-S // CHUNKED_BLOCK)
+    f32 = dict(dtype=torch.float32, device=r.device)
+    grads = [torch.empty_like(t) for t in (r, k, v, logw)]
+    du = torch.empty(H, hd, **f32)
+    scratch = (torch.empty(B, H, n_blk - 1, hd, hd, **f32), torch.empty(B, H, n_blk - 1, hd, **f32),
+               torch.empty(B, H, n_blk, hd, **f32))
+    strides = (ctypes.c_longlong * 28)(
+        *(s for t in (r, k, v, logw, dout, *grads) for s in t.stride()[:3]), u.stride(0))
+    ptr = lambda t: None if t is None else t.data_ptr()    # noqa: E731
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    err = fn(hd, *(ptr(t) for t in (r, k, v, logw, u, dout, ds_last, seg_state, *grads, du,
+                                    *scratch)), B, H, S, SEGMENT, strides, stream)
+    if err != 0:
+        raise RuntimeError(f"wkv6_bwd_chunked launch failed (cudaError {err})")
+    return (*grads, du)
+
+
+def load_record(source: str, n_ptr: int, extra=()):
+    """A record under ``scripts/`` built with the port's flags (``_build``,
+    into ``_build/``): its ``repro_wkv6_bwd`` with ``n_ptr`` pointers and
+    ``extra`` arguments before the strides, and its ptxas report."""
     from repro_torch.kernels import _build
 
-    lib = out / "wkv6_bwd_fp32.so"
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                           str(REPO / "scripts" / "wkv6_bwd_fp32.cu")],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on wkv6_bwd_fp32.cu:\n{proc.stdout}")
-    fn = ctypes.CDLL(str(lib)).repro_wkv6_bwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 + [ctypes.c_float]
+    lib = _build.load_library(source, REPO / "scripts")
+    fn = lib.repro_wkv6_bwd
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + list(extra)
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn, proc.stdout
+    log = _build.library_path(source, REPO / "scripts").with_suffix(".log").read_text()
+    return fn, log
+
+
+def load_chunked_record():
+    return load_record("wkv6_bwd_chunked.cu", 16)
 
 
 def attempt_bwd(fn, r, k, v, logw, u, seg_state, dout, ds_last, strong_logw):
-    """The fp32 design's backward on dense [B,H,S,hd] fp32 inputs, with the
-    port wrapper's scratch and outputs: (dr, dk, dv, dlogw, du)."""
+    """The fp32 running-sum design's backward on dense [B,H,S,hd] fp32
+    inputs, with its scratch and outputs: (dr, dk, dv, dlogw, du)."""
     import torch
 
     from repro_torch.kernels.rwkv6.kernel import SEGMENT
@@ -97,8 +131,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO / "src"))
     sys.path.insert(1, str(REPO))
-    from chip_smoke import (FA_BWD_ROW_FLOOR, WKV_BWD_CASES, WKV_BWD_MAIN, WKV_ROW_REL_TOL,
-                            WKV_TOL, nvidia_smi_line, ptxas_report, row_rel_err, wkv_inputs)
+    from chip_smoke import (FA_BWD_ROW_FLOOR, WKV_BWD_CASES, WKV_ROW_REL_TOL, WKV_TOL,
+                            nvidia_smi_line, ptxas_report, row_rel_err, wkv_inputs)
     from repro_torch.kernels import _build
     from repro_torch.kernels.rwkv6.kernel import wkv6_bwd_kernel, wkv6_kernel
     from repro_torch.kernels.rwkv6.ref import wkv6_bwd_ref
@@ -106,14 +140,16 @@ def main() -> int:
     dev = torch.device("cuda")
     card = f"[{nvidia_smi_line()}]"
     _build.build("wkv6_bwd.cu")
-    tmp = tempfile.TemporaryDirectory()
-    attempt, log = build_attempt(Path(tmp.name))
+    record, record_log = load_chunked_record()
+    attempt, log = load_record("wkv6_bwd_fp32.cu", 19, (ctypes.c_int, ctypes.c_float))
     for src, text in (("wkv6_bwd.cu", _build.library_path("wkv6_bwd.cu").with_suffix(".log")
-                       .read_text()), ("wkv6_bwd_fp32.cu", log)):
+                       .read_text()), ("wkv6_bwd_chunked.cu", record_log),
+                      ("wkv6_bwd_fp32.cu", log)):
         for name, regs, spill in ptxas_report(text):
             print(f"ptxas {src} {name}: {regs}; {spill or 'no spill report'}")
     settings = {
         "port": lambda *a: wkv6_bwd_kernel(*a),
+        "chunked": lambda *a: chunked_record_bwd(record, *a),
         "all_fp32": lambda *a: attempt_bwd(attempt, *a, float("-inf")),
         "hybrid": lambda *a: attempt_bwd(attempt, *a, STRONG_LOGW),
         "all_fp64": lambda *a: attempt_bwd(attempt, *a, float("inf")),
@@ -152,7 +188,7 @@ def main() -> int:
         dout = torch.randn(B, H, S, hd, generator=g, device=dev)
         ds = torch.randn(B, H, hd, hd, generator=g, device=dev) if with_ds else None
         _, _, seg_state = wkv6_kernel(*x, with_states=True)
-        main = name.startswith(WKV_BWD_MAIN)
+        main = name.startswith("rwkv_train")
         want = wkv6_bwd_ref(*x, dout, ds)
         want64 = wkv6_bwd_ref(*(a.double() for a in x), dout.double())[3] if main else None
         res = {"case": name, "B": B, "H": H, "S": S, "hd": hd, "strong": strong,
@@ -184,7 +220,6 @@ def main() -> int:
         del x, dout, ds, seg_state, want, want64
         torch.cuda.empty_cache()
     print(nvidia_smi_line())
-    tmp.cleanup()
     return 0
 
 

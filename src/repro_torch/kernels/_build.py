@@ -38,29 +38,30 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
-def library_path(source: str) -> Path:
-    """Where ``csrc/<source>``'s library goes: named by a hash of the source,
-    the headers beside it (``csrc/*.cuh``) and the flags."""
-    src = CSRC / source
+def library_path(source: str, directory: Path = CSRC) -> Path:
+    """Where ``<directory>/<source>``'s library goes (``csrc/`` unless a
+    record under ``scripts/`` is built): named by a hash of the source, the
+    port's headers (``csrc/*.cuh``) and the flags."""
+    src = directory / source
     text = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 
-def build(source: str) -> float:
-    """Compile ``csrc/<source>`` unless its library exists; the seconds taken
-    (0.0 when already built).
+def build(source: str, directory: Path = CSRC) -> float:
+    """Compile ``<directory>/<source>`` unless its library exists; the
+    seconds taken (0.0 when already built).
 
     The ptxas report (registers, shared memory, spills) lands beside the
     library as ``<name>.log``.  Raises with nvcc's output on failure.
     """
-    out = library_path(source)
+    out = library_path(source, directory)
     if out.exists():
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(directory / source)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     took = time.perf_counter() - t0
     out.with_suffix(".log").write_text(proc.stdout)
@@ -71,7 +72,8 @@ def build(source: str) -> float:
 
 
 @functools.cache
-def load_library(source: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<source>``, building it first if needed."""
-    build(source)
-    return ctypes.CDLL(str(library_path(source)))
+def load_library(source: str, directory: Path = CSRC) -> ctypes.CDLL:
+    """The built library of ``<directory>/<source>``, building it first if
+    needed."""
+    build(source, directory)
+    return ctypes.CDLL(str(library_path(source, directory)))

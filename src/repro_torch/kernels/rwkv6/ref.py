@@ -159,8 +159,9 @@ def wkv6_bwd_ref(r, k, v, logw, u, dout, ds_last=None):
     (v_t . dout_t)``, ``dv_t = G^T k_t + (sum r u k) dout_t``, ``dlogw_t =
     w_t sum_j G * S_{t-1}``, then ``G = diag(w_t) G + r_t dout_t^T``; ``du``
     sums ``r k (v . dout)`` over b and t.  dlogw is the per-token product
-    (autograd's form); the kernel's chunked form is
-    :func:`wkv6_bwd_chunked_ref`.  It keeps all S states, so it
+    (autograd's form), not the kernel's running sums, which in fp32 are
+    ill-conditioned (``csrc/wkv6_bwd.cu``; the chunked fp32 form tried in its
+    place is :func:`wkv6_bwd_chunked_ref`).  It keeps all S states, so it
     holds ``B H S hd^2`` values at once.
     """
     B, H, S, hd = r.shape
@@ -189,6 +190,86 @@ def wkv6_bwd_ref(r, k, v, logw, u, dout, ds_last=None):
     return dr, dk, dv, dlogw, du
 
 
+
+
+def wkv6_bwd_segmented_ref(r, k, v, logw, u, dout, ds_last, segment):
+    """The backward kernel's split of the sequence and its arithmetic, in
+    plain PyTorch: the same gradient as :func:`wkv6_bwd_ref`, computed by
+    segments of ``segment`` tokens as ``csrc/wkv6_bwd.cu`` does.  Only the
+    tests use it, to hold the split against the reference on the CPU.
+
+    The forward's split (:func:`wkv6_segmented_ref`'s passes 1-2) gives the
+    state at each segment's end.  Pass 1 runs every segment's ``G`` in
+    reverse from zero to its start, with the segment's decay ``prod w``;
+    pass 2 carries ``G_end[s-1] = diag(decay[s]) G_end[s] + local[s]`` from
+    ``G_end[last] = ds_last``.  Passes 3-4 run in float64 from those fp32
+    states, as the kernel's do: forward from each segment's input state for
+    ``drs`` and ``a = r drs``, in reverse from ``G_end`` for ``dks`` and
+    ``dv``, and ``dlogw_tau = P_e + sum_{tau<t<=e} a_t - sum_{tau<=t<=e}
+    b_t`` inside each segment, ``P_e = sum_j G_end * S_end`` (``ds_last *
+    S_last`` in the last), ``b = k dks``; du sums over b and the segments.
+    A ragged tail is padded with ``r = k = v = dout = logw = 0``, which
+    leaves both states as they are.
+    """
+    B, H, S, hd = r.shape
+    dt = torch.promote_types(r.dtype, torch.float32)
+    f64 = torch.float64
+    n = max(1, -(-S // segment))
+    pad = n * segment - S
+
+    def split(x):
+        return torch.nn.functional.pad(x.to(dt), (0, 0, 0, pad)).reshape(B, H, n, segment, hd)
+
+    r, k, v, logw, dout = (split(x) for x in (r, k, v, logw, dout))
+    w = torch.exp(logw)
+    zeros = torch.zeros(B, H, n, hd, hd, dtype=dt, device=r.device)
+    # the forward's states at the segments' ends (wkv6_segmented_ref, passes 1-2)
+    end = zeros
+    for t in range(segment):
+        end = w[:, :, :, t, :, None] * end + k[:, :, :, t, :, None] * v[:, :, :, t, None, :]
+    fdecay = torch.exp(logw.sum(dim=3))
+    s_end = torch.empty_like(end)
+    carry = torch.zeros(B, H, hd, hd, dtype=dt, device=r.device)
+    for s in range(n):
+        carry = fdecay[:, :, s, :, None] * carry + end[:, :, s]
+        s_end[:, :, s] = carry
+    s_in = torch.cat([torch.zeros_like(s_end[:, :, :1]), s_end[:, :, :-1]], dim=2)
+    # pass 1: each segment's G from zero at its end to its start
+    local, gdecay = zeros, torch.ones(B, H, n, hd, dtype=dt, device=r.device)
+    for t in range(segment - 1, -1, -1):
+        local = w[:, :, :, t, :, None] * local + r[:, :, :, t, :, None] * dout[:, :, :, t, None, :]
+        gdecay = gdecay * w[:, :, :, t]
+    # pass 2: G at each segment's end
+    g_end = torch.empty_like(local)
+    cur = _bwd_cotangents(dt, B, H, hd, ds_last, r.device)
+    for s in range(n - 1, -1, -1):
+        g_end[:, :, s] = cur
+        cur = gdecay[:, :, s, :, None] * cur + local[:, :, s]
+    # passes 3-4 in float64
+    r, k, v, dout, w = (x.to(f64) for x in (r, k, v, dout, w))
+    u = u.to(f64)[None, :, None, None, :]
+    state, drs = s_in.to(f64), torch.empty_like(r)
+    for t in range(segment):
+        drs[:, :, :, t] = torch.einsum("bhsij,bhsj->bhsi", state, dout[:, :, :, t])
+        state = w[:, :, :, t, :, None] * state + k[:, :, :, t, :, None] * v[:, :, :, t, None, :]
+    s_end = torch.cat([s_end[:, :, :-1].to(f64), state[:, :, -1:]], dim=2)   # S_last in fp64
+    G = g_end.to(f64)
+    p_end = (G * s_end).sum(-1)                                  # [B,H,n,hd]
+    dks, dv = torch.empty_like(r), torch.empty_like(r)
+    for t in range(segment - 1, -1, -1):
+        dks[:, :, :, t] = torch.einsum("bhsij,bhsj->bhsi", G, v[:, :, :, t])
+        dv[:, :, :, t] = torch.einsum("bhsij,bhsi->bhsj", G, k[:, :, :, t])
+        G = w[:, :, :, t, :, None] * G + r[:, :, :, t, :, None] * dout[:, :, :, t, None, :]
+    vd = (v * dout).sum(-1, keepdim=True)
+    dv = dv + (r * u * k).sum(-1, keepdim=True) * dout
+    dr = drs + u * k * vd
+    dk = dks + u * r * vd
+    du = (r * k * vd).sum((0, 2, 3))
+    suffix = lambda x: torch.flip(torch.cumsum(torch.flip(x, [3]), 3), [3])   # noqa: E731
+    a_after = torch.nn.functional.pad(suffix(r * drs)[:, :, :, 1:], (0, 0, 0, 1))
+    dlogw = p_end[:, :, :, None] + a_after - suffix(k * dks)
+    back = lambda x: x.reshape(B, H, n * segment, hd)[:, :, :S].to(dt)   # noqa: E731
+    return back(dr), back(dk), back(dv), back(dlogw), du.to(dt)
 
 
 def _segment_input_states(k, v, logw, segment):
@@ -226,13 +307,37 @@ def _exclusive_cumprod(x, dim, reverse=False):
     return torch.cumprod(torch.cat([first, x.narrow(dim, 0, x.shape[dim] - 1)], dim), dim)
 
 
+def tf32_split(x):
+    """x's (hi, lo) in TF32 as ``scripts/wkv6_bwd_chunked.cu`` splits it for
+    its tensor-core products: ``hi`` x with its 13 low mantissa bits cleared,
+    ``lo`` the rest (exact in fp32) with its 13 low bits cleared; hi + lo is
+    x within 2^-20 of it."""
+    def trunc(y):
+        return (y.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+    hi = trunc(x)
+    return hi, trunc(x - hi)
+
+
+def matmul_3xtf32(a, b):
+    """``a @ b`` for fp32 operands as that kernel's tensor cores take it:
+    each operand split in TF32 (:func:`tf32_split`) and ``lo_a hi_b + hi_a
+    lo_b + hi_a hi_b`` summed in fp32 (TF32 products are exact in fp32),
+    ``lo_a lo_b`` left out.  Other types: ``a @ b``."""
+    if a.dtype != torch.float32:
+        return a @ b
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
 def wkv6_bwd_chunked_ref(r, k, v, logw, u, dout, ds_last=None, chunk=16, block=128,
-                         segment=256):
-    """The backward kernel's split of the sequence and its chunk arithmetic,
-    in plain PyTorch: the same gradient as :func:`wkv6_bwd_ref`, computed as
-    ``csrc/wkv6_bwd.cu`` computes it, in the inputs' type (fp32 as the
-    kernel).  Only the tests and ``scripts/`` use it, to hold the kernel's
-    arithmetic against the reference on the CPU.
+                         segment=256, mm=torch.matmul):
+    """The chunked fp32 backward tried in place of the port's kernel
+    (``scripts/wkv6_bwd_chunked.cu``, not kept: slower on the card), its split
+    of the sequence and its chunk arithmetic in plain PyTorch: the same
+    gradient as :func:`wkv6_bwd_ref`, in the inputs' type (fp32 as that
+    kernel).  Only the tests and ``scripts/`` use it, to hold the arithmetic
+    against the reference on the CPU.
 
     The sequence is cut into blocks of ``block`` tokens (half the forward's
     ``segment``), each into chunks of ``chunk`` tokens.  Each block but the
@@ -258,8 +363,11 @@ def wkv6_bwd_chunked_ref(r, k, v, logw, u, dout, ds_last=None, chunk=16, block=1
     * across chunks ``S <- D(0..c-1) S + (k suf)^T v`` and ``G <-
       D(0..c-1) G + (r pre)^T dout``.
 
-    A ragged tail is padded with ``r = k = v = dout = logw = 0``, which
-    leaves both states as they are.
+    ``mm`` takes every product over j, i or a chunk's tokens (that kernel's
+    tensor-core products): ``torch.matmul``, or :func:`matmul_3xtf32` for
+    its split of each operand into TF32 terms.  A ragged tail is
+    padded with ``r = k = v = dout = logw = 0``, which leaves both states
+    as they are.
     """
     B, H, S, hd = r.shape
     if block % chunk or segment % block:
@@ -288,13 +396,13 @@ def wkv6_bwd_chunked_ref(r, k, v, logw, u, dout, ds_last=None, chunk=16, block=1
         if ci % spc == 0:
             state = s_seg[:, :, ci // spc]
         s0[:, :, ci] = state
-        state = dc[:, :, ci, :, None] * state + kt[:, :, ci].transpose(-1, -2) @ v[:, :, ci]
+        state = dc[:, :, ci, :, None] * state + mm(kt[:, :, ci].transpose(-1, -2), v[:, :, ci])
     # G: each block's local part from zero, the carry, then every chunk's end
     by_block = lambda x: x.reshape(B, H, nb, cpb, *x.shape[3:])   # noqa: E731
     dc_b, rt_b, do_b = by_block(dc), by_block(rt), by_block(dout)
 
     def g_step(g, p):
-        return dc_b[:, :, :, p, :, None] * g + rt_b[:, :, :, p].transpose(-1, -2) @ do_b[:, :, :, p]
+        return dc_b[:, :, :, p, :, None] * g + mm(rt_b[:, :, :, p].transpose(-1, -2), do_b[:, :, :, p])
 
     local = torch.zeros(B, H, nb, hd, hd, dtype=dt, device=r.device)
     gdecay = torch.ones(B, H, nb, hd, dtype=dt, device=r.device)
@@ -313,14 +421,14 @@ def wkv6_bwd_chunked_ref(r, k, v, logw, u, dout, ds_last=None, chunk=16, block=1
         g = g_step(g, p)
     gc = gc.reshape(B, H, nc, hd, hd)
     # the terms through S0 and G_c
-    drs_inter = pre * (dout @ s0.transpose(-1, -2))      # pre_t (S0 dout_t)
-    dks_inter = suf * (v @ gc.transpose(-1, -2))         # suf_t (G_c v_t)
-    dv = kt @ gc
+    drs_inter = pre * mm(dout, s0.transpose(-1, -2))     # pre_t (S0 dout_t)
+    dks_inter = suf * mm(v, gc.transpose(-1, -2))        # suf_t (G_c v_t)
+    dv = mm(kt, gc)
     psig = dc * (s0 * gc).sum(-1)                        # D(0..c-1) sum_j S0 G_c
     # the pairs inside a chunk, [.., s, s', hd]
     tri = torch.arange(c, device=r.device)
     upper = tri[None, :] > tri[:, None]                  # s' > s
-    vd = v @ dout.transpose(-1, -2)                      # [.., s, s']
+    vd = mm(v, dout.transpose(-1, -2))                   # [.., s, s']
     run = torch.cumprod(torch.where(upper[:, :, None], w[:, :, :, None], 1.0), dim=4)
     d_pair = torch.cat([torch.ones_like(run[:, :, :, :, :1]), run[:, :, :, :, :-1]], dim=4)
     e = torch.where(upper[:, :, None], d_pair * vd[..., None], 0.0)
@@ -338,7 +446,10 @@ def wkv6_bwd_chunked_ref(r, k, v, logw, u, dout, ds_last=None, chunk=16, block=1
     expo = torch.where(upper[:, :, None], expo, -torch.inf)
     f = (k[:, :, :, :, None] * r[:, :, :, None] * torch.exp(expo)).sum(-1)
     diag = torch.diagonal(vd, dim1=3, dim2=4)[..., None]                 # vd[t, t]
-    dv = dv + f @ dout + (r * u * k).sum(-1, keepdim=True) * dout
+    # F above the diagonal, sum_i r_t u k_t on it: one product with dout
+    ruk = (r * u * k).sum(-1)
+    f = f + torch.diag_embed(ruk)
+    dv = dv + mm(f, dout)
     dr = dr + u * k * diag
     dk = dk + u * r * diag
     du = (r * k * diag).sum((0, 2, 3))

@@ -211,11 +211,19 @@ def _wkv_inputs(device, B, H, S, hd, seed=0, strong=False):
     """r, k, v normal; decay uniform in (0.7, 0.999) as log w; u * 0.3 (the
     reference's test distribution).  ``strong``: decay log-uniform in
     [1e-3, 0.999] instead, channels 3, 19, ... pinned at log w = -50, whose
-    32-token sums overflow exp in fp32."""
+    32-token sums overflow exp in fp32.  ``"half_strong"``: in every token
+    half the channels, at random, log-uniform in [1e-3, e^-2), the other half
+    log w uniform in [-2, log 0.999] (the forward's strong-decay threshold)."""
     g = torch.Generator(device=device).manual_seed(seed)
     r, k, v = (torch.randn(B, H, S, hd, generator=g, device=device) for _ in range(3))
     draw = torch.rand(B, H, S, hd, generator=g, device=device)
-    if strong:
+    if strong == "half_strong":
+        logw = -2.0 + (math.log(0.999) + 2.0) * draw
+        low = math.log(1e-3) + (-2.0 - math.log(1e-3)) * torch.rand(
+            B, H, S, hd, generator=g, device=device)
+        half = torch.rand(B, H, S, hd, generator=g, device=device).argsort(-1) < hd // 2
+        logw = torch.where(half, low, logw)
+    elif strong:
         lo, hi = math.log(1e-3), math.log(0.999)
         logw = lo + (hi - lo) * draw
         logw[..., 3::16] = -50.0
@@ -264,9 +272,9 @@ def test_wkv6_kernel_counts_launches(cuda_device):
 
 
 # (B, H, S, hd, dS_last): the backward at the reference's test shapes, ragged
-# lengths (no multiple of the 8-token chunk or the 256-token segment), one
-# token, several segments at each head dim, with and without a cotangent of
-# S_last, and rwkv6-3b's head count over two segments.
+# lengths (no multiple of the 16-token chunk, the 128-token block or the
+# 256-token segment), one token, several segments at each head dim, with and
+# without a cotangent of S_last, and rwkv6-3b's head count over two segments.
 WKV_BWD_GPU_CASES = [
     (2, 2, 64, 16, False), (1, 4, 128, 64, True), (2, 1, 96, 32, False), (1, 2, 256, 64, True),
     (2, 3, 100, 64, True), (1, 3, 1, 64, True), (1, 2, 7, 32, False), (2, 2, 257, 16, True),
@@ -300,11 +308,12 @@ def _assert_wkv_bwd_close(got, want):
             (name, (row_err[keep] / row_rms[keep]).max().item())
 
 
-@pytest.mark.parametrize("strong", [False, True], ids=["reference", "strong_decays"])
+@pytest.mark.parametrize("strong", [False, True, "half_strong"],
+                         ids=["reference", "strong_decays", "half_strong"])
 @pytest.mark.parametrize("case", WKV_BWD_GPU_CASES)
 def test_wkv6_bwd_kernel_matches_plain(cuda_device, case, strong):
     """The backward kernel on what the forward keeps, against the plain
-    backward: both decay ranges, ragged lengths, dS_last, two calls
+    backward: three decay ranges, ragged lengths, dS_last, two calls
     bit-identical (no atomics; fixed summation order)."""
     *shape, with_ds = case
     args, dout, ds = _wkv_bwd_case(cuda_device, *shape, with_ds, strong)

@@ -1,9 +1,10 @@
 """The WKV-6 backward on the CPU: the port's plain backward
-(``wkv6_bwd_ref``) and the backward kernel's split and chunk arithmetic in
-plain PyTorch (``wkv6_bwd_chunked_ref``) against ``jax.vjp`` of the
-reference's oracle
-(``repro.kernels.rwkv6.ref.wkv6_ref``), and the autograd function that
-routes the card's gradient through the kernels.
+(``wkv6_bwd_ref``), the backward kernel's split in plain PyTorch
+(``wkv6_bwd_segmented_ref``) and the chunked fp32 form tried in its place
+(``wkv6_bwd_chunked_ref``, ``scripts/wkv6_bwd_chunked.cu``) against
+``jax.vjp`` of the reference's oracle (``repro.kernels.rwkv6.ref.wkv6_ref``),
+and the autograd function that routes the card's gradient through the
+kernels.
 
 Bounds: fp32, ``allclose(rtol=2e-4, atol=2e-4)``, the forward's bound; du
 is a sum over B*S of values ~1e2, so it needs the relative part.  float64:
@@ -23,8 +24,8 @@ import torch
 from repro.kernels.rwkv6.ref import wkv6_ref as jax_wkv6_ref
 from repro_torch.kernels.rwkv6 import ops
 from repro_torch.kernels.rwkv6.kernel import SEGMENT, wkv6_bwd_kernel
-from repro_torch.kernels.rwkv6.ref import (wkv6_bwd_chunked_ref, wkv6_bwd_ref, wkv6_ref,
-                                           wkv6_segmented_ref)
+from repro_torch.kernels.rwkv6.ref import (matmul_3xtf32, wkv6_bwd_chunked_ref, wkv6_bwd_ref,
+                                           wkv6_bwd_segmented_ref, wkv6_ref, wkv6_segmented_ref)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 TOL64 = dict(rtol=1e-10, atol=1e-10)
@@ -113,7 +114,62 @@ def test_wkv6_bwd_ref_matches_jax_vjp(shape, strong, ds_last):
     _assert_grads_close(got, want, TOL)
 
 
-# (chunk, block, segment): the kernel's (16, 128, SEGMENT), then shorter and
+@pytest.mark.parametrize("segment", [8, 32, 64, SEGMENT])
+@pytest.mark.parametrize("case", [
+    ((1, 4, 128, 64), False, False), ((2, 3, 100, 64), False, True),
+    ((1, 2, 300, 32), True, True), ((2, 1, 96, 32), True, False),
+    ((1, 2, 257, 16), False, True),
+], ids=["wkv_case1", "ragged_dS_last", "ragged_strong_dS_last", "wkv_case2_strong",
+        "segment_plus_one"])
+def test_wkv6_bwd_segmented_ref_matches_jax_vjp(case, segment):
+    """The kernel's split (segment-local G, its carry, float64 sweeps from
+    the fp32 segment states, dlogw restarted at each segment's end from
+    sum_j G_end * S_end) against jax.vjp of the reference's oracle, at one
+    to 38 segments, whole or ragged, on both decay ranges, with and without
+    a cotangent of S_last."""
+    shape, strong, ds_last = case
+    arrs, dout, ds = _inputs(*shape, seed=2, strong=strong, ds_last=ds_last)
+    want = _jax_grads(arrs, dout, ds)
+    t, tdo, tds = _torch(arrs, dout, ds)
+    got = wkv6_bwd_segmented_ref(*t, tdo, tds, segment)
+    _assert_grads_close(got, want, TOL)
+
+
+@pytest.mark.parametrize("ds_last", [False, True], ids=["no_dS_last", "dS_last"])
+@pytest.mark.parametrize("strong", [False, True], ids=["reference", "strong_decays"])
+def test_wkv6_bwd_float64_matches_autograd(strong, ds_last):
+    """In float64 the plain backwards agree with autograd of the port's
+    plain forward to 1e-10: the formulas are exact, including dlogw's
+    running sums (segment 32: 3 segments, a ragged one) and its pair form
+    (chunks of 8 in blocks of 16: 5 blocks, a ragged one)."""
+    arrs, dout, ds = _inputs(2, 3, 70, 16, seed=3, strong=strong, ds_last=ds_last)
+    t, tdo, tds = _torch(arrs, dout, ds, torch.float64)
+    leaves = [x.clone().requires_grad_(True) for x in t]
+    out, s_last = wkv6_ref(*leaves)
+    loss = (out * tdo).sum() + (0 if tds is None else (s_last * tds).sum())
+    want = torch.autograd.grad(loss, leaves)
+    for got in (wkv6_bwd_ref(*t, tdo, tds), wkv6_bwd_segmented_ref(*t, tdo, tds, 32),
+                wkv6_bwd_chunked_ref(*t, tdo, tds, chunk=8, block=16, segment=32)):
+        assert all(g.dtype == torch.float64 for g in got)
+        _assert_grads_close([g.detach() for g in got], [w.detach() for w in want], TOL64)
+
+
+@pytest.mark.parametrize("ds_last", [False, True], ids=["no_dS_last", "dS_last"])
+@pytest.mark.parametrize("strong", [False, True], ids=["reference", "strong_decays"])
+@pytest.mark.parametrize("S", [1, 40])
+def test_wkv6_bwd_segmented_ref_short_sequence(S, strong, ds_last):
+    """The kernel's split at the kernel's segment length on a sequence
+    shorter than one 64-token block (one ragged segment) against jax.vjp of
+    the reference's oracle, as chip_smoke.py phase 18(a)'s S=40 case holds
+    the kernel on the card."""
+    arrs, dout, ds = _inputs(2, 3, S, 64, seed=6, strong=strong, ds_last=ds_last)
+    want = _jax_grads(arrs, dout, ds)
+    t, tdo, tds = _torch(arrs, dout, ds)
+    got = wkv6_bwd_segmented_ref(*t, tdo, tds, SEGMENT)
+    _assert_grads_close(got, want, TOL)
+
+
+# (chunk, block, segment): the chunked kernel's (16, 128, SEGMENT), then shorter and
 # longer chunks, and blocks and segments short enough that the sequences
 # span many of each
 CHUNKINGS = [(16, 128, SEGMENT), (4, 8, 16), (8, 32, 64), (32, 64, 128)]
@@ -144,31 +200,12 @@ def test_wkv6_bwd_chunked_ref_matches_jax_vjp(case, chunking):
 
 @pytest.mark.parametrize("ds_last", [False, True], ids=["no_dS_last", "dS_last"])
 @pytest.mark.parametrize("strong", [False, True], ids=["reference", "strong_decays"])
-def test_wkv6_bwd_float64_matches_autograd(strong, ds_last):
-    """In float64 both plain backwards agree with autograd of the port's
-    plain forward to 1e-10: the formulas are exact, including dlogw's pair
-    form (chunks of 8 in blocks of 16 and segments of 32: 5 blocks, a ragged
-    one)."""
-    arrs, dout, ds = _inputs(2, 3, 70, 16, seed=3, strong=strong, ds_last=ds_last)
-    t, tdo, tds = _torch(arrs, dout, ds, torch.float64)
-    leaves = [x.clone().requires_grad_(True) for x in t]
-    out, s_last = wkv6_ref(*leaves)
-    loss = (out * tdo).sum() + (0 if tds is None else (s_last * tds).sum())
-    want = torch.autograd.grad(loss, leaves)
-    for got in (wkv6_bwd_ref(*t, tdo, tds),
-                wkv6_bwd_chunked_ref(*t, tdo, tds, chunk=8, block=16, segment=32)):
-        assert all(g.dtype == torch.float64 for g in got)
-        _assert_grads_close([g.detach() for g in got], [w.detach() for w in want], TOL64)
-
-
-@pytest.mark.parametrize("ds_last", [False, True], ids=["no_dS_last", "dS_last"])
-@pytest.mark.parametrize("strong", [False, True], ids=["reference", "strong_decays"])
 @pytest.mark.parametrize("S", [1, 40])
 def test_wkv6_bwd_chunked_ref_short_sequence(S, strong, ds_last):
-    """The kernel's split and chunks (16 tokens, blocks of 128) on a
+    """The chunked form's split and chunks (16 tokens, blocks of 128) on a
     sequence shorter than one block (one ragged block, S=1: one token of a
     chunk) against jax.vjp of the reference's oracle, as chip_smoke.py phase
-    18(a)'s S=40 case holds the kernel on the card."""
+    18(a)'s S=40 case holds the kernels on the card."""
     arrs, dout, ds = _inputs(2, 3, S, 64, seed=6, strong=strong, ds_last=ds_last)
     want = _jax_grads(arrs, dout, ds)
     t, tdo, tds = _torch(arrs, dout, ds)
@@ -178,9 +215,9 @@ def test_wkv6_bwd_chunked_ref_short_sequence(S, strong, ds_last):
 
 @functools.cache
 def _long_case(decays):
-    """S=2048, H=1, hd=64 on one decay range: the fp32 inputs and the float64
+    """S=2048, H=2, hd=64 on one decay range: the fp32 inputs and the float64
     plain backward."""
-    arrs, dout, _ = _inputs(1, 1, 2048, 64, seed=8, strong=decays)
+    arrs, dout, _ = _inputs(1, 2, 2048, 64, seed=8, strong=decays)
     t, tdo, _ = _torch(arrs, dout, None)
     want64 = wkv6_bwd_ref(*(x.double() for x in t), tdo.double())
     return t, tdo, want64
@@ -195,16 +232,28 @@ def _row_rel_err(got, want, floor=1e-3):
     return (err[keep] / rms[keep]).max().item()
 
 
+SCHEMES = {
+    # the port's kernel: float64 sweeps, dlogw restarted at each segment's end
+    "segmented_float64": lambda t, tdo: wkv6_bwd_segmented_ref(*t, tdo, None, SEGMENT),
+    # the chunked fp32 form (scripts/wkv6_bwd_chunked.cu), its products in fp32
+    "chunked_fp32": lambda t, tdo: wkv6_bwd_chunked_ref(*t, tdo),
+    # ... and with each product's operands split in TF32 as its tensor cores take them
+    "chunked_3xtf32": lambda t, tdo: wkv6_bwd_chunked_ref(*t, tdo, mm=matmul_3xtf32),
+}
+
+
 @pytest.mark.parametrize("decays", DECAYS)
-def test_wkv6_bwd_dlogw_at_training_length(decays):
-    """At rwkv6-3b's training length (S=2048, hd=64, H=1) in fp32, the
-    kernel's arithmetic (the pair form in chunks of 16, fp32 throughout)
-    keeps dlogw within allclose(2e-4, 2e-4) of the float64 plain backward
-    and within chip_smoke.py's per-row bound (1e-3 of a row's rms), on all
-    four of scripts/wkv6_bwd_conditioning.py's decay ranges (the fp32
-    running sums tried before missed the per-row bound on strong decays)."""
+@pytest.mark.parametrize("scheme", list(SCHEMES))
+def test_wkv6_bwd_dlogw_at_training_length(scheme, decays):
+    """At rwkv6-3b's training length (S=2048, hd=64, H=2) in fp32, the
+    kernel's scheme and the chunked fp32 form tried in its place (with its
+    products in fp32, and split in TF32 as its tensor cores take them) keep
+    dlogw within allclose(2e-4, 2e-4) of the float64 plain backward and
+    within chip_smoke.py's per-row bound (1e-3 of a row's rms), on all four
+    of scripts/wkv6_bwd_conditioning.py's decay ranges (the fp32 running
+    sums tried before missed the per-row bound on strong decays)."""
     t, tdo, want64 = _long_case(decays)
-    got = wkv6_bwd_chunked_ref(*t, tdo)[3]
+    got = SCHEMES[scheme](t, tdo)[3]
     np.testing.assert_allclose(got.double().numpy(), want64[3].numpy(), **TOL)
     assert _row_rel_err(got, want64[3]) <= 1e-3
 
@@ -228,7 +277,7 @@ def test_autograd_function_routes_both_passes(monkeypatch):
         calls["bwd"] += 1
         assert seg_state.numel() == 0
         calls["ds_last"] = ds_last
-        return wkv6_bwd_chunked_ref(r, k, v, logw, u, dout, ds_last)
+        return wkv6_bwd_segmented_ref(r, k, v, logw, u, dout, ds_last, SEGMENT)
 
     monkeypatch.setattr(ops, "wkv6_kernel", fwd)
     monkeypatch.setattr(ops, "wkv6_bwd_kernel", bwd)
@@ -263,8 +312,8 @@ def test_wkv6_bwd_kernel_raises_on_cpu_tensors():
 def test_model_gradients_through_the_autograd_function(monkeypatch):
     """rwkv6-3b's smoke config under remat, on the CPU, with every WKV-6
     call routed through ``_WKV6`` (its kernels replaced by the kernels'
-    splits in plain PyTorch, ``wkv6_segmented_ref`` at 16-token segments /
-    ``wkv6_bwd_chunked_ref`` at 4-token chunks in 8-token blocks): the loss and every per-layer gradient equal the
+    splits in plain PyTorch, ``wkv6_segmented_ref`` / ``wkv6_bwd_segmented_ref``
+    at 16-token segments): the loss and every per-layer gradient equal the
     CPU route's (autograd of the plain version) within 2e-4 of each leaf's
     largest gradient, the S_last cotangent of every call is None, and each
     call's backward runs once (remat recomputes the forward, the backward
@@ -289,8 +338,7 @@ def test_model_gradients_through_the_autograd_function(monkeypatch):
 
     def bwd(r, k, v, logw, u, seg_state, dout, ds_last=None):
         seen.append(ds_last)
-        return wkv6_bwd_chunked_ref(r, k, v, logw, u, dout, ds_last, chunk=4, block=8,
-                                    segment=16)
+        return wkv6_bwd_segmented_ref(r, k, v, logw, u, dout, ds_last, 16)
 
     def routed(r, k, v, logw, u):
         keep = torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, logw, u))
