@@ -17,7 +17,9 @@ NVIDIA GPU:
    (``a_*`` phase A by role: the decays, S0 dout^T, Gc v^T, v dout^T or
    sum_j S0 Gc, the wait for the decays, the G update, (k suf) Gc; ``b_*``
    phase B: a channel's loads, its pair loops, F; ``*_rest`` the rest of a
-   phase, ``b_land`` the wait at a chunk's start).
+   phase, ``b_land`` the wait at a chunk's start).  Then the same for two
+   variants (``VARIANTS``): phase A with only S0 dout^T's warps working, and
+   S0 dout^T and Gc v^T through one call site.
 2. Counts the instructions of the unmodified kernel's ``wkv6_bwd_chunks<64>``
    by opcode (``cuobjdump -sass``).
 3. A microbenchmark: the dependent latency of FFMA and of a shared-memory
@@ -64,6 +66,48 @@ EDITS = [('  const FragAddr<HD> fa(lane);\n  const int blk = blockIdx.x, h = blo
     ('          float x1[kC], vdd[kC];\n', '          tick(18);\n          float x1[kC], vdd[kC];\n'),
     ('          float x1[kC], x2[kC];\n', '          tick(18);\n          float x1[kC], x2[kC];\n'),
     ('      bar_sync(2, 128);\n', '      bar_sync(2, 128);\n      tick(19);\n')]
+# Variants of the ticked source, each timed the same way: phase A with its
+# other roles' work removed (only S0 dout^T's warps work; wrong outputs), and
+# S0 dout^T and Gc v^T through one call site (4 warps on one instruction
+# stream; the same outputs).
+VARIANTS = {
+    "S0 dout^T alone in phase A": [
+        ("      prod_xmt<HD, NT2>(acc, V, s_g, (warp - 2) * NT2, NTC, fa);      // Gc v_t\n", ""),
+        ("      if (warp == 2) {   // vd[s][s'] = v_s . dout_s'\n", "      if (false) {\n"),
+        ("      } else {\n        for (int i = lane; i < HD; i += 32) {   // sum_j S0 Gc, row i\n",
+         "      } else if (false) {\n        for (int i = lane; i < HD; i += 32) {\n"),
+        ("      state_update<HD, 4>(gacc, s_rt, DO, s_dc, warp - 4, lane, fa);\n", ""),
+        ("      prod_am<HD, NT4, false>(xacc, s_kt, s_g, HD, (warp - 4) * NT4, NTC, lane, fa);\n",
+         ""),
+    ],
+    "S0 dout^T and Gc v^T at one call site": [
+        ("""      bar_arrive(1, 192);
+      tick(10);
+      float acc[NT2][4] = {};
+      prod_xmt<HD, NT2>(acc, DO, s0, warp * NT2, NTC, fa);
+      tiles_store<HD, NT2>(s_x1, acc, warp * NT2, NTC, lane);
+      tick(11);
+    } else if (warp < 4) {
+      float acc[NT2][4] = {};
+      prod_xmt<HD, NT2>(acc, V, s_g, (warp - 2) * NT2, NTC, fa);      // Gc v_t
+      tiles_store<HD, NT2>(s_x2, acc, (warp - 2) * NT2, NTC, lane);
+      tick(12);
+""", """      bar_arrive(1, 192);
+      tick(10);
+    }
+    if (warp < 4) {
+      const bool first = warp < 2;
+      float acc[NT2][4] = {};
+      prod_xmt<HD, NT2>(acc, first ? DO : V, first ? s0 : s_g, (warp & 1) * NT2, NTC, fa);
+      tiles_store<HD, NT2>(first ? s_x1 : s_x2, acc, (warp & 1) * NT2, NTC, lane);
+      if (first) tick(11); else tick(12);
+    }
+    if (warp >= 2 && warp < 4) {
+"""),
+        ("    } else {\n      bar_sync(1, 192);\n", "    } else if (warp >= 4) {\n      bar_sync(1, 192);\n"),
+    ],
+}
+SHOWN = ("a_prep", "a_x1", "a_x2", "a_vd|psig", "a_barwait", "a_gupd", "a_x3", "b_land")
 MICRO = r"""#include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
@@ -123,19 +167,20 @@ int main() {
 """
 
 
-def instrumented(out: Path) -> Path:
+def instrumented(out: Path, variant: str | None = None) -> Path:
     from repro_torch.kernels import _build
 
     src = SOURCE.read_text()
-    for old, new in EDITS:
+    for old, new in EDITS + VARIANTS.get(variant, []):
         if src.count(old) != 1:
             raise ValueError(f"anchor not found once in {SOURCE.name}: {old[:60]!r}")
         src = src.replace(old, new)
     src += ('\nextern "C" int get_prof(void* dst) '
             '{ return cudaMemcpyFromSymbol(dst, g_prof, sizeof(g_prof)); }\n')
-    (out / "prof.cu").write_text(src)
-    lib = out / "prof.so"
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(out / "prof.cu")],
+    stem = "prof" if variant is None else f"prof{list(VARIANTS).index(variant)}"
+    (out / f"{stem}.cu").write_text(src)
+    lib = out / f"{stem}.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(out / f"{stem}.cu")],
                           capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(proc.stdout + proc.stderr)
@@ -159,27 +204,37 @@ def main() -> int:
 
     dev = torch.device("cuda")
     tmp = tempfile.TemporaryDirectory()
-    lib = ctypes.CDLL(str(instrumented(Path(tmp.name))))
-    fn = lib.repro_wkv6_bwd
-    fn.argtypes = load_record("wkv6_bwd_chunked.cu", 16)[0].argtypes
-    fn.restype = ctypes.c_int
     args = wkv_inputs(dev, 4, 40, 2048, 64)
     dout = torch.randn(4, 40, 2048, 64, generator=torch.Generator(device=dev).manual_seed(1),
                        device=dev)
     seg_state = wkv6_kernel(*args, with_states=True)[2]
-    for _ in range(3):
-        chunked_record_bwd(fn, *args, seg_state, dout, None)
-    torch.cuda.synchronize()
-    buf = (ctypes.c_ulonglong * (NB * 8 * len(NAMES)))()
-    if lib.get_prof(buf) != 0:
-        raise RuntimeError("cudaMemcpyFromSymbol failed")
-    ticks = np.array(buf, dtype=np.float64).reshape(NB, 8, len(NAMES))
+    argtypes = load_record("wkv6_bwd_chunked.cu", 16)[0].argtypes
+
+    def profile(variant):
+        lib = ctypes.CDLL(str(instrumented(Path(tmp.name), variant)))
+        fn = lib.repro_wkv6_bwd
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        for _ in range(3):
+            chunked_record_bwd(fn, *args, seg_state, dout, None)
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * (NB * 8 * len(NAMES)))()
+        if lib.get_prof(buf) != 0:
+            raise RuntimeError("cudaMemcpyFromSymbol failed")
+        return np.array(buf, dtype=np.float64).reshape(NB, 8, len(NAMES))
+
+    ticks = profile(None)
     for half, label in ((0, "first"), (1, "second")):
         sel = ticks[half::2]            # blocks alternate halves of a segment
         print(f"{label}-half blocks: mean cycles a block, warps 0-7")
         for k, name in enumerate(NAMES):
             if name is not None:
                 print(f"  {name:14s}" + "".join(f"{x:9.0f}" for x in sel[:, :, k].mean(0)))
+        print(f"  {'total':14s}" + "".join(f"{x:9.0f}" for x in sel.sum(2).mean(0)))
+    for variant in VARIANTS:
+        sel = profile(variant)[0::2]
+        print(f"variant: {variant}; first-half blocks, mean cycles a block, warps 0-7")
+        for name in SHOWN:
+            print(f"  {name:14s}" + "".join(f"{x:9.0f}" for x in sel[:, :, NAMES.index(name)].mean(0)))
         print(f"  {'total':14s}" + "".join(f"{x:9.0f}" for x in sel.sum(2).mean(0)))
 
     path = _build.library_path("wkv6_bwd_chunked.cu", REPO / "scripts")
