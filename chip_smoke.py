@@ -231,7 +231,27 @@ paths:
     (4, 1), 1 on (2, 2)): the first step's loss, every gradient and every
     updated parameter against the one-rank plain step, every gradient
     non-zero, flash forward and backward launches, the collectives, each
-    rank's peak beside the meta step's prediction, the step walls.
+    rank's peak beside the meta step's prediction, the step walls;
+23. the train step on (data, model) meshes (``python3 chip_smoke.py
+    --phase-23`` runs it alone): (a) the flash backward with a query offset
+    (a WSP rank's queries at their positions) against ``attention_bwd_ref``
+    in fp32 and bf16 at phase 15's bounds: granite-3-8b's rank slice (timed
+    beside its bound, the plain backward and SDPA's with the lower-right
+    causal mask), a windowed hd-128 case and gemma2-9b's local layer whose
+    unseen key tiles must come back exactly 0, gemma2's global layer, a
+    ragged hd-64 case and granite-20b's MQA; the training forward's o and
+    log-sum-exp with the offset; (b) AdamW steps with ZeRO of gemma2-9b (4
+    layers, B=1 x S=8192) on (1, 4) under the mixed plan and granite-3-8b
+    (2 layers, B=4 x S=2048) on (2, 2) and (1, 4) under ISP, WSP and mixed,
+    4 ranks sharing the card over gloo (``build_train_step(..., mesh=)``),
+    two steps a plan: the first step's loss, grad norm and every clipped
+    gradient piece against the one-rank step's of the same weights and
+    batch, flash launches and
+    collectives equal to the dry-run's meta step for the rank's
+    coordinates, each rank's peak beside the meta step's (at most 1.15 x),
+    the second step's wall beside one rank's step of the whole batch; (c)
+    the train launcher's ``main`` on the smoke granite-3-8b with ``--mesh
+    2x2`` beside ``--mesh 1x1``, their losses.
 
 Any failed check raises and the script exits non-zero without a result.  The
 last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -244,7 +264,9 @@ selective scan: the phase-10 jamba prefill; its backward: the phase-19(c)
 training run, calls of two kernels each; qmatmul: the phase-13 op call)
 and its times (each also with its launches on phase 14's facade path;
 flash also with one rank's launches in phase 21's WSP prefill and in phase
-22's pipelined prefill on (4, 1)), and
+22's pipelined prefill on (4, 1); its backward also with one rank's
+launches in phase 23's WSP step on (1, 4) and its time with a query offset
+at phase 23(a)'s rank slice), and
 the line before that the script's wall time.  Imports nothing of JAX or of
 ``repro``.
 """
@@ -580,6 +602,55 @@ P22_PSUM_SHAPE = (4096, 12800)            # granite-3-8b's w1 [d, d_ff]
 # or missing a stage's part, moves a leaf by O(1) of its scale.
 P22_GRAD_TOL = 2e-2
 P22_LOSS_RTOL = 2 ** -8
+# Phase 23: the train step on (data, model) meshes.  (a) the flash backward
+# with a query offset (a WSP rank's queries at their positions against the
+# gathered keys) against attention_bwd_ref, each case in fp32 and bf16 at
+# phase 15's bounds, and the training forward's o and log-sum-exp with the
+# offset: (name, B, H, KV, Sq, Skv, q_offset, hd, window, softcap).
+# granite-3-8b's rank slice on (2, 2) at the B=4 training batch (timed beside
+# phase 15's unsharded call); a windowed hd-128 case whose first and last
+# key tiles no query sees (keys before q_offset - window + 1 and after
+# q_offset + Sq - 1: their dk / dv exactly 0); gemma2-9b's local and global
+# layers on the last rank of (1, 4) at S=8192 (hd 256, the mma.sync
+# kernels); a ragged hd-64 case; granite-20b's MQA on the last rank of
+# (1, 4) (the split dk / dv path).
+P23_FA_CASES = [
+    ("granite_rank_slice", 4, 32, 8, 1024, 2048, 1024, 128, 0, 0.0),
+    ("window_unseen_tiles", 1, 16, 8, 1024, 4096, 2048, 128, 1024, 0.0),
+    ("gemma2_local_rank3", 1, 16, 8, 2048, 8192, 6144, 256, 4096, 50.0),
+    ("gemma2_global_rank3", 1, 16, 8, 2048, 8192, 6144, 256, 0, 50.0),
+    ("ragged_hd64", 2, 8, 4, 300, 1000, 700, 64, 0, 0.0),
+    ("granite20b_mqa_rank3", 1, 48, 1, 512, 2048, 1536, 128, 0, 0.0),
+]
+P23_FA_MAIN = "granite_rank_slice"
+# the training forward's log-sum-exp (base 2) against the plain one's, rows
+# below Sq: fp32 sums of up to 8192 terms in another order
+P23_LSE_TOL = 1e-3
+# (b) the train step (AdamW, ZeRO) on (data, model) meshes, the 4 ranks of
+# phase 21 sharing the card over gloo: (arch, layers, B, S, mesh shape,
+# plans).  Every layer's weights and activations cross the host (forward,
+# recompute and backward), 10-30 s a step at 4 layers, so depth is cut to
+# what the mixed plan's transition needs: granite-3-8b 2 layers (WSP then
+# ISP), gemma2-9b 4 (two repeats of local + global) at S=8192 so that a WSP
+# rank's window reaches into another rank's positions; and each plan runs
+# P23_STEPS steps (the phase then takes ~250 s of the script's 1,200).  Each
+# plan runs its steps from the same weights; the first is held to the
+# one-rank gradient of the same weights and batch: the loss within
+# P23_LOSS_RTOL (bf16 logits, another order of sums), the grad norm and each
+# gradient leaf within P22_GRAD_TOL of the leaf's largest element.  The
+# collectives equal the dry-run's meta step's for the rank's coordinates;
+# the measured peak within RESERVED_MARGIN above the meta step's.
+# gemma2-9b first: its one-rank gradient (the whole 256,000-column fp32
+# logits at S=8192, ~40 GiB) needs the card while the other ranks hold
+# nothing.
+P23_CELLS = [
+    ("gemma2-9b", 4, 1, 8192, (1, 4), ("mixed",)),
+    ("granite-3-8b", 2, 4, 2048, (2, 2), ("ISP", "WSP", "mixed")),
+    ("granite-3-8b", 2, 4, 2048, (1, 4), ("ISP", "WSP", "mixed")),
+]
+P23_STEPS = 2
+P23_LOSS_RTOL = 1e-3
+P23_PEAK_MARGIN = 0.15     # launch/hlo_analysis.py RESERVED_MARGIN: fits' margin
 
 
 def _script(name: str):
@@ -3233,6 +3304,436 @@ def p22_report(ranks: list, specs: dict, card: str, t_phase: float) -> int:
     return ranks[0]["forward"][0]["launches"]
 
 
+def lse_ref(q, k, causal: bool, window: int, softcap: float, q_offset: int):
+    """Each query row's base-2 log-sum-exp of its visible logits, in fp32:
+    what the forward's training instantiation keeps."""
+    import torch
+
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    kf = torch.repeat_interleave(k.float(), H // KV, dim=1)
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(), kf) / math.sqrt(hd)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(q_offset, q_offset + Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    return torch.logsumexp(s.masked_fill(~mask, -math.inf), dim=-1) / math.log(2.0)
+
+
+def unseen_keys(Sq: int, Skv: int, q_offset: int, window: int) -> list[int]:
+    """Key positions no query of a causal call sees: after the last query's
+    position, and before the first one's window."""
+    last = q_offset + Sq - 1
+    first = q_offset - window + 1 if window > 0 else 0
+    return [j for j in range(Skv) if j > last or j < first]
+
+
+def p23_offset_kernel(card: str, sync) -> dict:
+    """Phase 23(a): the flash backward with a query offset against
+    attention_bwd_ref at P23_FA_CASES, the training forward's o and
+    log-sum-exp with the offset; the rank slice's times.  Returns the main
+    case's bf16 readings."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.cost import visible_pairs
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_cost,
+                                                            flash_attention_bwd_kernel,
+                                                            flash_attention_kernel)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+    from repro_torch.launch.hlo_analysis import kernel_bound
+
+    dev = torch.device("cuda")
+    main = None
+    for name, B, H, KV, Sq, Skv, off, hd, window, cap in P23_FA_CASES:
+        unseen = unseen_keys(Sq, Skv, off, window)
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+            g = torch.Generator(device=dev).manual_seed(23)
+            q, k, v = (torch.randn(B, n, S, hd, generator=g, device=dev)
+                       for n, S in ((H, Sq), (KV, Skv), (KV, Skv)))
+            if cap > 0:
+                q = q * (cap / 3)        # as fa_bwd_inputs: the chain factor matters
+            q, k, v = (t.to(dtype) for t in (q, k, v))
+            do = torch.randn(B, H, Sq, hd, generator=g, device=dev).to(dtype)
+            saved = flash_attention_kernel(q, k, v, causal=True, window=window, softcap=cap,
+                                           with_lse=True, q_offset=off)
+            o_want = attention_ref(q, k, v, True, window, cap, off)
+            o_err = (saved.o.float() - o_want.float()).abs().max().item()
+            check(torch.allclose(saved.o.float(), o_want.float(), rtol=tol, atol=tol),
+                  f"{name} {dt}: training forward o vs plain max abs err {o_err} (tol {tol})")
+            lse_err = (saved.lse[..., :Sq] - lse_ref(q, k, True, window, cap, off)).abs().max().item()
+            check(lse_err <= P23_LSE_TOL, f"{name} {dt}: training forward lse vs plain "
+                  f"{lse_err} (tol {P23_LSE_TOL})")
+
+            def call():
+                return flash_attention_bwd_kernel(q, k, v, do, saved, causal=True, window=window,
+                                                  softcap=cap, q_offset=off)
+
+            got = call()
+            want = attention_bwd_ref(q, k, v, do, True, window, cap, off)
+            sync()
+            res, missed = fa_bwd_errors(got, want, dtype)
+            check(not missed, f"{name} {dt}: offset backward vs plain: {'; '.join(missed)}")
+            if unseen:
+                idx = torch.tensor(unseen, device=dev)
+                for gname, t in (("dk", got[1]), ("dv", got[2])):
+                    check(bool((t.index_select(2, idx) == 0).all()),
+                          f"{name} {dt}: {gname} of the {len(unseen)} keys no query sees is "
+                          "not exactly 0")
+            again = call()
+            check(all(torch.equal(a, b_) for a, b_ in zip(got, again, strict=True)),
+                  f"{name} {dt}: two calls differ")
+            res.update(o_max_abs_err=o_err, lse_max_abs_err=lse_err, unseen_keys=len(unseen))
+            del got, want, again
+            if dt == "bfloat16":
+                res["ms"] = cuda_ms_median(call, 21)
+                cost = flash_attention_bwd_cost(q, k, v, True, window, off)
+                bound_s, res["bound_by"] = kernel_bound(cost)
+                res["bound_ms"] = 1e3 * bound_s
+                res["pairs"] = visible_pairs(Sq, Skv, True, window, off)
+            if name == P23_FA_MAIN and dt == "bfloat16":
+                res["plain_ms"] = cuda_ms(
+                    lambda: attention_bwd_ref(q, k, v, do, True, window, cap, off), 3)
+                # SDPA's lower-right causal mask is this offset (Skv - Sq)
+                res["library_ms"] = None
+                if off == Skv - Sq:
+                    from torch.nn.attention.bias import causal_lower_right
+
+                    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+                    kk, vv = (torch.repeat_interleave(t, H // KV, dim=1) for t in leaves[1:])
+                    out = F.scaled_dot_product_attention(leaves[0], kk, vv,
+                                                         attn_mask=causal_lower_right(Sq, Skv))
+                    res["library_ms"] = cuda_ms_median(
+                        lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 21)
+                    del out, leaves, kk, vv
+                # the same call unsharded: every query of the sequence, no offset
+                uq = torch.randn(B, H, Skv, hd, generator=g, device=dev).to(dtype)
+                udo = torch.randn(B, H, Skv, hd, generator=g, device=dev).to(dtype)
+                usaved = flash_attention_kernel(uq, k, v, causal=True, window=window,
+                                                softcap=cap, with_lse=True)
+                res["unsharded_ms"] = cuda_ms_median(
+                    lambda: flash_attention_bwd_kernel(uq, k, v, udo, usaved, causal=True,
+                                                       window=window, softcap=cap), 21)
+                del uq, udo, usaved
+                main = res
+            print(f"  (a) {name} B={B} H={H} KV={KV} Sq={Sq} Skv={Skv} q_offset={off} hd={hd} "
+                  f"window={window} softcap={cap} {dt}: {json.dumps(res)} {card}")
+            del q, k, v, do, saved
+            torch.cuda.empty_cache()
+    return main
+
+
+def p23_rank(world, cells: list, steps: int) -> list:
+    """One rank of phase 23(b) (a process of its own on the shared card):
+    each cell on its mesh over the same processes; :func:`p23_cell`'s
+    results."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+
+    out = []
+    for i, (arch, layers, B, S, shape, plans) in enumerate(cells):
+        mesh = world if tuple(shape) == world.dims else make_mesh(shape, P21_AXES, world.device)
+        out.append(p23_cell(mesh, arch, layers, B, S, plans, 230 + i, steps))
+        torch.cuda.empty_cache()
+    return out
+
+
+def p23_reference(mesh, cfg, batch: dict, seed: int, steps: int, mine) -> dict:
+    """Phase 23(b)'s one-rank reference, on rank 0 while the other ranks
+    wait: ``steps`` one-rank train steps of the whole model from the seed.
+    The first gives the loss, the grad norm and the clipped gradient (AdamW's
+    first moment after one step from zero, over 1 - b1: exact, the moment
+    holding 0.1 g in fp32 of a bf16 g), cut into every rank's moment pieces
+    and sent to each over gloo; the others give rank 0's walls.  Returns
+    the loss, grad norm, each leaf's largest clipped element, this rank's
+    pieces (``mine``'s leaves, on the host) and rank 0's walls."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree as pytree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime.sharding import ShardPlan, TrainLayout, _narrow, rank_shard
+    from repro_torch.runtime.train import build_train_step
+
+    dev, sync = mesh.device, torch.cuda.synchronize
+    dtype = getattr(torch, cfg.param_dtype)
+    sizes = [math.prod(hi - lo for lo, hi in lf.box) for lf in mine.leaves]
+    if mesh.rank == 0:
+        plan0 = ShardPlan(P21_AXES)
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        model.train_params()
+        opt = make_optimizer(cfg.optimizer)[0](model.param_tree())
+        step = build_train_step(cfg, plan0, device=dev)
+        walls = []
+        for i in range(steps):
+            sync()
+            t0 = time.perf_counter()
+            model, opt, met = step(model, opt, batch)
+            sync()
+            walls.append(time.perf_counter() - t0)
+            if i:
+                continue
+            head = {"loss": met["loss"].item(), "grad_norm": met["grad_norm"].item(),
+                    "scales": []}
+            boxes = []
+            for r in range(mesh.size):
+                coords, rest = [], r
+                for n in reversed(mesh.dims):
+                    coords.insert(0, rest % n)
+                    rest //= n
+                meta = make_mesh(mesh.dims, mesh.axis_names, meta=True, coords=tuple(coords))
+                boxes.append([lf.box for lf in
+                              TrainLayout(cfg, plan0, meta, rank_shard(cfg, plan0, meta)).leaves])
+            parts = [[] for _ in range(mesh.size)]
+            for i_leaf, m in enumerate(pytree.leaves(opt.m)):
+                m = torch.stack(m.layers) if isinstance(m, pytree.Stacked) else m
+                g = (m / (1 - 0.9)).to(dtype)
+                head["scales"].append(g.float().abs().max().item())
+                for r in range(mesh.size):
+                    parts[r].append(_narrow(g, boxes[r][i_leaf]).reshape(-1).cpu())
+                del g
+            flat = [torch.cat(p) for p in parts]
+        del model, opt, step, met
+        torch.cuda.empty_cache()
+        for r in range(1, mesh.size):
+            dist.send(flat[r].view(torch.uint8), dst=r)
+        head["one_rank_s"] = statistics.median(walls[1:])
+        mine_flat = flat[0]
+        del flat, parts
+    else:
+        head = None
+        mine_flat = torch.empty(sum(sizes), dtype=dtype)
+        dist.recv(mine_flat.view(torch.uint8), src=0)
+    obj = [head]
+    dist.broadcast_object_list(obj, src=0)
+    head = obj[0]
+    head["pieces"] = [t.view(tuple(hi - lo for lo, hi in lf.box)) for lf, t in
+                      zip(mine.leaves, mine_flat.split(sizes), strict=True)]
+    return head
+
+
+def p23_cell(mesh, arch: str, layers: int, B: int, S: int, plans: tuple, seed: int,
+             steps: int) -> dict:
+    """One rank of a phase-23(b) cell.  The one-rank reference first
+    (:func:`p23_reference`); then per plan the rank's shard built as the
+    launcher builds it (``launch.train.rank_model``: the ranks in turns),
+    zero AdamW pieces and ``steps`` mesh steps: the first held to the
+    reference (the rank's clipped gradient read from its first moment as
+    the reference's is), its flash launches and collectives to the
+    dry-run's meta step for this rank, its peak beside the meta step's.
+    Raises on any failed check."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_kernel,
+                                                            flash_attention_kernel)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import rank_model
+    from repro_torch.runtime.sharding import ShardPlan, TrainLayout, rank_shard, train_layout
+    from repro_torch.runtime.train import build_train_step
+
+    dev = mesh.device
+    sync = torch.cuda.synchronize
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    tok = torch.randint(0, cfg.vocab, (B, S + 1), generator=torch.Generator().manual_seed(seed))
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    where = f"{arch} {tuple(mesh.dims)} rank {mesh.rank}"
+    print(f"    [{where}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated at the "
+          "cell's start]", flush=True)
+    plan0 = ShardPlan(P21_AXES)
+    mine = TrainLayout(cfg, plan0, mesh, rank_shard(cfg, plan0, mesh))
+    ref = p23_reference(mesh, cfg, batch, seed, steps, mine)
+    out = {"ref_loss": ref["loss"], "ref_grad_norm": ref["grad_norm"],
+           "one_rank_s": ref["one_rank_s"], "plans": {}}
+    for name in plans:
+        kw = {"ISP": {}, "WSP": dict(p1="WSP", p2="WSP"),
+              "mixed": dict(p1="WSP", p2="ISP", transition_repeat=cfg.pattern_repeats // 2)}[name]
+        plan = ShardPlan(P21_AXES, **kw)
+        meta = make_mesh(mesh.dims, mesh.axis_names, meta=True, coords=mesh.coords)
+        pred = dryrun.trace_step(cfg, S, B, "train", plan, meta)
+        pred_calls = dict(meta.comm.calls)
+        model = rank_model(cfg, plan, mesh, seed)
+        layout = train_layout(model)
+        check([lf.box for lf in layout.leaves] == [lf.box for lf in mine.leaves],
+              f"{where} {name}: the moment pieces differ from the reference's cut")
+        opt = layout.zero_moments(dev)
+        step = build_train_step(cfg, plan, mesh=mesh)
+        held = sum(p.untyped_storage().nbytes() for p in model.parameters()) + sum(
+            t.untyped_storage().nbytes() for t in (*pytree.leaves(opt.m), *pytree.leaves(opt.v)))
+        sync()
+        dist.barrier()
+        base = torch.cuda.memory_allocated() - held
+        torch.cuda.reset_peak_memory_stats()
+        walls, losses = [], []
+        for i in range(steps):
+            sync()
+            dist.barrier()
+            flash_attention_kernel.launches = flash_attention_bwd_kernel.launches = 0
+            mesh.comm.reset()
+            t0 = time.perf_counter()
+            model, opt, met = step(model, opt, batch)
+            sync()
+            walls.append(time.perf_counter() - t0)
+            losses.append(met["loss"].item())
+            check(math.isfinite(losses[-1]), f"{where} {name}: step {i} loss {losses[-1]}")
+            if i:
+                continue
+            peak = torch.cuda.max_memory_allocated() - base
+            launches = {"flash_attention_kernel": flash_attention_kernel.launches,
+                        "flash_attention_bwd_kernel": flash_attention_bwd_kernel.launches}
+            calls = dict(mesh.comm.calls)
+            stats = mesh.comm.stats()
+            gn = met["grad_norm"].item()
+            worst, bad = (0.0, None), []
+            for lf, m, want, scale in zip(layout.leaves, pytree.leaves(opt.m), ref["pieces"],
+                                          ref["scales"], strict=True):
+                g = (m / (1 - 0.9)).to(want.dtype).float()
+                err = (g - want.to(dev).float()).abs().max().item() / scale
+                worst = max(worst, (err, lf.key))
+                if err > P22_GRAD_TOL:
+                    bad.append((lf.key, err))
+                del g
+            check(not bad, f"{where} {name}: clipped gradient leaves off the one-rank step's by "
+                           f"more than {P22_GRAD_TOL} of their largest: {bad[:5]}")
+            check(abs(losses[0] - ref["loss"]) <= P23_LOSS_RTOL * abs(ref["loss"]),
+                  f"{where} {name}: loss {losses[0]} vs the one-rank {ref['loss']}")
+            check(abs(gn - ref["grad_norm"]) <= P22_GRAD_TOL * ref["grad_norm"],
+                  f"{where} {name}: grad norm {gn} vs the one-rank {ref['grad_norm']}")
+            check(calls == pred_calls, f"{where} {name}: collectives {calls}, the meta step's "
+                                       f"{pred_calls}")
+            check(launches == pred["kernel_calls"], f"{where} {name}: flash launches "
+                                                    f"{launches}, the meta step's "
+                                                    f"{pred['kernel_calls']}")
+            predicted = pred["memory_analysis"]["peak_bytes"]
+            check(peak <= predicted * (1 + P23_PEAK_MARGIN),
+                  f"{where} {name}: peak {peak} B over the meta step's {predicted} B x "
+                  f"{1 + P23_PEAK_MARGIN}")
+        del met
+        if mesh.rank == 0:
+            print(f"    [{arch} {tuple(mesh.dims)} {name}: step walls "
+                  + ", ".join(f"{w:.2f}" for w in walls) + f" s on rank 0; "
+                  f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated after]", flush=True)
+        out["plans"][name] = {
+            "walls_s": walls, "losses": losses, "grad_norm": gn, "worst_grad": worst[0],
+            "worst_leaf": worst[1], "launches": launches, "peak": peak, "predicted": predicted,
+            "bytes_by_kind": stats["bytes_by_kind"], "count_by_kind": stats["count_by_kind"]}
+        del model, opt, step, layout
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def p23_launcher(card: str) -> None:
+    """Phase 23(c): the train launcher, the entry point a user calls
+    (``launch.train.main``, its command line), on the smoke granite-3-8b:
+    ``--mesh 1x1`` in this process, then ``--mesh 2x2`` (its fit check, 4
+    rank processes sharing the card over gloo, the whole model built in
+    turns, the fault-tolerant loop); each step's loss within P23_LOSS_RTOL
+    of the 1x1 run's."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import train as launcher
+
+    t0 = time.perf_counter()
+    losses = {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        for mesh in ("1x1", "2x2"):
+            argv = ["--arch", "granite-3-8b", "--smoke", "--device", "cuda", "--steps",
+                    str(LAUNCHER_STEPS), "--mesh", mesh, "--ckpt-every", "100", "--ckpt-dir",
+                    os.path.join(ckpt, mesh)]
+            losses[mesh] = [h["loss"] for h in launcher.main(argv)]
+            torch.cuda.empty_cache()
+    one, mesh = losses["1x1"], losses["2x2"]
+    check(len(one) == len(mesh) == LAUNCHER_STEPS and all(
+        abs(a - b) <= P23_LOSS_RTOL * abs(a) for a, b in zip(one, mesh)),
+        f"(c) the launcher's losses on 2x2 {mesh}, on 1x1 {one}")
+    print(f"  (c) the train launcher (python -m repro_torch.launch.train --arch granite-3-8b "
+          f"--smoke --device cuda --steps {LAUNCHER_STEPS}) with --mesh 2x2, 4 ranks sharing "
+          f"the card over gloo: losses {mesh}; with --mesh 1x1: {one}; "
+          f"{time.perf_counter() - t0:.1f} s for both {card}")
+
+
+def mesh_train_phase(get_config, card: str, sync) -> dict:
+    """Phase 23: (a) the flash backward with a query offset; (b) the train
+    step on (data, model) meshes of 4 ranks sharing the card over gloo.
+    Returns (a)'s main case and one rank's flash backward launches in (b)'s
+    granite-3-8b WSP step on (1, 4)."""
+    import statistics
+
+    from repro_torch.launch.mesh import run_ranks
+
+    t_phase = time.perf_counter()
+    print("phase 23: the train step on (data, model) meshes; the flash backward with a "
+          "query offset")
+    fa = p23_offset_kernel(card, sync)
+    print(f"  (b) the train step (AdamW, ZeRO) on (data, model) meshes of "
+          f"{P21_WORLD[0] * P21_WORLD[1]} ranks sharing one card over gloo; bounds: loss within "
+          f"{P23_LOSS_RTOL} of the one-rank step's, grad norm and each gradient leaf within "
+          f"{P22_GRAD_TOL} (of the leaf's largest), collectives = the dry-run's, peak <= "
+          f"{1 + P23_PEAK_MARGIN} x the meta step's")
+    t0 = time.perf_counter()
+    # the ranks' allocators take what they hold in 512-byte blocks (the
+    # dry-run's rule): four ranks' caches share the card
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = run_ranks(p23_rank, P21_WORLD, P21_AXES, P23_CELLS, P23_STEPS, device="cuda",
+                          threads=2)
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    print(f"  {len(ranks)} ranks ran every cell in {time.perf_counter() - t0:.1f} s")
+    train_launches = None
+    later = "step 2" if P23_STEPS == 2 else f"median of steps 2-{P23_STEPS}"
+    for i, (arch, layers, B, S, shape, plans) in enumerate(P23_CELLS):
+        full = get_config(arch)
+        per = [r[i] for r in ranks]
+        print(f"  (b) {arch} full width, reduced: n_layers {full.n_layers}→{layers}, bf16, "
+              f"B={B} x S={S}, on a {shape} (data, model) mesh; the one-rank step: loss "
+              f"{per[0]['ref_loss']:.6f}, grad norm {per[0]['ref_grad_norm']:.6f}; one rank's "
+              f"step of the whole batch {per[0]['one_rank_s'] * 1e3:.1f} ms ({later}) {card}")
+        for name in plans:
+            pp = [r["plans"][name] for r in per]
+            walls = [max(p["walls_s"][k] for p in pp) for k in range(P23_STEPS)]
+            print(f"    {name}: losses {pp[0]['losses']} (grad norm {pp[0]['grad_norm']:.6f}); "
+                  f"worst gradient err / leaf's largest "
+                  + ", ".join(f"r{r} {p['worst_grad']:.3e} ({p['worst_leaf']})"
+                              for r, p in enumerate(pp))
+                  + f"; flash launches a rank {pp[0]['launches']}; step walls "
+                  + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+                  + f" ms, {later} "
+                  f"{statistics.median(walls[1:]) * 1e3:.1f} ms (slowest rank; 4 ranks sharing "
+                  f"one card over gloo: not multi-GPU times) {card}")
+            print(f"      collectives a rank (result bytes by kind, = the dry-run's): "
+                  f"{json.dumps(pp[0]['bytes_by_kind'])} calls "
+                  f"{json.dumps(pp[0]['count_by_kind'])}")
+            print("      peak a rank (measured / meta step): " + ", ".join(
+                f"r{r} {p['peak'] / 2**30:.3f} / {p['predicted'] / 2**30:.3f} GiB"
+                for r, p in enumerate(pp)))
+            if arch == "granite-3-8b" and tuple(shape) == (1, 4) and name == "WSP":
+                train_launches = pp[0]["launches"]["flash_attention_bwd_kernel"]
+    p23_launcher(card)
+    print(f"  phase 23: {time.perf_counter() - t_phase:.1f} s")
+    return {"bwd": fa, "mesh_train_launches": train_launches}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"no src/repro_torch beside {Path(__file__).name}: run from a checkout",
@@ -3979,6 +4480,9 @@ def main() -> int:
     # ------------------------------------------------------------ phase 22
     pipeline_launches = pipeline_phase(get_config, card)
 
+    # ------------------------------------------------------------ phase 23
+    mesh_train = mesh_train_phase(get_config, card, sync)
+
     # ------------------------------------------------------------ result
     main_case = results[MAIN_PATH_CASE]
     wkv_case = wkv_results[WKV_MAIN_PATH_CASE]
@@ -3997,6 +4501,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
         "launches": training["train"]["launches"]["flash_attention_bwd"],
         "facade_launches": facade_launches["flash_attention_bwd"],
+        "mesh_train_launches": mesh_train["mesh_train_launches"],
+        "offset_ms": mesh_train["bwd"]["ms"], "offset_bound_ms": mesh_train["bwd"]["bound_ms"],
         **{k: training["bwd"][k] for k in keys},
     }, {
         "name": "wkv6", "route": "cuda",
@@ -4084,7 +4590,32 @@ def phase22_card() -> int:
     return 0
 
 
+def phase23_card() -> int:
+    """``python3 chip_smoke.py --phase-23``: phase 23 alone (the flash
+    forward and backward libraries built first)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch.cuda.is_available() is False: this smoke run needs a GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+
+    smi = nvidia_smi_line()
+    print(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with ThreadPoolExecutor(2) as pool:
+        took = list(pool.map(_build.build, ("flash_attention.cu", "flash_attention_bwd.cu")))
+    print(f"flash_attention.cu, flash_attention_bwd.cu built in {took[0]:.3f}, {took[1]:.3f} s")
+    mesh_train_phase(get_config, f"[{smi}]", torch.cuda.synchronize)
+    print(f"total wall time {time.perf_counter() - T_START:.1f} s")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase-23"]:
+        sys.exit(phase23_card())
     if sys.argv[1:2] == ["--phase-21"]:
         sys.exit(phase21_card())
     if sys.argv[1:2] == ["--phase-22"]:

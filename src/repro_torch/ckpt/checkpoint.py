@@ -18,6 +18,14 @@ written by either package restores in the other:
   copies of the model), into ``step_N.tmp``, then ``os.replace``;
 * restore checks each leaf's sha256, shape and dtype and writes it into the
   target's tensors in place, on their device.
+
+On a mesh (a tree holding a rank's shard, ``runtime.sharding.shard_model``,
+and its optimizer pieces, ``shard_opt_state``) a checkpoint holds whole
+leaves, as the reference's holds global arrays: the ranks gather each leaf
+(``TrainLayout.whole_params`` / ``whole_moments``) and the mesh's first
+rank writes it in the one-rank format; restore cuts each rank's pieces out
+of the whole leaves by the same rules, so a checkpoint of any mesh restores
+on any other, or on one rank.
 """
 from __future__ import annotations
 
@@ -29,9 +37,11 @@ import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import tree as pytree
 from ..models.model import DecoderLM
+from ..optim.optimizers import OptState
 from ..tree import Stacked
 
 
@@ -70,7 +80,91 @@ def _leaf_array(leaf) -> np.ndarray:
     return out
 
 
+def _parts(tree):
+    """(key prefix, part) of a tree: the parts of a top-level tuple or list
+    (not a named tuple), or the tree itself."""
+    if isinstance(tree, (tuple, list)) and not hasattr(tree, "_fields"):
+        return [(f"[{i}]/", x) for i, x in enumerate(tree)]
+    return [("", tree)]
+
+
+def _mesh_shard(tree):
+    """The rank's shard in ``tree`` when it holds one of a mesh of several
+    ranks (its model and optimizer pieces then save and restore whole)."""
+    for _, x in _parts(tree):
+        if isinstance(x, DecoderLM) and x.shard is not None and x.shard.mesh.size > 1:
+            return x
+    return None
+
+
+def _mesh_leaves(tree, model):
+    """(key, whole leaf) of a mesh rank's tree in jax's flattening order,
+    gathered one at a time (collectives: every rank walks every leaf): the
+    shard's parameters and an ``OptState``'s moments made whole by its
+    ``TrainLayout``, any other leaf as it is."""
+    from ..runtime.sharding import train_layout
+
+    layout = train_layout(model)
+    for pre, x in _parts(tree):
+        if x is model:
+            for lf, whole in layout.whole_params(model):
+                yield pre + lf.key, whole
+        elif isinstance(x, OptState):
+            yield pre + ".step", x.step.detach()
+            for field in ("m", "v"):
+                for lf, whole in layout.whole_moments(getattr(x, field)):
+                    yield f"{pre}.{field}/{lf.key}", whole
+        else:
+            yield from ((pre + key, leaf) for key, leaf in pytree.flatten_with_path(_resolve(x)))
+
+
+def _save_mesh(directory, step, tree, meta, model) -> str:
+    """Every leaf gathered whole, one at a time; the mesh's first rank
+    writes them (the one-rank format); the others wait for it."""
+    writer = model.shard.mesh.rank == 0
+    final = os.path.join(directory, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    if writer:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp, exist_ok=True)
+    manifest = {"step": step, "leaves": [], "meta": meta or {}}
+    for i, (key, whole) in enumerate(_mesh_leaves(tree, model)):
+        if writer:
+            manifest["leaves"].append(_write_leaf(tmp, i, key, whole))
+    if writer:
+        _finish(tmp, final, manifest)
+    dist.barrier()
+    return final
+
+
+def _write_leaf(tmp: str, i: int, key: str, leaf) -> dict:
+    arr = _leaf_array(leaf)
+    fn = f"leaf_{i:05d}.npy"
+    if leaf.dtype == torch.bfloat16:
+        # as the reference stores exotic dtypes: raw bytes; the manifest's
+        # dtype and shape rebuild them on load
+        np.save(os.path.join(tmp, fn), np.frombuffer(arr.tobytes(), dtype=np.uint8))
+    else:
+        np.save(os.path.join(tmp, fn), arr)
+    with open(os.path.join(tmp, fn), "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    return {"key": key, "file": fn, "shape": list(arr.shape),
+            "dtype": _dtype_name(leaf.dtype), "sha256": digest}
+
+
+def _finish(tmp: str, final: str, manifest: dict) -> None:
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+
+
 def save_checkpoint(directory: str, step: int, tree, meta: dict | None = None) -> str:
+    model = _mesh_shard(tree)
+    if model is not None:
+        return _save_mesh(directory, step, tree, meta, model)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
@@ -78,25 +172,8 @@ def save_checkpoint(directory: str, step: int, tree, meta: dict | None = None) -
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": [], "meta": meta or {}}
     for i, (key, leaf) in enumerate(pytree.flatten_with_path(_resolve(tree))):
-        arr = _leaf_array(leaf)
-        fn = f"leaf_{i:05d}.npy"
-        if leaf.dtype == torch.bfloat16:
-            # as the reference stores exotic dtypes: raw bytes; the manifest's
-            # dtype and shape rebuild them on load
-            np.save(os.path.join(tmp, fn), np.frombuffer(arr.tobytes(), dtype=np.uint8))
-        else:
-            np.save(os.path.join(tmp, fn), arr)
-        with open(os.path.join(tmp, fn), "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()
-        manifest["leaves"].append(
-            {"key": key, "file": fn, "shape": list(arr.shape),
-             "dtype": _dtype_name(leaf.dtype), "sha256": digest}
-        )
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f, indent=1)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.replace(tmp, final)
+        manifest["leaves"].append(_write_leaf(tmp, i, key, leaf))
+    _finish(tmp, final, manifest)
     return final
 
 
@@ -135,21 +212,55 @@ def restore_checkpoint(directory: str, step: int, target_tree, verify: bool = Tr
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     by_key = {e["key"]: e for e in manifest["leaves"]}
-    with torch.no_grad():
-        for key, leaf in pytree.flatten_with_path(_resolve(target_tree)):
-            if key not in by_key:
-                raise KeyError(f"checkpoint {path} has no leaf {key}")
-            entry = by_key[key]
-            src = _read_leaf(os.path.join(path, entry["file"]), entry, verify)
-            if list(src.shape) != list(leaf.shape) or entry["dtype"] != _dtype_name(leaf.dtype):
-                raise ValueError(f"{key}: checkpoint {entry['dtype']} {entry['shape']}, "
-                                 f"target {_dtype_name(leaf.dtype)} {list(leaf.shape)}")
-            if isinstance(leaf, Stacked):
-                for r, t in enumerate(leaf.layers):
-                    t.copy_(src[r])
-            else:
-                leaf.copy_(src)
+    model = _mesh_shard(target_tree)
+    if model is not None:
+        _restore_mesh(path, by_key, target_tree, model, verify)
+        return target_tree, manifest
+    for key, leaf in pytree.flatten_with_path(_resolve(target_tree)):
+        _restore_leaf(path, by_key, key, leaf, verify)
     return target_tree, manifest
+
+
+def _read(path: str, by_key: dict, key: str, verify: bool) -> torch.Tensor:
+    if key not in by_key:
+        raise KeyError(f"checkpoint {path} has no leaf {key}")
+    entry = by_key[key]
+    return _read_leaf(os.path.join(path, entry["file"]), entry, verify)
+
+
+@torch.no_grad()
+def _restore_leaf(path: str, by_key: dict, key: str, leaf, verify: bool) -> None:
+    """Leaf ``key`` of the checkpoint written into ``leaf`` (a tensor or a
+    Stacked one) in place, its shape and dtype checked."""
+    src = _read(path, by_key, key, verify)
+    entry = by_key[key]
+    if list(src.shape) != list(leaf.shape) or entry["dtype"] != _dtype_name(leaf.dtype):
+        raise ValueError(f"{key}: checkpoint {entry['dtype']} {entry['shape']}, "
+                         f"target {_dtype_name(leaf.dtype)} {list(leaf.shape)}")
+    if isinstance(leaf, Stacked):
+        for r, t in enumerate(leaf.layers):
+            t.copy_(src[r])
+    else:
+        leaf.copy_(src)
+
+
+def _restore_mesh(path, by_key, tree, model, verify) -> None:
+    """A mesh rank's pieces cut out of the checkpoint's whole leaves by its
+    ``TrainLayout``, one leaf at a time."""
+    from ..runtime.sharding import train_layout
+
+    layout = train_layout(model)
+    for pre, x in _parts(tree):
+        if x is model:
+            layout.load_params(model, lambda lf: _read(path, by_key, pre + lf.key, verify))
+        elif isinstance(x, OptState):
+            _restore_leaf(path, by_key, pre + ".step", x.step, verify)
+            for field in ("m", "v"):
+                layout.load_moments(getattr(x, field), lambda lf: _read(
+                    path, by_key, f"{pre}.{field}/{lf.key}", verify))
+        else:
+            for key, leaf in pytree.flatten_with_path(_resolve(x)):
+                _restore_leaf(path, by_key, pre + key, leaf, verify)
 
 
 def prune_checkpoints(directory: str, keep: int = 3) -> None:

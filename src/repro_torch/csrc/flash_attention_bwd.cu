@@ -6,7 +6,12 @@
 // backward kernel: it differentiates its jnp attention.  Semantics are the
 // forward's: GQA head h -> h / (H / KV), logits y = softcap(s * scale) with
 // s = q.k, causal mask kpos <= qpos, sliding window kpos > qpos - window,
-// fp32 softmax P.  With D = rowsum(dO * O) = sum_k P (dO . v) and the
+// fp32 softmax P.  Query row i sits at position i + q_offset and key row j
+// at position j, as in the forward: a rank of a sequence-sharded (WSP)
+// zone passes its first position.  The masks, the work lists' key and
+// query ranges and the tile skips take the query's position; a key that no
+// query sees (past the last query's position under the causal mask, or
+// before the first one's window) gets dk = dv = 0.  With D = rowsum(dO * O) = sum_k P (dO . v) and the
 // softcap's chain factor f = 1 - (y / cap)^2 (1 without a softcap):
 //   dS = P * (dP - D) * f,  dq = scale * dS k,  dk = scale * dS^T q,
 //   dv = P^T dO,
@@ -103,12 +108,30 @@ struct Params {
   int B, H, KV, Sq, Skv;
   long long st[kTensors][3];   // (batch, head, seq) strides in elements; hd is unit-stride
   int causal, window;
+  int q_offset;          // position of query row 0 (keys start at 0)
   float softcap, scale;
 };
 
-__device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
-  return qpos < p.Sq && kpos < p.Skv && (!p.causal || kpos <= qpos) &&
+// Whether query row `qi` (at position qi + q_offset) sees key `kpos`.
+__device__ __forceinline__ bool visible(const Params& p, int qi, int kpos) {
+  const int qpos = qi + p.q_offset;
+  return qi < p.Sq && kpos < p.Skv && (!p.causal || kpos <= qpos) &&
          (p.window <= 0 || kpos > qpos - p.window);
+}
+
+// Keys [k_begin, k_end) that query rows [q_first, q_last] see.
+__device__ __forceinline__ void key_range(const Params& p, int q_first, int q_last, int& k_begin,
+                                          int& k_end) {
+  k_begin = p.window > 0 ? max(0, q_first + p.q_offset - p.window + 1) : 0;
+  k_end = p.causal ? min(p.Skv, q_last + p.q_offset + 1) : p.Skv;
+}
+
+// Query rows [q_begin, q_end) that see a key of [k_first, k_last]: position
+// >= k (causal), < k + window; empty where no query sees one.
+__device__ __forceinline__ void query_range(const Params& p, int k_first, int k_last, int& q_begin,
+                                            int& q_end) {
+  q_begin = p.causal ? max(0, k_first - p.q_offset) : 0;
+  q_end = p.window > 0 ? min(p.Sq, k_last + p.window - p.q_offset) : p.Sq;
 }
 
 __device__ __forceinline__ float logit(const Params& p, float s) {
@@ -277,9 +300,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     x.b = (w / p.H) % p.B;
     const int z = w / (p.H * p.B);
     x.q0 = (p.causal ? q_tiles - 1 - z : z) * BQ;
-    const int q_last = min(x.q0 + BQ, p.Sq) - 1;
-    const int k_begin = p.window > 0 ? max(0, x.q0 - p.window + 1) : 0;
-    const int k_end = p.causal ? min(p.Skv, q_last + 1) : p.Skv;
+    int k_begin, k_end;
+    key_range(p, x.q0, min(x.q0 + BQ, p.Sq) - 1, k_begin, k_end);
     x.k_first = (k_begin / BK) * BK;
     x.n_tiles = k_end > x.k_first ? (k_end - x.k_first + BK - 1) / BK : 0;
     return x;
@@ -407,9 +429,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           for (int e = 0; e < BK / 2; ++e) sc[e] = ex2(fmaf(sc[e], sl2, -((e & 2) ? lse1 : lse0)));
         }
         // A tile every row of the warpgroup sees in full needs no mask.
+        const int wpos = wq_lo + p.q_offset;   // the warpgroup's first query position
         const bool full = k0 + BK <= p.Skv && wq_lo + 63 < p.Sq &&
-                          (!p.causal || k0 + BK - 1 <= wq_lo) &&
-                          (p.window <= 0 || k0 > wq_lo + 63 - p.window);
+                          (!p.causal || k0 + BK - 1 <= wpos) &&
+                          (p.window <= 0 || k0 > wpos + 63 - p.window);
         if (!full) {
 #pragma unroll
           for (int e = 0; e < BK / 2; ++e)
@@ -497,10 +520,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     x.h0 = x.c * group / p.kv_split;
     x.nh = (x.c + 1) * group / p.kv_split - x.h0;
     x.k0 = (w / (p.KV * p.B * p.kv_split)) * BN;
-    // queries that see a key of [k0, k_last]: q >= k (causal), q < k + window
-    const int k_last = min(x.k0 + BN, p.Skv) - 1;
-    const int q_begin = p.causal ? x.k0 : 0;
-    const int q_end = p.window > 0 ? min(p.Sq, k_last + p.window) : p.Sq;
+    int q_begin, q_end;
+    query_range(p, x.k0, min(x.k0 + BN, p.Skv) - 1, q_begin, q_end);
     x.q_first = (q_begin / BM) * BM;
     x.n_q = q_end > x.q_first ? (q_end - x.q_first + BM - 1) / BM : 0;
     return x;
@@ -585,7 +606,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       auto phase = [&](int j) { return static_cast<uint32_t>(((it + j) / STAGES) & 1); };
       // No pair of tile j is visible to this warpgroup's keys: skip it.
       auto none = [&](int j) {
-        const int q0 = q_row(j);
+        const int q0 = q_row(j) + p.q_offset;   // the tile's first query position
         return kw >= p.Skv || (p.causal && q0 + BM - 1 < kw) ||
                (p.window > 0 && q0 - (kw + 63) >= p.window);
       };
@@ -653,8 +674,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           mbar_arrive(empty(s));
           continue;
         }
-        const bool full = kw + 63 < p.Skv && q0 + BM - 1 < p.Sq && (!p.causal || q0 >= kw + 63) &&
-                          (p.window <= 0 || q0 + BM - 1 - kw < p.window);
+        const int qpos = q0 + p.q_offset;
+        const bool full = kw + 63 < p.Skv && q0 + BM - 1 < p.Sq &&
+                          (!p.causal || qpos >= kw + 63) &&
+                          (p.window <= 0 || qpos + BM - 1 - kw < p.window);
         const float* lse = reinterpret_cast<const float*>(gbase + sL(s));
         const float* delta = reinterpret_cast<const float*>(gbase + sD(s));
         auto col = [&](int e) { return 8 * (e / 4) + 2 * t + (e & 1); };
@@ -975,9 +998,8 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_prep(Params p) {
   }
   const float* kg = tensor<const float>(p, kK, b, kvh);
   const float* vg = tensor<const float>(p, kV, b, kvh);
-  const int q_last = min(q_lo + C::BM, p.Sq) - 1;
-  const int k_begin = p.window > 0 ? max(0, q_lo - p.window + 1) : 0;
-  const int k_end = p.causal ? min(p.Skv, q_last + 1) : p.Skv;
+  int k_begin, k_end;
+  key_range(p, q_lo, min(q_lo + C::BM, p.Sq) - 1, k_begin, k_end);
   for (int k0 = (k_begin / C::BN) * C::BN; k0 < k_end; k0 += C::BN) {
     __syncthreads();
     load_rows<float, HD, C::BN, C::LD>(sK, kg, p.st[kK][2], k0, p.Skv);
@@ -1059,9 +1081,8 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dq(Params p) {
 
   float dq[C::NB][4];
   zero(dq);
-  const int q_last = min(q_lo + C::BM, p.Sq) - 1;
-  const int k_begin = p.window > 0 ? max(0, q_lo - p.window + 1) : 0;
-  const int k_end = p.causal ? min(p.Skv, q_last + 1) : p.Skv;
+  int k_begin, k_end;
+  key_range(p, q_lo, min(q_lo + C::BM, p.Sq) - 1, k_begin, k_end);
   for (int k0 = (k_begin / C::BN) * C::BN; k0 < k_end; k0 += C::BN) {
     __syncthreads();
     load_rows<T, HD, C::BN, C::LD>(sK, kg, p.st[kK][2], k0, p.Skv);
@@ -1119,10 +1140,8 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dkdv(Params p) {
   float dk[C::NB][4], dv[C::NB][4];
   zero(dk);
   zero(dv);
-  // queries that see a key of [k_lo, k_last]: q >= k (causal), q < k + window
-  const int k_last = min(k_lo + C::BM, p.Skv) - 1;
-  const int q_begin = p.causal ? k_lo : 0;
-  const int q_end = p.window > 0 ? min(p.Sq, k_last + p.window) : p.Sq;
+  int q_begin, q_end;
+  query_range(p, k_lo, min(k_lo + C::BM, p.Skv) - 1, q_begin, q_end);
   for (int hh = 0; hh < group; ++hh) {
     const int h = kvh * group + hh;
     const T* qg = tensor<const T>(p, kQ, b, h);
@@ -1308,13 +1327,15 @@ extern "C" int repro_flash_attention_bwd_split(int dtype, int head_dim, int B, i
 // lse: the forward's [B, H, lse_ld] base-2 log-sum-exp (lse_ld a multiple of
 // 128, >= Sq; in bf16 its rows past Sq are written here); stats: fp32
 // scratch of twice its size (D, then fp32's own log-sum-exp); part: the
-// scratch repro_flash_attention_bwd_split asks for, or null.  Returns a cudaError_t value, -1 for a dtype / head-dim pair with no
+// scratch repro_flash_attention_bwd_split asks for, or null.  q_offset: the
+// position of query row 0, as in the forward.  Returns a cudaError_t value, -1 for a dtype / head-dim pair with no
 // instantiation, or -2 when a TMA tensor map cannot be encoded.
 extern "C" int repro_flash_attention_bwd(int dtype, int head_dim, void* const* tensors,
                                          float* lse, float* stats, long long lse_ld,
                                          float* part, int B, int H, int KV, int Sq, int Skv,
                                          const long long* strides, int causal, int window,
-                                         float softcap, float scale, void* stream) {
+                                         int q_offset, float softcap, float scale,
+                                         void* stream) {
   Params p{};
   for (int i = 0; i < kTensors; ++i) {
     p.t[i] = tensors[i];
@@ -1334,6 +1355,7 @@ extern "C" int repro_flash_attention_bwd(int dtype, int head_dim, void* const* t
   p.Skv = Skv;
   p.causal = causal;
   p.window = window;
+  p.q_offset = q_offset;
   p.softcap = softcap;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -16,10 +16,14 @@ as the normal path:
   On a real cluster this drives the scheduler; here the policy is pluggable
   and unit-tested with injected delays.
 * **restore in place** -- the port's train step and checkpoint restore
-  update the model and optimizer state in place (one card: no shardings, so
-  the reference's ``shardings`` argument is gone); a step that fails before
-  its update leaves both as they were, which the "no checkpoint, retrying"
-  branch relies on.
+  update the model and optimizer state in place (the reference's
+  ``shardings`` argument is gone: on a mesh each rank passes its shard and
+  optimizer pieces, and the checkpoints hold whole leaves, gathered by the
+  ranks and cut back into each rank's pieces on restore, so a run restarts
+  on another mesh); a step that fails before its update leaves both as
+  they were, which the "no checkpoint, retrying" branch relies on.  A step
+  that fails on one rank of a mesh leaves the others waiting in a
+  collective (ROADMAP).
 """
 from __future__ import annotations
 

@@ -80,12 +80,13 @@ def flash_attention_cost(q, k, v, causal: bool = True, window: int = 0,
     return KernelCost(4 * B * H * hd * pairs, nbytes(q, k, v) + out + lse, unit_of(q.dtype))
 
 
-def flash_attention_bwd_cost(q, k, v, causal: bool = True, window: int = 0) -> KernelCost:
+def flash_attention_bwd_cost(q, k, v, causal: bool = True, window: int = 0,
+                             q_offset: int = 0) -> KernelCost:
     """The backward's least work: q k^T, dO v^T, P^T dO, dS^T q and dS k
-    over the visible pairs (5 products); q, k, v and dO read, dq, dk and dv
-    written once."""
+    over the visible pairs (5 products; query positions from
+    ``q_offset``); q, k, v and dO read, dq, dk and dv written once."""
     B, H, Sq, hd = q.shape
-    pairs = visible_pairs(Sq, k.shape[2], causal, window)
+    pairs = visible_pairs(Sq, k.shape[2], causal, window, q_offset)
     return KernelCost(10 * B * H * hd * pairs, nbytes(q, k, v, q) + nbytes(q, k, v),
                       unit_of(q.dtype))
 
@@ -105,7 +106,7 @@ def _bwd():
         [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
         + [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_void_p]
         + [ctypes.c_int] * 5
-        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_int,
            ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -174,14 +175,10 @@ def flash_attention_kernel(
     then runs the forward's training instantiation, whose P v also takes
     the product of P's bf16 residual.  Without it (serving) nothing else is
     written.  ``q_offset`` is the position of query row 0 (keys start at
-    0): a rank of a sequence-sharded prefill passes its first position.
-    The backward takes no offset, so training calls take none either.
+    0): a rank of a sequence-sharded (WSP) zone passes its first position.
     """
     if q_offset < 0:
         raise ValueError(f"q_offset {q_offset}: query positions start at 0 or later")
-    if q_offset and with_lse:
-        raise NotImplementedError("the flash backward with a query offset (training on a "
-                                  "sequence-sharded mesh): ROADMAP A13c")
     _check(q, k, v)
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
@@ -250,6 +247,7 @@ def flash_attention_bwd_kernel(
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
+    q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of the forward kernel's output, each in its input's dtype
     and layout, from the CUDA backward kernels on q's current stream (they
@@ -257,7 +255,10 @@ def flash_attention_bwd_kernel(
     output); raises on any input they do not take and on any launch error.
     A ``do`` whose strides the kernels do not take (an expanded or
     transposed gradient) is copied contiguous first.  The rows of
-    ``saved.lse`` past Sq are scratch."""
+    ``saved.lse`` past Sq are scratch.  ``q_offset`` is the forward's: a
+    key no query sees gets dk = dv = 0."""
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset}: query positions start at 0 or later")
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"do {tuple(do.shape)} {do.dtype} on {do.device} does not match "
                          f"q {tuple(q.shape)} {q.dtype} on {q.device}")
@@ -285,14 +286,16 @@ def flash_attention_bwd_kernel(
     part = (torch.empty(2 * split * B * KV * Skv * hd, dtype=torch.float32, device=q.device)
             if split > 1 else None)
     if meta:
-        meta_call("flash_attention_bwd_kernel", flash_attention_bwd_cost(q, k, v, causal, window))
+        meta_call("flash_attention_bwd_kernel",
+                  flash_attention_bwd_cost(q, k, v, causal, window, q_offset))
         return dq, dk, dv
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _bwd()(
             _DTYPE_CODES[q.dtype], hd, ptrs, saved.lse.data_ptr(), stats.data_ptr(),
             lse_rows(Sq), None if part is None else part.data_ptr(), B, H, KV, Sq, Skv,
-            strides, int(causal), int(window), float(softcap), 1.0 / math.sqrt(hd), stream,
+            strides, int(causal), int(window), int(q_offset), float(softcap),
+            1.0 / math.sqrt(hd), stream,
         )
     if err == -2:
         raise RuntimeError("flash attention backward: the TMA tensor maps could not be "

@@ -15,22 +15,24 @@ class _FlashAttention(torch.autograd.Function):
     takes; without it the forward writes its output alone."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap, keep):
-        ctx.mask = (causal, window, softcap)
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset, keep):
+        ctx.mask = (causal, window, softcap, q_offset)
         if not keep:
-            return flash_attention_kernel(q, k, v, causal=causal, window=window, softcap=softcap)
+            return flash_attention_kernel(q, k, v, causal=causal, window=window, softcap=softcap,
+                                          q_offset=q_offset)
         saved = flash_attention_kernel(q, k, v, causal=causal, window=window, softcap=softcap,
-                                       with_lse=True)
+                                       with_lse=True, q_offset=q_offset)
         ctx.save_for_backward(q, k, v, *saved)
         return saved.o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, o_res = ctx.saved_tensors
-        causal, window, softcap = ctx.mask
+        causal, window, softcap, q_offset = ctx.mask
         dq, dk, dv = flash_attention_bwd_kernel(q, k, v, do, SavedForward(o, lse, o_res),
-                                                causal=causal, window=window, softcap=softcap)
-        return dq, dk, dv, None, None, None, None
+                                                causal=causal, window=window, softcap=softcap,
+                                                q_offset=q_offset)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(
@@ -49,17 +51,10 @@ def flash_attention(
     fallback to the plain version): the forward kernel, and the backward
     kernel when a gradient flows back through the call.  A meta tensor
     takes the kernels' route too, which allocates and launches nothing.
-    ``q_offset`` puts query row 0 at that position (keys start at 0); the
-    backward takes none, so a call that needs a gradient raises with one,
-    on every device.
+    ``q_offset`` puts query row 0 at that position (keys start at 0), in
+    the forward and the backward.
     """
     keep = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    if q_offset and keep:
-        raise NotImplementedError("the flash backward with a query offset (training on a "
-                                  "sequence-sharded mesh): ROADMAP A13c")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal, window, softcap, q_offset)
-    if q_offset:
-        return flash_attention_kernel(q, k, v, causal=causal, window=window, softcap=softcap,
-                                      q_offset=q_offset)
-    return _FlashAttention.apply(q, k, v, causal, window, softcap, keep)
+    return _FlashAttention.apply(q, k, v, causal, window, softcap, q_offset, keep)

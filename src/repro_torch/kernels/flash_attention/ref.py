@@ -54,10 +54,12 @@ def attention_bwd_ref(
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
+    q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`attention_ref` by autograd, each in its input's
     dtype: computed in fp32 (``attention_ref`` upcasts q, k, v, so a GQA
-    group's dk, dv are summed in fp32) and rounded once.
+    group's dk, dv are summed in fp32) and rounded once.  A key no query
+    sees (under ``q_offset``) gets dk = dv = 0.
 
     The plain backward the CUDA backward kernel is held against on the card;
     the reference has no backward kernel and differentiates its jnp attention
@@ -65,7 +67,7 @@ def attention_bwd_ref(
     """
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        out = attention_ref(*leaves, causal, window, softcap)
+        out = attention_ref(*leaves, causal, window, softcap, q_offset)
         return torch.autograd.grad(out, leaves, do)
 
 

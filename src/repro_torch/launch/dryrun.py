@@ -29,9 +29,12 @@ plan from ``plan_for_cell`` at model axis M, the rank's shard of the model
 (``runtime/sharding.shard_model``) and its pieces of the inputs and caches,
 its peak, and its collectives recorded on the meta route
 (``runtime/collectives.py``) as ``collective_stats``, which feed the
-roofline's collective term.  Serving cells only; a cell the rank-local
-execution does not cover (training, MoE, mamba / rwkv on a model axis)
-is reported as skipped.  ``--multi-pod`` raises (ROADMAP A13c).
+roofline's collective term.  A train cell runs the rank's step
+(``runtime/train.py``): its shard, its optimizer pieces
+(``runtime/sharding.TrainLayout``), the global batch, and the backward's
+collectives recorded beside the forward's.  A cell the rank-local
+execution does not cover (MoE, mamba / rwkv on a model axis) is reported
+as skipped.  ``--multi-pod`` raises (ROADMAP A13c-4).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-3-8b --shape train_4k
@@ -62,7 +65,7 @@ from ..models.model import init_kv_cache, init_params
 from ..optim import make_optimizer
 from ..runtime.planner import plan_for_cell
 from ..runtime.serve import build_decode_step, build_prefill_step
-from ..runtime.sharding import shard_model
+from ..runtime.sharding import shard_model, train_layout
 from ..runtime.train import build_train_step
 from .hlo_analysis import (CARD_NAME, CARD_TOTAL_MEMORY, CARD_USABLE_MEMORY,
                            RESERVED_MARGIN, HwConstants, collective_stats, kernel_bound,
@@ -184,12 +187,14 @@ def cell_arguments(cfg: ModelConfig, S: int, B: int, kind: str, device="meta", w
                    plan=None, mesh=None):
     """(model, optimizer state or None, inputs) of the cell on ``device``,
     the model with no values drawn (``init_params(cfg, None, "meta")``), or
-    on a ``mesh`` the rank's shard of ``whole`` under ``plan``."""
+    on a ``mesh`` the rank's shard of ``whole`` under ``plan`` (in training
+    with its optimizer pieces)."""
     if mesh is not None and mesh.size > 1:
-        if kind == "train":
-            raise NotImplementedError("the train step on a mesh: ROADMAP A13c")
         model = shard_model(whole, plan, mesh)
-        return model, None, cell_inputs(cfg, S, B, kind, device, model)
+        opt = None
+        if kind == "train":
+            opt = train_layout(model.train_params()).zero_moments(device)
+        return model, opt, cell_inputs(cfg, S, B, kind, device, model)
     model = init_params(cfg, None, device)
     opt = None
     if kind == "train":
@@ -209,7 +214,7 @@ def argument_tensors(model, opt, inputs) -> list[torch.Tensor]:
 
 def run_step(cfg, plan, kind, S, B, model, opt, inputs, device, mesh=None):
     if kind == "train":
-        step = build_train_step(cfg, plan, device=device)
+        step = build_train_step(cfg, plan, device=device, mesh=mesh)
         return step(model, opt, inputs)
     if kind == "prefill":
         step = build_prefill_step(cfg, plan, device, mesh)
@@ -297,7 +302,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False, use_dse: bool = Tru
     at the mesh's model axis, then :func:`trace_step` on one card, or on the
     first rank of a (data, model) mesh of ``mesh_shape``."""
     if multi_pod:
-        raise NotImplementedError("a multi-pod mesh in the dry-run: ROADMAP A13c")
+        raise NotImplementedError("a multi-pod mesh in the dry-run: ROADMAP A13c-4")
     # per full batch, as the reference lowers it (accumulation only trades
     # temporary memory for steps)
     cfg = dataclasses.replace(get_config(arch), accum_steps=1)
@@ -336,7 +341,7 @@ def main(argv=None) -> None:
     ap.add_argument("--out-dir", default=OUT_DIR)
     args = ap.parse_args(argv)
     if args.multi_pod:
-        raise NotImplementedError("--multi-pod in the dry-run: ROADMAP A13c")
+        raise NotImplementedError("--multi-pod in the dry-run: ROADMAP A13c-4")
     mesh_shape = tuple(int(x) for x in args.mesh.split("x"))
 
     if args.all:

@@ -14,6 +14,12 @@ other ranks' keys and values all-gathered, the queries at their positions
 through the flash call's ``q_offset`` (WSP); and decode over a cache
 sharded on time, each rank scoring its own positions and the ranks
 combining their softmax sums by all-reduce.
+
+The prefill functions on a model axis differentiate
+(``runtime/collectives.py``): under ISP the replicated input's gradient is
+summed over the ranks and the output's all-reduce passes its gradient
+through; under WSP each gathered weight's and the gathered keys' and
+values' gradients are reduce-scattered back to the rank's block.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import attention_ref
+from ..runtime.collectives import copy_to, gather, sum_over
 from .config import ModelConfig
 from .layers import apply_rope, dense, dense_fp32, rope_freqs, softcap
 
@@ -170,6 +177,9 @@ def attention_prefill_isp(params: dict, x: torch.Tensor, cfg: ModelConfig, shard
     added over the model axis."""
     B, S, _ = x.shape
     hd = cfg.head_dim
+    comm = shard.comm
+    x_in = x
+    x = copy_to(comm, x, tag=f"{tag}:attn_in")
     q = _split_heads(dense(x, params["wq"]), shard.n_heads, hd)
     k = _split_heads(dense(x, params["wk"]), shard.n_kv_heads, hd)
     v = _split_heads(dense(x, params["wv"]), shard.n_kv_heads, hd)
@@ -179,13 +189,14 @@ def attention_prefill_isp(params: dict, x: torch.Tensor, cfg: ModelConfig, shard
     out = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                  causal=True, window=window, softcap=cfg.attn_softcap)
     out = out.transpose(1, 2).reshape(B, S, shard.n_heads * hd)
-    return shard.comm.all_reduce(dense_fp32(out, params["wo"]), tag=f"{tag}:attn").to(x.dtype)
+    return sum_over(comm, dense_fp32(out, params["wo"]), tag=f"{tag}:attn").to(x_in.dtype)
 
 
 def _gather_kv_cols(w: torch.Tensor, shard, tag: str) -> torch.Tensor:
     """The whole [d, KV*hd] wk / wv from the ranks' kv-head columns, each kv
-    head once (ranks that share one hold the same columns)."""
-    g = shard.comm.all_gather(w[None], dim=0, tag=tag)          # [m, d, kvl * hd]
+    head once (ranks that share one hold the same columns: the gradient
+    reaches the first of them, and the train step sums it over them)."""
+    g = gather(shard.comm, w[None], dim=0, tag=tag)             # [m, d, kvl * hd]
     owners = shard.kv_owners()
     if len(owners) != shard.m:
         g = g[owners]
@@ -201,7 +212,7 @@ def attention_prefill_wsp(params: dict, x: torch.Tensor, cfg: ModelConfig, shard
     B, Sl, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     comm = shard.comm
-    wq = comm.all_gather(params["wq"], dim=1, tag=f"{tag}:wq")
+    wq = gather(comm, params["wq"], dim=1, tag=f"{tag}:wq")
     wk = _gather_kv_cols(params["wk"], shard, f"{tag}:wk")
     wv = _gather_kv_cols(params["wv"], shard, f"{tag}:wv")
     q = _split_heads(dense(x, wq), H, hd)
@@ -211,13 +222,13 @@ def attention_prefill_wsp(params: dict, x: torch.Tensor, cfg: ModelConfig, shard
     pos = torch.arange(p0, p0 + Sl, device=x.device).expand(B, Sl)
     cos, sin = rope_freqs(pos, hd, cfg.rope_theta)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    kv = comm.all_gather(torch.stack([k, v]), dim=2, tag=f"{tag}:kv")   # [2, B, m*Sl, KV, hd]
+    kv = gather(comm, torch.stack([k, v]), dim=2, tag=f"{tag}:kv")   # [2, B, m*Sl, KV, hd]
     keys, values = kv[0, :, :p0 + Sl], kv[1, :, :p0 + Sl]
     attend = attention_ref if plain else flash_attention
     out = attend(q.transpose(1, 2), keys.transpose(1, 2), values.transpose(1, 2),
                  causal=True, window=window, softcap=cfg.attn_softcap, q_offset=p0)
     out = out.transpose(1, 2).reshape(B, Sl, H * hd)
-    return dense(out, comm.all_gather(params["wo"], dim=0, tag=f"{tag}:wo"))
+    return dense(out, gather(comm, params["wo"], dim=0, tag=f"{tag}:wo"))
 
 
 def attention_decode_mesh(params: dict, x: torch.Tensor, cfg: ModelConfig,

@@ -3,12 +3,15 @@
 Weights keep the JAX layout ``[d_in, d_out]``, so ``dense`` is ``x @ w``.
 ``ffn_isp`` / ``ffn_wsp`` are a rank's FFN on a model axis
 (``runtime/sharding.py``): column- then row-parallel with an all-reduce,
-or the weights all-gathered at use.
+or the weights all-gathered at use; both differentiate
+(``runtime/collectives.py``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..runtime.collectives import copy_to, gather, sum_over
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -65,35 +68,59 @@ def ffn(params: dict, x: torch.Tensor, gated: bool) -> torch.Tensor:
     return dense(h, params["w2"])
 
 
+class _DenseFp32(torch.autograd.Function):
+    """``bmm`` with an fp32 output (which autograd cannot differentiate).
+    The gradient arriving is that of the partial sum later rounded to x's
+    dtype (every call site rounds the ranks' sum), so it is exact in x's
+    dtype, and both products take it there, accumulating in fp32 as
+    ``dense`` does."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        flat = x.reshape(1, -1, x.shape[-1])
+        out = torch.bmm(flat, w[None], out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = torch.matmul(g, w.T)
+        dw = torch.matmul(x.reshape(-1, x.shape[-1]).T, g.reshape(-1, g.shape[-1]))
+        return dx, dw
+
+
 def dense_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``dense`` returned in fp32, not rounded to x's dtype: a row-parallel
     product's partial sum, which the ranks then add.  On the card a bf16
     product accumulates and returns fp32 on the tensor cores (``bmm`` with
-    ``out_dtype``, CUDA only); the CPU multiplies the operands cast to fp32.
-    Meta tensors take the card's form."""
+    ``out_dtype``, CUDA only; its gradient is :class:`_DenseFp32`'s); the
+    CPU multiplies the operands cast to fp32.  Meta tensors take the card's
+    form."""
     if x.device.type == "cpu":
         return torch.matmul(x.float(), w.float())
-    flat = x.reshape(1, -1, x.shape[-1])
-    out = torch.bmm(flat, w[None], out_dtype=torch.float32)
-    return out.reshape(*x.shape[:-1], w.shape[-1])
+    return _DenseFp32.apply(x, w)
 
 
 def ffn_isp(params: dict, x: torch.Tensor, gated: bool, shard, tag: str) -> torch.Tensor:
     """This rank's FFN columns (``w1`` / ``w3``) and ``w2`` rows on the whole
     sequence, the partial products summed over the model axis."""
+    dtype = x.dtype
+    x = copy_to(shard.comm, x, tag=f"{tag}:ffn_in")
     if gated:
         h = F.silu(dense(x, params["w1"])) * dense(x, params["w3"])
     else:
         h = F.gelu(dense(x, params["w1"]), approximate="tanh")
-    out = shard.comm.all_reduce(dense_fp32(h, params["w2"]), tag=f"{tag}:ffn")
-    return out.to(x.dtype)
+    out = sum_over(shard.comm, dense_fp32(h, params["w2"]), tag=f"{tag}:ffn")
+    return out.to(dtype)
 
 
 def ffn_wsp(params: dict, x: torch.Tensor, gated: bool, shard, tag: str) -> torch.Tensor:
     """The whole FFN on this rank's positions, its weights all-gathered."""
     comm = shard.comm
-    full = {"w1": comm.all_gather(params["w1"], dim=1, tag=f"{tag}:w1"),
-            "w2": comm.all_gather(params["w2"], dim=0, tag=f"{tag}:w2")}
+    full = {"w1": gather(comm, params["w1"], dim=1, tag=f"{tag}:w1"),
+            "w2": gather(comm, params["w2"], dim=0, tag=f"{tag}:w2")}
     if gated:
-        full["w3"] = comm.all_gather(params["w3"], dim=1, tag=f"{tag}:w3")
+        full["w3"] = gather(comm, params["w3"], dim=1, tag=f"{tag}:w3")
     return ffn(full, x, gated)

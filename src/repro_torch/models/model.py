@@ -12,7 +12,12 @@ it takes the global inputs, keeps its batch rows, and on a model axis runs
 the reference's zones rank-locally where the reference runs its layers
 under two sharding constraints (``constrain`` / ``constrain2`` at
 ``transition_repeat``): each layer under its zone's partition, ISP or WSP,
-with a transition between the two, and vocab-sharded logits.
+with a transition between the two, and vocab-sharded logits.  The mesh
+prefill differentiates (the train step on a mesh): each collective's
+transpose is written out in ``runtime/collectives.py``, the blocks run
+under ``torch.utils.checkpoint`` with ``cfg.remat`` as on one rank, and
+:func:`loss_fn` takes the NLL over the vocab-sharded logits without
+gathering the vocabulary.
 
 ``attn``, ``local`` and ``mamba`` blocks take a dense or an MoE FFN (MoE on
 the layers ``cfg.is_moe_block`` names); ``rwkv`` blocks carry their own
@@ -25,10 +30,11 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from .. import tree as pytree
 from ..device import resolve_device
+from ..runtime.collectives import copy_to, scatter_sum, sum_over
 from .attention import (attention_decode, attention_decode_mesh, attention_prefill,
                         attention_prefill_isp, attention_prefill_wsp, runs_from_offsets)
 from .config import ModelConfig
@@ -239,8 +245,10 @@ class DecoderLM(nn.Module):
         and the optimizers walk)."""
         return [t for leaf in pytree.leaves(self.param_tree()) for t in pytree.leaf_layers(leaf)]
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+    def _logits(self, x: torch.Tensor, head_in=None) -> torch.Tensor:
         x = rmsnorm(x, self.final_ln, self.cfg.norm_eps)
+        if head_in is not None:
+            x = head_in(x)
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return softcap(dense(x, head).float(), self.cfg.logit_softcap)
 
@@ -309,19 +317,26 @@ class DecoderLM(nn.Module):
         """The first hidden state on a model axis, in ``partition``'s layout:
         each rank looks up the tokens in its vocab rows (zeros elsewhere) and
         the ranks add them, by all-reduce, or by reduce-scatter over the
-        sequence into a WSP zone's positions."""
+        sequence into a WSP zone's positions (whose gradient is all-gathered
+        back; the all-reduce's passes through)."""
         sh = self.shard
         lo, hi = sh.vocab
         inside = (tokens >= lo) & (tokens < hi)
         part = self.embed[(tokens - lo).clamp(0, hi - lo - 1)] * inside[..., None]
         if partition == "WSP":
-            return sh.comm.reduce_scatter(sh.pad_seq(part), dim=1, tag="embed")
-        return sh.comm.all_reduce(part, tag="embed")
+            return scatter_sum(sh.comm, sh.pad_seq(part), dim=1, tag="embed")
+        return sum_over(sh.comm, part, tag="embed")
 
     def _forward_mesh(self, tokens, collect_cache, positions, plain_attention):
         """The prefill of one rank of a model axis: zone by zone, each layer
         under its partition; WSP -> ISP all-gathers the sequence (the
-        transition), and a WSP last zone gathers it before the head."""
+        transition: the ISP zone's gradient is the same on every rank, so
+        its transpose keeps the rank's positions), and a WSP last zone
+        gathers it before the head (whose gradient is vocab-partial: its
+        transpose reduce-scatters).  After an ISP last zone the head's
+        input gradient is summed over the ranks.  With ``cfg.remat`` and
+        autograd recording each block runs under ``torch.utils.checkpoint``;
+        its recompute issues its collectives again."""
         if collect_cache or positions is not None:
             raise NotImplementedError(
                 "a mesh prefill collects no caches and takes no explicit positions (the "
@@ -331,16 +346,22 @@ class DecoderLM(nn.Module):
         S = tokens.shape[1]
         current = sh.plan.p1                 # the reference constrains the embedding in zone 1
         x = self._embed_mesh(tokens, current)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for layer, blk in enumerate(self.blocks):
             partition = sh.partition(layer)
             if partition != current:
                 x = (sh.gather_seq(x, S, "transition") if current == "WSP"
                      else sh.seq_shard(x))
                 current = partition
-            x = blk.prefill_mesh(x, partition, sh, plain_attention, f"blk{layer}")
+            if remat:      # the whole block again, so its collectives run twice
+                with set_checkpoint_early_stop(False):
+                    x = checkpoint(blk.prefill_mesh, x, partition, sh, plain_attention,
+                                   f"blk{layer}", use_reentrant=False)
+            else:
+                x = blk.prefill_mesh(x, partition, sh, plain_attention, f"blk{layer}")
         if current == "WSP":
-            x = sh.gather_seq(x, S, "logits")
-        return self._logits(x), None
+            return self._logits(sh.gather_seq(x, S, "logits", grad="sum")), None
+        return self._logits(x, lambda h: copy_to(sh.comm, h, tag="head_in")), None
 
     def init_kv_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
         """Zero caches of a ``batch`` x ``max_len`` decode; on a mesh this
@@ -517,8 +538,34 @@ def loss_fn(model: DecoderLM, tokens: torch.Tensor | None, labels: torch.Tensor,
             frontend_embeds: torch.Tensor | None = None,
             plain_attention: bool = False) -> torch.Tensor:
     """Mean next-token NLL over the final ``labels.shape[1]`` positions (a
-    frontend stub's positions ahead of them are unlabeled)."""
+    frontend stub's positions ahead of them are unlabeled).
+
+    On a mesh (a rank's shard) the inputs are global and the mean runs over
+    the rank's rows; on a model axis over the vocab-sharded logits
+    (:func:`vocab_parallel_nll`)."""
     logits, _ = model(tokens, frontend_embeds, plain_attention=plain_attention)
+    sh = model.shard
+    if sh is not None:
+        labels = sh.rows(labels)
     logits = logits[:, -labels.shape[1]:]
+    if sh is not None and sh.m > 1:
+        return vocab_parallel_nll(logits, labels, sh).mean()
     logp = torch.log_softmax(logits, dim=-1)
     return -torch.gather(logp, -1, labels[..., None])[..., 0].mean()
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor, shard) -> torch.Tensor:
+    """Each position's NLL over the padded vocabulary from this rank's
+    ``[B, S, padded_vocab / m]`` columns: the row max, then the sum of
+    exponentials and the label's logit, all-reduced over the model axis
+    (never the vocabulary itself).  The sums' gradient passes through
+    their all-reduce to each rank's columns."""
+    comm = shard.comm
+    lo, hi = shard.vocab
+    with torch.no_grad():
+        top = comm.all_reduce(logits.amax(dim=-1), op="max", tag="loss:max")
+    sumexp = torch.exp(logits - top[..., None]).sum(dim=-1)
+    inside = (labels >= lo) & (labels < hi)
+    picked = torch.gather(logits, -1, (labels - lo).clamp(0, hi - lo - 1)[..., None])[..., 0]
+    sums = sum_over(comm, torch.stack([sumexp, picked * inside]), tag="loss")
+    return top + torch.log(sums[0]) - sums[1]

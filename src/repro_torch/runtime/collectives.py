@@ -22,6 +22,28 @@ Routes:
 
 A collective over an axis of size 1 is no collective: the tensor comes back
 as it went in and nothing is recorded.
+
+The train step differentiates through them.  GSPMD derives the reference's
+transposes; the port writes them here, as autograd functions over a
+:class:`Collectives`, one for each way the gradient arriving at a call site
+lies (Megatron's f / g pairs, and their sequence-parallel forms):
+
+* :func:`sum_over`: all-reduce forward, identity backward (the gradient
+  arriving is the same on every rank: a row-parallel product's output);
+* :func:`copy_to`: identity forward, all-reduce backward (a replicated input
+  entering a column-parallel product, whose gradient each rank holds a part
+  of);
+* :func:`gather` with ``grad="sum"``: all-gather forward, reduce-scatter
+  backward (a weight gathered at use, the keys and values of other
+  positions, the sequence before a vocab-parallel head: partial gradients);
+  with ``grad="own"``: the backward keeps this rank's block (the gradient
+  is the same on every rank, as after the WSP -> ISP transition);
+* :func:`scatter_sum`: reduce-scatter forward, all-gather backward;
+* :func:`own_block`: this rank's block forward, all-gather backward (a
+  replicated tensor cut into the ranks' positions).
+
+Each backward's collective is recorded under its forward's tag with
+``":grad"`` appended.
 """
 from __future__ import annotations
 
@@ -202,3 +224,119 @@ class Collectives:
         if buf is None:
             return None
         return self._back(buf.view(x.dtype) if raw else buf, x)
+
+
+# ------------------------------------------------- collectives with gradients
+
+def _grad_tag(tag: str) -> str:
+    return f"{tag}:grad"
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis, tag):
+        return comm.all_reduce(x, axis=axis, tag=tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis, tag):
+        ctx.args = (comm, axis, tag)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, axis, tag = ctx.args
+        return comm.all_reduce(g, axis=axis, tag=_grad_tag(tag)), None, None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim, axis, tag, grad):
+        ctx.args = (comm, dim, axis, tag, grad, x.shape[dim])
+        return comm.all_gather(x, dim=dim, axis=axis, tag=tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, dim, axis, tag, grad, n = ctx.args
+        if grad == "sum":
+            g = comm.reduce_scatter(g, dim=dim, axis=axis, tag=_grad_tag(tag))
+        else:
+            g = g.narrow(dim, comm.index[axis] * n, n)
+        return g, None, None, None, None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim, axis, tag):
+        ctx.args = (comm, dim, axis, tag)
+        return comm.reduce_scatter(x, dim=dim, axis=axis, tag=tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, dim, axis, tag = ctx.args
+        return comm.all_gather(g, dim=dim, axis=axis, tag=_grad_tag(tag)), None, None, None, None
+
+
+class _OwnBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim, axis, tag):
+        ctx.args = (comm, dim, axis, tag)
+        n = x.shape[dim] // comm.sizes[axis]
+        return x.narrow(dim, comm.index[axis] * n, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, dim, axis, tag = ctx.args
+        return comm.all_gather(g, dim=dim, axis=axis, tag=_grad_tag(tag)), None, None, None, None
+
+
+def sum_over(comm: Collectives, x: torch.Tensor, axis: str = "model", tag: str = "") -> torch.Tensor:
+    """All-reduce (sum) of ``x`` over ``axis``; its gradient passes through
+    unchanged (each rank receives the whole gradient of the sum)."""
+    return x if comm.sizes.get(axis, 1) == 1 else _SumOver.apply(x, comm, axis, tag)
+
+
+def copy_to(comm: Collectives, x: torch.Tensor, axis: str = "model", tag: str = "") -> torch.Tensor:
+    """``x`` itself; its gradient is summed over ``axis`` (each rank's
+    column-parallel product gives a part of it)."""
+    return x if comm.sizes.get(axis, 1) == 1 else _CopyTo.apply(x, comm, axis, tag)
+
+
+def gather(comm: Collectives, x: torch.Tensor, dim: int, axis: str = "model", tag: str = "",
+           grad: str = "sum") -> torch.Tensor:
+    """All-gather of ``x`` along ``dim`` over ``axis``.  ``grad="sum"``: the
+    gradient arriving is a part on each rank, reduce-scattered back to this
+    rank's block; ``grad="own"``: it is the same on every rank, and this
+    rank's block is kept."""
+    if grad not in ("sum", "own"):
+        raise ValueError(f"grad {grad!r}: 'sum' or 'own'")
+    if comm.sizes.get(axis, 1) == 1:
+        return x
+    return _Gather.apply(x, comm, dim % x.dim(), axis, tag, grad)
+
+
+def scatter_sum(comm: Collectives, x: torch.Tensor, dim: int, axis: str = "model",
+                tag: str = "") -> torch.Tensor:
+    """Reduce-scatter of ``x`` along ``dim`` over ``axis``; the gradient of
+    this rank's block is all-gathered back."""
+    if comm.sizes.get(axis, 1) == 1:
+        return x
+    return _ScatterSum.apply(x, comm, dim % x.dim(), axis, tag)
+
+
+def own_block(comm: Collectives, x: torch.Tensor, dim: int, axis: str = "model",
+              tag: str = "") -> torch.Tensor:
+    """This rank's block of a replicated ``x`` along ``dim`` (a multiple of
+    the ranks); the blocks' gradients are all-gathered back."""
+    n = comm.sizes.get(axis, 1)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"block of {tuple(x.shape)} along dim {dim} over {n} ranks: the dim "
+                         "is no multiple of the ranks")
+    return _OwnBlock.apply(x, comm, dim % x.dim(), axis, tag)

@@ -32,7 +32,15 @@ reference splits inside a kv head (``model > n_kv_heads``), each rank holds
 the whole kv heads its query heads need.  The rank-local execution covers
 ``attn`` / ``local`` blocks with a dense FFN and no frontend stub on a
 model axis above 1, and every config but MoE on a data-only mesh; the rest
-raises (ROADMAP A13c).
+raises (ROADMAP A13c-2 / A13c-3).
+
+The train step's state on a mesh (:class:`TrainLayout`): a rank keeps its
+parameter pieces whole over ``data`` and its pieces of each AdamW moment
+by the reference's optimizer specs (:func:`opt_pspecs`, then
+:func:`sanitize_pspecs`, then :func:`zero_shard`, as its
+``build_train_step`` places them).  A ``data`` entry on a stacked leaf's
+repeat axis means whole layers' moments live on one data rank.
+:func:`shard_opt_state` cuts a whole ``OptState`` into those pieces.
 """
 from __future__ import annotations
 
@@ -40,9 +48,11 @@ from dataclasses import dataclass, field
 
 import torch
 
+from .. import tree as pytree
 from ..models.config import ModelConfig
-from ..models.model import DecoderLM
+from ..models.model import DecoderLM, init_params
 from ..optim.optimizers import OptState
+from .collectives import gather, own_block
 
 WSP, ISP = "WSP", "ISP"
 
@@ -436,15 +446,63 @@ class RankShard:
             return x
         return torch.cat([x, x.new_zeros((x.shape[0], extra, *x.shape[2:]))], dim=1)
 
-    def seq_shard(self, x: torch.Tensor) -> torch.Tensor:
+    def seq_shard(self, x: torch.Tensor, tag: str = "transition") -> torch.Tensor:
         """This rank's positions of a replicated [B, S, ...] sequence (padded
-        at its end to m chunks)."""
-        Sl = self.chunk(x.shape[1])
-        return self.pad_seq(x)[:, self.r * Sl:(self.r + 1) * Sl]
+        at its end to m chunks); the gradient of every rank's positions is
+        all-gathered back (the padding's is dropped)."""
+        return own_block(self.comm, self.pad_seq(x), dim=1, tag=tag)
 
-    def gather_seq(self, x: torch.Tensor, S: int, tag: str) -> torch.Tensor:
-        """The whole sequence [B, S, ...] from every rank's positions."""
-        return self.comm.all_gather(x, dim=1, tag=tag)[:, :S]
+    def gather_seq(self, x: torch.Tensor, S: int, tag: str, grad: str = "own") -> torch.Tensor:
+        """The whole sequence [B, S, ...] from every rank's positions.  The
+        gradient arriving is the same on every rank (``grad="own"``: an
+        ISP zone follows) or a part on each (``"sum"``: a vocab-parallel
+        head follows), :func:`~repro_torch.runtime.collectives.gather`."""
+        return gather(self.comm, x, dim=1, tag=tag, grad=grad)[:, :S]
+
+    def partial_grads(self, model, grads: list[torch.Tensor]) -> list[torch.Tensor]:
+        """``grads`` (of ``model.flat_params()``) with the parts each model
+        rank holds of a gradient summed over ``model``, in one all-reduce: the
+        norm weights of WSP layers and, after a WSP last zone, the final
+        norm's (each rank saw its positions), and a kv head's wk / wv where
+        ranks share it (each rank's query heads, or only the rank whose
+        copy the WSP gather took)."""
+        if self.m == 1:
+            return grads
+        flat = model.flat_params()
+        index = {id(p): i for i, p in enumerate(flat)}
+        parts: list[tuple[int, bool]] = []       # (gradient index, a shared kv head's)
+        for layer, blk in enumerate(model.blocks):
+            if self.partition(layer) == WSP:
+                parts += [(index[id(blk.ln1)], False), (index[id(blk.ln2)], False)]
+            if self.shared_kv():
+                parts += [(index[id(blk.attn[n])], True) for n in ("wk", "wv")]
+        if self.partition(self.cfg.n_layers - 1) == WSP:
+            parts.append((index[id(model.final_ln)], False))
+        if not parts:
+            return grads
+        KV, kvh = self.cfg.n_kv_heads, self.kv_heads[0]
+        flat_parts = []
+        for i, kv in parts:
+            g = grads[i].float()
+            if kv:   # a slot a kv head: the ranks that share one add into it
+                z = g.new_zeros((KV, *g.shape))
+                z[kvh] = g
+                g = z
+            flat_parts.append(g.reshape(-1))
+        summed = self.comm.all_reduce(torch.cat(flat_parts), tag="grad:model")
+        out = list(grads)
+        at = 0
+        for (i, kv), part in zip(parts, flat_parts):
+            g = summed[at:at + part.numel()]
+            at += part.numel()
+            g = g.view(KV, *grads[i].shape)[kvh] if kv else g.view(grads[i].shape)
+            out[i] = g.to(grads[i].dtype)
+        return out
+
+    def shared_kv(self) -> bool:
+        """Whether this rank's kv head serves the query heads of other ranks
+        too (m > n_kv_heads): its wk / wv gradient is then summed over them."""
+        return self.m > 1 and self.n_heads < self.cfg.n_heads // self.cfg.n_kv_heads
 
 
 def _mesh_layout(cfg: ModelConfig, plan: ShardPlan, mesh) -> tuple[int, int, int, int]:
@@ -467,27 +525,27 @@ def _mesh_layout(cfg: ModelConfig, plan: ShardPlan, mesh) -> tuple[int, int, int
 
 def rank_shard(cfg: ModelConfig, plan: ShardPlan, mesh) -> RankShard:
     """This rank's :class:`RankShard`; raises ``NotImplementedError`` for a
-    config or mesh the rank-local execution does not cover (ROADMAP A13c)
+    config or mesh the rank-local execution does not cover (ROADMAP A13c-2 / 3)
     and ``ValueError`` for dims the mesh does not divide, naming them."""
     m, r, dp, dpi = _mesh_layout(cfg, plan, mesh)
     if mesh.size > 1 and cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name} on a {tuple(mesh.shape.items())} mesh: MoE's capacity dispatch is "
             "global in the reference (moe:groups), so it runs on one rank only until "
-            "ROADMAP A13c")
+            "ROADMAP A13c-3")
     if m == 1:
         return RankShard(cfg, plan, mesh, 1, 0, dp, dpi)
     bad = sorted({k for k in cfg.block_pattern if k not in ("attn", "local")})
     if bad:
         raise NotImplementedError(f"{cfg.name}: {bad} blocks on a model axis of {m} ranks "
-                                  "(their model-axis rules): ROADMAP A13c")
+                                  "(their model-axis rules): ROADMAP A13c-2")
     if cfg.frontend != "none":
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend on a model axis "
-                                  f"of {m} ranks: ROADMAP A13c")
+                                  f"of {m} ranks: ROADMAP A13c-2")
     if not plan.shard_kv_cache_time:
         raise NotImplementedError("a decode cache replicated over time on a model axis "
-                                  "(shard_kv_cache_time=False): ROADMAP A13c")
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+                                  "(shard_kv_cache_time=False): ROADMAP A13c-2")
+    H, KV = cfg.n_heads, cfg.n_kv_heads
     g = H // KV
     if H % m:
         raise ValueError(f"{cfg.name}: {H} query heads do not split over {m} model ranks")
@@ -498,48 +556,62 @@ def rank_shard(cfg: ModelConfig, plan: ShardPlan, mesh) -> RankShard:
     for name, n in (("d_ff", cfg.d_ff), ("padded vocab", cfg.padded_vocab)):
         if n % m:
             raise ValueError(f"{cfg.name}: {name} {n} does not split over {m} model ranks")
+    return RankShard(cfg, plan, mesh, m, r, dp, dpi, *_model_spans(cfg, m, r))
+
+
+def _model_spans(cfg: ModelConfig, m: int, r: int) -> tuple:
+    """(query heads, kv heads, vocab rows, FFN columns) that model rank ``r``
+    of ``m`` holds, each (lo, hi): whole kv heads, those its query heads
+    read."""
+    g, hl = cfg.n_heads // cfg.n_kv_heads, cfg.n_heads // m
     heads = (r * hl, (r + 1) * hl)
     kv_heads = (heads[0] // g, (heads[1] - 1) // g + 1)
-    return RankShard(cfg, plan, mesh, m, r, dp, dpi, heads, kv_heads,
-                     _span(cfg.padded_vocab, m, r), _span(cfg.d_ff, m, r))
+    return heads, kv_heads, _span(cfg.padded_vocab, m, r), _span(cfg.d_ff, m, r)
+
+
+def _piece_box(cfg: ModelConfig, m: int, r: int, group: str, name: str, shape) -> tuple:
+    """(lo, hi) a dim of model rank ``r``'s piece of a layer of the leaf
+    ``name`` of ``group`` (``"attn"``, ``"ffn"``, ``"blocks"`` for a block's
+    norms, ``""`` at the top), ``shape`` the whole leaf's per-layer shape:
+    the one rule that cuts a model over the ``model`` axis
+    (:func:`_local_params`, :class:`TrainLayout`)."""
+    full = [(0, n) for n in shape]
+    if m == 1:
+        return tuple(full)
+    hd = cfg.head_dim
+    heads, kv, vocab, ff = _model_spans(cfg, m, r)
+    heads, kv = (heads[0] * hd, heads[1] * hd), (kv[0] * hd, kv[1] * hd)
+    rules = {("attn", "wq"): (1, heads), ("attn", "wk"): (1, kv), ("attn", "wv"): (1, kv),
+             ("attn", "wo"): (0, heads), ("ffn", "w1"): (1, ff), ("ffn", "w3"): (1, ff),
+             ("ffn", "w2"): (0, ff), ("", "embed"): (0, vocab), ("", "lm_head"): (1, vocab)}
+    if (group, name) in rules:
+        dim, span = rules[(group, name)]
+        full[dim] = span
+    return tuple(full)
 
 
 def _local_params(model, sh: RankShard) -> dict:
-    """The params dict ``DecoderLM`` takes, cut to this rank's pieces (copies,
-    so the whole model can be freed)."""
-    hd = sh.cfg.head_dim
-    q0, q1 = (h * hd for h in sh.heads)
-    k0, k1 = (h * hd for h in sh.kv_heads)
-    f0, f1 = sh.ff
-    v0, v1 = sh.vocab
-    cut = sh.m > 1
-
-    def cols(t, lo, hi):
-        return t[:, lo:hi].clone() if cut else t
-
-    def rows(t, lo, hi):
-        return t[lo:hi].clone() if cut else t
+    """The params dict ``DecoderLM`` takes, cut to this rank's pieces by
+    :func:`_piece_box` (on a model axis every leaf a copy, so the whole
+    model can be freed and a shard's training leaves it as it was; a
+    data-only shard holds the whole model's tensors themselves)."""
+    def cut(t, group, name):
+        if sh.m == 1:
+            return t
+        return _narrow(t, _piece_box(sh.cfg, sh.m, sh.r, group, name, t.shape)).clone()
 
     blocks = []
     for blk in model.blocks:
-        bp = {"ln1": blk.ln1.data, "ln2": blk.ln2.data}
-        for name in ("attn", "mamba", "rwkv", "moe", "ffn"):
-            leaves = getattr(blk, name, None)
+        bp = {n: cut(getattr(blk, n).data, "blocks", n) for n in ("ln1", "ln2")}
+        for group in ("attn", "mamba", "rwkv", "moe", "ffn"):
+            leaves = getattr(blk, group, None)
             if leaves is not None:
-                bp[name] = {n: p.data for n, p in leaves.items()}
-        if "attn" in bp:
-            a = bp["attn"]
-            bp["attn"] = {"wq": cols(a["wq"], q0, q1), "wk": cols(a["wk"], k0, k1),
-                          "wv": cols(a["wv"], k0, k1), "wo": rows(a["wo"], q0, q1)}
-        if "ffn" in bp:
-            f = bp["ffn"]
-            bp["ffn"] = {n: rows(w, f0, f1) if n == "w2" else cols(w, f0, f1)
-                         for n, w in f.items()}
+                bp[group] = {n: cut(p.data, group, n) for n, p in leaves.items()}
         blocks.append(bp)
-    params = {"embed": rows(model.embed.data, v0, v1), "blocks": blocks,
-              "final_ln": model.final_ln.data}
+    params = {"embed": cut(model.embed.data, "", "embed"), "blocks": blocks,
+              "final_ln": cut(model.final_ln.data, "", "final_ln")}
     if model.lm_head is not None:
-        params["lm_head"] = cols(model.lm_head.data, v0, v1)
+        params["lm_head"] = cut(model.lm_head.data, "", "lm_head")
     return params
 
 
@@ -590,3 +662,327 @@ def gather_logits(logits: torch.Tensor, sh: RankShard, tag: str = "gather") -> t
         out = sh.comm.all_gather(out, dim=0, axis=axis, tag=tag)
     return out
 
+
+
+# -------------------------------------------------------- the train state
+
+def _spec_leaves(tree, path: tuple[str, ...] = ()):
+    """(key, PartitionSpec) pairs of a spec tree in the order (and with the
+    keys) of :func:`~repro_torch.tree.flatten_with_path`."""
+    if isinstance(tree, PartitionSpec):
+        yield "/".join(path), tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _spec_leaves(tree[k], path + (f"[{k!r}]",))
+    elif _is_namedtuple(tree):
+        for name in tree._fields:
+            yield from _spec_leaves(getattr(tree, name), path + (f".{name}",))
+    elif isinstance(tree, (tuple, list)):
+        for i, x in enumerate(tree):
+            yield from _spec_leaves(x, path + (f"[{i}]",))
+
+
+def _block(n: int, entry, mesh) -> tuple[int, int]:
+    """This rank's (lo, hi) of a dim of size ``n`` under a spec entry."""
+    if entry is None:
+        return 0, n
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    size, index = 1, 0
+    for a in axes:
+        size, index = size * mesh.shape[a], index * mesh.shape[a] + mesh.index(a)
+    return _span(n, size, index)
+
+
+def train_specs(cfg: ModelConfig, plan: ShardPlan, mesh):
+    """(the whole parameter tree's leaves with their shapes, on meta; the
+    optimizer state's specs): the reference's ``build_train_step``
+    placement, ``sanitize(opt_pspecs)`` then ``zero_shard`` under ZeRO."""
+    shapes = init_params(cfg, None, "meta").param_tree()
+    p_specs = sanitize_pspecs(param_pspecs(cfg, plan, mesh), shapes, mesh)
+    opt_shapes = OptState(step=torch.empty((), device="meta"), m=shapes, v=shapes)
+    o_specs = sanitize_pspecs(opt_pspecs(cfg, plan, mesh, p_specs, cfg.optimizer), opt_shapes,
+                              mesh)
+    if plan.zero:
+        o_specs = zero_shard(o_specs, opt_shapes, mesh)
+    return shapes, o_specs
+
+
+def _leaf_names(key: str) -> tuple[str, str]:
+    """(group, name) of a parameter leaf's key (``flatten_with_path``'s):
+    ``"['blocks']/[0]/['attn']/['wq']"`` -> ``("attn", "wq")``, a block's
+    norm -> ``("blocks", "ln1")``, a top leaf -> ``("", "embed")``."""
+    names = [p[2:-2] for p in key.split("/") if p.startswith("['")]
+    return (names[-2] if len(names) > 1 else ""), names[-1]
+
+
+def _narrow(t: torch.Tensor, box: tuple, skip: int | None = None) -> torch.Tensor:
+    """``t`` narrowed to ``box`` ((lo, hi) a dim, in ``t``'s coordinates),
+    ``skip`` left whole."""
+    for d, (lo, hi) in enumerate(box):
+        if d != skip and (lo, hi) != (0, t.shape[d]):
+            t = t.narrow(d, lo, hi - lo)
+    return t
+
+
+@dataclass
+class _Leaf:
+    key: str
+    stacked: bool
+    shape: tuple          # the whole leaf's (a stacked leaf's [R, ...])
+    piece: tuple          # this rank's parameter piece, (lo, hi) a dim of the whole leaf
+    box: tuple            # this rank's moment piece, likewise
+    data_dim: int | None  # the dim the moments split over ``data``
+    axes: frozenset       # the mesh axes the moments split over
+
+    def local(self, box: tuple) -> tuple:
+        """``box`` in the coordinates of the rank's parameter piece."""
+        return tuple((lo - p, hi - p) for (lo, hi), (p, _) in zip(box, self.piece))
+
+
+class TrainLayout:
+    """One rank's train state on a mesh: for each leaf of the parameter tree
+    (in its flattening order) the rank's parameter piece and moment piece
+    in the whole leaf's coordinates, and the collectives that carry the
+    step between them (``runtime/train.py``):
+
+    * :meth:`reduce_grads`: the parameter pieces' gradients, made whole over
+      ``model`` where they are partial (:meth:`RankShard.partial_grads`),
+      reduced over ``data`` into the moment pieces (reduce-scatter on the
+      dim the moments split over ``data``, else all-reduce);
+    * :meth:`grad_norm_sq`: the global gradient's squared norm, each element
+      counted once (a piece's sum added over the axes its leaf splits on);
+    * :meth:`param_views`: views of the parameter elements the moments cover;
+    * :meth:`reassemble`: those elements all-gathered back over ``data``, and
+      over ``model`` where a piece is wider than the moments' (ranks that
+      share a kv head);
+    * whole leaves for checkpoints and checks (:meth:`whole_params`,
+      :meth:`whole_moments`) and back (:meth:`load_params`,
+      :meth:`load_moments`, :meth:`cut_moments`).
+    """
+
+    def __init__(self, cfg: ModelConfig, plan: ShardPlan, mesh, shard: RankShard):
+        if cfg.optimizer != "adamw":
+            raise NotImplementedError(
+                f"{cfg.name}: {cfg.optimizer} on a mesh (its only config, llama4-maverick, is "
+                "MoE): ROADMAP A13c-3")
+        self.cfg, self.plan, self.mesh, self.shard = cfg, plan, mesh, shard
+        shapes, o_specs = train_specs(cfg, plan, mesh)
+        self.o_specs = o_specs
+        self.leaves: list[_Leaf] = []
+        for (key, spec), leaf in zip(_spec_leaves(o_specs.m), pytree.leaves(shapes), strict=True):
+            stacked = isinstance(leaf, pytree.Stacked)
+            shape = tuple(leaf.shape)
+            entries = list(spec) + [None] * (len(shape) - len(spec))
+            if any(e not in (None, "data", "model") for e in entries):
+                raise NotImplementedError(f"{key}: moment spec {spec} (multi-pod: ROADMAP A13c-4)")
+            layer = _piece_box(cfg, shard.m, shard.r, *_leaf_names(key),
+                               shape[1:] if stacked else shape)
+            piece = ((0, shape[0]),) + layer if stacked else layer
+            box = tuple(_block(n, e, mesh) for n, e in zip(shape, entries))
+            data_dim = entries.index("data") if "data" in entries else None
+            for d, ((lo, hi), (plo, phi)) in enumerate(zip(box, piece)):
+                if lo < plo or hi > phi or (d == data_dim and (plo, phi) != (0, shape[d])):
+                    raise NotImplementedError(
+                        f"{key}: the moment piece {box} is not inside the rank's parameter "
+                        f"piece {piece} (ROADMAP A13c-2)")
+            self.leaves.append(_Leaf(key, stacked, shape, piece, box, data_dim,
+                                     frozenset(e for e in entries if e)))
+
+    @property
+    def comm(self):
+        return self.mesh.comm
+
+    def _per_leaf(self, flat: list) -> list[list]:
+        it = iter(flat)
+        return [[next(it) for _ in range(lf.shape[0] if lf.stacked else 1)]
+                for lf in self.leaves]
+
+    def _joined(self, lf: _Leaf, layers: list[torch.Tensor]) -> torch.Tensor:
+        return torch.stack(layers) if lf.stacked else layers[0]
+
+    def _model_box(self, lf: _Leaf) -> tuple:
+        """The moment box widened to the whole dim it splits over ``data``:
+        the region the rank holds once ``data`` is gathered."""
+        return tuple((0, n) if d == lf.data_dim else b
+                     for d, (b, n) in enumerate(zip(lf.box, lf.shape)))
+
+    # -------------------------------------------------------- the step
+
+    def reduce_grads(self, model: DecoderLM, grads: list[torch.Tensor]) -> list[torch.Tensor]:
+        """The moment pieces of the global gradient (a stacked leaf's as one
+        ``[R or R / data, ...]`` tensor), from the rank's gradients of
+        ``model.flat_params()`` (each the gradient of the rank's loss, the
+        data ranks' losses adding up to the global one)."""
+        grads = self.shard.partial_grads(model, grads)
+        out = []
+        for lf, layers in zip(self.leaves, self._per_leaf(grads), strict=True):
+            t = _narrow(self._joined(lf, layers), lf.local(lf.box), skip=lf.data_dim)
+            if lf.data_dim is None:
+                out.append(self.comm.all_reduce(t, axis="data", tag="grad"))
+            else:
+                out.append(self.comm.reduce_scatter(t, dim=lf.data_dim, axis="data", tag="grad"))
+        return out
+
+    def grad_norm_sq(self, pieces: list[torch.Tensor]) -> torch.Tensor:
+        """The squared L2 norm of the global gradient from the moment pieces:
+        each piece's sum of squares added over the axes its leaf splits on
+        (a leaf replicated over an axis counts once)."""
+        dev = pieces[0].device
+        parts = {k: torch.zeros((), dtype=torch.float32, device=dev)
+                 for k in ("", "data", "model", "both")}
+        for lf, g in zip(self.leaves, pieces, strict=True):
+            k = ("both" if len(lf.axes) == 2 else next(iter(lf.axes))) if lf.axes else ""
+            parts[k] = parts[k] + g.float().square().sum()
+        over_data = self.comm.all_reduce(torch.stack([parts["data"], parts["both"]]),
+                                         axis="data", tag="grad_norm")
+        over_model = self.comm.all_reduce(torch.stack([parts["model"], over_data[1]]),
+                                          axis="model", tag="grad_norm")
+        return parts[""] + over_data[0] + over_model.sum()
+
+    def _views(self, lf: _Leaf, layers: list[torch.Tensor]):
+        local = lf.local(lf.box)
+        if lf.stacked:
+            lo, hi = local[0] if lf.data_dim == 0 else (0, lf.shape[0])
+            return pytree.Stacked([_narrow(t, local[1:]) for t in layers[lo:hi]])
+        return _narrow(layers[0], local)
+
+    def param_views(self, model: DecoderLM):
+        """The parameter tree over views of the elements the moment pieces
+        cover (a stacked leaf split over ``data`` on its repeat axis: the
+        rank's layers); an update writes through them."""
+        it = iter(self._views(lf, layers)
+                  for lf, layers in zip(self.leaves, self._per_leaf(model.flat_params())))
+        return pytree.map(lambda _: next(it), model.param_tree())
+
+    def grad_tree(self, model: DecoderLM, pieces: list[torch.Tensor]):
+        """The moment pieces of the gradient in :meth:`param_views`' structure."""
+        it = iter(pytree.Stacked(list(g.unbind(0))) if lf.stacked else g
+                  for lf, g in zip(self.leaves, pieces))
+        return pytree.map(lambda _: next(it), model.param_tree())
+
+    @torch.no_grad()
+    def reassemble(self, model: DecoderLM) -> None:
+        """After an update of :meth:`param_views`: every rank's updated
+        elements all-gathered over ``data`` into the rank's pieces, then over
+        ``model`` where a piece holds more than its moments cover."""
+        comm = self.comm
+        for lf, layers in zip(self.leaves, self._per_leaf(model.flat_params())):
+            model_box = lf.local(self._model_box(lf))
+            if lf.data_dim is not None and comm.sizes.get("data", 1) > 1:
+                view = self._views(lf, layers)
+                t = self._joined(lf, pytree.leaf_layers(view))
+                full = comm.all_gather(t, dim=lf.data_dim, axis="data", tag="zero")
+                for r, p in enumerate(layers):
+                    box = model_box[1:] if lf.stacked else model_box
+                    _narrow(p, box).copy_(full[r] if lf.stacked else full)
+            wide = [d for d, (b, p) in enumerate(zip(self._model_box(lf), lf.piece)) if b != p]
+            if not wide:
+                continue
+            (d,) = wide
+            t = _narrow(self._joined(lf, layers), model_box)
+            full = comm.all_gather(t, dim=d, axis="model", tag="zero")
+            lo, hi = lf.piece[d]
+            full = full.narrow(d, lo, hi - lo)
+            for r, p in enumerate(layers):
+                p.copy_(full[r] if lf.stacked else full)
+
+    # ---------------------------------------------------- whole leaves
+
+    def whole_params(self, model: DecoderLM):
+        """(leaf, the whole leaf) of every parameter leaf in order, gathered
+        one at a time (a stacked leaf as ``[R, ...]``): the model ranks'
+        pieces all-gathered and placed by :func:`_piece_box` (ranks that
+        share a kv head hold the same columns).  Every rank walks every leaf."""
+        m = self.shard.m
+        for lf, layers in zip(self.leaves, self._per_leaf(model.flat_params())):
+            t = self._joined(lf, [p.detach() for p in layers])
+            if m == 1:
+                yield lf, t
+                continue
+            parts = self.comm.all_gather(t[None], dim=0, axis="model", tag="ckpt")
+            out = t.new_empty(lf.shape)
+            for r in range(m):
+                box = _piece_box(self.cfg, m, r, *_leaf_names(lf.key),
+                                 lf.shape[1:] if lf.stacked else lf.shape)
+                _narrow(out, ((0, lf.shape[0]),) + box if lf.stacked else box).copy_(parts[r])
+            yield lf, out
+
+    def whole_moments(self, pieces):
+        """(leaf, the whole moment leaf) of every leaf of a moment tree of
+        the rank's pieces, each all-gathered over the axes it splits on."""
+        for lf, t in zip(self.leaves, pytree.leaves(pieces), strict=True):
+            for d, (lo, hi) in enumerate(lf.box):
+                if hi - lo != lf.shape[d]:
+                    axis = "data" if d == lf.data_dim else "model"
+                    t = self.comm.all_gather(t, dim=d, axis=axis, tag="ckpt")
+            yield lf, t
+
+    @staticmethod
+    def _checked(lf: _Leaf, whole: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if tuple(whole.shape) != lf.shape or whole.dtype != dtype:
+            raise ValueError(f"{lf.key}: a whole leaf {whole.dtype} {list(whole.shape)}, the "
+                             f"layout's {dtype} {list(lf.shape)}")
+        return whole
+
+    @torch.no_grad()
+    def load_params(self, model: DecoderLM, whole_of) -> None:
+        """The rank's parameter pieces written in place from the whole leaves
+        ``whole_of(leaf)`` returns (a stacked one ``[R, ...]``), one at a time."""
+        for lf, layers in zip(self.leaves, self._per_leaf(model.flat_params())):
+            t = _narrow(self._checked(lf, whole_of(lf), layers[0].dtype), lf.piece)
+            for p, x in zip(layers, t.unbind(0) if lf.stacked else [t], strict=True):
+                p.copy_(x)
+
+    @torch.no_grad()
+    def load_moments(self, pieces, whole_of) -> None:
+        """A moment tree of the rank's pieces written in place from the whole
+        leaves ``whole_of(leaf)`` returns, one at a time."""
+        for lf, t in zip(self.leaves, pytree.leaves(pieces), strict=True):
+            t.copy_(_narrow(self._checked(lf, whole_of(lf), t.dtype), lf.box))
+
+    def cut_moments(self, whole_tree):
+        """A moment tree of the rank's pieces from a whole one (copies)."""
+        it = iter(_narrow(t, lf.box).clone() for lf, t in
+                  zip(self.leaves, pytree.leaves(whole_tree), strict=True))
+        return pytree.map(lambda _: next(it), whole_tree)
+
+    def zero_moments(self, device) -> OptState:
+        """A fresh AdamW state of the rank's pieces (fp32 zeros)."""
+        def zeros():
+            it = iter(torch.zeros(tuple(hi - lo for lo, hi in lf.box), dtype=torch.float32,
+                                  device=device) for lf in self.leaves)
+            return _map_structure(self.o_specs.m, lambda: next(it))
+        return OptState(step=torch.zeros((), dtype=torch.int32), m=zeros(), v=zeros())
+
+
+def _map_structure(spec_tree, fn):
+    """``spec_tree``'s containers with each PartitionSpec leaf replaced by ``fn()``."""
+    if isinstance(spec_tree, PartitionSpec):
+        return fn()
+    if isinstance(spec_tree, dict):
+        return {k: _map_structure(spec_tree[k], fn) for k in sorted(spec_tree)}
+    if isinstance(spec_tree, (tuple, list)):
+        return type(spec_tree)(_map_structure(x, fn) for x in spec_tree)
+    return fn()
+
+
+def train_layout(model: DecoderLM) -> TrainLayout:
+    """The :class:`TrainLayout` of a rank's shard (``shard_model``'s), built once."""
+    sh = model.shard
+    if sh is None:
+        raise ValueError("train_layout takes a rank's shard of a mesh (shard_model)")
+    layout = getattr(model, "_train_layout", None)
+    if layout is None:
+        layout = TrainLayout(model.cfg, sh.plan, sh.mesh, sh)
+        model._train_layout = layout
+    return layout
+
+
+def shard_opt_state(opt_state: OptState, model: DecoderLM) -> OptState:
+    """This rank's pieces of a whole AdamW ``OptState`` (``adamw_init`` of
+    the whole model, or a one-rank run's), for the rank's shard ``model``
+    (``shard_model``'s): each moment cut by the reference's optimizer specs
+    (:func:`train_specs`), the step kept."""
+    layout = train_layout(model)
+    return OptState(step=opt_state.step.clone(), m=layout.cut_moments(opt_state.m),
+                    v=layout.cut_moments(opt_state.v))

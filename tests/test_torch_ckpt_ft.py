@@ -5,6 +5,10 @@ checkpoints across the packages (a reference checkpoint restored into the
 port and the other way round, fp32 and bf16: the same keys, shapes, dtypes
 and sha256 layout), then ``tests/test_system.py``'s story on the port:
 plan -> train -> injected failure -> restart from checkpoint -> decode.
+Last, the launcher and the checkpoints on a (data, model) mesh of gloo
+ranks: the 2 x 2 launcher's losses are the one-rank run's, a restart on
+2 x 2 is the uninterrupted run bit for bit, and a checkpoint of either
+restores on the other.
 """
 import json
 import os
@@ -40,6 +44,7 @@ from repro_torch.runtime.planner import plan_for_cell
 from repro_torch.runtime.serve import build_decode_step, greedy_generate
 from repro_torch.runtime.train import build_train_step
 from repro_torch.serving.faults import FaultInjector
+from torch_parity import ckpt_on_rank
 
 
 def small_tree():
@@ -383,7 +388,7 @@ def test_train_launcher_trains_the_frontend_stubs(tmp_path, arch):
         len(model.flat_params()) - n_unused
 
 
-def test_train_launcher_refuses_what_one_card_cannot_hold():
+def test_train_launcher_refuses_what_one_card_cannot_hold(tmp_path):
     from repro_torch.configs import get_config
     from repro_torch.launch.train import check_training_fits, main, training_bytes
 
@@ -392,5 +397,73 @@ def test_train_launcher_refuses_what_one_card_cannot_hold():
     with pytest.raises(RuntimeError, match="fewer layers"):
         check_training_fits(cfg, 80 * 10**9)
     check_training_fits(replace(cfg, n_layers=16), 80 * 10**9)
-    with pytest.raises(NotImplementedError, match="A13"):
-        main(["--arch", "granite-3-8b", "--smoke", "--device", "cpu", "--mesh", "2x1"])
+    hist = main(["--arch", "granite-3-8b", "--smoke", "--device", "cpu", "--mesh", "2x1",
+                 "--steps", "2", "--batch", "4", "--seq", "16", "--ckpt-dir", str(tmp_path)])
+    assert [h["step"] for h in hist] == [1, 2]
+
+
+# ------------------------------------------------------------ on a mesh
+
+def test_train_launcher_on_a_mesh_gives_the_one_rank_losses(tmp_path):
+    """``--mesh 2x2`` on the CPU: 4 gloo ranks, each its shard and optimizer
+    pieces; the losses and grad norms are the one-rank run's (2e-6
+    relative, tests/test_torch_train.py's bound: the same sums in another
+    order)."""
+    from repro_torch.launch.train import main
+
+    flags = ["--arch", "granite-3-8b", "--smoke", "--device", "cpu", "--steps", "3",
+             "--batch", "4", "--seq", "16", "--ckpt-every", "100"]
+    one = main(flags + ["--ckpt-dir", str(tmp_path / "one")])
+    mesh = main(flags + ["--mesh", "2x2", "--ckpt-dir", str(tmp_path / "mesh")])
+    assert [h["step"] for h in mesh] == [1, 2, 3]
+    for a, b in zip(mesh, one, strict=True):
+        assert a["loss"] == pytest.approx(b["loss"], rel=2e-6)
+        assert a["grad_norm"] == pytest.approx(b["grad_norm"], rel=2e-6)
+
+
+def _one_rank_state(model, opt):
+    from repro_torch import tree as pytree
+
+    whole = [(torch.stack(x.layers) if isinstance(x, pytree.Stacked) else x).detach().numpy()
+             for x in pytree.leaves(model.param_tree())]
+    return (whole + [t.numpy() for t in pytree.leaves(opt.m)]
+            + [t.numpy() for t in pytree.leaves(opt.v)] + [int(opt.step)])
+
+
+def _assert_same(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert np.array_equal(x, y)
+
+
+def test_mesh_checkpoints_restart_and_restore_across_meshes(tmp_path):
+    """On (2, 2), checkpoints every 3 steps: a run with a failure injected at
+    step 4 restarts from step 3 and ends bit for bit where the
+    uninterrupted run ends; a one-rank checkpoint restores on the mesh, and
+    the mesh's on one rank, each equal to the state that wrote it."""
+    from repro_torch.launch.mesh import run_ranks
+
+    arch, steps, every = "granite-3-8b", 6, 3
+    cfg = get_smoke_config(arch)
+    plan = plan_for_cell(cfg, 16, 4, ("data", "model"), 1, kind="train", use_dse=False)
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu").train_params()
+    opt = make_optimizer(cfg.optimizer)[0](model.param_tree())
+    step = build_train_step(cfg, plan, base_lr=5e-3, warmup=2, device="cpu")
+    it = make_batch_iterator(cfg, batch=4, seq=16, seed=0)
+    model, opt, hist = ResilientTrainer(train_step=step, batch_fn=lambda s: next(it)[1],
+                                        ckpt_dir=str(tmp_path / "one_rank"),
+                                        ckpt_every=every).run(model, opt, n_steps=steps)
+    one_rank = _one_rank_state(model, opt)
+    dirs = {k: str(tmp_path / k) for k in ("plain", "restart", "one_rank")}
+    ranks = run_ranks(ckpt_on_rank, (2, 2), ("data", "model"), arch, dirs, steps, 4, every,
+                      device="cpu", verbose=False)
+    for res in ranks:
+        plain, restart = res["plain"], res["restart"]
+        assert restart[2] == [1, 2, 3, 4, 4, 5, 6]    # step 4 failed, then replayed
+        assert restart[1][-2:] == plain[1][-2:]
+        _assert_same(restart[0], plain[0])
+        _assert_same(res["one_rank"], one_rank)
+    model = init_params(cfg, torch.Generator().manual_seed(1), "cpu").train_params()
+    opt = make_optimizer(cfg.optimizer)[0](model.param_tree())
+    restore_checkpoint(dirs["plain"], steps, (model, opt))
+    _assert_same(_one_rank_state(model, opt), ranks[0]["plain"][0])

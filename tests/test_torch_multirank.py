@@ -13,7 +13,8 @@ and K/V all-gathers, nothing on the residual; the transition: one
 activation all-gather) and their bytes to a count from the shapes.  A
 data-only (2, 1) mesh runs rwkv6-3b by batch split.  The plain
 ``attention_ref`` with ``q_offset`` is held to the reference's attention
-sliced to those rows, and what this slice does not run raises.
+sliced to those rows, its gradient to ``jax.grad`` of the reference's
+attention restricted to them, and what this slice does not run raises.
 """
 import dataclasses
 import functools
@@ -32,7 +33,9 @@ from repro.models import init_params as jax_init_params
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.cost import visible_pairs
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cost, flash_attention_kernel
+from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_cost,
+                                                        flash_attention_bwd_kernel,
+                                                        flash_attention_cost)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.launch import dryrun
@@ -248,14 +251,59 @@ def test_offset_cost_counts_the_visible_pairs():
         16, 32, True, 0, 16)
 
 
-def test_offset_with_a_gradient_raises_naming_a13c():
-    q = torch.zeros(1, 2, 4, 16, requires_grad=True)
-    k = torch.zeros(1, 2, 8, 16)
-    with pytest.raises(NotImplementedError, match="A13c"):
-        flash_attention(q, k, k, q_offset=4)
-    m = torch.empty(1, 2, 4, 64, device="meta")
-    with pytest.raises(NotImplementedError, match="A13c"):
-        flash_attention_kernel(m, m, m, with_lse=True, q_offset=4)
+OFFSET_GRAD_CASES = [(8, 8, 0, 0.0), (13, 7, 0, 50.0), (16, 16, 6, 0.0), (5, 11, 9, 30.0),
+                     (24, 8, 4, 0.0)]
+
+
+@pytest.mark.parametrize("offset,n,window,cap", OFFSET_GRAD_CASES)
+def test_offset_gradient_matches_reference_rows(offset, n, window, cap):
+    """The gradient of a WSP rank's call (queries at positions offset ..
+    offset+n-1 against keys 0 .. offset+n-1) through ``flash_attention``'s
+    CPU route (``attention_ref`` under autograd) against ``jax.grad`` of the
+    reference's whole causal attention with a cotangent on those rows only:
+    dq of the rows, dk and dv of every key (0 for keys no row sees)."""
+    rng = np.random.default_rng(100 + offset)
+    Bq, H, KV, hd, L = 2, 4, 2, 16, offset + n
+    q = rng.standard_normal((Bq, H, L, hd)).astype(np.float32)
+    k = rng.standard_normal((Bq, KV, L, hd)).astype(np.float32)
+    v = rng.standard_normal((Bq, KV, L, hd)).astype(np.float32)
+    do = rng.standard_normal((Bq, H, n, hd)).astype(np.float32)
+    cot = np.zeros((Bq, H, L, hd), np.float32)
+    cot[:, :, offset:] = do
+
+    def f(q_, k_, v_):
+        return jnp.sum(jax_attention_ref(q_, k_, v_, True, window, cap) * cot)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q[:, :, offset:].copy(), k, v)]
+    out = flash_attention(*leaves, True, window, cap, q_offset=offset)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    _close(got[0].numpy(), np.asarray(want[0])[:, :, offset:])
+    _close(got[1].numpy(), np.asarray(want[1]))
+    _close(got[2].numpy(), np.asarray(want[2]))
+    if window:
+        unseen = slice(0, max(offset - window + 1, 0))
+        assert not got[1][:, :, unseen].any() and not got[2][:, :, unseen].any()
+
+
+@pytest.mark.parametrize("offset,n,window,cap", OFFSET_GRAD_CASES)
+def test_offset_backward_meta_route_counts_the_visible_pairs(offset, n, window, cap):
+    """The backward kernel's meta route (the dry-run) counts five products
+    over the pairs the offset leaves visible, and allocates its outputs."""
+    q = torch.empty(1, 4, n, 64, device="meta")
+    k = torch.empty(1, 2, offset + n, 64, device="meta")
+    assert flash_attention_bwd_cost(q, k, k, True, window, offset).flops == \
+        10 * 4 * 64 * visible_pairs(n, offset + n, True, window, offset)
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.flash_attention.kernel import SavedForward, lse_rows
+    saved = SavedForward(torch.empty_like(q), torch.empty(1, 4, lse_rows(n), device="meta"),
+                         None)
+    with cost.tally() as calls:
+        dq, dk, dv = flash_attention_bwd_kernel(q, k, k, torch.empty_like(q), saved,
+                                                window=window, softcap=cap, q_offset=offset)
+    assert calls == [("flash_attention_bwd_kernel",
+                      flash_attention_bwd_cost(q, k, k, True, window, offset))]
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
 
 
 @pytest.mark.parametrize("arch,shape", [("granite-moe-1b-a400m", (2, 1)),

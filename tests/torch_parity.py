@@ -218,3 +218,117 @@ def prefill_on_rank(mesh, arch, params, tokens):
     mesh.comm.reset()
     logits = build_prefill_step(cfg, plan, "cpu", mesh)(model, torch.from_numpy(tokens))
     return logits.numpy(), dict(mesh.comm.calls)
+
+
+# What a rank of tests/test_torch_train_mesh.py runs: the train step on a
+# (data, model) mesh.
+
+def train_on_rank(mesh, payload, cases, steps, hyper, resync=None):
+    """For each ``(name, arch, plan keywords, config overrides)`` of
+    ``cases``: ``steps`` train steps of the smoke ``arch`` on this rank
+    from the reference's weights (``payload[arch]``: (params, batches) as
+    numpy), AdamW from zero moments.  ``resync[name][s]``: whole (params,
+    m, v) leaves (in order) the rank's state is cut from before step ``s``.
+    Returns per case the losses, grad norms, the whole parameters and
+    moments after each step (gathered), the rank's moment piece shapes and
+    the first step's recorded collectives."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.sharding import (ShardPlan, shard_model, shard_opt_state,
+                                              train_layout)
+    from repro_torch.runtime.train import build_train_step
+
+    out = {}
+    for name, arch, plan_kw, over in cases:
+        cfg = dataclasses.replace(get_smoke_config(arch), **over)
+        params, batches = payload[arch]
+        whole = params_from_jax(cfg, params, "cpu")
+        plan = ShardPlan(AXES, **plan_kw)
+        model = shard_model(whole, plan, mesh).train_params()
+        opt = shard_opt_state(adamw_init(whole.param_tree()), model)
+        step = build_train_step(cfg, plan, device="cpu", mesh=mesh, **hyper)
+        layout = train_layout(model)
+        res = {"losses": [], "grad_norms": [], "params": [], "m": [], "v": [],
+               "piece_shapes": [tuple(t.shape) for t in tree.leaves(opt.m)]}
+        for s in range(steps):
+            if s in (resync or {}).get(name, {}):
+                ps, ms, vs = resync[name][s]
+                layout.load_params(model, lambda _, it=iter(ps): torch.from_numpy(next(it)))
+                layout.load_moments(opt.m, lambda _, it=iter(ms): torch.from_numpy(next(it)))
+                layout.load_moments(opt.v, lambda _, it=iter(vs): torch.from_numpy(next(it)))
+            mesh.comm.reset()
+            model, opt, met = step(model, opt, batches[s])
+            if s == 0:
+                res["calls"] = dict(mesh.comm.calls)
+            res["losses"].append(float(met["loss"]))
+            res["grad_norms"].append(float(met["grad_norm"]))
+            res["params"].append([t.detach().numpy().copy() for _, t in
+                                  layout.whole_params(model)])
+            res["m"].append([t.numpy().copy() for _, t in layout.whole_moments(opt.m)])
+            res["v"].append([t.numpy().copy() for _, t in layout.whole_moments(opt.v)])
+            res["step"] = int(opt.step)
+        out[name] = res
+    return out
+
+
+def ckpt_on_rank(mesh, arch, dirs, steps, fail_at, every):
+    """The smoke ``arch`` trained on this rank of a (data, model) mesh through
+    ``ResilientTrainer`` (the data pipeline's batches, AdamW from zero
+    pieces): uninterrupted into ``dirs["plain"]``, and with a failure
+    injected at step ``fail_at`` into ``dirs["restart"]`` (checkpoints every
+    ``every``); then the state restored from ``dirs["one_rank"]`` (a one-rank
+    checkpoint of step ``steps``).  Returns the three states gathered whole
+    (numpy, in flattening order) and the two runs' histories."""
+    import torch
+
+    from repro_torch.ckpt import restore_checkpoint
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.ft import ResilientTrainer
+    from repro_torch.models import init_params
+    from repro_torch.runtime.planner import plan_for_cell
+    from repro_torch.runtime.sharding import shard_model, train_layout
+    from repro_torch.runtime.train import build_train_step
+
+    cfg = get_smoke_config(arch)
+    plan = plan_for_cell(cfg, 16, 4, AXES, mesh.shape["model"], kind="train", use_dse=False)
+    step = build_train_step(cfg, plan, base_lr=5e-3, warmup=2, device="cpu", mesh=mesh)
+
+    def fresh():
+        model = shard_model(init_params(cfg, torch.Generator().manual_seed(0), "cpu"), plan,
+                            mesh).train_params()
+        return model, train_layout(model).zero_moments("cpu")
+
+    def state(model, opt):
+        layout = train_layout(model)
+        return ([t.numpy().copy() for _, t in layout.whole_params(model)]
+                + [t.numpy().copy() for _, t in layout.whole_moments(opt.m)]
+                + [t.numpy().copy() for _, t in layout.whole_moments(opt.v)] + [int(opt.step)])
+
+    def batch_fn(s, it=make_batch_iterator(cfg, batch=4, seq=16, seed=0), seen={}):
+        while s not in seen:
+            i, b = next(it)
+            seen[i] = b
+        return seen[s]
+
+    out = {}
+    for name, fail in (("plain", None), ("restart", fail_at)):
+        fired = []
+
+        def injector(s):
+            if s == fail and not fired:
+                fired.append(s)
+                raise RuntimeError("injected failure")
+
+        trainer = ResilientTrainer(train_step=step, batch_fn=batch_fn, ckpt_dir=dirs[name],
+                                   ckpt_every=every)
+        model, opt, hist = trainer.run(*fresh(), n_steps=steps, failure_injector=injector)
+        out[name] = (state(model, opt), [h["loss"] for h in hist], [h["step"] for h in hist])
+    model, opt = fresh()
+    restore_checkpoint(dirs["one_rank"], steps, (model, opt))
+    out["one_rank"] = state(model, opt)
+    return out
