@@ -207,27 +207,28 @@ paths:
     with a query offset (a WSP rank's queries at their positions) against
     its plain version in fp32 and bf16 at the ranks' calls below, an
     offset inside gemma2's window included; then granite-3-8b at full
-    width cut to 8 layers (B=4 x S=2048, bf16) on (2, 2) and (1, 4) under
+    width cut to 2 layers (B=4 x S=2048, bf16) on (2, 2) and (1, 4) under
     ISP, WSP, the mixed plan and the plan ``plan_for_cell(...,
     model_axis=m)`` chooses, and gemma2-9b at full width cut to 4 layers
     (B=1 x S=8192) on (1, 4) under the mixed plan: 4 ranks, processes
     sharing the card over gloo (``launch/mesh.run_ranks``), each its
-    shard; each rank's prefill logits and 8 decode steps against its rows
+    shard; each rank's prefill logits and 2 decode steps against its rows
     and vocab columns of the one-rank run of the same seeded weights on
-    the card, its flash launches, its collectives equal to the dry-run's
-    count for its coordinates; prefill wall, collective bytes by kind,
-    each rank's memory rise beside the dry-run's;
+    the card, its kernel launches and collectives equal to the dry-run's
+    for its coordinates, its prefill's memory rise within 1.15 x the
+    dry-run's; prefill wall, collective bytes by kind;
 22. the merged pipeline (``runtime/pipeline.py``) on (stage, data) meshes
     of the same 4 ranks sharing the card over gloo (``python3
     chip_smoke.py --phase-22`` runs it alone): (a) ``psum_compressed`` over
     a data axis of 4, a granite-3-8b FFN weight's gradient a rank, each
     rank's mean and residual bit-equal to the reference's formula reckoned
-    on the host in numpy; (b) granite-3-8b at full size (40 layers, bf16),
+    on the host in numpy; (b) granite-3-8b at full width, 20 of its 40
+    layers, bf16,
     B=8 x S=2048 as 4 microbatches of 2 rows, pipelined on (4, 1) and (2,
     2): each rank's logits against the one-rank forward of its rows, its
     flash launches, its collectives equal to a count from the shapes, the
     walls beside one rank's forward of the whole batch; (c) SGD steps of
-    ``build_pipeline_train_step`` at full width cut to 8 layers (3 steps on
+    ``build_pipeline_train_step`` at full width cut to 4 layers (2 steps on
     (4, 1), 1 on (2, 2)): the first step's loss, every gradient and every
     updated parameter against the one-rank plain step, every gradient
     non-zero, flash forward and backward launches, the collectives, each
@@ -244,14 +245,27 @@ paths:
     layers, B=1 x S=8192) on (1, 4) under the mixed plan and granite-3-8b
     (2 layers, B=4 x S=2048) on (2, 2) and (1, 4) under ISP, WSP and mixed,
     4 ranks sharing the card over gloo (``build_train_step(..., mesh=)``),
-    two steps a plan: the first step's loss, grad norm and every clipped
-    gradient piece against the one-rank step's of the same weights and
-    batch, flash launches and
-    collectives equal to the dry-run's meta step for the rank's
-    coordinates, each rank's peak beside the meta step's (at most 1.15 x),
-    the second step's wall beside one rank's step of the whole batch; (c)
-    the train launcher's ``main`` on the smoke granite-3-8b with ``--mesh
-    2x2`` beside ``--mesh 1x1``, their losses.
+    one step a plan: its loss, grad norm and every clipped gradient piece
+    against the one-rank step's of the same weights and batch, kernel
+    launches and collectives equal to the dry-run's meta step for the
+    rank's coordinates, each rank's peak beside the meta step's (at most
+    1.15 x), its wall beside one rank's step of the whole batch; (c) the
+    train launcher's ``main`` on the smoke granite-3-8b with ``--mesh 2x2``
+    beside ``--mesh 1x1``, their losses.
+24. rwkv / mamba blocks and the frontend stubs on (data, model) meshes
+    (``python3 chip_smoke.py --phase-24`` runs it alone): (a) WKV-6 and the
+    selective scan, forward and backward, at a rank's heads / channels
+    against their plain versions at their phases' bounds, timed; (b)
+    rwkv6-3b (4 layers) and jamba's period (8 layers, a dense FFN), both
+    fp32, and paligemma-3b and musicgen-medium (2 layers, bf16), B=4 x
+    S=2048 prefills and 4 decode steps on (2, 2) and (1, 4) under ISP, WSP
+    and mixed where the depth allows, jamba's decode with the cache whole
+    over time: each rank's logits against the one-rank run, launches and
+    collectives equal to the meta step's, the prefill's rise within 1.15 x
+    the meta step's; (c) one mesh train step of rwkv6-3b (2 layers, (1, 4)
+    mixed) and of jamba's period ((1, 4) ISP), held as 23(b) holds its
+    steps, launching the WKV-6 and scan backwards on a rank's heads and
+    channels.
 
 Any failed check raises and the script exits non-zero without a result.  The
 last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -537,18 +551,19 @@ P20_DRYRUN = ["-m", "repro_torch.launch.dryrun", "--all"]
 # (2, 2) mesh is built over the same 4 processes).  (arch, layers, B, S,
 # mesh shape, plans): each plan by name ("dse" is the one plan_for_cell(...,
 # model_axis=m) chooses, run unless it is one of the others).  Granite's
-# mixed plan turns at repeat 2 of 4; gemma2 at 4 layers (2 repeats of local
+# mixed plan turns at repeat 1 of 2; gemma2 at 4 layers (2 repeats of local
 # + global, so that a transition exists) at S=8192, so that a WSP rank's
-# window reaches into another rank's positions.  Depth is cut to keep the
-# phase near 90 s: every layer's collectives cross the host.
+# window reaches into another rank's positions.  Depth and decode steps are
+# cut (granite 4 → 2 layers, 8 → 2 steps, to make room for phase 24): every
+# layer's collectives cross the host.
 P21_AXES = ("data", "model")
 P21_WORLD = (1, 4)
 P21_CELLS = [
-    ("granite-3-8b", 4, 4, 2048, (2, 2), ("ISP", "WSP", "mixed", "dse")),
-    ("granite-3-8b", 4, 4, 2048, (1, 4), ("ISP", "WSP", "mixed", "dse")),
+    ("granite-3-8b", 2, 4, 2048, (2, 2), ("ISP", "WSP", "mixed", "dse")),
+    ("granite-3-8b", 2, 4, 2048, (1, 4), ("ISP", "WSP", "mixed", "dse")),
     ("gemma2-9b", 4, 1, 8192, (1, 4), ("mixed",)),
 ]
-P21_STEPS = 8
+P21_STEPS = 2
 # Mesh logits against the one-rank logits of the same bf16 weights, both on
 # the card: max abs difference within the flash kernel's bf16 bound times the
 # largest one-rank logit.  The two differ only in the order of bf16 sums (the
@@ -572,21 +587,23 @@ P21_FA_CASES = [
 # 21 sharing the card over gloo.  (a) psum_compressed over a data axis of 4,
 # one granite-3-8b FFN weight's gradient a rank (bf16, rank i's drawn at
 # scale 0.01 (i + 1), so the ranks' int8 scales differ).  (b) granite-3-8b
-# at full size, B=8 x S=2048 as n_micro = 4 microbatches of 2 rows, on each
+# at full width, 20 of its 40 layers (40 until phase 24 took the room), B=8
+# x S=2048 as n_micro = 4 microbatches of 2 rows, on each
 # (stage, data) mesh; each rank's logits against the one-rank forward of its
 # rows within P21_LOGIT_TOL.  (c) SGD steps at full width, depth cut by the
 # meta sizing (p22_meta_peak): at 8 layers the 4 ranks' steps hold 48.1 GiB
 # together and one rank's plain step, taken while the others hold only their
 # stages, 39.5 GiB; at 12 layers 62.7-66.5 and 54.0, too close to the card's
-# 78 GiB with 4 CUDA contexts and gloo's fp32 copies on top.  On each mesh:
-# (shape, steps).
+# 78 GiB with 4 CUDA contexts and gloo's fp32 copies on top; 4 layers since
+# phase 24 (its room).  On each mesh: (shape, steps).
 P22_AXES = ("stage", "data")
 P22_WORLD = (4, 1)
 P22_ARCH = "granite-3-8b"
 P22_N_MICRO, P22_MB, P22_S = 4, 2, 2048
 P22_FWD_MESHES = ((4, 1), (2, 2))
-P22_TRAIN_LAYERS = 8
-P22_TRAIN = (((4, 1), 3), ((2, 2), 1))
+P22_FWD_LAYERS = 20
+P22_TRAIN_LAYERS = 4
+P22_TRAIN = (((4, 1), 2), ((2, 2), 1))
 P22_LR = 5e-2                             # the reference's test step
 P22_PSUM_SHAPE = (4096, 12800)            # granite-3-8b's w1 [d, d_ff]
 # (c) the first pipelined step against the one-rank step (loss_fn, autograd,
@@ -633,7 +650,8 @@ P23_LSE_TOL = 1e-3
 # what the mixed plan's transition needs: granite-3-8b 2 layers (WSP then
 # ISP), gemma2-9b 4 (two repeats of local + global) at S=8192 so that a WSP
 # rank's window reaches into another rank's positions; and each plan runs
-# P23_STEPS steps (the phase then takes ~250 s of the script's 1,200).  Each
+# P23_STEPS steps (two took the phase ~250 s of the script's 1,200; one since
+# phase 24, its wall step 1's).  Each
 # plan runs its steps from the same weights; the first is held to the
 # one-rank gradient of the same weights and batch: the loss within
 # P23_LOSS_RTOL (bf16 logits, another order of sums), the grad norm and each
@@ -648,9 +666,54 @@ P23_CELLS = [
     ("granite-3-8b", 2, 4, 2048, (2, 2), ("ISP", "WSP", "mixed")),
     ("granite-3-8b", 2, 4, 2048, (1, 4), ("ISP", "WSP", "mixed")),
 ]
-P23_STEPS = 2
+P23_STEPS = 1
 P23_LOSS_RTOL = 1e-3
 P23_PEAK_MARGIN = 0.15     # launch/hlo_analysis.py RESERVED_MARGIN: fits' margin
+# Phase 24: the recurrent blocks and the frontend stubs on (data, model)
+# meshes, the 4 ranks of phase 21 sharing the card over gloo.  (a) the four
+# recurrent kernels at a rank's share of the main path's shapes against
+# their plain versions at their phases' bounds: WKV-6 and its backward on
+# rwkv6-3b's 40 / 4 heads (B, H, S, hd), the scan and its backward on
+# jamba's 8192 / 4 channels (B, S, d_inner, N; bf16, the model layout).
+P24_WKV = (4, 10, 2048, 64)
+P24_SCAN = (4, 2048, 2048, 16)
+# (b) serving at full width: (arch, layers, B, S, mesh shape, plans, config
+# overrides), plans as phase 21 names them, "whole_time" the ISP plan with
+# the decode cache whole over time.  rwkv6-3b at 4 layers (mixed turns at
+# repeat 2), jamba's period (8 layers, one repeat: no mixed plan) with a
+# dense FFN, the stubs at 2 layers (paligemma: 256 patches + 1,792 tokens);
+# jamba's WSP on (1, 4) only (on (2, 2) its prefill took 16.9 s of fp32
+# weight gathers through the host, a run's time limit spent on one check);
+# each rank's logits and P24_STEPS decode steps against the one-rank run
+# (P21_LOGIT_TOL), collectives and kernel launches = the dry-run's meta
+# step's, the prefill's rise within P23_PEAK_MARGIN of the meta step's.
+# rwkv6-3b and jamba run in fp32: in bf16 the mesh's other order of sums
+# (one bf16 rounding a layer) moves their random-init logits by 3-10 % of
+# their largest after 4 layers (rwkv6-3b) and 2.0 % after the period
+# (jamba), on either mesh and under ISP and WSP alike (the plain versions
+# on the CPU, B=2-4 x S=32-64), at or past the bound; the stubs move 0.5-0.7
+# %.  In fp32 a wrong head, channel, shard or state still moves them by O(1).
+RWKV_FP32 = {"param_dtype": "float32"}
+JAMBA_FP32 = {"moe": None, "param_dtype": "float32"}
+P24_CELLS = [
+    ("rwkv6-3b", 4, 4, 2048, (2, 2), ("ISP", "WSP", "mixed"), RWKV_FP32),
+    ("rwkv6-3b", 4, 4, 2048, (1, 4), ("ISP", "WSP", "mixed"), RWKV_FP32),
+    ("jamba-v0.1-52b", 8, 4, 2048, (2, 2), ("ISP",), JAMBA_FP32),
+    ("jamba-v0.1-52b", 8, 4, 2048, (1, 4), ("ISP", "WSP", "whole_time"), JAMBA_FP32),
+    ("paligemma-3b", 2, 4, 2048, (2, 2), ("ISP", "WSP", "mixed"), {}),
+    ("paligemma-3b", 2, 4, 2048, (1, 4), ("ISP", "WSP", "mixed"), {}),
+    ("musicgen-medium", 2, 4, 2048, (2, 2), ("ISP", "WSP", "mixed"), {}),
+    ("musicgen-medium", 2, 4, 2048, (1, 4), ("ISP", "WSP", "mixed"), {}),
+]
+P24_STEPS = 2
+# (c) one mesh train step each (AdamW, ZeRO), held as phase 23(b) holds its
+# steps: rwkv6-3b at 2 layers on (1, 4) mixed (WSP then ISP), jamba's
+# period with a dense FFN on (1, 4) ISP, both in fp32 as in (b) (the
+# one-rank reference step of jamba's period: 44.9 GiB on meta, rank 0 alone).
+P24_TRAIN = [
+    ("rwkv6-3b", 2, 4, 2048, (1, 4), ("mixed",), RWKV_FP32),
+    ("jamba-v0.1-52b", 8, 4, 2048, (1, 4), ("ISP",), JAMBA_FP32),
+]
 
 
 def _script(name: str):
@@ -2660,7 +2723,8 @@ def dryrun_phase(card: str, phase_launches: dict) -> None:
 
 def mesh_plan_kwargs(cfg, B: int, S: int, m: int, names) -> dict:
     """Each named plan of a phase-21 cell as ShardPlan keywords: ISP, WSP,
-    mixed (WSP, then ISP from the middle repeat) and "dse", the plan
+    mixed (WSP, then ISP from the middle repeat), whole_time (ISP, the
+    decode cache whole over time) and "dse", the plan
     plan_for_cell chooses at model axis m (left out where it is one of the
     others, which the caller prints)."""
     from repro_torch.runtime.planner import plan_for_cell
@@ -2668,7 +2732,9 @@ def mesh_plan_kwargs(cfg, B: int, S: int, m: int, names) -> dict:
     fixed = {"ISP": {"p1": "ISP", "p2": "ISP", "transition_repeat": None},
              "WSP": {"p1": "WSP", "p2": "WSP", "transition_repeat": None},
              "mixed": {"p1": "WSP", "p2": "ISP",
-                       "transition_repeat": cfg.pattern_repeats // 2}}
+                       "transition_repeat": cfg.pattern_repeats // 2},
+             "whole_time": {"p1": "ISP", "p2": "ISP", "transition_repeat": None,
+                            "shard_kv_cache_time": False}}
     plans = {n: fixed[n] for n in names if n != "dse"}
     if "dse" in names:
         p = plan_for_cell(cfg, S, B, P21_AXES, model_axis=m, kind="prefill")
@@ -2691,31 +2757,76 @@ def p21_rank(world, cells: list, steps: int) -> list:
     from repro_torch.launch.mesh import make_mesh
 
     out = []
-    for arch, layers, B, S, shape, plans, seed in cells:
+    for arch, layers, B, S, shape, plans, seed, *rest in cells:
         mesh = world if tuple(shape) == world.dims else make_mesh(shape, P21_AXES, world.device)
-        out.append(p21_cell(mesh, arch, layers, B, S, plans, seed, steps))
+        out.append(p21_cell(mesh, arch, layers, B, S, plans, seed, steps, *rest))
         torch.cuda.empty_cache()
     return out
 
 
-def p21_cell(mesh, arch: str, layers: int, B: int, S: int, plans: dict, seed: int,
-             steps: int) -> dict:
-    """One rank of a phase-21 cell.
+def mesh_kernel_launches() -> dict:
+    """The hand kernels' launch counts since the last reset, by the dry-run's
+    names, those that launched."""
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_kernel,
+                                                            flash_attention_kernel)
+    from repro_torch.kernels.mamba.kernel import mamba_scan_bwd_kernel, mamba_scan_kernel
+    from repro_torch.kernels.rwkv6.kernel import wkv6_bwd_kernel, wkv6_kernel
 
-    The whole model from the seed, then, one rank at a time (each holds a
-    full-vocab fp32 logit tensor meanwhile), its one-rank prefill and
-    ``steps`` decode steps from the prefill's caches: this rank's rows and
-    vocab columns of their logits.  Then per plan: the rank's shard, the
-    mesh prefill (wall time, flash launches, the allocator's rise, the
-    collectives) and the decode steps from the rank's pieces of the same
-    caches, each against the one-rank logits, and the dry-run's prediction
-    for this rank (``trace_step`` on a meta rank at these coordinates):
-    its collectives and its peak.  Raises on any failed check."""
+    kernels = (flash_attention_kernel, flash_attention_bwd_kernel, wkv6_kernel, wkv6_bwd_kernel,
+               mamba_scan_kernel, mamba_scan_bwd_kernel)
+    return {k.__name__: k.launches for k in kernels if k.launches}
+
+
+def reset_mesh_launches() -> None:
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_kernel,
+                                                            flash_attention_kernel)
+    from repro_torch.kernels.mamba.kernel import mamba_scan_bwd_kernel, mamba_scan_kernel
+    from repro_torch.kernels.rwkv6.kernel import wkv6_bwd_kernel, wkv6_kernel
+
+    for k in (flash_attention_kernel, flash_attention_bwd_kernel, wkv6_kernel, wkv6_bwd_kernel,
+              mamba_scan_kernel, mamba_scan_bwd_kernel):
+        k.launches = 0
+
+
+def prefill_args(cfg, B: int, S: int, seed: int) -> tuple:
+    """A prefill's host inputs of S positions, as the prefill step takes them
+    (``build_prefill_step``): tokens, or the audio stub's frames, or the
+    vision stub's text tokens and patches ahead of them (bf16 embeddings
+    of the data pipeline's scale, 0.02)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    P = cfg.frontend_tokens if cfg.frontend == "vision_stub" else 0
+    if cfg.frontend == "audio_stub":
+        return (0.02 * torch.randn(B, S, cfg.d_model, generator=g)).to(torch.bfloat16),
+    tokens = torch.randint(0, cfg.vocab, (B, S - P), generator=g)
+    if P:
+        return tokens, (0.02 * torch.randn(B, P, cfg.d_model, generator=g)).to(torch.bfloat16)
+    return tokens,
+
+
+def p21_cell(mesh, arch: str, layers: int, B: int, S: int, plans: dict, seed: int,
+             steps: int, over: dict | None = None) -> dict:
+    """One rank of a phase-21 (or 24) cell; ``over``: config overrides.
+
+    One rank at a time, the whole model from the seed, its one-rank prefill
+    and ``steps`` decode steps from the prefill's caches (this rank's rows
+    and vocab columns of their logits), then the rank's shard, the whole
+    model freed: the card holds one whole model beside the shards.  The
+    pieces a rank stores do not depend on the plan, so one shard serves
+    every plan (its ``shard`` placed anew).  Then per plan: the mesh
+    prefill (wall time, every hand kernel's launches, the allocator's
+    rise, the collectives) and the decode steps from the rank's pieces of
+    the same caches, each against the one-rank logits, and the dry-run's
+    prediction for this rank (``trace_step`` on a meta rank at these
+    coordinates): its collectives, its kernel calls and its peak (the
+    prefill's rise above what the rank held, less its inputs, within
+    ``P23_PEAK_MARGIN`` of the meta step's temporaries).  Raises on any
+    failed check."""
     import torch
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import init_kv_cache, init_params
@@ -2723,9 +2834,9 @@ def p21_cell(mesh, arch: str, layers: int, B: int, S: int, plans: dict, seed: in
     from repro_torch.runtime.sharding import ShardPlan, rank_shard, shard_caches, shard_model
 
     dev = mesh.device
-    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
-    whole = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
-    tokens = torch.randint(0, cfg.vocab, (B, S), generator=torch.Generator().manual_seed(seed + 1))
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers, **(over or {}))
+    args = prefill_args(cfg, B, S, seed + 1)
+    in_bytes = sum(t.nbytes for t in args)
     dtoks = torch.randint(0, cfg.vocab, (steps, B, 1),
                           generator=torch.Generator().manual_seed(seed + 2))
     place = rank_shard(cfg, ShardPlan(P21_AXES), mesh)     # rows and vocab: the same for all
@@ -2733,14 +2844,22 @@ def p21_cell(mesh, arch: str, layers: int, B: int, S: int, plans: dict, seed: in
     v0, v1 = place.vocab
     for turn in range(mesh.size):
         if turn == mesh.rank:
+            whole = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
             with torch.inference_mode():
-                logits, pre = whole(tokens.to(dev), collect_cache=True)
+                inputs = [t.to(dev) for t in args]
+                if cfg.frontend == "audio_stub":
+                    inputs = [None, *inputs]
+                logits, pre = whole(*inputs, collect_cache=True)
+                del inputs
                 ref = logits[rows, :, v0:v1].clone()
                 del logits
-                caches = init_kv_cache(cfg, B, S + steps, torch.bfloat16, dev)
+                caches = init_kv_cache(cfg, B, S + steps, getattr(torch, cfg.param_dtype), dev)
                 for full, part in zip(caches, pre):
                     for n in full:
-                        full[n][:, :, :S] = part[n]
+                        if n in ("k", "v"):
+                            full[n][:, :, :S] = part[n]
+                        else:
+                            full[n].copy_(part[n])
                 del pre
                 start = tuple({n: t.clone() for n, t in c.items()} for c in caches)
                 dref = []
@@ -2749,6 +2868,8 @@ def p21_cell(mesh, arch: str, layers: int, B: int, S: int, plans: dict, seed: in
                                                    torch.full((B,), S + t, device=dev), caches)
                     dref.append(lg[rows, :, v0:v1].clone())
                 del caches, lg
+            model = shard_model(whole, ShardPlan(P21_AXES), mesh)
+            del whole
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
         dist.barrier()
@@ -2757,19 +2878,19 @@ def p21_cell(mesh, arch: str, layers: int, B: int, S: int, plans: dict, seed: in
     out = {}
     for name, kw in plans.items():
         plan = ShardPlan(P21_AXES, **kw)
-        model = shard_model(whole, plan, mesh)
+        model.shard = rank_shard(cfg, plan, mesh)
         prefill = build_prefill_step(cfg, plan, dev, mesh)
         torch.cuda.synchronize()
         dist.barrier()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
         mesh.comm.reset()
-        flash_attention_kernel.launches = 0
+        reset_mesh_launches()
         t0 = time.perf_counter()
-        local = prefill(model, tokens)
+        local = prefill(model, *args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = flash_attention_kernel.launches
+        launches = mesh_kernel_launches()
         rise = torch.cuda.max_memory_allocated() - before
         calls = dict(mesh.comm.calls)
         stats = mesh.comm.stats()
@@ -2778,25 +2899,29 @@ def p21_cell(mesh, arch: str, layers: int, B: int, S: int, plans: dict, seed: in
         del local
         decode = build_decode_step(cfg, plan, B, S + steps, dev, mesh)
         state = shard_caches(start, model.shard)
-        derr, dcalls = 0.0, None
+        derr, dcalls, dlaunches = 0.0, None, None
         dist.barrier()
         t0 = time.perf_counter()
         for t in range(steps):
             mesh.comm.reset()
+            reset_mesh_launches()
             lg, state = decode(model, dtoks[t], torch.full((B,), S + t), state)
             if t == 0:
-                dcalls = dict(mesh.comm.calls)
+                dcalls, dlaunches = dict(mesh.comm.calls), mesh_kernel_launches()
             derr = max(derr, (lg - dref[t]).abs().max().item())
         torch.cuda.synchronize()
         dwall = time.perf_counter() - t0
-        del state, model
+        del state
         meta = make_mesh(mesh.dims, mesh.axis_names, meta=True, coords=mesh.coords)
         pred = dryrun.trace_step(cfg, S, B, "prefill", plan, meta)
         pcalls = dict(meta.comm.calls)
         meta = make_mesh(mesh.dims, mesh.axis_names, meta=True, coords=mesh.coords)
-        dryrun.trace_step(cfg, S + steps, B, "decode", plan, meta)
+        dpred = dryrun.trace_step(cfg, S + steps, B, "decode", plan, meta)
         where = f"{arch} {tuple(mesh.dims)} {name} rank {mesh.rank}"
-        check(launches == layers, f"{where}: {launches} flash launches, expected {layers}")
+        check(launches == pred["kernel_calls"],
+              f"{where}: kernel launches {launches}, the dry-run's {pred['kernel_calls']}")
+        check(dlaunches == dpred["kernel_calls"],
+              f"{where}: decode launches {dlaunches}, the dry-run's {dpred['kernel_calls']}")
         check(err <= P21_LOGIT_TOL * scale,
               f"{where}: prefill logits max abs err {err} > {P21_LOGIT_TOL} x {scale}")
         check(derr <= P21_LOGIT_TOL * dscale,
@@ -2805,6 +2930,9 @@ def p21_cell(mesh, arch: str, layers: int, B: int, S: int, plans: dict, seed: in
         check(dcalls == dict(meta.comm.calls),
               f"{where}: decode collectives {dcalls} vs the dry-run's {meta.comm.calls}")
         mem = pred["memory_analysis"]
+        check(rise - in_bytes <= (1 + P23_PEAK_MARGIN) * mem["temp_size_bytes"],
+              f"{where}: prefill rise {rise} B less inputs {in_bytes} B over the meta "
+              f"step's temporaries {mem['temp_size_bytes']} B x {1 + P23_PEAK_MARGIN}")
         out[name] = {"wall_s": wall, "decode_s": dwall, "launches": launches, "err": err,
                      "scale": scale, "decode_err": derr, "decode_scale": dscale,
                      "bytes_by_kind": stats["bytes_by_kind"],
@@ -2869,19 +2997,32 @@ def mesh_phase(get_config, card: str, sync) -> int:
                       threads=2)
     print(f"  {n} ranks ran every cell in {time.perf_counter() - t0:.1f} s (start, init, "
           f"one-rank references, every plan)")
-    mesh_launches = None
-    for i, (arch, layers, B, S, shape, plans, _) in enumerate(cells):
+    serving_report(get_config, cells, ranks, P21_STEPS, card)
+    i = next(i for i, c in enumerate(cells) if c[0] == "granite-3-8b" and c[4] == (1, 4))
+    print(f"  phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return ranks[0][i]["WSP"]["launches"]["flash_attention_kernel"]
+
+
+def serving_report(get_config, cells: list, ranks: list, steps: int, card: str) -> None:
+    """Phase 21's and 24's lines of each cell and plan from every rank's
+    :func:`p21_cell` results."""
+    n = len(ranks)
+    for i, (arch, layers, B, S, shape, plans, *rest) in enumerate(cells):
         full = get_config(arch)
-        print(f"  {arch} full width, layers {full.n_layers}→{layers}, bf16, B={B} x S={S} on a "
-              f"{shape} (data, model) mesh: {n} ranks sharing one card over gloo")
+        over = rest[1] if len(rest) > 1 else {}
+        dtype = over.get("param_dtype", "bf16").replace("bfloat16", "bf16").replace("float", "fp")
+        print(f"  {arch} full width, layers {full.n_layers}→{layers}"
+              + (f", moe → dense FFN d_ff {full.d_ff}" if "moe" in over else "")
+              + f", {dtype}, B={B} x S={S} on a {shape} (data, model) mesh: {n} ranks sharing "
+                "one card over gloo")
         for name, kw in plans.items():
             per = [r[i][name] for r in ranks]
             wall = max(p["wall_s"] for p in per)
             print(f"  {name} {kw}: prefill wall {wall * 1e3:.1f} ms (slowest rank), "
-                  f"{P21_STEPS} decode steps {max(p['decode_s'] for p in per) * 1e3:.1f} ms; "
+                  f"{steps} decode steps {max(p['decode_s'] for p in per) * 1e3:.1f} ms; "
                   f"max abs err vs one rank: prefill {max(p['err'] for p in per):.3e} "
                   f"(scale {per[0]['scale']:.3e}), decode "
-                  f"{max(p['decode_err'] for p in per):.3e}; flash launches a rank "
+                  f"{max(p['decode_err'] for p in per):.3e}; kernel launches a rank "
                   f"{per[0]['launches']}; {n} ranks sharing one card over gloo {card}")
             print(f"    collectives a rank (result bytes by kind, = the dry-run's count): "
                   f"{json.dumps(per[0]['bytes_by_kind'])} calls "
@@ -2891,10 +3032,6 @@ def mesh_phase(get_config, card: str, sync) -> int:
                 for r, p in enumerate(per))
                 + f"; dry-run peak {per[0]['pred_peak'] / 2**30:.3f} GiB (args "
                   f"{per[0]['args'] / 2**30:.3f})")
-            if arch == "granite-3-8b" and shape == (1, 4) and name == "WSP":
-                mesh_launches = per[0]["launches"]
-    print(f"  phase 21: {time.perf_counter() - t_phase:.1f} s")
-    return mesh_launches
 
 
 def p22_expected_calls(cfg, shape: tuple, stage: int, n_micro: int, mb: int, S: int,
@@ -3230,7 +3367,7 @@ def pipeline_phase(get_config, card: str) -> int:
     t_phase = time.perf_counter()
     full = get_config(P22_ARCH)
     specs = {"batch": (P22_N_MICRO, P22_MB, P22_S), "psum_shape": P22_PSUM_SHAPE,
-             "forward_cfg": full,
+             "forward_cfg": dataclasses.replace(full, n_layers=P22_FWD_LAYERS),
              "forward_meshes": P22_FWD_MESHES, "train": P22_TRAIN,
              "train_cfg": dataclasses.replace(full, n_layers=P22_TRAIN_LAYERS, remat=False)}
     print(f"phase 22: the merged pipeline (runtime/pipeline.py): {P22_ARCH}, B="
@@ -3258,7 +3395,7 @@ def p22_report(ranks: list, specs: dict, card: str, t_phase: float) -> int:
     for i, shape in enumerate(specs["forward_meshes"]):
         per = [r["forward"][i] for r in ranks]
         walls = [max(p["walls_s"][k] for p in per) for k in range(2)]
-        print(f"  (b) {cfg.name} full size ({cfg.n_layers} layers, {cfg.param_dtype}) on (stage, data) "
+        print(f"  (b) {cfg.name} full width ({cfg.n_layers} layers, {cfg.param_dtype}) on (stage, data) "
               f"{shape}: {per[0]['layers']} layers a stage, {n_micro + shape[0] - 1} beats; "
               f"pipelined forward wall {walls[0] * 1e3:.1f} / {walls[1] * 1e3:.1f} ms (runs 1 / "
               f"2, slowest rank); logits vs the one-rank forward of each rank's rows: max abs "
@@ -3439,9 +3576,9 @@ def p23_rank(world, cells: list, steps: int) -> list:
     from repro_torch.launch.mesh import make_mesh
 
     out = []
-    for i, (arch, layers, B, S, shape, plans) in enumerate(cells):
+    for i, (arch, layers, B, S, shape, plans, *over) in enumerate(cells):
         mesh = world if tuple(shape) == world.dims else make_mesh(shape, P21_AXES, world.device)
-        out.append(p23_cell(mesh, arch, layers, B, S, plans, 230 + i, steps))
+        out.append(p23_cell(mesh, arch, layers, B, S, plans, 230 + i, steps, *over))
         torch.cuda.empty_cache()
     return out
 
@@ -3467,7 +3604,7 @@ def p23_reference(mesh, cfg, batch: dict, seed: int, steps: int, mine) -> dict:
 
     dev, sync = mesh.device, torch.cuda.synchronize
     dtype = getattr(torch, cfg.param_dtype)
-    sizes = [math.prod(hi - lo for lo, hi in lf.box) for lf in mine.leaves]
+    sizes = [math.prod(lf.moment_shape) for lf in mine.leaves]
     if mesh.rank == 0:
         plan0 = ShardPlan(P21_AXES)
         model = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
@@ -3507,7 +3644,7 @@ def p23_reference(mesh, cfg, batch: dict, seed: int, steps: int, mine) -> dict:
         torch.cuda.empty_cache()
         for r in range(1, mesh.size):
             dist.send(flat[r].view(torch.uint8), dst=r)
-        head["one_rank_s"] = statistics.median(walls[1:])
+        head["one_rank_s"] = statistics.median(walls[1:] or walls)
         mine_flat = flat[0]
         del flat, parts
     else:
@@ -3517,28 +3654,27 @@ def p23_reference(mesh, cfg, batch: dict, seed: int, steps: int, mine) -> dict:
     obj = [head]
     dist.broadcast_object_list(obj, src=0)
     head = obj[0]
-    head["pieces"] = [t.view(tuple(hi - lo for lo, hi in lf.box)) for lf, t in
+    head["pieces"] = [t.view(lf.moment_shape) for lf, t in
                       zip(mine.leaves, mine_flat.split(sizes), strict=True)]
     return head
 
 
 def p23_cell(mesh, arch: str, layers: int, B: int, S: int, plans: tuple, seed: int,
-             steps: int) -> dict:
-    """One rank of a phase-23(b) cell.  The one-rank reference first
-    (:func:`p23_reference`); then per plan the rank's shard built as the
-    launcher builds it (``launch.train.rank_model``: the ranks in turns),
-    zero AdamW pieces and ``steps`` mesh steps: the first held to the
-    reference (the rank's clipped gradient read from its first moment as
-    the reference's is), its flash launches and collectives to the
-    dry-run's meta step for this rank, its peak beside the meta step's.
-    Raises on any failed check."""
+             steps: int, over: dict | None = None) -> dict:
+    """One rank of a phase-23(b) (or 24(c)) cell; ``over``: config
+    overrides.  The one-rank reference first (:func:`p23_reference`); then
+    per plan the rank's shard built as the launcher builds it
+    (``launch.train.rank_model``: the ranks in turns), zero AdamW pieces
+    and ``steps`` mesh steps: the first held to the reference (the rank's
+    clipped gradient read from its first moment as the reference's is), its
+    hand kernels' launches and collectives to the dry-run's meta step for
+    this rank, its peak beside the meta step's.  Raises on any failed
+    check."""
     import torch
     import torch.distributed as dist
 
     from repro_torch import tree as pytree
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_kernel,
-                                                            flash_attention_kernel)
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import rank_model
@@ -3547,7 +3683,7 @@ def p23_cell(mesh, arch: str, layers: int, B: int, S: int, plans: tuple, seed: i
 
     dev = mesh.device
     sync = torch.cuda.synchronize
-    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers, **(over or {}))
     tok = torch.randint(0, cfg.vocab, (B, S + 1), generator=torch.Generator().manual_seed(seed))
     batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
     where = f"{arch} {tuple(mesh.dims)} rank {mesh.rank}"
@@ -3581,7 +3717,7 @@ def p23_cell(mesh, arch: str, layers: int, B: int, S: int, plans: tuple, seed: i
         for i in range(steps):
             sync()
             dist.barrier()
-            flash_attention_kernel.launches = flash_attention_bwd_kernel.launches = 0
+            reset_mesh_launches()
             mesh.comm.reset()
             t0 = time.perf_counter()
             model, opt, met = step(model, opt, batch)
@@ -3592,8 +3728,7 @@ def p23_cell(mesh, arch: str, layers: int, B: int, S: int, plans: tuple, seed: i
             if i:
                 continue
             peak = torch.cuda.max_memory_allocated() - base
-            launches = {"flash_attention_kernel": flash_attention_kernel.launches,
-                        "flash_attention_bwd_kernel": flash_attention_bwd_kernel.launches}
+            launches = mesh_kernel_launches()
             calls = dict(mesh.comm.calls)
             stats = mesh.comm.stats()
             gn = met["grad_norm"].item()
@@ -3614,7 +3749,7 @@ def p23_cell(mesh, arch: str, layers: int, B: int, S: int, plans: tuple, seed: i
                   f"{where} {name}: grad norm {gn} vs the one-rank {ref['grad_norm']}")
             check(calls == pred_calls, f"{where} {name}: collectives {calls}, the meta step's "
                                        f"{pred_calls}")
-            check(launches == pred["kernel_calls"], f"{where} {name}: flash launches "
+            check(launches == pred["kernel_calls"], f"{where} {name}: kernel launches "
                                                     f"{launches}, the meta step's "
                                                     f"{pred['kernel_calls']}")
             predicted = pred["memory_analysis"]["peak_bytes"]
@@ -3673,8 +3808,6 @@ def mesh_train_phase(get_config, card: str, sync) -> dict:
     step on (data, model) meshes of 4 ranks sharing the card over gloo.
     Returns (a)'s main case and one rank's flash backward launches in (b)'s
     granite-3-8b WSP step on (1, 4)."""
-    import statistics
-
     from repro_torch.launch.mesh import run_ranks
 
     t_phase = time.perf_counter()
@@ -3700,38 +3833,179 @@ def mesh_train_phase(get_config, card: str, sync) -> dict:
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
     print(f"  {len(ranks)} ranks ran every cell in {time.perf_counter() - t0:.1f} s")
-    train_launches = None
-    later = "step 2" if P23_STEPS == 2 else f"median of steps 2-{P23_STEPS}"
-    for i, (arch, layers, B, S, shape, plans) in enumerate(P23_CELLS):
+    train_report(get_config, P23_CELLS, ranks, P23_STEPS, card, "(b)")
+    i = next(i for i, c in enumerate(P23_CELLS) if c[0] == "granite-3-8b" and c[4] == (1, 4))
+    train_launches = ranks[0][i]["plans"]["WSP"]["launches"]["flash_attention_bwd_kernel"]
+    p23_launcher(card)
+    print(f"  phase 23: {time.perf_counter() - t_phase:.1f} s")
+    return {"bwd": fa, "mesh_train_launches": train_launches}
+
+
+def train_report(get_config, cells: list, ranks: list, steps: int, card: str,
+                 part: str) -> None:
+    """Phase 23(b)'s and 24(c)'s lines of each cell and plan from every
+    rank's :func:`p23_cell` results."""
+    later = ("step 1" if steps == 1 else "step 2" if steps == 2
+             else f"median of steps 2-{steps}")
+    for i, (arch, layers, B, S, shape, plans, *over) in enumerate(cells):
         full = get_config(arch)
         per = [r[i] for r in ranks]
-        print(f"  (b) {arch} full width, reduced: n_layers {full.n_layers}→{layers}, bf16, "
-              f"B={B} x S={S}, on a {shape} (data, model) mesh; the one-rank step: loss "
+        over = over[0] if over else {}
+        dense = ", moe → dense FFN" if "moe" in over else ""
+        dtype = over.get("param_dtype", "bf16").replace("float", "fp")
+        print(f"  {part} {arch} full width, reduced: n_layers {full.n_layers}→{layers}{dense}, "
+              f"{dtype}, B={B} x S={S}, on a {shape} (data, model) mesh; the one-rank step: loss "
               f"{per[0]['ref_loss']:.6f}, grad norm {per[0]['ref_grad_norm']:.6f}; one rank's "
               f"step of the whole batch {per[0]['one_rank_s'] * 1e3:.1f} ms ({later}) {card}")
         for name in plans:
             pp = [r["plans"][name] for r in per]
-            walls = [max(p["walls_s"][k] for p in pp) for k in range(P23_STEPS)]
+            walls = [max(p["walls_s"][k] for p in pp) for k in range(steps)]
             print(f"    {name}: losses {pp[0]['losses']} (grad norm {pp[0]['grad_norm']:.6f}); "
                   f"worst gradient err / leaf's largest "
                   + ", ".join(f"r{r} {p['worst_grad']:.3e} ({p['worst_leaf']})"
                               for r, p in enumerate(pp))
-                  + f"; flash launches a rank {pp[0]['launches']}; step walls "
+                  + f"; kernel launches a rank {pp[0]['launches']}; step walls "
                   + ", ".join(f"{w * 1e3:.1f}" for w in walls)
                   + f" ms, {later} "
-                  f"{statistics.median(walls[1:]) * 1e3:.1f} ms (slowest rank; 4 ranks sharing "
-                  f"one card over gloo: not multi-GPU times) {card}")
+                  f"{statistics.median(walls[1:] or walls) * 1e3:.1f} ms (slowest rank; 4 ranks "
+                  f"sharing one card over gloo: not multi-GPU times) {card}")
             print(f"      collectives a rank (result bytes by kind, = the dry-run's): "
                   f"{json.dumps(pp[0]['bytes_by_kind'])} calls "
                   f"{json.dumps(pp[0]['count_by_kind'])}")
             print("      peak a rank (measured / meta step): " + ", ".join(
                 f"r{r} {p['peak'] / 2**30:.3f} / {p['predicted'] / 2**30:.3f} GiB"
                 for r, p in enumerate(pp)))
-            if arch == "granite-3-8b" and tuple(shape) == (1, 4) and name == "WSP":
-                train_launches = pp[0]["launches"]["flash_attention_bwd_kernel"]
-    p23_launcher(card)
-    print(f"  phase 23: {time.perf_counter() - t_phase:.1f} s")
-    return {"bwd": fa, "mesh_train_launches": train_launches}
+
+
+def p24_kernels(card: str, sync) -> dict:
+    """Phase 24(a): WKV-6 and the scan, forward and backward, at a rank's
+    share of the main path's shapes (P24_WKV, P24_SCAN) against their plain
+    versions at phases 6, 9, 18 and 19's bounds; each timed beside its
+    bound.  Returns {kernel: (max abs err, ms, bound ms)}."""
+    import torch
+
+    from repro_torch.kernels.mamba.kernel import (mamba_scan_bwd_cost, mamba_scan_bwd_kernel,
+                                                  mamba_scan_cost, mamba_scan_kernel)
+    from repro_torch.kernels.mamba.ref import mamba_scan_bwd_ref, mamba_scan_ref
+    from repro_torch.kernels.rwkv6.kernel import (wkv6_bwd_cost, wkv6_bwd_kernel, wkv6_cost,
+                                                  wkv6_kernel)
+    from repro_torch.kernels.rwkv6.ref import wkv6_bwd_ref, wkv6_ref
+    from repro_torch.launch.hlo_analysis import kernel_bound
+
+    dev = torch.device("cuda")
+    out = {}
+
+    def held(name, got, want, tol, row_tol, names):
+        errs = []
+        for gname, a, w in zip(names, got, want, strict=True):
+            err = (a.float() - w.float()).abs().max().item()
+            rel = row_rel_err(a, w, floor=FA_BWD_ROW_FLOOR)
+            check(bool(torch.isfinite(a).all()), f"24(a) {name} {gname}: non-finite")
+            check(torch.allclose(a.float(), w.float(), rtol=tol, atol=tol),
+                  f"24(a) {name} {gname}: kernel vs plain max abs err {err} (tol {tol})")
+            check(rel <= row_tol, f"24(a) {name} {gname}: per-row error {rel} (tol {row_tol})")
+            errs.append(f"{gname} {err:.2e} / row {rel:.2e}")
+        return max(float(e.split()[1]) for e in errs), ", ".join(errs)
+
+    def timed(name, fn, cost, err, errs, shape):
+        ms = cuda_ms(fn, 20)
+        bound_s, by = kernel_bound(cost)
+        out[name] = (err, ms, 1e3 * bound_s)
+        print(f"  (a) {name} at {shape}: {errs}; {ms:.4f} ms, bound {1e3 * bound_s:.4f} ms "
+              f"({by}) {card}")
+
+    B, H, S, hd = P24_WKV
+    args = wkv_inputs(dev, B, H, S, hd, seed=24)
+    err, errs = held("wkv6", wkv6_kernel(*args), wkv6_ref(*args), WKV_TOL, WKV_ROW_REL_TOL,
+                     ("out", "S_last"))
+    timed("wkv6", lambda: wkv6_kernel(*args), wkv6_cost(*args), err, errs,
+          f"B={B} H={H} S={S} hd={hd} (rwkv6-3b's heads over a model axis of 4)")
+    dout = torch.randn(B, H, S, hd, generator=torch.Generator(device=dev).manual_seed(1),
+                       device=dev)
+    seg_state = wkv6_kernel(*args, with_states=True)[2]
+    err, errs = held("wkv6_bwd", wkv6_bwd_kernel(*args, seg_state, dout, None),
+                     wkv6_bwd_ref(*args, dout, None), WKV_TOL, WKV_ROW_REL_TOL,
+                     ("dr", "dk", "dv", "dlogw", "du"))
+    timed("wkv6_bwd", lambda: wkv6_bwd_kernel(*args, seg_state, dout, None),
+          wkv6_bwd_cost(*args, seg_state), err, errs, f"B={B} H={H} S={S} hd={hd}")
+    del args, dout, seg_state
+    B, S, di, N = P24_SCAN
+    args = mamba_inputs(dev, B, S, di, N, torch.bfloat16, True, seed=24)
+    err, errs = held("mamba_scan", mamba_scan_kernel(*args), mamba_scan_ref(*args), MAMBA_TOL,
+                     MAMBA_ROW_REL_TOL, ("y", "h_last"))
+    timed("mamba_scan", lambda: mamba_scan_kernel(*args), mamba_scan_cost(*args), err, errs,
+          f"B={B} S={S} d_inner={di} N={N} bf16 (jamba's channels over a model axis of 4)")
+    dy = torch.randn(B, S, di, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    states = mamba_scan_kernel(*args, with_states=True)[2]
+    err, errs = held("mamba_scan_bwd",
+                     mamba_scan_bwd_kernel(*args, states, dy, None, grad_dtype=torch.float32),
+                     mamba_scan_bwd_ref(*args, dy, None), MAMBA_TOL, MAMBA_ROW_REL_TOL,
+                     MAMBA_BWD_NAMES)
+    timed("mamba_scan_bwd", lambda: mamba_scan_bwd_kernel(*args, states, dy, None),
+          mamba_scan_bwd_cost(*args, states), err, errs, f"B={B} S={S} d_inner={di} N={N}")
+    del args, dy, states
+    sync()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p24_rank(world, cells: list, steps: int, train_cells: list) -> dict:
+    """One rank of phase 24(b) and (c): :func:`p21_rank` over the serving
+    cells, then :func:`p23_rank` over the train cells, one step each."""
+    return {"serve": p21_rank(world, cells, steps), "train": p23_rank(world, train_cells, 1)}
+
+
+def recurrent_mesh_phase(get_config, card: str, sync) -> dict:
+    """Phase 24: (a) the recurrent kernels at a rank's shapes; (b) the
+    serving steps of rwkv6-3b, jamba's period with a dense FFN and the two
+    frontend stubs on (data, model) meshes of 4 ranks sharing the card over
+    gloo, and a decode with the cache whole over time; (c) one mesh train
+    step of rwkv6-3b and of jamba's period.  Returns one rank's launches of
+    each recurrent kernel on its mesh (prefill: rwkv6-3b WSP and jamba ISP
+    on (1, 4); training: (c)'s steps)."""
+    from repro_torch.launch.mesh import run_ranks
+
+    t_phase = time.perf_counter()
+    print("phase 24: rwkv / mamba blocks and the frontend stubs on (data, model) meshes of "
+          f"{P21_WORLD[0] * P21_WORLD[1]} ranks sharing one card over gloo; the recurrent "
+          "kernels at a rank's shapes")
+    kernels = p24_kernels(card, sync)
+    cells = []
+    for i, (arch, layers, B, S, shape, names, over) in enumerate(P24_CELLS):
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers, **over)
+        cells.append((arch, layers, B, S, shape, mesh_plan_kwargs(cfg, B, S, shape[1], names),
+                      240 + i, over))
+    t0 = time.perf_counter()
+    # one set of rank processes for (b) and (c), with the allocator of
+    # phase 23(b) (512-byte blocks, the dry-run's rule)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = run_ranks(p24_rank, P21_WORLD, P21_AXES, cells, P24_STEPS, P24_TRAIN,
+                          device="cuda", threads=2)
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    print(f"  (b), (c) {len(ranks)} ranks ran every cell in {time.perf_counter() - t0:.1f} s")
+    serving_report(get_config, cells, [r["serve"] for r in ranks], P24_STEPS, card)
+    launches = {}
+    for i, c in enumerate(cells):
+        if c[4] == (1, 4) and c[0] in ("rwkv6-3b", "jamba-v0.1-52b"):
+            plan = "WSP" if c[0] == "rwkv6-3b" else "ISP"
+            launches.update(ranks[0]["serve"][i][plan]["launches"])
+    train_report(get_config, P24_TRAIN, [r["train"] for r in ranks], 1, card, "(c)")
+    train = {}
+    for cell in ranks[0]["train"]:
+        for plan in cell["plans"].values():
+            train.update({k: v for k, v in plan["launches"].items() if "bwd" in k})
+    for name in ("wkv6_kernel", "mamba_scan_kernel"):
+        check(launches.get(name, 0) > 0, f"phase 24: no {name} launch on a rank of a mesh")
+    for name in ("wkv6_bwd_kernel", "mamba_scan_bwd_kernel"):
+        check(train.get(name, 0) > 0, f"phase 24: no {name} launch on a rank of a mesh")
+    print(f"  phase 24: {time.perf_counter() - t_phase:.1f} s")
+    return {"kernels": kernels, "launches": launches, "train_launches": train}
 
 
 def main() -> int:
@@ -4483,6 +4757,9 @@ def main() -> int:
     # ------------------------------------------------------------ phase 23
     mesh_train = mesh_train_phase(get_config, card, sync)
 
+    # ------------------------------------------------------------ phase 24
+    recurrent = recurrent_mesh_phase(get_config, card, sync)
+
     # ------------------------------------------------------------ result
     main_case = results[MAIN_PATH_CASE]
     wkv_case = wkv_results[WKV_MAIN_PATH_CASE]
@@ -4509,6 +4786,8 @@ def main() -> int:
         "source": "src/repro_torch/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/rwkv6/kernel.py:82",
         "launches": wkv_launches, "facade_launches": facade_launches["wkv6"],
+        "mesh_launches": recurrent["launches"]["wkv6_kernel"],
+        "rank_ms": recurrent["kernels"]["wkv6"][1],
         **{k: wkv_case[k] for k in keys},
     }, {
         "name": "wkv6_bwd", "route": "cuda",
@@ -4516,12 +4795,16 @@ def main() -> int:
         "replaces": "src/repro/kernels/rwkv6/kernel.py:82",
         "launches": rwkv_training["train"]["launches"]["wkv6_bwd"],
         "facade_launches": facade_launches["wkv6_bwd"],
+        "mesh_train_launches": recurrent["train_launches"]["wkv6_bwd_kernel"],
+        "rank_ms": recurrent["kernels"]["wkv6_bwd"][1],
         **{k: rwkv_training["bwd"][k] for k in keys},
     }, {
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba/kernel.py:61",
         "launches": mamba_launches, "facade_launches": facade_launches["mamba_scan"],
+        "mesh_launches": recurrent["launches"]["mamba_scan_kernel"],
+        "rank_ms": recurrent["kernels"]["mamba_scan"][1],
         **{k: mamba_case[k] for k in keys},
     }, {
         "name": "mamba_scan_bwd", "route": "cuda",
@@ -4529,6 +4812,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/mamba/kernel.py:61",
         "launches": jamba_training["train"]["launches"]["mamba_scan_bwd"],
         "facade_launches": facade_launches["mamba_scan_bwd"],
+        "mesh_train_launches": recurrent["train_launches"]["mamba_scan_bwd_kernel"],
+        "rank_ms": recurrent["kernels"]["mamba_scan_bwd"][1],
         **{k: jamba_training["bwd"][k] for k in keys},
     }, {
         "name": "qmatmul", "route": "cuda",
@@ -4613,7 +4898,34 @@ def phase23_card() -> int:
     return 0
 
 
+def phase24_card() -> int:
+    """``python3 chip_smoke.py --phase-24``: phase 24 alone (the flash,
+    WKV-6 and scan libraries built first)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch.cuda.is_available() is False: this smoke run needs a GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+
+    smi = nvidia_smi_line()
+    print(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sources = KERNEL_SOURCES[:-1]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        took = dict(zip(sources, pool.map(_build.build, sources)))
+    print("built " + ", ".join(f"{k} {v:.3f} s" for k, v in took.items()))
+    recurrent_mesh_phase(get_config, f"[{smi}]", torch.cuda.synchronize)
+    print(f"total wall time {time.perf_counter() - T_START:.1f} s")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase-24"]:
+        sys.exit(phase24_card())
     if sys.argv[1:2] == ["--phase-23"]:
         sys.exit(phase23_card())
     if sys.argv[1:2] == ["--phase-21"]:

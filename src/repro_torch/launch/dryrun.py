@@ -33,8 +33,9 @@ roofline's collective term.  A train cell runs the rank's step
 (``runtime/train.py``): its shard, its optimizer pieces
 (``runtime/sharding.TrainLayout``), the global batch, and the backward's
 collectives recorded beside the forward's.  A cell the rank-local
-execution does not cover (MoE, mamba / rwkv on a model axis) is reported
-as skipped.  ``--multi-pod`` raises (ROADMAP A13c-4).
+execution does not cover (MoE: ROADMAP A13c-3; a model axis that would
+split inside an rwkv head, as 16 ranks over rwkv6-3b's 40: A13c-6) is
+reported as skipped.  ``--multi-pod`` raises (ROADMAP A13c-4).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-3-8b --shape train_4k

@@ -7,13 +7,15 @@ reference's module docstring intends for the TPU.  Decode has no kernel in
 the reference and is plain tensor code here too.
 
 ``attention_prefill_isp`` / ``attention_prefill_wsp`` /
-``attention_decode_mesh`` are a rank's attention on a model axis
-(``runtime/sharding.py``): its own heads on the whole sequence, ending in
-an all-reduce (ISP); every head on its own positions, the weights and the
-other ranks' keys and values all-gathered, the queries at their positions
-through the flash call's ``q_offset`` (WSP); and decode over a cache
-sharded on time, each rank scoring its own positions and the ranks
-combining their softmax sums by all-reduce.
+``attention_decode_mesh`` / ``attention_decode_heads`` are a rank's
+attention on a model axis (``runtime/sharding.py``): its own heads on the
+whole sequence, ending in an all-reduce (ISP); every head on its own
+positions, the weights and the other ranks' keys and values all-gathered,
+the queries at their positions through the flash call's ``q_offset``
+(WSP); decode over a cache sharded on time, each rank scoring its own
+positions and the ranks combining their softmax sums by all-reduce; and
+decode over a cache whole over time (``shard_kv_cache_time=False``), each
+rank its own heads, ending in an all-reduce.
 
 The prefill functions on a model axis differentiate
 (``runtime/collectives.py``): under ISP the replicated input's gradient is
@@ -131,24 +133,17 @@ def attention_prefill(
     return dense(out, params["wo"]), (k, v)
 
 
-def attention_decode(
-    params: dict,
-    x: torch.Tensor,
-    cfg: ModelConfig,
-    cache_k: torch.Tensor,        # [B, T, KV, hd]
-    cache_v: torch.Tensor,
-    position: torch.Tensor,       # [B] current write index
-    window: int = 0,
-) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    """One-token decode against a KV cache.
-
-    Writes this token's k/v into ``cache_k``/``cache_v`` IN PLACE (the
-    reference returns updated copies, which its jit donates) and returns them.
-    """
+def _decode_heads(params: dict, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.Tensor,
+                  cache_v: torch.Tensor, position: torch.Tensor, window: int) -> torch.Tensor:
+    """The one-token attention of the heads ``params``' wq / wk / wv columns
+    hold (all of them on one rank) against ``cache_k`` / ``cache_v`` [B, T,
+    kv heads, hd], which take the token's key and value at ``position`` in
+    place: [B, 1, heads * hd], before ``wo``."""
     B, S1, _ = x.shape
     if S1 != 1:
         raise ValueError(f"decode takes one token per row, got {S1}")
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    H, KV = params["wq"].shape[1] // hd, params["wk"].shape[1] // hd
     T = cache_k.shape[1]
     q = _split_heads(dense(x, params["wq"]), H, hd)
     k = _split_heads(dense(x, params["wk"]), KV, hd)
@@ -165,8 +160,40 @@ def attention_decode(
     valid = j <= position[:, None]
     if window > 0:
         valid &= j > position[:, None] - window
-    out = _masked_attention(q, cache_k, cache_v, valid[:, None, :], cfg.attn_softcap, x.dtype)
+    return _masked_attention(q, cache_k, cache_v, valid[:, None, :], cfg.attn_softcap, x.dtype)
+
+
+def attention_decode(
+    params: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    cache_k: torch.Tensor,        # [B, T, KV, hd]
+    cache_v: torch.Tensor,
+    position: torch.Tensor,       # [B] current write index
+    window: int = 0,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """One-token decode against a KV cache.
+
+    Writes this token's k/v into ``cache_k``/``cache_v`` IN PLACE (the
+    reference returns updated copies, which its jit donates) and returns them.
+    """
+    out = _decode_heads(params, x, cfg, cache_k, cache_v, position, window)
     return dense(out, params["wo"]), (cache_k, cache_v)
+
+
+def attention_decode_heads(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                           cache_k: torch.Tensor, cache_v: torch.Tensor, position: torch.Tensor,
+                           shard, window: int = 0, tag: str = "") -> torch.Tensor:
+    """One-token decode on a model axis, the cache whole over time
+    (``shard_kv_cache_time=False``): ``cache_k`` / ``cache_v`` [B, T, kvl,
+    hd] hold this rank's kv heads, those its query heads read, at every
+    position; the query, key and value are the rank's own and nothing is
+    gathered; the output projection's partial sums are added over the model
+    axis.  The reference's cache in this layout is replicated over
+    ``model`` (every kv head on every rank); a rank here keeps only the
+    heads it reads."""
+    out = _decode_heads(params, x, cfg, cache_k, cache_v, position, window)
+    return shard.comm.all_reduce(dense_fp32(out, params["wo"]), tag=f"{tag}:attn").to(x.dtype)
 
 
 def attention_prefill_isp(params: dict, x: torch.Tensor, cfg: ModelConfig, shard,

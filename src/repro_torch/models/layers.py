@@ -3,15 +3,16 @@
 Weights keep the JAX layout ``[d_in, d_out]``, so ``dense`` is ``x @ w``.
 ``ffn_isp`` / ``ffn_wsp`` are a rank's FFN on a model axis
 (``runtime/sharding.py``): column- then row-parallel with an all-reduce,
-or the weights all-gathered at use; both differentiate
-(``runtime/collectives.py``).
+or the weights all-gathered at use; ``mixer_in`` / ``mixer_out`` bracket a
+recurrent mixer's rank-local form (``models/rwkv.py``, ``models/ssm.py``);
+all differentiate (``runtime/collectives.py``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..runtime.collectives import copy_to, gather, sum_over
+from ..runtime.collectives import copy_to, gather, scatter_sum, sum_over
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -124,3 +125,24 @@ def ffn_wsp(params: dict, x: torch.Tensor, gated: bool, shard, tag: str) -> torc
     if gated:
         full["w3"] = gather(comm, params["w3"], dim=1, tag=f"{tag}:w3")
     return ffn(full, x, gated)
+
+
+def mixer_in(x: torch.Tensor, shard, wsp_seq: int | None, tag: str) -> torch.Tensor:
+    """A mixer's input on a model axis: the zone's ``wsp_seq`` positions
+    gathered (the gradient arriving is a part on each rank, reduce-scattered
+    back), or the replicated input whose gradient each rank's columns hold a
+    part of (summed over the ranks)."""
+    if shard is None:
+        return x
+    if wsp_seq is not None:
+        return gather(shard.comm, x, dim=1, tag=tag, grad="sum")[:, :wsp_seq]
+    return copy_to(shard.comm, x, tag=tag)
+
+
+def mixer_out(part: torch.Tensor, shard, wsp_seq: int | None, tag: str, dtype) -> torch.Tensor:
+    """A row-parallel product's partial sums [B, S, d] added over the ranks:
+    all of them (ISP), or the rank's positions of the sequence padded to m
+    chunks (WSP, reduce-scattered)."""
+    if wsp_seq is None:
+        return sum_over(shard.comm, part, tag=tag).to(dtype)
+    return scatter_sum(shard.comm, shard.pad_seq(part), dim=1, tag=tag).to(dtype)

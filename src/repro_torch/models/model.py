@@ -25,6 +25,13 @@ channel mix.  The frontend stubs stand in for an encoder (SigLIP, EnCodec)
 as in the reference: ``audio_stub`` prefills take frame embeddings and no
 tokens, ``vision_stub`` prefills take patch embeddings placed ahead of the
 text tokens; decode embeds tokens for both.
+
+On a model axis every block kind runs rank-locally: attention and the FFN
+as ``models/attention.py`` and ``layers.py`` say; a recurrent mixer (rwkv's
+time and channel mix, mamba's) on the rank's heads or channels, and in a
+WSP zone on the zone's positions gathered (``models/rwkv.py``,
+``models/ssm.py``).  The paper's weight-gathered WSP recurrence, each
+rank's state handed on to the next, is not built (ROADMAP).
 """
 from __future__ import annotations
 
@@ -35,8 +42,9 @@ from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 from .. import tree as pytree
 from ..device import resolve_device
 from ..runtime.collectives import copy_to, scatter_sum, sum_over
-from .attention import (attention_decode, attention_decode_mesh, attention_prefill,
-                        attention_prefill_isp, attention_prefill_wsp, runs_from_offsets)
+from .attention import (attention_decode, attention_decode_heads, attention_decode_mesh,
+                        attention_prefill, attention_prefill_isp, attention_prefill_wsp,
+                        runs_from_offsets)
 from .config import ModelConfig
 from .layers import dense, embed, ffn, ffn_isp, ffn_wsp, rmsnorm, softcap
 from .moe import moe_ffn
@@ -82,6 +90,11 @@ class _FfnBlock(nn.Module):
             return x + moe_ffn(self.moe, h2, self.cfg)
         return x + ffn(self.ffn, h2, self.cfg.ffn_gated)
 
+    def _ffn_mesh(self, x: torch.Tensor, partition: str, shard, tag: str) -> torch.Tensor:
+        h2 = rmsnorm(x, self.ln2, self.cfg.norm_eps)
+        mlp = ffn_isp if partition == "ISP" else ffn_wsp
+        return x + mlp(self.ffn, h2, self.cfg.ffn_gated, shard, tag)
+
 
 class AttnBlock(_FfnBlock):
     """Pre-norm attention block."""
@@ -104,25 +117,23 @@ class AttnBlock(_FfnBlock):
                                 self.window)
         return self._ffn(x + a)
 
-    def prefill_mesh(self, x, partition, shard, plain_attention=False, tag=""):
+    def prefill_mesh(self, x, partition, shard, plain_attention=False, tag="", seq=None):
         """One rank's layer on a model axis: ``x`` is the whole sequence
-        under ISP, this rank's positions under WSP."""
+        under ISP, this rank's positions under WSP (of ``seq``)."""
         h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
-        if partition == "ISP":
-            attend, mlp = attention_prefill_isp, ffn_isp
-        else:
-            attend, mlp = attention_prefill_wsp, ffn_wsp
+        attend = attention_prefill_isp if partition == "ISP" else attention_prefill_wsp
         x = x + attend(self.attn, h, self.cfg, shard, self.window, plain_attention, tag)
-        h2 = rmsnorm(x, self.ln2, self.cfg.norm_eps)
-        return x + mlp(self.ffn, h2, self.cfg.ffn_gated, shard, tag)
+        return self._ffn_mesh(x, partition, shard, tag)
 
     def decode_mesh(self, x, position, cache, shard, tag=""):
-        """One rank's decode step of the layer (ISP, the cache sharded on time)."""
+        """One rank's decode step of the layer (ISP; the cache sharded on
+        time, or whole over time on the rank's kv heads)."""
         h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
-        x = x + attention_decode_mesh(self.attn, h, self.cfg, cache["k"], cache["v"], position,
-                                      shard, self.window, tag)
-        h2 = rmsnorm(x, self.ln2, self.cfg.norm_eps)
-        return x + ffn_isp(self.ffn, h2, self.cfg.ffn_gated, shard, tag)
+        attend = (attention_decode_mesh if shard.plan.shard_kv_cache_time
+                  else attention_decode_heads)
+        x = x + attend(self.attn, h, self.cfg, cache["k"], cache["v"], position, shard,
+                       self.window, tag)
+        return self._ffn_mesh(x, "ISP", shard, tag)
 
 
 class RwkvBlock(nn.Module):
@@ -135,12 +146,12 @@ class RwkvBlock(nn.Module):
         self.ln2 = _frozen(params["ln2"])
         self.rwkv = _frozen_dict(params["rwkv"])
 
-    def _run(self, x, state):
+    def _run(self, x, state, shard=None, tag="", wsp_seq=None):
         h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
-        a, st = rwkv_time_mix(self.rwkv, h, self.cfg, state)
+        a, st = rwkv_time_mix(self.rwkv, h, self.cfg, state, shard, tag, wsp_seq)
         x = x + a
         h2 = rmsnorm(x, self.ln2, self.cfg.norm_eps)
-        f, st2 = rwkv_channel_mix(self.rwkv, h2, state)
+        f, st2 = rwkv_channel_mix(self.rwkv, h2, state, shard, tag, wsp_seq)
         return x + f, {**st, **st2}
 
     def prefill(self, x, positions, plain_attention=False, from_offsets=None):
@@ -149,6 +160,19 @@ class RwkvBlock(nn.Module):
     def decode(self, x, position, cache):
         """``cache``: this layer's ``{"S", "shift", "shift_ffn"}``, written in place."""
         x, st = self._run(x, cache)
+        for n, t in st.items():
+            cache[n].copy_(t)
+        return x
+
+    def prefill_mesh(self, x, partition, shard, plain_attention=False, tag="", seq=None):
+        """One rank's layer on a model axis: its heads, on the whole
+        sequence ``x`` (ISP) or on the zone's ``seq`` positions gathered
+        from this rank's (WSP)."""
+        return self._run(x, None, shard, tag, seq if partition == "WSP" else None)[0]
+
+    def decode_mesh(self, x, position, cache, shard, tag=""):
+        """One rank's decode step: its heads of ``S``, the shifts whole."""
+        x, st = self._run(x, cache, shard, tag)
         for n, t in st.items():
             cache[n].copy_(t)
         return x
@@ -173,6 +197,23 @@ class MambaBlock(_FfnBlock):
         for n, t in st.items():
             cache[n].copy_(t)
         return self._ffn(x + a)
+
+    def prefill_mesh(self, x, partition, shard, plain_attention=False, tag="", seq=None):
+        """One rank's layer on a model axis: its channels, on the whole
+        sequence ``x`` (ISP) or on the zone's ``seq`` positions gathered
+        from this rank's (WSP); then the FFN under the partition."""
+        h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
+        a, _ = mamba_prefill(self.mamba, h, self.cfg, shard, tag,
+                             seq if partition == "WSP" else None)
+        return self._ffn_mesh(x + a, partition, shard, tag)
+
+    def decode_mesh(self, x, position, cache, shard, tag=""):
+        """One rank's decode step: its channels of ``h`` and ``conv``."""
+        h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
+        a, st = mamba_decode(self.mamba, h, self.cfg, cache, shard, tag)
+        for n, t in st.items():
+            cache[n].copy_(t)
+        return self._ffn_mesh(x + a, "ISP", shard, tag)
 
 
 _BLOCKS = {"attn": AttnBlock, "local": AttnBlock, "rwkv": RwkvBlock, "mamba": MambaBlock}
@@ -290,7 +331,8 @@ class DecoderLM(nn.Module):
             tokens, frontend_embeds, positions = (sh.rows(t) for t in
                                                   (tokens, frontend_embeds, positions))
             if sh.m > 1:
-                return self._forward_mesh(tokens, collect_cache, positions, plain_attention)
+                return self._forward_mesh(tokens, frontend_embeds, collect_cache, positions,
+                                          plain_attention)
         P = len(self.cfg.expanded_pattern)
         x = self.embed_inputs(tokens, frontend_embeds)
         # one test (one host sync on the card) for every attention layer
@@ -313,21 +355,37 @@ class DecoderLM(nn.Module):
             )
         return self._logits(x), caches
 
-    def _embed_mesh(self, tokens, partition: str) -> torch.Tensor:
+    def _embed_mesh(self, tokens, partition: str, frontend_embeds=None) -> torch.Tensor:
         """The first hidden state on a model axis, in ``partition``'s layout:
         each rank looks up the tokens in its vocab rows (zeros elsewhere) and
         the ranks add them, by all-reduce, or by reduce-scatter over the
         sequence into a WSP zone's positions (whose gradient is all-gathered
-        back; the all-reduce's passes through)."""
+        back; the all-reduce's passes through).  A prefill's frontend
+        embeddings are the same on every rank and need no collective: the
+        audio stub's frames are the hidden state, the vision stub's patches
+        go ahead of the summed tokens (in a WSP zone, the rank's positions
+        of both)."""
         sh = self.shard
+        frontend = self.cfg.frontend if frontend_embeds is not None else "none"
+        if frontend == "audio_stub":
+            x = frontend_embeds.to(getattr(torch, self.cfg.param_dtype))
+            return sh.own_positions(x) if partition == "WSP" else x
         lo, hi = sh.vocab
         inside = (tokens >= lo) & (tokens < hi)
         part = self.embed[(tokens - lo).clamp(0, hi - lo - 1)] * inside[..., None]
+        if frontend == "vision_stub":
+            patches = frontend_embeds.to(part.dtype)
+            if partition == "WSP":
+                lead = torch.cat([torch.zeros_like(patches), part], dim=1)
+                ahead = torch.cat([patches, torch.zeros_like(part)], dim=1)
+                return (scatter_sum(sh.comm, sh.pad_seq(lead), dim=1, tag="embed")
+                        + sh.own_positions(ahead))
+            return torch.cat([patches, sum_over(sh.comm, part, tag="embed")], dim=1)
         if partition == "WSP":
             return scatter_sum(sh.comm, sh.pad_seq(part), dim=1, tag="embed")
         return sum_over(sh.comm, part, tag="embed")
 
-    def _forward_mesh(self, tokens, collect_cache, positions, plain_attention):
+    def _forward_mesh(self, tokens, frontend_embeds, collect_cache, positions, plain_attention):
         """The prefill of one rank of a model axis: zone by zone, each layer
         under its partition; WSP -> ISP all-gathers the sequence (the
         transition: the ISP zone's gradient is the same on every rank, so
@@ -342,10 +400,14 @@ class DecoderLM(nn.Module):
                 "a mesh prefill collects no caches and takes no explicit positions (the "
                 "reference's prefill step collects none); shard a one-rank prefill's caches "
                 "with runtime.sharding.shard_caches")
+        if self.cfg.frontend != "none" and frontend_embeds is None:
+            raise ValueError(f"{self.cfg.name}: the {self.cfg.frontend} prefill takes "
+                             "frontend_embeds")
         sh = self.shard
-        S = tokens.shape[1]
+        S = (frontend_embeds.shape[1] if self.cfg.frontend == "audio_stub" else
+             tokens.shape[1] + (0 if frontend_embeds is None else frontend_embeds.shape[1]))
         current = sh.plan.p1                 # the reference constrains the embedding in zone 1
-        x = self._embed_mesh(tokens, current)
+        x = self._embed_mesh(tokens, current, frontend_embeds)
         remat = self.cfg.remat and torch.is_grad_enabled()
         for layer, blk in enumerate(self.blocks):
             partition = sh.partition(layer)
@@ -356,24 +418,27 @@ class DecoderLM(nn.Module):
             if remat:      # the whole block again, so its collectives run twice
                 with set_checkpoint_early_stop(False):
                     x = checkpoint(blk.prefill_mesh, x, partition, sh, plain_attention,
-                                   f"blk{layer}", use_reentrant=False)
+                                   f"blk{layer}", S, use_reentrant=False)
             else:
-                x = blk.prefill_mesh(x, partition, sh, plain_attention, f"blk{layer}")
+                x = blk.prefill_mesh(x, partition, sh, plain_attention, f"blk{layer}", S)
         if current == "WSP":
             return self._logits(sh.gather_seq(x, S, "logits", grad="sum")), None
         return self._logits(x, lambda h: copy_to(sh.comm, h, tag="head_in")), None
 
     def init_kv_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
         """Zero caches of a ``batch`` x ``max_len`` decode; on a mesh this
-        rank's pieces of them (its batch rows; on a model axis its block of
-        the time axis, ``max_len`` over the model ranks rounded up)."""
+        rank's pieces of them (its batch rows; on a model axis as
+        ``runtime.sharding.shard_caches`` cuts them: its block of the time
+        axis, ``max_len`` over the model ranks rounded up, or its kv heads
+        over the whole time; its rwkv heads, its mamba channels)."""
         sh = self.shard
         if sh is None:
             return init_kv_cache(self.cfg, batch, max_len, dtype, self.device)
         rows = batch // sh.dp
         if rows * sh.dp != batch:
             raise ValueError(f"batch {batch} does not split over the {sh.dp} data ranks")
-        return init_kv_cache(self.cfg, rows, sh.chunk(max_len), dtype, self.device)
+        return init_kv_cache(self.cfg, rows, max_len, dtype, self.device,
+                             shard=sh if sh.m > 1 else None)
 
     def decode_step(self, token: torch.Tensor, position: torch.Tensor, caches: tuple):
         """One autoregressive step: token [B,1], position [B] write index.
@@ -493,15 +558,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None,
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-                  device: str | torch.device = "cuda") -> tuple:
+                  device: str | torch.device = "cuda", shard=None) -> tuple:
     """Zero caches, one dict per pattern slot: attention ``{"k", "v"}`` of
     ``[R, batch, max_len, KV, hd]`` in ``dtype``; rwkv ``{"S"}`` of
     ``[R, batch, H, hd, hd]`` in fp32 and ``{"shift", "shift_ffn"}`` of
     ``[R, batch, 1, d]`` in ``dtype``; mamba ``{"h"}`` of ``[R, batch,
     d_inner, N]`` in fp32 and ``{"conv"}`` of ``[R, batch, d_conv - 1,
-    d_inner]`` in ``dtype``."""
+    d_inner]`` in ``dtype``.  ``shard`` (a rank of a model axis): the
+    rank's pieces of them (``runtime.sharding.shard_caches``)."""
     dev = resolve_device(device)
     R = cfg.pattern_repeats
+    m = 1 if shard is None else shard.m
 
     def zeros(*shape, dt=dtype):
         return torch.zeros((R, batch, *shape), dtype=dt, device=dev)
@@ -510,15 +577,19 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat
     for kind in cfg.expanded_pattern:
         if kind == "rwkv":
             hd = cfg.rwkv_head_dim
-            caches.append({"S": zeros(cfg.d_model // hd, hd, hd, dt=torch.float32),
+            caches.append({"S": zeros(cfg.d_model // hd // m, hd, hd, dt=torch.float32),
                            "shift": zeros(1, cfg.d_model),
                            "shift_ffn": zeros(1, cfg.d_model)})
         elif kind == "mamba":
-            di = cfg.mamba_expand * cfg.d_model
+            di = cfg.mamba_expand * cfg.d_model // m
             caches.append({"h": zeros(di, cfg.mamba_d_state, dt=torch.float32),
                            "conv": zeros(cfg.mamba_d_conv - 1, di)})
         else:
-            kv_shape = (max_len, cfg.n_kv_heads, cfg.head_dim)
+            T, KV = max_len, cfg.n_kv_heads
+            if shard is not None:
+                T = shard.cache_len(max_len)
+                KV = KV if shard.plan.shard_kv_cache_time else shard.n_kv_heads
+            kv_shape = (T, KV, cfg.head_dim)
             caches.append({"k": zeros(*kv_shape), "v": zeros(*kv_shape)})
     return tuple(caches)
 

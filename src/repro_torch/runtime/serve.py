@@ -91,8 +91,9 @@ def build_decode_step(cfg: ModelConfig, plan: ShardPlan, batch: int | None = Non
     With a ``mesh`` of several ranks the model is the rank's shard and the
     caches its pieces (``model.init_kv_cache`` / ``sharding.shard_caches``):
     ``batch`` over the data ranks, and on a model axis the k/v time axis
-    ``max_len`` over the model ranks, rounded up.  Decode runs in the ISP
-    zone, as in the reference.
+    ``max_len`` over the model ranks, rounded up (whole with the plan's
+    ``shard_kv_cache_time=False``).  Decode runs in the ISP zone, as in the
+    reference.
     """
     check_supported(cfg)
     dev = _device(device, mesh)
@@ -102,7 +103,7 @@ def build_decode_step(cfg: ModelConfig, plan: ShardPlan, batch: int | None = Non
         _check_model(model, cfg, dev, mesh, plan)
         sh = model.shard
         rows = batch if batch is None or sh is None else batch // sh.dp
-        span = max_len if max_len is None or sh is None else sh.chunk(max_len)
+        span = max_len if max_len is None or sh is None or sh.m == 1 else sh.cache_len(max_len)
         for slot in caches:
             for name, t in slot.items():
                 B = t.shape[1]

@@ -29,10 +29,18 @@ dims a mesh axis does not divide; the port pads a WSP sequence to a
 multiple of the model axis at its end (causal attention never lets a real
 query see the padding) and a decode cache's time axis likewise.  Where the
 reference splits inside a kv head (``model > n_kv_heads``), each rank holds
-the whole kv heads its query heads need.  The rank-local execution covers
-``attn`` / ``local`` blocks with a dense FFN and no frontend stub on a
-model axis above 1, and every config but MoE on a data-only mesh; the rest
-raises (ROADMAP A13c-2 / A13c-3).
+the whole kv heads its query heads need; with ``shard_kv_cache_time=False``
+the reference replicates the decode cache over ``model`` and a rank holds
+its kv heads over the whole time axis.  Mamba's ``in_proj`` (``[d, 2 d_inner]``,
+read as ``[x | z]``) is stored as the reference stores it, ``d_inner``
+columns a rank, but the rank's columns are its block of the x half and of
+the z half (:class:`Spans`), so that its channels are local; its AdamW
+moments cover the same columns.  The rank-local execution covers ``attn``
+/ ``local`` / ``rwkv`` / ``mamba`` blocks with a dense FFN and both
+frontend stubs on a model axis above 1 (rwkv heads whole on a rank), and
+every config but MoE on a data-only mesh; MoE raises (ROADMAP A13c-3), and
+so does a model axis that would split inside an rwkv head (A13c-6: the
+reference splits there and replicates ``u``).
 
 The train step's state on a mesh (:class:`TrainLayout`): a rank keeps its
 parameter pieces whole over ``data`` and its pieces of each AdamW moment
@@ -376,7 +384,8 @@ class RankShard:
     splits over the plan's data axes into ``dp`` parts (this one's is
     ``dpi``).  On the model axis the rank holds query heads ``heads``, the
     kv heads ``kv_heads`` they read, vocab rows ``vocab`` of the embedding
-    (columns of the head) and FFN columns ``ff``.
+    (columns of the head) and FFN columns ``ff``; of a recurrent block its
+    block of the rwkv heads or of mamba's channels (:meth:`part`).
     """
 
     cfg: ModelConfig
@@ -427,6 +436,15 @@ class RankShard:
         """Positions a rank holds of a sequence-sharded S: S over m, rounded up."""
         return -(-S // self.m)
 
+    def part(self, n: int) -> tuple[int, int]:
+        """This rank's (lo, hi) of a dim of ``n`` split over the model axis."""
+        return _span(n, self.m, self.r)
+
+    def cache_len(self, max_len: int) -> int:
+        """Positions a rank's k / v cache holds: its time block
+        (``shard_kv_cache_time``), else the whole ``max_len``."""
+        return self.chunk(max_len) if self.plan.shard_kv_cache_time else max_len
+
     def rows(self, x: torch.Tensor | None) -> torch.Tensor | None:
         """This rank's rows of a global batch-major tensor."""
         if x is None or self.dp == 1:
@@ -446,6 +464,13 @@ class RankShard:
             return x
         return torch.cat([x, x.new_zeros((x.shape[0], extra, *x.shape[2:]))], dim=1)
 
+    def own_positions(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's positions of a replicated [B, S, ...] sequence (padded
+        at its end to m chunks), sliced: an input that takes no gradient."""
+        x = self.pad_seq(x)
+        n = x.shape[1] // self.m
+        return x[:, self.r * n:(self.r + 1) * n]
+
     def seq_shard(self, x: torch.Tensor, tag: str = "transition") -> torch.Tensor:
         """This rank's positions of a replicated [B, S, ...] sequence (padded
         at its end to m chunks); the gradient of every rank's positions is
@@ -463,9 +488,11 @@ class RankShard:
         """``grads`` (of ``model.flat_params()``) with the parts each model
         rank holds of a gradient summed over ``model``, in one all-reduce: the
         norm weights of WSP layers and, after a WSP last zone, the final
-        norm's (each rank saw its positions), and a kv head's wk / wv where
+        norm's (each rank saw its positions), a kv head's wk / wv where
         ranks share it (each rank's query heads, or only the rank whose
-        copy the WSP gather took)."""
+        copy the WSP gather took), and rwkv's leaves that every rank holds
+        whole and uses on its own heads (``mu``, ``w0``, ``w_lora_a``,
+        ``ln_x``)."""
         if self.m == 1:
             return grads
         flat = model.flat_params()
@@ -474,8 +501,11 @@ class RankShard:
         for layer, blk in enumerate(model.blocks):
             if self.partition(layer) == WSP:
                 parts += [(index[id(blk.ln1)], False), (index[id(blk.ln2)], False)]
-            if self.shared_kv():
-                parts += [(index[id(blk.attn[n])], True) for n in ("wk", "wv")]
+            attn, rwkv = getattr(blk, "attn", None), getattr(blk, "rwkv", None)
+            if attn is not None and self.shared_kv():
+                parts += [(index[id(attn[n])], True) for n in ("wk", "wv")]
+            if rwkv is not None:
+                parts += [(index[id(rwkv[n])], False) for n in ("mu", "w0", "w_lora_a", "ln_x")]
         if self.partition(self.cfg.n_layers - 1) == WSP:
             parts.append((index[id(model.final_ln)], False))
         if not parts:
@@ -525,8 +555,9 @@ def _mesh_layout(cfg: ModelConfig, plan: ShardPlan, mesh) -> tuple[int, int, int
 
 def rank_shard(cfg: ModelConfig, plan: ShardPlan, mesh) -> RankShard:
     """This rank's :class:`RankShard`; raises ``NotImplementedError`` for a
-    config or mesh the rank-local execution does not cover (ROADMAP A13c-2 / 3)
-    and ``ValueError`` for dims the mesh does not divide, naming them."""
+    config or mesh the rank-local execution does not cover (ROADMAP A13c-3,
+    A13c-6) and ``ValueError`` for dims the mesh does not divide, naming
+    them."""
     m, r, dp, dpi = _mesh_layout(cfg, plan, mesh)
     if mesh.size > 1 and cfg.moe is not None:
         raise NotImplementedError(
@@ -535,25 +566,26 @@ def rank_shard(cfg: ModelConfig, plan: ShardPlan, mesh) -> RankShard:
             "ROADMAP A13c-3")
     if m == 1:
         return RankShard(cfg, plan, mesh, 1, 0, dp, dpi)
-    bad = sorted({k for k in cfg.block_pattern if k not in ("attn", "local")})
-    if bad:
-        raise NotImplementedError(f"{cfg.name}: {bad} blocks on a model axis of {m} ranks "
-                                  "(their model-axis rules): ROADMAP A13c-2")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend on a model axis "
-                                  f"of {m} ranks: ROADMAP A13c-2")
-    if not plan.shard_kv_cache_time:
-        raise NotImplementedError("a decode cache replicated over time on a model axis "
-                                  "(shard_kv_cache_time=False): ROADMAP A13c-2")
-    H, KV = cfg.n_heads, cfg.n_kv_heads
-    g = H // KV
-    if H % m:
-        raise ValueError(f"{cfg.name}: {H} query heads do not split over {m} model ranks")
-    hl = H // m
-    if hl % g and g % hl:
-        raise ValueError(f"{cfg.name}: {hl} query heads a rank cut its GQA groups of {g} "
-                         f"(H={H}, KV={KV}, model axis {m})")
-    for name, n in (("d_ff", cfg.d_ff), ("padded vocab", cfg.padded_vocab)):
+    kinds = set(cfg.block_pattern)
+    dims = [("padded vocab", cfg.padded_vocab), ("d_ff", cfg.d_ff)]
+    if "rwkv" in kinds:
+        heads = cfg.d_model // cfg.rwkv_head_dim
+        if heads % m:
+            raise NotImplementedError(
+                f"{cfg.name}: {heads} rwkv heads on a model axis of {m} ranks would split "
+                "inside a head (the reference then replicates u): ROADMAP A13c-6")
+    if "mamba" in kinds:
+        dims.append(("mamba d_inner", cfg.mamba_expand * cfg.d_model))
+    if kinds & {"attn", "local"}:
+        H, KV = cfg.n_heads, cfg.n_kv_heads
+        g = H // KV
+        if H % m:
+            raise ValueError(f"{cfg.name}: {H} query heads do not split over {m} model ranks")
+        hl = H // m
+        if hl % g and g % hl:
+            raise ValueError(f"{cfg.name}: {hl} query heads a rank cut its GQA groups of {g} "
+                             f"(H={H}, KV={KV}, model axis {m})")
+    for name, n in dims:
         if n % m:
             raise ValueError(f"{cfg.name}: {name} {n} does not split over {m} model ranks")
     return RankShard(cfg, plan, mesh, m, r, dp, dpi, *_model_spans(cfg, m, r))
@@ -569,21 +601,43 @@ def _model_spans(cfg: ModelConfig, m: int, r: int) -> tuple:
     return heads, kv_heads, _span(cfg.padded_vocab, m, r), _span(cfg.d_ff, m, r)
 
 
+class Spans(tuple):
+    """A dim of a rank's piece held as several ``(lo, hi)`` spans of the
+    whole leaf, side by side in this order: mamba's ``in_proj`` columns, the
+    rank's block of the x half and of the z half."""
+
+
+def _width(span) -> int:
+    return sum(hi - lo for lo, hi in span) if isinstance(span, Spans) else span[1] - span[0]
+
+
 def _piece_box(cfg: ModelConfig, m: int, r: int, group: str, name: str, shape) -> tuple:
-    """(lo, hi) a dim of model rank ``r``'s piece of a layer of the leaf
-    ``name`` of ``group`` (``"attn"``, ``"ffn"``, ``"blocks"`` for a block's
-    norms, ``""`` at the top), ``shape`` the whole leaf's per-layer shape:
-    the one rule that cuts a model over the ``model`` axis
-    (:func:`_local_params`, :class:`TrainLayout`)."""
+    """(lo, hi) a dim (or :class:`Spans`) of model rank ``r``'s piece of a
+    layer of the leaf ``name`` of ``group`` (``"attn"``, ``"ffn"``,
+    ``"rwkv"``, ``"mamba"``, ``"blocks"`` for a block's norms, ``""`` at the
+    top), ``shape`` the whole leaf's per-layer shape: the one rule that cuts
+    a model over the ``model`` axis (:func:`_local_params`,
+    :class:`TrainLayout`).  rwkv's ``mu``, ``w0``, ``w_lora_a`` and ``ln_x``
+    are whole on every rank, as the reference's specs replicate them."""
     full = [(0, n) for n in shape]
     if m == 1:
         return tuple(full)
     hd = cfg.head_dim
     heads, kv, vocab, ff = _model_spans(cfg, m, r)
     heads, kv = (heads[0] * hd, heads[1] * hd), (kv[0] * hd, kv[1] * hd)
+    cols = _span(cfg.d_model, m, r)                      # an rwkv rank's heads' columns
+    di = cfg.mamba_expand * cfg.d_model
+    ch = _span(di, m, r)                                 # a mamba rank's channels
     rules = {("attn", "wq"): (1, heads), ("attn", "wk"): (1, kv), ("attn", "wv"): (1, kv),
              ("attn", "wo"): (0, heads), ("ffn", "w1"): (1, ff), ("ffn", "w3"): (1, ff),
-             ("ffn", "w2"): (0, ff), ("", "embed"): (0, vocab), ("", "lm_head"): (1, vocab)}
+             ("ffn", "w2"): (0, ff), ("", "embed"): (0, vocab), ("", "lm_head"): (1, vocab),
+             ("rwkv", "wo"): (0, cols), ("rwkv", "cm_k"): (1, ff), ("rwkv", "cm_v"): (0, ff),
+             ("rwkv", "u"): (0, _span(cfg.d_model // cfg.rwkv_head_dim, m, r)),
+             ("mamba", "in_proj"): (1, Spans((ch, (di + ch[0], di + ch[1])))),
+             ("mamba", "conv_w"): (1, ch), ("mamba", "dt_proj"): (1, ch)}
+    rules.update({("rwkv", n): (1, cols) for n in ("wr", "wk", "wv", "wg", "w_lora_b", "cm_r")})
+    rules.update({("mamba", n): (0, ch) for n in ("conv_b", "x_proj", "dt_bias", "A_log", "D",
+                                                  "out_proj")})
     if (group, name) in rules:
         dim, span = rules[(group, name)]
         full[dim] = span
@@ -632,9 +686,14 @@ def shard_model(model, plan: ShardPlan, mesh):
 
 def shard_caches(caches: tuple, sh: RankShard) -> tuple:
     """This rank's pieces of whole caches (``init_kv_cache``'s layout, e.g. a
-    one-rank prefill's collected caches): its batch rows, and on a model
-    axis its block of the attention caches' time axis (padded at the end
-    to m blocks), as :func:`cache_pspecs` places them."""
+    one-rank prefill's collected caches), as :func:`cache_pspecs` places
+    them: its batch rows, and on a model axis its block of the attention
+    caches' time axis (padded at the end to m blocks; with
+    ``shard_kv_cache_time=False`` its kv heads over the whole time, where
+    the reference keeps every head), its rwkv heads of ``S``, its mamba
+    channels of ``h`` and ``conv``; the token shifts whole.  Every piece is
+    a copy: decode writes its caches in place."""
+    cut = {"S": 2, "h": 2, "conv": 3}       # the dim a recurrent state splits on
     out = []
     for slot in caches:
         local = {}
@@ -642,13 +701,19 @@ def shard_caches(caches: tuple, sh: RankShard) -> tuple:
             t = t.transpose(0, 1)
             t = sh.rows(t).transpose(0, 1)
             if name in ("k", "v") and sh.m > 1:
-                T = t.shape[2]
-                Tl = sh.chunk(T)
-                if Tl * sh.m != T:
-                    t = torch.cat([t, t.new_zeros((*t.shape[:2], Tl * sh.m - T,
-                                                   *t.shape[3:]))], dim=2)
-                t = t[:, :, sh.r * Tl:(sh.r + 1) * Tl]
-            local[name] = t.contiguous()
+                if sh.plan.shard_kv_cache_time:
+                    T = t.shape[2]
+                    Tl = sh.chunk(T)
+                    if Tl * sh.m != T:
+                        t = torch.cat([t, t.new_zeros((*t.shape[:2], Tl * sh.m - T,
+                                                       *t.shape[3:]))], dim=2)
+                    t = t[:, :, sh.r * Tl:(sh.r + 1) * Tl]
+                else:
+                    t = t[:, :, :, sh.kv_heads[0]:sh.kv_heads[1]]
+            elif name in cut and sh.m > 1:
+                lo, hi = sh.part(t.shape[cut[name]])
+                t = t.narrow(cut[name], lo, hi - lo)
+            local[name] = t.clone(memory_format=torch.contiguous_format)
         out.append(local)
     return tuple(out)
 
@@ -717,11 +782,30 @@ def _leaf_names(key: str) -> tuple[str, str]:
 
 def _narrow(t: torch.Tensor, box: tuple, skip: int | None = None) -> torch.Tensor:
     """``t`` narrowed to ``box`` ((lo, hi) a dim, in ``t``'s coordinates),
-    ``skip`` left whole."""
-    for d, (lo, hi) in enumerate(box):
-        if d != skip and (lo, hi) != (0, t.shape[d]):
-            t = t.narrow(d, lo, hi - lo)
+    ``skip`` left whole: a view, or a copy of the spans side by side where a
+    dim is :class:`Spans`."""
+    for d, span in enumerate(box):
+        if d == skip:
+            continue
+        if isinstance(span, Spans):
+            t = torch.cat([t.narrow(d, lo, hi - lo) for lo, hi in span], dim=d)
+        elif span != (0, t.shape[d]):
+            t = t.narrow(d, span[0], span[1] - span[0])
     return t
+
+
+def _place(out: torch.Tensor, box: tuple, src: torch.Tensor) -> None:
+    """``src`` written into ``out``'s region ``box`` (a :class:`Spans` dim
+    span by span)."""
+    multi = [d for d, span in enumerate(box) if isinstance(span, Spans)]
+    if not multi:
+        _narrow(out, box).copy_(src)
+        return
+    (d,) = multi
+    at = 0
+    for lo, hi in box[d]:
+        _narrow(out, box[:d] + ((lo, hi),) + box[d + 1:]).copy_(src.narrow(d, at, hi - lo))
+        at += hi - lo
 
 
 @dataclass
@@ -734,9 +818,16 @@ class _Leaf:
     data_dim: int | None  # the dim the moments split over ``data``
     axes: frozenset       # the mesh axes the moments split over
 
+    @property
+    def moment_shape(self) -> tuple:
+        """The shape of this rank's moment piece."""
+        return tuple(_width(b) for b in self.box)
+
     def local(self, box: tuple) -> tuple:
-        """``box`` in the coordinates of the rank's parameter piece."""
-        return tuple((lo - p, hi - p) for (lo, hi), (p, _) in zip(box, self.piece))
+        """``box`` in the coordinates of the rank's parameter piece (a
+        :class:`Spans` dim is the piece's own, whole)."""
+        return tuple((0, _width(b)) if isinstance(b, Spans) else (b[0] - p[0], b[1] - p[0])
+                     for b, p in zip(box, self.piece))
 
 
 class TrainLayout:
@@ -778,13 +869,17 @@ class TrainLayout:
             layer = _piece_box(cfg, shard.m, shard.r, *_leaf_names(key),
                                shape[1:] if stacked else shape)
             piece = ((0, shape[0]),) + layer if stacked else layer
-            box = tuple(_block(n, e, mesh) for n, e in zip(shape, entries))
+            # a dim the piece holds as spans: the moments cover the same columns
+            box = tuple(p if isinstance(p, Spans) and e == "model" else _block(n, e, mesh)
+                        for n, e, p in zip(shape, entries, piece))
             data_dim = entries.index("data") if "data" in entries else None
-            for d, ((lo, hi), (plo, phi)) in enumerate(zip(box, piece)):
-                if lo < plo or hi > phi or (d == data_dim and (plo, phi) != (0, shape[d])):
-                    raise NotImplementedError(
-                        f"{key}: the moment piece {box} is not inside the rank's parameter "
-                        f"piece {piece} (ROADMAP A13c-2)")
+            for d, (b, p) in enumerate(zip(box, piece)):
+                inside = (b == p if isinstance(p, Spans) else
+                          p[0] <= b[0] and b[1] <= p[1]
+                          and (d != data_dim or p == (0, shape[d])))
+                if not inside:
+                    raise ValueError(f"{key}: the moment piece {box} is not inside the rank's "
+                                     f"parameter piece {piece}")
             self.leaves.append(_Leaf(key, stacked, shape, piece, box, data_dim,
                                      frozenset(e for e in entries if e)))
 
@@ -902,17 +997,29 @@ class TrainLayout:
             parts = self.comm.all_gather(t[None], dim=0, axis="model", tag="ckpt")
             out = t.new_empty(lf.shape)
             for r in range(m):
-                box = _piece_box(self.cfg, m, r, *_leaf_names(lf.key),
-                                 lf.shape[1:] if lf.stacked else lf.shape)
-                _narrow(out, ((0, lf.shape[0]),) + box if lf.stacked else box).copy_(parts[r])
+                _place(out, self._piece_of(lf, r), parts[r])
             yield lf, out
+
+    def _piece_of(self, lf: _Leaf, r: int) -> tuple:
+        """Model rank ``r``'s parameter piece of ``lf`` (whole-leaf coordinates)."""
+        box = _piece_box(self.cfg, self.shard.m, r, *_leaf_names(lf.key),
+                         lf.shape[1:] if lf.stacked else lf.shape)
+        return ((0, lf.shape[0]),) + box if lf.stacked else box
 
     def whole_moments(self, pieces):
         """(leaf, the whole moment leaf) of every leaf of a moment tree of
         the rank's pieces, each all-gathered over the axes it splits on."""
         for lf, t in zip(self.leaves, pytree.leaves(pieces), strict=True):
-            for d, (lo, hi) in enumerate(lf.box):
-                if hi - lo != lf.shape[d]:
+            for d, span in enumerate(lf.box):
+                if isinstance(span, Spans):         # each rank's spans placed
+                    parts = self.comm.all_gather(t[None], dim=0, axis="model", tag="ckpt")
+                    full = t.new_empty((*t.shape[:d], lf.shape[d], *t.shape[d + 1:]))
+                    for r in range(self.shard.m):
+                        box = tuple((0, n) for n in full.shape)
+                        _place(full, box[:d] + (self._piece_of(lf, r)[d],) + box[d + 1:],
+                               parts[r])
+                    t = full
+                elif _width(span) != lf.shape[d]:
                     axis = "data" if d == lf.data_dim else "model"
                     t = self.comm.all_gather(t, dim=d, axis=axis, tag="ckpt")
             yield lf, t
@@ -949,7 +1056,7 @@ class TrainLayout:
     def zero_moments(self, device) -> OptState:
         """A fresh AdamW state of the rank's pieces (fp32 zeros)."""
         def zeros():
-            it = iter(torch.zeros(tuple(hi - lo for lo, hi in lf.box), dtype=torch.float32,
+            it = iter(torch.zeros(lf.moment_shape, dtype=torch.float32,
                                   device=device) for lf in self.leaves)
             return _map_structure(self.o_specs.m, lambda: next(it))
         return OptState(step=torch.zeros((), dtype=torch.int32), m=zeros(), v=zeros())

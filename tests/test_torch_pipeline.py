@@ -15,7 +15,8 @@ Held: the logits to both references at ``tests/test_torch_model.py``'s
 1e-4 (granite-3-8b and gemma2-9b on both meshes; rwkv6-3b, jamba and
 granite-moe on (2, 1)); the losses at ``tests/test_torch_train.py``'s 2e-6
 relative; the parameters after 1 and 5 steps within ``PARAM_TOL`` (the two
-frameworks sum the gradients in another order); each rank's
+frameworks sum the gradients in another order), granite-moe's too, and
+rwkv6-3b's and jamba's after one step (``ONE_STEP``); each rank's
 ``psum_compressed`` mean and residual exactly; the collectives each rank
 recorded against a count from the shapes; the schedule's beats; and a
 repeat count the stages do not divide raises.
@@ -53,7 +54,18 @@ MESHES = {"4x2": (4, 2), "2x1": (2, 1)}
 FORWARD = {"granite-3-8b": ("4x2", "2x1"), "gemma2-9b": ("4x2", "2x1"),
            "rwkv6-3b": ("2x1",), "jamba-v0.1-52b": ("2x1",),
            "granite-moe-1b-a400m": ("2x1",)}
-TRAIN = ("granite-3-8b", "gemma2-9b")        # untied head; tied, pattern of two
+TRAIN = ("granite-3-8b", "gemma2-9b",        # untied head; tied, pattern of two
+         "granite-moe-1b-a400m")              # MoE layers
+# Held after one step only: rwkv6-3b and jamba's smoke configs are
+# ill-conditioned in fp32 (ROADMAP C): their losses drift from the
+# reference's past the bound by step 5 (rwkv6-3b 3.9 %, jamba 1.8e-5)
+# while each step's parameters agree within a few fp32 ulps.
+ONE_STEP = ("rwkv6-3b", "jamba-v0.1-52b")
+# rwkv6-3b's fp32 gradients sit up to 6.3e-3 of a leaf's scale from float64
+# in either package (ROADMAP C), so after its one step each parameter leaf is
+# held within 1e-2 of the leaf's largest update (read on the CPU: 1.2e-3 of
+# a gradient at lr 5e-2 on the head), not within PARAM_TOL.
+RWKV_UPDATE_RTOL = 1e-2
 # the reference's work, one subprocess a group
 GROUPS = (("granite-3-8b", "psum"), ("gemma2-9b",), ("jamba-v0.1-52b",),
           ("rwkv6-3b", "granite-moe-1b-a400m"))
@@ -81,6 +93,11 @@ def _psum_inputs():
     g = (rng.standard_normal((PSUM_ROUNDS, nd, *PSUM_SHAPE)) * scale).astype(np.float32)
     r = (0.01 * rng.standard_normal((nd, *PSUM_SHAPE))).astype(np.float32)
     return g, r
+
+
+def _steps(arch) -> int:
+    """The SGD steps ``arch`` takes: ``N_STEPS`` (``TRAIN``), 1 (``ONE_STEP``) or none."""
+    return N_STEPS if arch in TRAIN else int(arch in ONE_STEP)
 
 
 def _flat(tree, prefix=""):
@@ -130,16 +147,17 @@ def _reference_main(out_path: str, names: list[str]) -> None:
             mesh = jax_pipeline_mesh(ns, nd)
             key = f"{name}/{mesh_name}"
             out[f"{key}/logits"] = np.asarray(jax_pf(params, cfg, tokens, mesh, ns))
-            if name not in TRAIN:
+            if not _steps(name):
                 continue
             step = build_pipeline_train_step(cfg, mesh, ns, N_MICRO, lr=LR)
             p, losses = params, []
-            for i in range(N_STEPS):
+            for i in range(_steps(name)):
                 p, loss = step(p, {"tokens": tokens, "labels": labels})
                 losses.append(float(loss))
                 if i == 0:
                     out.update({f"{key}/params_1/{k}": v for k, v in _flat(p).items()})
-            out.update({f"{key}/params_n/{k}": v for k, v in _flat(p).items()})
+            if name in TRAIN:
+                out.update({f"{key}/params_n/{k}": v for k, v in _flat(p).items()})
             out[f"{key}/losses"] = np.asarray(losses)
     np.savez(out_path, **out)
 
@@ -171,10 +189,9 @@ def runs(tmp_path_factory):
             payload[arch] = (cfg.n_layers, params, *_batch(cfg))
         ranks = {}
         for mesh_name, shape in MESHES.items():
-            mine = {a: (*v, a in TRAIN) for a, v in payload.items() if mesh_name in FORWARD[a]}
+            mine = {a: (*v, _steps(a)) for a, v in payload.items() if mesh_name in FORWARD[a]}
             ranks[mesh_name] = run_ranks(pipeline_on_rank, shape, ("stage", "data"), mine,
-                                         N_STEPS, LR, _psum_inputs(), device="cpu",
-                                         verbose=False)
+                                         LR, _psum_inputs(), device="cpu", verbose=False)
         ref = {}
         for path, proc in procs:
             proc.wait(timeout=600)
@@ -191,7 +208,7 @@ def runs(tmp_path_factory):
 
 
 FORWARD_CASES = [(a, m) for a, meshes in FORWARD.items() for m in meshes]
-TRAIN_CASES = [(a, m) for a in TRAIN for m in MESHES]
+TRAIN_CASES = [(a, m) for a in TRAIN + ONE_STEP for m in FORWARD[a]]
 
 
 @pytest.mark.parametrize("arch,mesh_name", FORWARD_CASES)
@@ -210,13 +227,14 @@ def test_forward_logits_match_reference(runs, arch, mesh_name):
 def test_losses_match_reference(runs, arch, mesh_name):
     ref, ranks = runs
     want = ref[f"{arch}/{mesh_name}/losses"]
-    assert want[-1] < want[0]
+    assert len(want) == _steps(arch) and (len(want) == 1 or want[-1] < want[0])
     for res in ranks[mesh_name]:
         np.testing.assert_allclose(res[arch]["losses"], want, rtol=LOSS_RTOL, atol=0)
 
 
-@pytest.mark.parametrize("after", ["params_1", "params_n"])
-@pytest.mark.parametrize("arch,mesh_name", TRAIN_CASES)
+@pytest.mark.parametrize("arch,mesh_name,after",
+                         [(a, m, after) for a, m in TRAIN_CASES
+                          for after in ("params_1", "params_n")[:2 if a in TRAIN else 1]])
 def test_parameters_match_reference(runs, arch, mesh_name, after):
     """Every rank's stage blocks and replicated leaves against the
     reference's parameters after the step (the stage-replicated embedding
@@ -225,18 +243,28 @@ def test_parameters_match_reference(runs, arch, mesh_name, after):
     cfg = _cfg(False, arch)
     P = len(cfg.expanded_pattern)
     key = f"{arch}/{mesh_name}/{after}"
+    init = _flat(jax_init_params(_cfg(True, arch), jax.random.PRNGKey(0)))
+
+    def close(got, path, r=None):
+        want = ref[path] if r is None else ref[path][r]
+        tol = PARAM_TOL
+        if arch == "rwkv6-3b":
+            start = init[path.split("/", 3)[3]]
+            step = np.abs(want - (start if r is None else start[r])).max()
+            tol = dict(rtol=0, atol=RWKV_UPDATE_RTOL * step)
+        np.testing.assert_allclose(got, want, **tol, err_msg=path)
+
     seen = set()
     for res in ranks[mesh_name]:
         got = res[arch][after]
         for leaf in ("embed", "final_ln", "lm_head"):
             if leaf in got:
-                np.testing.assert_allclose(got[leaf], ref[f"{key}/{leaf}"], **PARAM_TOL)
+                close(got[leaf], f"{key}/{leaf}")
         assert ("lm_head" in got) == (not cfg.tie_embeddings)
         for li, named in got["layers"].items():
             r, pi = divmod(li, P)
             for name, value in named.items():
-                path = f"{key}/blocks/{pi}/{name.replace('.', '/')}"
-                np.testing.assert_allclose(value, ref[path][r], **PARAM_TOL, err_msg=path)
+                close(value, f"{key}/blocks/{pi}/{name.replace('.', '/')}", r)
             seen.add(li)
     assert seen == set(range(cfg.n_layers))
 
@@ -311,7 +339,7 @@ def test_collectives_counted_from_shapes(runs, arch, mesh_name):
     for rank, res in enumerate(ranks[mesh_name]):
         stage = rank // shape[1]
         assert res[arch]["calls"] == expected_calls(cfg, params, shape, stage, False)
-        if arch in TRAIN:
+        if _steps(arch):
             assert res[arch]["step_calls"] == expected_calls(cfg, params, shape, stage, True)
 
 

@@ -70,11 +70,15 @@ def _caches(caches):
     return tuple({n: to_torch(a, "cpu") for n, a in slot.items()} for slot in caches)
 
 
-def serve_on_rank(mesh, payload, plans, max_len):
-    """Every plan's prefill step and decode steps of every arch of
-    ``payload`` (``{arch: (params, tokens, caches, decode tokens)}``, the
-    reference's numpy arrays) on this rank: the gathered logits and the
-    collectives each step recorded."""
+def serve_cases_on_rank(mesh, payload, plans, max_len):
+    """The prefill step and decode steps of every case of ``payload``
+    (``{name: (arch, config overrides, params, tokens or None, frontend
+    embeddings or None, caches, decode tokens, plan names)}``, the
+    reference's numpy arrays) under each of its plans (``plans``: ``{plan
+    name: ShardPlan keywords}``) on this rank.  Returns per (name, plan) the
+    rank's logits shape, the gathered prefill and decode logits, the
+    collectives of the prefill and of the first decode step, and the rank's
+    cache shapes."""
     import torch
 
     from repro_torch.configs import get_smoke_config
@@ -82,21 +86,31 @@ def serve_on_rank(mesh, payload, plans, max_len):
     from repro_torch.runtime.serve import build_decode_step, build_prefill_step
     from repro_torch.runtime.sharding import ShardPlan, gather_logits, shard_caches, shard_model
 
+    def tensor(a):
+        return None if a is None else torch.from_numpy(a)
+
     out = {}
-    for arch, (params, tokens, caches, dtoks) in payload.items():
-        cfg = get_smoke_config(arch)
+    for name, (arch, over, params, tokens, femb, caches, dtoks, names) in payload.items():
+        cfg = dataclasses.replace(get_smoke_config(arch), **over)
         whole = params_from_jax(cfg, params, "cpu")
-        B, S = tokens.shape
-        for name, kw in plans.items():
-            plan = ShardPlan(AXES, **kw)
+        B = dtoks.shape[1]
+        S = femb.shape[1] if cfg.frontend == "audio_stub" else (
+            tokens.shape[1] + (0 if femb is None else femb.shape[1]))
+        for plan_name in names:
+            plan = ShardPlan(AXES, **plans[plan_name])
             model = shard_model(whole, plan, mesh)
             prefill = build_prefill_step(cfg, plan, "cpu", mesh)
+            args = {"none": (tensor(tokens),), "audio_stub": (tensor(femb),),
+                    "vision_stub": (tensor(tokens), tensor(femb))}[cfg.frontend]
             mesh.comm.reset()
-            local = prefill(model, torch.from_numpy(tokens))
+            local = prefill(model, *args)
             res = {"local_shape": tuple(local.shape), "calls": dict(mesh.comm.calls),
                    "logits": gather_logits(local, model.shard).numpy()}
             decode = build_decode_step(cfg, plan, B, max_len, "cpu", mesh)
             state = shard_caches(_caches(caches), model.shard)
+            res["cache_shapes"] = [{n: tuple(t.shape) for n, t in slot.items()} for slot in state]
+            res["init_shapes"] = [{n: tuple(t.shape) for n, t in slot.items()}
+                                  for slot in model.init_kv_cache(B, max_len, torch.float32)]
             dec = []
             for t, tok in enumerate(dtoks):
                 mesh.comm.reset()
@@ -105,7 +119,7 @@ def serve_on_rank(mesh, payload, plans, max_len):
                     res["decode_calls"] = dict(mesh.comm.calls)
                 dec.append(gather_logits(lg, model.shard).numpy())
             res["decode"] = np.stack(dec)
-            out[(arch, name)] = res
+            out[(name, plan_name)] = res
     return out
 
 
@@ -149,13 +163,13 @@ def stage_params(model) -> dict:
     return out
 
 
-def pipeline_on_rank(mesh, payload, n_steps, lr, psum_inputs):
+def pipeline_on_rank(mesh, payload, lr, psum_inputs):
     """On this rank of a (stage, data) mesh: for every arch of ``payload``
-    (``{arch: (n_layers, params, tokens, labels, train)}``, the reference's
+    (``{arch: (n_layers, params, tokens, labels, steps)}``, the reference's
     numpy arrays), the pipelined forward (this rank's logits, the gathered
-    ones, the collectives it recorded) and, where ``train``, ``n_steps``
-    SGD steps (the losses, the stage's parameters after the first and the
-    last, the first step's collectives); then ``psum_compressed`` on this
+    ones, the collectives it recorded) and ``steps`` SGD steps (the losses,
+    the stage's parameters after the first and the last, the first step's
+    collectives); then ``psum_compressed`` on this
     rank's data row of ``psum_inputs``, ``(gradients [rounds, n_data, ...],
     first residuals [n_data, ...])``, each round's residual the last one's
     result."""
@@ -169,14 +183,14 @@ def pipeline_on_rank(mesh, payload, n_steps, lr, psum_inputs):
 
     ns = mesh.shape["stage"]
     out = {}
-    for arch, (n_layers, params, tokens, labels, train) in payload.items():
+    for arch, (n_layers, params, tokens, labels, n_steps) in payload.items():
         cfg = dataclasses.replace(get_smoke_config(arch), n_layers=n_layers, remat=False)
         model = StageModel(params_from_jax(cfg, params, "cpu"), ns, mesh.index("stage"))
         mesh.comm.reset()
         local = pipeline_forward(model, torch.from_numpy(tokens), mesh, ns)
         res = {"local_shape": tuple(local.shape), "calls": dict(mesh.comm.calls),
                "logits": gather_pipeline_logits(local, mesh).numpy()}
-        if train:
+        if n_steps:
             step = build_pipeline_train_step(cfg, mesh, ns, tokens.shape[0], lr)
             batch = {"tokens": tokens, "labels": labels}
             losses = []
