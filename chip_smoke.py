@@ -222,7 +222,7 @@ paths:
     chip_smoke.py --phase-22`` runs it alone): (a) ``psum_compressed`` over
     a data axis of 4, a granite-3-8b FFN weight's gradient a rank, each
     rank's mean and residual bit-equal to the reference's formula reckoned
-    on the host in numpy; (b) granite-3-8b at full width, 20 of its 40
+    on the host in numpy; (b) granite-3-8b at full width, 8 of its 40
     layers, bf16,
     B=8 x S=2048 as 4 microbatches of 2 rows, pipelined on (4, 1) and (2,
     2): each rank's logits against the one-rank forward of its rows, its
@@ -256,16 +256,37 @@ paths:
     (``python3 chip_smoke.py --phase-24`` runs it alone): (a) WKV-6 and the
     selective scan, forward and backward, at a rank's heads / channels
     against their plain versions at their phases' bounds, timed; (b)
-    rwkv6-3b (4 layers) and jamba's period (8 layers, a dense FFN), both
-    fp32, and paligemma-3b and musicgen-medium (2 layers, bf16), B=4 x
-    S=2048 prefills and 4 decode steps on (2, 2) and (1, 4) under ISP, WSP
-    and mixed where the depth allows, jamba's decode with the cache whole
-    over time: each rank's logits against the one-rank run, launches and
-    collectives equal to the meta step's, the prefill's rise within 1.15 x
-    the meta step's; (c) one mesh train step of rwkv6-3b (2 layers, (1, 4)
-    mixed) and of jamba's period ((1, 4) ISP), held as 23(b) holds its
-    steps, launching the WKV-6 and scan backwards on a rank's heads and
-    channels.
+    rwkv6-3b (2 layers) and jamba (4 layers of its period: mamba, mamba,
+    attn, mamba, a dense FFN), both fp32, and paligemma-3b and
+    musicgen-medium (2 layers, bf16), B=4 x S=2048 prefills and 2 decode
+    steps on (2, 2) and (1, 4) under ISP, WSP and mixed where the depth
+    allows, jamba's decode with the cache whole over time: each rank's
+    logits against the one-rank run, launches and collectives equal to the
+    meta step's, the prefill's rise within 1.15 x the meta step's; (c) one
+    mesh train step of rwkv6-3b (2 layers, (1, 4) mixed) and of jamba's 4
+    layers ((1, 4) ISP), held as 23(b) holds its steps, launching the WKV-6
+    and scan backwards on a rank's heads and channels.
+25. MoE on (data, model) meshes (``python3 chip_smoke.py --phase-25`` runs
+    it alone): granite-moe-1b-a400m at full depth (24 layers, fp32) on (2,
+    2) under ISP, WSP, mixed and ISP without expert parallelism and on (1,
+    4) under ISP, WSP and mixed; jamba with its experts (4 layers: mamba,
+    mamba + MoE, attn, mamba + MoE; fp32) on (2, 2) ISP and (1, 4) WSP;
+    llama4-maverick (2 layers, 128 experts, bf16) on (1, 4) ISP; B=4 x
+    S=2048 prefills and 1-2 decode steps: each rank's logits against the
+    one-rank run on the tokens of dispatch groups that routed alike, every
+    MoE choice against the one-rank run's (a flip downstream of no other
+    only below a threshold from rounding, ``P25_ROUTE_TOL``; the share of
+    equal choices and the flips printed), launches and collectives (the
+    all-to-alls among them) equal to the meta step's, the prefill's rise
+    within 1.15 x the meta step's; then one mesh AdamW step of a 4-layer
+    granite-moe on (2, 2) ISP and (1, 4) mixed, held as 23(b) holds its
+    steps, its routing as the serving steps'.
+
+A whole run takes phase 22 before phase 21, then runs the ranks' parts of
+phases 21, 23, 24 and 25 on one set of 4 rank processes, in that order, each
+phase's own kernel checks first and its report after them
+(``mesh_phases``); ``--phase-21`` / ``-23`` / ``-24`` / ``-25`` run one of
+them alone the same way.
 
 Any failed check raises and the script exits non-zero without a result.  The
 last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -277,15 +298,18 @@ its backward: the phase-18 training run, calls of five kernels each;
 selective scan: the phase-10 jamba prefill; its backward: the phase-19(c)
 training run, calls of two kernels each; qmatmul: the phase-13 op call)
 and its times (each also with its launches on phase 14's facade path;
-flash also with one rank's launches in phase 21's WSP prefill and in phase
-22's pipelined prefill on (4, 1); its backward also with one rank's
-launches in phase 23's WSP step on (1, 4) and its time with a query offset
-at phase 23(a)'s rank slice), and
+flash also with one rank's launches in phase 21's WSP prefill, in phase
+22's pipelined prefill on (4, 1) and in phase 25's granite-moe WSP prefill
+on (1, 4); its backward also with one rank's launches in phase 23's WSP
+step on (1, 4) and in phase 25's MoE step on (1, 4), and its time with a
+query offset at phase 23(a)'s rank slice; the scan also with one rank's
+launches in phase 25's jamba WSP prefill on (1, 4)), and
 the line before that the script's wall time.  Imports nothing of JAX or of
 ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -555,7 +579,10 @@ P20_DRYRUN = ["-m", "repro_torch.launch.dryrun", "--all"]
 # + global, so that a transition exists) at S=8192, so that a WSP rank's
 # window reaches into another rank's positions.  Depth and decode steps are
 # cut (granite 4 → 2 layers, 8 → 2 steps, to make room for phase 24): every
-# layer's collectives cross the host.
+# layer's collectives cross the host.  Decode runs the ISP zone whatever a
+# plan's zones, so the first plan of each placement decodes, and a config's
+# cells share its one-rank runs (each plan decoded and each cell ran its
+# own until phase 25 took the room).
 P21_AXES = ("data", "model")
 P21_WORLD = (1, 4)
 P21_CELLS = [
@@ -587,7 +614,8 @@ P21_FA_CASES = [
 # 21 sharing the card over gloo.  (a) psum_compressed over a data axis of 4,
 # one granite-3-8b FFN weight's gradient a rank (bf16, rank i's drawn at
 # scale 0.01 (i + 1), so the ranks' int8 scales differ).  (b) granite-3-8b
-# at full width, 20 of its 40 layers (40 until phase 24 took the room), B=8
+# at full width, 8 of its 40 layers (40 until phase 24 took the room, 20
+# until phase 25 did: 2 a stage on (4, 1)), B=8
 # x S=2048 as n_micro = 4 microbatches of 2 rows, on each
 # (stage, data) mesh; each rank's logits against the one-rank forward of its
 # rows within P21_LOGIT_TOL.  (c) SGD steps at full width, depth cut by the
@@ -601,7 +629,7 @@ P22_WORLD = (4, 1)
 P22_ARCH = "granite-3-8b"
 P22_N_MICRO, P22_MB, P22_S = 4, 2, 2048
 P22_FWD_MESHES = ((4, 1), (2, 2))
-P22_FWD_LAYERS = 20
+P22_FWD_LAYERS = 8
 P22_TRAIN_LAYERS = 4
 P22_TRAIN = (((4, 1), 2), ((2, 2), 1))
 P22_LR = 5e-2                             # the reference's test step
@@ -679,9 +707,11 @@ P24_WKV = (4, 10, 2048, 64)
 P24_SCAN = (4, 2048, 2048, 16)
 # (b) serving at full width: (arch, layers, B, S, mesh shape, plans, config
 # overrides), plans as phase 21 names them, "whole_time" the ISP plan with
-# the decode cache whole over time.  rwkv6-3b at 4 layers (mixed turns at
-# repeat 2), jamba's period (8 layers, one repeat: no mixed plan) with a
-# dense FFN, the stubs at 2 layers (paligemma: 256 patches + 1,792 tokens);
+# the decode cache whole over time.  rwkv6-3b at 2 layers (mixed turns at
+# repeat 1; 4 until phase 25 took the room), jamba cut to 4 layers of its
+# period, block pattern (mamba, mamba, attn, mamba) (one repeat: no mixed
+# plan; the whole 8-layer period until phase 25), with a dense FFN, the
+# stubs at 2 layers (paligemma: 256 patches + 1,792 tokens);
 # jamba's WSP on (1, 4) only (on (2, 2) its prefill took 16.9 s of fp32
 # weight gathers through the host, a run's time limit spent on one check);
 # each rank's logits and P24_STEPS decode steps against the one-rank run
@@ -694,12 +724,13 @@ P24_SCAN = (4, 2048, 2048, 16)
 # on the CPU, B=2-4 x S=32-64), at or past the bound; the stubs move 0.5-0.7
 # %.  In fp32 a wrong head, channel, shard or state still moves them by O(1).
 RWKV_FP32 = {"param_dtype": "float32"}
-JAMBA_FP32 = {"moe": None, "param_dtype": "float32"}
+JAMBA_FP32 = {"moe": None, "param_dtype": "float32",
+              "block_pattern": ("mamba", "mamba", "attn", "mamba")}
 P24_CELLS = [
-    ("rwkv6-3b", 4, 4, 2048, (2, 2), ("ISP", "WSP", "mixed"), RWKV_FP32),
-    ("rwkv6-3b", 4, 4, 2048, (1, 4), ("ISP", "WSP", "mixed"), RWKV_FP32),
-    ("jamba-v0.1-52b", 8, 4, 2048, (2, 2), ("ISP",), JAMBA_FP32),
-    ("jamba-v0.1-52b", 8, 4, 2048, (1, 4), ("ISP", "WSP", "whole_time"), JAMBA_FP32),
+    ("rwkv6-3b", 2, 4, 2048, (2, 2), ("ISP", "WSP", "mixed"), RWKV_FP32),
+    ("rwkv6-3b", 2, 4, 2048, (1, 4), ("ISP", "WSP", "mixed"), RWKV_FP32),
+    ("jamba-v0.1-52b", 4, 4, 2048, (2, 2), ("ISP",), JAMBA_FP32),
+    ("jamba-v0.1-52b", 4, 4, 2048, (1, 4), ("ISP", "WSP", "whole_time"), JAMBA_FP32),
     ("paligemma-3b", 2, 4, 2048, (2, 2), ("ISP", "WSP", "mixed"), {}),
     ("paligemma-3b", 2, 4, 2048, (1, 4), ("ISP", "WSP", "mixed"), {}),
     ("musicgen-medium", 2, 4, 2048, (2, 2), ("ISP", "WSP", "mixed"), {}),
@@ -707,12 +738,85 @@ P24_CELLS = [
 ]
 P24_STEPS = 2
 # (c) one mesh train step each (AdamW, ZeRO), held as phase 23(b) holds its
-# steps: rwkv6-3b at 2 layers on (1, 4) mixed (WSP then ISP), jamba's
-# period with a dense FFN on (1, 4) ISP, both in fp32 as in (b) (the
-# one-rank reference step of jamba's period: 44.9 GiB on meta, rank 0 alone).
+# steps: rwkv6-3b at 2 layers on (1, 4) mixed (WSP then ISP), jamba's 4
+# layers of (b) with a dense FFN on (1, 4) ISP (its period's 8 until phase
+# 25), both in fp32 as in (b).
 P24_TRAIN = [
     ("rwkv6-3b", 2, 4, 2048, (1, 4), ("mixed",), RWKV_FP32),
-    ("jamba-v0.1-52b", 8, 4, 2048, (1, 4), ("ISP",), JAMBA_FP32),
+    ("jamba-v0.1-52b", 4, 4, 2048, (1, 4), ("ISP",), JAMBA_FP32),
+]
+# Phase 25: MoE on (data, model) meshes (models/moe.py: each rank's block of
+# the dispatch groups, the dispatch and combine all-to-alls over model, the
+# expert banks cut over model and data), the 4 ranks of phase 21 sharing
+# the card over gloo.  (a) granite-moe-1b-a400m at full width and depth
+# (24 layers) in fp32, B=4 x S=2048 prefills and their decode steps on
+# (2, 2) and (1, 4) under ISP, WSP and mixed, and ISP without expert
+# parallelism on (2, 2).  (b) jamba-v0.1-52b with its experts, fp32 (in
+# bf16 random-init jamba's logits move 2 % under another order of sums,
+# phase 24), cut to 4 layers: block pattern (mamba, mamba, attn, mamba),
+# the period's first two MoE mamba layers with its attention layer between
+# them.  The config takes whole pattern repeats: a 5-layer cut of the
+# period (MoE every second layer) expands to 10 layers, and the 6 layers up
+# to the third MoE layer are 39 GB in fp32, too many beside four shards.
+# On (2, 2) ISP and (1, 4) WSP.  (c) llama4-maverick at full width, 2
+# layers (a dense and an MoE layer of 128 experts, phases 16-17's cut),
+# bf16 on (1, 4) ISP: in fp32 the whole model (~69 GB) cannot sit beside
+# the shards.  Every whole model is built while no rank holds a shard
+# (the one-rank runs, rank by rank), then each rank's shard while the
+# others hold theirs, the whole model freed at once.  Each rank's logits
+# against the one-rank run within P25_TOL of the largest, on every token
+# whose dispatch group routed as the one-rank run's did at every layer;
+# launches and collectives = the meta step's; the prefill's rise within
+# P23_PEAK_MARGIN of the meta step's.
+FP32 = {"param_dtype": "float32"}
+JAMBA_MOE_FP32 = {"param_dtype": "float32", "block_pattern": ("mamba", "mamba", "attn", "mamba")}
+# (arch, layers, B, S, mesh shape, plans, decode steps, config overrides); a
+# config's meshes share its one-rank runs.  Decode takes 2 steps on (1, 4)
+# and 1 on (2, 2), where every step gathers every expert bank over data
+# (FSDP: 2.4 GB a rank a step for granite-moe, 11.4 GB for jamba, through
+# the host; the first run's 2 steps there took 10-24 s / 41 s), none for
+# jamba on (2, 2) (its (1, 4) WSP decodes); decode runs the ISP zone, so
+# one plan a placement decodes on a mesh (WSP and mixed reuse ISP's).
+P25_CELLS = [
+    ("granite-moe-1b-a400m", 24, 4, 2048, (2, 2), ("ISP", "WSP", "mixed", "no_ep"), 1, FP32),
+    ("granite-moe-1b-a400m", 24, 4, 2048, (1, 4), ("ISP", "WSP", "mixed"), 2, FP32),
+    ("jamba-v0.1-52b", 4, 4, 2048, (2, 2), ("ISP",), 0, JAMBA_MOE_FP32),
+    ("jamba-v0.1-52b", 4, 4, 2048, (1, 4), ("WSP",), 2, JAMBA_MOE_FP32),
+    ("llama4-maverick-400b-a17b", 2, 4, 2048, (1, 4), ("ISP",), 2, {}),
+]
+# Routing flips.  The mesh and the one-rank run add the same products in
+# another order and in other shapes (cuBLAS picks other kernels), so a
+# router logit moves between them by rounding: by at most tol x the logits'
+# scale, tol = 1e-4 in fp32 (the CPU tests' bound on the mesh against one
+# device) and P21_LOGIT_TOL in bf16 (the mesh's logits bound).  Each call's
+# largest move is measured over the tokens downstream of no flip that chose
+# alike and held to that (tau's premise; the third run of phase 25 read at
+# most 5.1e-6 of the scale in fp32).  Two choices can swap by rounding only
+# where their one-rank logits lie within twice that: a flip downstream of no
+# other flip may differ from the one-rank run's choice only where its gap to
+# a neighbouring logit is below tau = 2 x tol x the largest |top logit| of
+# the call.  A flipped choice moves its token by O(1), its group's other
+# tokens through capacity and, through attention, its sequence's later
+# positions in later layers (the first run read a downstream swap at a gap
+# of 1.3e-3): flips there are counted, and the groups that hold a flip are
+# left out of the logits bound and counted.
+P25_ROUTE_TOL = {"float32": 1e-4, "bfloat16": P21_LOGIT_TOL}
+# Phase 25's bounds against the one-rank run, by the weights' dtype: the
+# logits (prefill and decode, of the largest one-rank logit) and (d)'s grad
+# norm and gradient leaves (of each leaf's largest element).  The fp32 cells
+# read logits within 1.2e-5 to 6.0e-5 and gradient leaves within 4.1e-6 to
+# 7.2e-6 (four whole runs and runs 3-6 of the phase); 1e-3 stands 17 x above
+# the worst and 20 x below what bf16 sums move these models' logits (2 %,
+# phase 24), so an expert bank or a collective in bf16 fails it.  bf16
+# (llama4) keeps phase 21's bound (read 5.6e-3).
+P25_TOL = {"float32": 1e-3, "bfloat16": P21_LOGIT_TOL}
+# (d) one mesh AdamW step of granite-moe-1b-a400m, 4 layers, fp32 (in bf16
+# a flipped near-tie moves an expert's gradient by a token's whole
+# contribution), on (2, 2) ISP and (1, 4) mixed, held as phase 23(b) holds
+# its steps, its first forward's routing held as (a)'s.
+P25_TRAIN = [
+    ("granite-moe-1b-a400m", 4, 4, 2048, (2, 2), ("ISP",), FP32),
+    ("granite-moe-1b-a400m", 4, 4, 2048, (1, 4), ("mixed",), FP32),
 ]
 
 
@@ -2734,7 +2838,8 @@ def mesh_plan_kwargs(cfg, B: int, S: int, m: int, names) -> dict:
              "mixed": {"p1": "WSP", "p2": "ISP",
                        "transition_repeat": cfg.pattern_repeats // 2},
              "whole_time": {"p1": "ISP", "p2": "ISP", "transition_repeat": None,
-                            "shard_kv_cache_time": False}}
+                            "shard_kv_cache_time": False},
+             "no_ep": {"p1": "ISP", "p2": "ISP", "transition_repeat": None, "ep": False}}
     plans = {n: fixed[n] for n in names if n != "dse"}
     if "dse" in names:
         p = plan_for_cell(cfg, S, B, P21_AXES, model_axis=m, kind="prefill")
@@ -2749,17 +2854,21 @@ def mesh_plan_kwargs(cfg, B: int, S: int, m: int, names) -> dict:
 
 
 def p21_rank(world, cells: list, steps: int) -> list:
-    """One rank of phase 21 (a process of its own on the shared card): each
-    cell, ``(arch, layers, B, S, mesh shape, plans, seed)``, on its mesh
-    over the same processes; its :func:`p21_cell` results."""
+    """One rank of phase 21 (or 24(b)), a process of its own on the shared
+    card: each cell, ``(arch, layers, B, S, mesh shape, plans, seed[,
+    config overrides])``, on its mesh over the same processes, a config's
+    consecutive cells sharing its one-rank runs and the first one's seed
+    (:func:`serve_cell`); a result per cell."""
+    import itertools
+
     import torch
 
-    from repro_torch.launch.mesh import make_mesh
-
     out = []
-    for arch, layers, B, S, shape, plans, seed, *rest in cells:
-        mesh = world if tuple(shape) == world.dims else make_mesh(shape, P21_AXES, world.device)
-        out.append(p21_cell(mesh, arch, layers, B, S, plans, seed, steps, *rest))
+    for _, group in itertools.groupby(cells, key=lambda c: (c[:4], c[7:])):
+        group = list(group)
+        arch, layers, B, S, _, _, seed, *over = group[0]
+        out += serve_cell(world, arch, layers, B, S, [(c[4], c[5], steps) for c in group], seed,
+                          over[0] if over else {})
         torch.cuda.empty_cache()
     return out
 
@@ -2805,155 +2914,107 @@ def prefill_args(cfg, B: int, S: int, seed: int) -> tuple:
     return tokens,
 
 
-def p21_cell(mesh, arch: str, layers: int, B: int, S: int, plans: dict, seed: int,
-             steps: int, over: dict | None = None) -> dict:
-    """One rank of a phase-21 (or 24) cell; ``over``: config overrides.
-
-    One rank at a time, the whole model from the seed, its one-rank prefill
-    and ``steps`` decode steps from the prefill's caches (this rank's rows
-    and vocab columns of their logits), then the rank's shard, the whole
-    model freed: the card holds one whole model beside the shards.  The
-    pieces a rank stores do not depend on the plan, so one shard serves
-    every plan (its ``shard`` placed anew).  Then per plan: the mesh
-    prefill (wall time, every hand kernel's launches, the allocator's
-    rise, the collectives) and the decode steps from the rank's pieces of
-    the same caches, each against the one-rank logits, and the dry-run's
-    prediction for this rank (``trace_step`` on a meta rank at these
-    coordinates): its collectives, its kernel calls and its peak (the
-    prefill's rise above what the rank held, less its inputs, within
-    ``P23_PEAK_MARGIN`` of the meta step's temporaries).  Raises on any
-    failed check."""
+def one_rank_room(cfg, B: int, S: int, mesh, eps=(True,)) -> tuple[bool, bool]:
+    """``(together, park)``: how the ranks of ``mesh`` make their one-rank
+    references and cut their shards, reckoned alike on every rank from the
+    meta model.  ``together``, every rank at once, where each rank's whole
+    model, its draw's fp32 temporary (a 16-bit model's largest leaf), its
+    shards (one for each expert placement of ``eps``), its prefill's logits
+    (fp32, and the columns kept: twice) and 2 GiB take at most 0.7 of the
+    card over the ranks; else in turns, the shards of the ranks done parked on the host
+    (``park``) where one whole model, its temporary and every rank's shards
+    pass 0.8 of the card."""
     import torch
-    import torch.distributed as dist
 
-    from repro_torch.configs import get_config
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import init_kv_cache, init_params
-    from repro_torch.runtime.serve import build_decode_step, build_prefill_step
-    from repro_torch.runtime.sharding import ShardPlan, rank_shard, shard_caches, shard_model
+    from repro_torch.models import init_params
+    from repro_torch.runtime.sharding import ShardPlan, shard_model
 
-    dev = mesh.device
-    cfg = dataclasses.replace(get_config(arch), n_layers=layers, **(over or {}))
-    args = prefill_args(cfg, B, S, seed + 1)
-    in_bytes = sum(t.nbytes for t in args)
-    dtoks = torch.randint(0, cfg.vocab, (steps, B, 1),
-                          generator=torch.Generator().manual_seed(seed + 2))
-    place = rank_shard(cfg, ShardPlan(P21_AXES), mesh)     # rows and vocab: the same for all
-    rows = slice(place.dpi * B // place.dp, (place.dpi + 1) * B // place.dp)
-    v0, v1 = place.vocab
-    for turn in range(mesh.size):
-        if turn == mesh.rank:
-            whole = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
-            with torch.inference_mode():
-                inputs = [t.to(dev) for t in args]
-                if cfg.frontend == "audio_stub":
-                    inputs = [None, *inputs]
-                logits, pre = whole(*inputs, collect_cache=True)
-                del inputs
-                ref = logits[rows, :, v0:v1].clone()
-                del logits
-                caches = init_kv_cache(cfg, B, S + steps, getattr(torch, cfg.param_dtype), dev)
-                for full, part in zip(caches, pre):
-                    for n in full:
-                        if n in ("k", "v"):
-                            full[n][:, :, :S] = part[n]
-                        else:
-                            full[n].copy_(part[n])
-                del pre
-                start = tuple({n: t.clone() for n, t in c.items()} for c in caches)
-                dref = []
-                for t in range(steps):
-                    lg, caches = whole.decode_step(dtoks[t].to(dev),
-                                                   torch.full((B,), S + t, device=dev), caches)
-                    dref.append(lg[rows, :, v0:v1].clone())
-                del caches, lg
-            model = shard_model(whole, ShardPlan(P21_AXES), mesh)
-            del whole
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-        dist.barrier()
-    scale = ref.abs().max().item()
-    dscale = max(d.abs().max().item() for d in dref)
-    out = {}
-    for name, kw in plans.items():
-        plan = ShardPlan(P21_AXES, **kw)
-        model.shard = rank_shard(cfg, plan, mesh)
-        prefill = build_prefill_step(cfg, plan, dev, mesh)
-        torch.cuda.synchronize()
-        dist.barrier()
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()
-        mesh.comm.reset()
-        reset_mesh_launches()
+    meta = init_params(cfg, None, "meta")
+    whole = sum(p.nbytes for p in meta.parameters())
+    temp = 0 if cfg.param_dtype == "float32" else 4 * max(p.numel() for p in meta.parameters())
+    shards = sum(p.nbytes for ep in eps for p in
+                 shard_model(meta, ShardPlan(P21_AXES, ep=ep), mesh).parameters())
+    card = torch.cuda.get_device_properties(mesh.device).total_memory
+    need = whole + temp + shards + 2 * 4 * B * S * cfg.vocab + 2**31
+    return mesh.size * need <= 0.7 * card, whole + temp + mesh.size * shards > 0.8 * card
+
+
+def mesh_parts(world, parts: list, t_start: float) -> list:
+    """One rank of :func:`mesh_phases`: each phase's part, ``(name, fn,
+    args)``, in turn, ``fn(world, *args)``, once what the last part left is
+    freed; rank 0 prints when the ranks came up (``t_start``: the parent's
+    clock as it started them) and each part's wall."""
+    import gc
+
+    import torch
+
+    if world.rank == 0:
+        print(f"    [the ranks up {time.time() - t_start:.1f} s after they were started]",
+              flush=True)
+    out = []
+    for name, fn, args in parts:
+        gc.collect()
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        local = prefill(model, *args)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = mesh_kernel_launches()
-        rise = torch.cuda.max_memory_allocated() - before
-        calls = dict(mesh.comm.calls)
-        stats = mesh.comm.stats()
-        check(bool(torch.isfinite(local).all()), f"{arch} {name}: non-finite mesh logits")
-        err = (local - ref).abs().max().item()
-        del local
-        decode = build_decode_step(cfg, plan, B, S + steps, dev, mesh)
-        state = shard_caches(start, model.shard)
-        derr, dcalls, dlaunches = 0.0, None, None
-        dist.barrier()
-        t0 = time.perf_counter()
-        for t in range(steps):
-            mesh.comm.reset()
-            reset_mesh_launches()
-            lg, state = decode(model, dtoks[t], torch.full((B,), S + t), state)
-            if t == 0:
-                dcalls, dlaunches = dict(mesh.comm.calls), mesh_kernel_launches()
-            derr = max(derr, (lg - dref[t]).abs().max().item())
-        torch.cuda.synchronize()
-        dwall = time.perf_counter() - t0
-        del state
-        meta = make_mesh(mesh.dims, mesh.axis_names, meta=True, coords=mesh.coords)
-        pred = dryrun.trace_step(cfg, S, B, "prefill", plan, meta)
-        pcalls = dict(meta.comm.calls)
-        meta = make_mesh(mesh.dims, mesh.axis_names, meta=True, coords=mesh.coords)
-        dpred = dryrun.trace_step(cfg, S + steps, B, "decode", plan, meta)
-        where = f"{arch} {tuple(mesh.dims)} {name} rank {mesh.rank}"
-        check(launches == pred["kernel_calls"],
-              f"{where}: kernel launches {launches}, the dry-run's {pred['kernel_calls']}")
-        check(dlaunches == dpred["kernel_calls"],
-              f"{where}: decode launches {dlaunches}, the dry-run's {dpred['kernel_calls']}")
-        check(err <= P21_LOGIT_TOL * scale,
-              f"{where}: prefill logits max abs err {err} > {P21_LOGIT_TOL} x {scale}")
-        check(derr <= P21_LOGIT_TOL * dscale,
-              f"{where}: decode logits max abs err {derr} > {P21_LOGIT_TOL} x {dscale}")
-        check(calls == pcalls, f"{where}: prefill collectives {calls} vs the dry-run's {pcalls}")
-        check(dcalls == dict(meta.comm.calls),
-              f"{where}: decode collectives {dcalls} vs the dry-run's {meta.comm.calls}")
-        mem = pred["memory_analysis"]
-        check(rise - in_bytes <= (1 + P23_PEAK_MARGIN) * mem["temp_size_bytes"],
-              f"{where}: prefill rise {rise} B less inputs {in_bytes} B over the meta "
-              f"step's temporaries {mem['temp_size_bytes']} B x {1 + P23_PEAK_MARGIN}")
-        out[name] = {"wall_s": wall, "decode_s": dwall, "launches": launches, "err": err,
-                     "scale": scale, "decode_err": derr, "decode_scale": dscale,
-                     "bytes_by_kind": stats["bytes_by_kind"],
-                     "count_by_kind": stats["count_by_kind"], "rise": rise,
-                     "pred_temp": mem["temp_size_bytes"], "pred_peak": mem["peak_bytes"],
-                     "args": mem["argument_size_bytes"]}
+        out.append(fn(world, *args))
+        if world.rank == 0:
+            print(f"    [{name}: {time.perf_counter() - t0:.1f} s on rank 0]", flush=True)
     return out
 
 
-def mesh_phase(get_config, card: str, sync) -> int:
-    """Phase 21; returns the flash launches of one rank's WSP prefill of
-    granite-3-8b on the (1, 4) mesh (the phase's main path)."""
+def mesh_phases(phases: list) -> list:
+    """Phases of ranks sharing the card over gloo (21, 23, 24, 25), each a
+    generator: it does its own process's part (its kernel checks), yields
+    its ranks' part ``(name, fn, args)``, is sent every rank's results, and
+    returns its own.  One set of rank processes runs every part in turn
+    (:func:`mesh_parts`), so the later ones skip the ranks' start (the
+    processes, CUDA, gloo, the first meta trace); their allocators take
+    what they hold in 512-byte blocks (expandable segments, the dry-run's
+    rule), four ranks' caches sharing the card."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.mesh import run_ranks
+
+    parts = [next(phase) for phase in phases]
+    gc.collect()        # what the kernel checks cached, freed for the ranks
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = run_ranks(mesh_parts, P21_WORLD, P21_AXES, parts, time.time(), device="cuda",
+                          threads=2, timeout=1100.0)
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    print(f"  {', '.join(name for name, _, _ in parts)}: {len(ranks)} ranks ran every part in "
+          f"{time.perf_counter() - t0:.1f} s (their start included)")
+    out = []
+    for k, phase in enumerate(phases):
+        try:
+            phase.send([r[k] for r in ranks])
+        except StopIteration as done:
+            out.append(done.value)
+        else:
+            raise RuntimeError(f"{parts[k][0]}: a mesh phase yields one part")
+    return out
+
+
+def mesh_phase(get_config, card: str, sync):
+    """Phase 21, a phase of :func:`mesh_phases`; returns the flash launches
+    of one rank's WSP prefill of granite-3-8b on the (1, 4) mesh (the
+    phase's main path)."""
     import torch
 
     from repro_torch.kernels.flash_attention.kernel import (flash_attention_cost,
                                                             flash_attention_kernel)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.launch.hlo_analysis import kernel_bound
-    from repro_torch.launch.mesh import run_ranks
 
-    t_phase = time.perf_counter()
     dev = torch.device("cuda")
     print("phase 21: the serving steps on (data, model) meshes of ranks sharing the card "
           "over gloo; the flash kernel with a query offset")
@@ -2991,21 +3052,16 @@ def mesh_phase(get_config, card: str, sync) -> int:
         cfg = dataclasses.replace(get_config(arch), n_layers=layers)
         cells.append((arch, layers, B, S, shape, mesh_plan_kwargs(cfg, B, S, shape[1], names),
                       210 + i))
-    n = P21_WORLD[0] * P21_WORLD[1]
-    t0 = time.perf_counter()
-    ranks = run_ranks(p21_rank, P21_WORLD, P21_AXES, cells, P21_STEPS, device="cuda",
-                      threads=2)
-    print(f"  {n} ranks ran every cell in {time.perf_counter() - t0:.1f} s (start, init, "
-          f"one-rank references, every plan)")
+    ranks = yield "phase 21", p21_rank, (cells, P21_STEPS)
+    print("phase 21 (the serving steps on (data, model) meshes): the ranks' results")
     serving_report(get_config, cells, ranks, P21_STEPS, card)
     i = next(i for i, c in enumerate(cells) if c[0] == "granite-3-8b" and c[4] == (1, 4))
-    print(f"  phase 21: {time.perf_counter() - t_phase:.1f} s")
     return ranks[0][i]["WSP"]["launches"]["flash_attention_kernel"]
 
 
 def serving_report(get_config, cells: list, ranks: list, steps: int, card: str) -> None:
-    """Phase 21's and 24's lines of each cell and plan from every rank's
-    :func:`p21_cell` results."""
+    """Phase 21's, 24's and 25's lines of each cell and plan from every
+    rank's :func:`serve_cell` results."""
     n = len(ranks)
     for i, (arch, layers, B, S, shape, plans, *rest) in enumerate(cells):
         full = get_config(arch)
@@ -3013,16 +3069,22 @@ def serving_report(get_config, cells: list, ranks: list, steps: int, card: str) 
         dtype = over.get("param_dtype", "bf16").replace("bfloat16", "bf16").replace("float", "fp")
         print(f"  {arch} full width, layers {full.n_layers}→{layers}"
               + (f", moe → dense FFN d_ff {full.d_ff}" if "moe" in over else "")
+              + (f", block pattern {over['block_pattern']}" if "block_pattern" in over else "")
               + f", {dtype}, B={B} x S={S} on a {shape} (data, model) mesh: {n} ranks sharing "
                 "one card over gloo")
         for name, kw in plans.items():
             per = [r[i][name] for r in ranks]
             wall = max(p["wall_s"] for p in per)
-            print(f"  {name} {kw}: prefill wall {wall * 1e3:.1f} ms (slowest rank), "
-                  f"{steps} decode steps {max(p['decode_s'] for p in per) * 1e3:.1f} ms; "
+            n_dec = per[0].get("decode_steps", steps)
+            decode = (f"{n_dec} decode steps {max(p['decode_s'] for p in per) * 1e3:.1f} ms"
+                      if n_dec else f"decode as the {per[0]['decode_as']} plan's (its zones "
+                                    "do not reach decode)" if per[0].get("decode_as") != name
+                      else "no decode step")
+            print(f"  {name} {kw}: prefill wall {wall * 1e3:.1f} ms (slowest rank), {decode}; "
                   f"max abs err vs one rank: prefill {max(p['err'] for p in per):.3e} "
                   f"(scale {per[0]['scale']:.3e}), decode "
-                  f"{max(p['decode_err'] for p in per):.3e}; kernel launches a rank "
+                  f"{max(p['decode_err'] for p in per):.3e} (bound {per[0]['tol']} x the "
+                  f"scale); kernel launches a rank "
                   f"{per[0]['launches']}; {n} ranks sharing one card over gloo {card}")
             print(f"    collectives a rank (result bytes by kind, = the dry-run's count): "
                   f"{json.dumps(per[0]['bytes_by_kind'])} calls "
@@ -3583,9 +3645,12 @@ def p23_rank(world, cells: list, steps: int) -> list:
     return out
 
 
-def p23_reference(mesh, cfg, batch: dict, seed: int, steps: int, mine) -> dict:
+def p23_reference(mesh, cfg, batch: dict, seed: int, steps: int, mine,
+                  routing: bool = False) -> dict:
     """Phase 23(b)'s one-rank reference, on rank 0 while the other ranks
-    wait: ``steps`` one-rank train steps of the whole model from the seed.
+    wait: ``steps`` one-rank train steps of the whole model from the seed
+    (with ``routing``, the first step's MoE routing of every token kept,
+    :func:`p25_by_layer`).
     The first gives the loss, the grad norm and the clipped gradient (AdamW's
     first moment after one step from zero, over 1 - b1: exact, the moment
     holding 0.1 g in fp32 of a bf16 g), cut into every rank's moment pieces
@@ -3598,6 +3663,7 @@ def p23_reference(mesh, cfg, batch: dict, seed: int, steps: int, mine) -> dict:
     from repro_torch import tree as pytree
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import init_params
+    from repro_torch.models.moe import routing_log
     from repro_torch.optim import make_optimizer
     from repro_torch.runtime.sharding import ShardPlan, TrainLayout, _narrow, rank_shard
     from repro_torch.runtime.train import build_train_step
@@ -3615,13 +3681,14 @@ def p23_reference(mesh, cfg, batch: dict, seed: int, steps: int, mine) -> dict:
         for i in range(steps):
             sync()
             t0 = time.perf_counter()
-            model, opt, met = step(model, opt, batch)
+            with routing_log() if routing and not i else contextlib.nullcontext() as log:
+                model, opt, met = step(model, opt, batch)
             sync()
             walls.append(time.perf_counter() - t0)
             if i:
                 continue
             head = {"loss": met["loss"].item(), "grad_norm": met["grad_norm"].item(),
-                    "scales": []}
+                    "scales": [], "routing": p25_by_layer(log) if routing else None}
             boxes = []
             for r in range(mesh.size):
                 coords, rest = [], r
@@ -3660,9 +3727,13 @@ def p23_reference(mesh, cfg, batch: dict, seed: int, steps: int, mine) -> dict:
 
 
 def p23_cell(mesh, arch: str, layers: int, B: int, S: int, plans: tuple, seed: int,
-             steps: int, over: dict | None = None) -> dict:
-    """One rank of a phase-23(b) (or 24(c)) cell; ``over``: config
-    overrides.  The one-rank reference first (:func:`p23_reference`); then
+             steps: int, over: dict | None = None, routing: bool = False,
+             grad_tol: float = P22_GRAD_TOL) -> dict:
+    """One rank of a phase-23(b) (or 24(c), 25(d)) cell; ``over``: config
+    overrides; ``routing``: the first step's MoE routing held to the
+    one-rank step's (:func:`p25_routing`); ``grad_tol``: the bound on the
+    grad norm and on each gradient leaf, of its largest element.  The one-rank reference first
+    (:func:`p23_reference`); then
     per plan the rank's shard built as the launcher builds it
     (``launch.train.rank_model``: the ranks in turns), zero AdamW pieces
     and ``steps`` mesh steps: the first held to the reference (the rank's
@@ -3678,6 +3749,7 @@ def p23_cell(mesh, arch: str, layers: int, B: int, S: int, plans: tuple, seed: i
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import rank_model
+    from repro_torch.models.moe import dispatch_shape, routing_log
     from repro_torch.runtime.sharding import ShardPlan, TrainLayout, rank_shard, train_layout
     from repro_torch.runtime.train import build_train_step
 
@@ -3691,7 +3763,7 @@ def p23_cell(mesh, arch: str, layers: int, B: int, S: int, plans: tuple, seed: i
           "cell's start]", flush=True)
     plan0 = ShardPlan(P21_AXES)
     mine = TrainLayout(cfg, plan0, mesh, rank_shard(cfg, plan0, mesh))
-    ref = p23_reference(mesh, cfg, batch, seed, steps, mine)
+    ref = p23_reference(mesh, cfg, batch, seed, steps, mine, routing)
     out = {"ref_loss": ref["loss"], "ref_grad_norm": ref["grad_norm"],
            "one_rank_s": ref["one_rank_s"], "plans": {}}
     for name in plans:
@@ -3720,7 +3792,8 @@ def p23_cell(mesh, arch: str, layers: int, B: int, S: int, plans: tuple, seed: i
             reset_mesh_launches()
             mesh.comm.reset()
             t0 = time.perf_counter()
-            model, opt, met = step(model, opt, batch)
+            with routing_log() if routing and not i else contextlib.nullcontext() as log:
+                model, opt, met = step(model, opt, batch)
             sync()
             walls.append(time.perf_counter() - t0)
             losses.append(met["loss"].item())
@@ -3738,20 +3811,24 @@ def p23_cell(mesh, arch: str, layers: int, B: int, S: int, plans: tuple, seed: i
                 g = (m / (1 - 0.9)).to(want.dtype).float()
                 err = (g - want.to(dev).float()).abs().max().item() / scale
                 worst = max(worst, (err, lf.key))
-                if err > P22_GRAD_TOL:
+                if err > grad_tol:
                     bad.append((lf.key, err))
                 del g
             check(not bad, f"{where} {name}: clipped gradient leaves off the one-rank step's by "
-                           f"more than {P22_GRAD_TOL} of their largest: {bad[:5]}")
+                           f"more than {grad_tol} of their largest: {bad[:5]}")
             check(abs(losses[0] - ref["loss"]) <= P23_LOSS_RTOL * abs(ref["loss"]),
                   f"{where} {name}: loss {losses[0]} vs the one-rank {ref['loss']}")
-            check(abs(gn - ref["grad_norm"]) <= P22_GRAD_TOL * ref["grad_norm"],
+            check(abs(gn - ref["grad_norm"]) <= grad_tol * ref["grad_norm"],
                   f"{where} {name}: grad norm {gn} vs the one-rank {ref['grad_norm']}")
             check(calls == pred_calls, f"{where} {name}: collectives {calls}, the meta step's "
                                        f"{pred_calls}")
             check(launches == pred["kernel_calls"], f"{where} {name}: kernel launches "
                                                     f"{launches}, the meta step's "
                                                     f"{pred['kernel_calls']}")
+            route = None
+            if routing:     # remat's recompute routes again: the forward's records
+                route = p25_routing(mesh, cfg, log, ref["routing"], dispatch_shape(cfg, B * S)[1],
+                                    S, f"{where} {name}")
             predicted = pred["memory_analysis"]["peak_bytes"]
             check(peak <= predicted * (1 + P23_PEAK_MARGIN),
                   f"{where} {name}: peak {peak} B over the meta step's {predicted} B x "
@@ -3763,7 +3840,9 @@ def p23_cell(mesh, arch: str, layers: int, B: int, S: int, plans: tuple, seed: i
                   f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated after]", flush=True)
         out["plans"][name] = {
             "walls_s": walls, "losses": losses, "grad_norm": gn, "worst_grad": worst[0],
+            "grad_tol": grad_tol,
             "worst_leaf": worst[1], "launches": launches, "peak": peak, "predicted": predicted,
+            "routing": route,
             "bytes_by_kind": stats["bytes_by_kind"], "count_by_kind": stats["count_by_kind"]}
         del model, opt, step, layout
         torch.cuda.empty_cache()
@@ -3803,41 +3882,27 @@ def p23_launcher(card: str) -> None:
           f"{time.perf_counter() - t0:.1f} s for both {card}")
 
 
-def mesh_train_phase(get_config, card: str, sync) -> dict:
-    """Phase 23: (a) the flash backward with a query offset; (b) the train
-    step on (data, model) meshes of 4 ranks sharing the card over gloo.
-    Returns (a)'s main case and one rank's flash backward launches in (b)'s
-    granite-3-8b WSP step on (1, 4)."""
-    from repro_torch.launch.mesh import run_ranks
-
-    t_phase = time.perf_counter()
+def mesh_train_phase(get_config, card: str, sync):
+    """Phase 23, a phase of :func:`mesh_phases`: (a) the flash backward with
+    a query offset; (b) the train step on (data, model) meshes of 4 ranks
+    sharing the card over gloo; (c) the train launcher.  Returns (a)'s main
+    case and one rank's flash backward launches in (b)'s granite-3-8b WSP
+    step on (1, 4)."""
     print("phase 23: the train step on (data, model) meshes; the flash backward with a "
           "query offset")
     fa = p23_offset_kernel(card, sync)
-    print(f"  (b) the train step (AdamW, ZeRO) on (data, model) meshes of "
+    ranks = yield "phase 23(b)", p23_rank, (P23_CELLS, P23_STEPS)
+    print(f"phase 23(b): the train step (AdamW, ZeRO) on (data, model) meshes of "
           f"{P21_WORLD[0] * P21_WORLD[1]} ranks sharing one card over gloo; bounds: loss within "
           f"{P23_LOSS_RTOL} of the one-rank step's, grad norm and each gradient leaf within "
           f"{P22_GRAD_TOL} (of the leaf's largest), collectives = the dry-run's, peak <= "
           f"{1 + P23_PEAK_MARGIN} x the meta step's")
-    t0 = time.perf_counter()
-    # the ranks' allocators take what they hold in 512-byte blocks (the
-    # dry-run's rule): four ranks' caches share the card
-    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    try:
-        ranks = run_ranks(p23_rank, P21_WORLD, P21_AXES, P23_CELLS, P23_STEPS, device="cuda",
-                          threads=2)
-    finally:
-        if alloc is None:
-            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
-    print(f"  {len(ranks)} ranks ran every cell in {time.perf_counter() - t0:.1f} s")
     train_report(get_config, P23_CELLS, ranks, P23_STEPS, card, "(b)")
     i = next(i for i, c in enumerate(P23_CELLS) if c[0] == "granite-3-8b" and c[4] == (1, 4))
     train_launches = ranks[0][i]["plans"]["WSP"]["launches"]["flash_attention_bwd_kernel"]
+    t0 = time.perf_counter()
     p23_launcher(card)
-    print(f"  phase 23: {time.perf_counter() - t_phase:.1f} s")
+    print(f"  phase 23(c): {time.perf_counter() - t0:.1f} s")
     return {"bwd": fa, "mesh_train_launches": train_launches}
 
 
@@ -3861,7 +3926,7 @@ def train_report(get_config, cells: list, ranks: list, steps: int, card: str,
             pp = [r["plans"][name] for r in per]
             walls = [max(p["walls_s"][k] for p in pp) for k in range(steps)]
             print(f"    {name}: losses {pp[0]['losses']} (grad norm {pp[0]['grad_norm']:.6f}); "
-                  f"worst gradient err / leaf's largest "
+                  f"worst gradient err / leaf's largest (bound {pp[0]['grad_tol']}) "
                   + ", ".join(f"r{r} {p['worst_grad']:.3e} ({p['worst_leaf']})"
                               for r, p in enumerate(pp))
                   + f"; kernel launches a rank {pp[0]['launches']}; step walls "
@@ -3955,17 +4020,15 @@ def p24_rank(world, cells: list, steps: int, train_cells: list) -> dict:
     return {"serve": p21_rank(world, cells, steps), "train": p23_rank(world, train_cells, 1)}
 
 
-def recurrent_mesh_phase(get_config, card: str, sync) -> dict:
-    """Phase 24: (a) the recurrent kernels at a rank's shapes; (b) the
-    serving steps of rwkv6-3b, jamba's period with a dense FFN and the two
-    frontend stubs on (data, model) meshes of 4 ranks sharing the card over
-    gloo, and a decode with the cache whole over time; (c) one mesh train
-    step of rwkv6-3b and of jamba's period.  Returns one rank's launches of
-    each recurrent kernel on its mesh (prefill: rwkv6-3b WSP and jamba ISP
-    on (1, 4); training: (c)'s steps)."""
-    from repro_torch.launch.mesh import run_ranks
-
-    t_phase = time.perf_counter()
+def recurrent_mesh_phase(get_config, card: str, sync):
+    """Phase 24, a phase of :func:`mesh_phases`: (a) the recurrent kernels
+    at a rank's shapes; (b) the serving steps of rwkv6-3b, 4 layers of
+    jamba's period with a dense FFN and the two frontend stubs on (data,
+    model) meshes of 4 ranks sharing the card over gloo, and a decode with
+    the cache whole over time; (c) one mesh train step of rwkv6-3b and of
+    jamba's 4 layers.  Returns one rank's launches of each recurrent kernel
+    on its mesh (prefill: rwkv6-3b WSP and jamba ISP on (1, 4); training:
+    (c)'s steps)."""
     print("phase 24: rwkv / mamba blocks and the frontend stubs on (data, model) meshes of "
           f"{P21_WORLD[0] * P21_WORLD[1]} ranks sharing one card over gloo; the recurrent "
           "kernels at a rank's shapes")
@@ -3975,20 +4038,9 @@ def recurrent_mesh_phase(get_config, card: str, sync) -> dict:
         cfg = dataclasses.replace(get_config(arch), n_layers=layers, **over)
         cells.append((arch, layers, B, S, shape, mesh_plan_kwargs(cfg, B, S, shape[1], names),
                       240 + i, over))
-    t0 = time.perf_counter()
-    # one set of rank processes for (b) and (c), with the allocator of
-    # phase 23(b) (512-byte blocks, the dry-run's rule)
-    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    try:
-        ranks = run_ranks(p24_rank, P21_WORLD, P21_AXES, cells, P24_STEPS, P24_TRAIN,
-                          device="cuda", threads=2)
-    finally:
-        if alloc is None:
-            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
-    print(f"  (b), (c) {len(ranks)} ranks ran every cell in {time.perf_counter() - t0:.1f} s")
+    ranks = yield "phase 24(b), (c)", p24_rank, (cells, P24_STEPS, P24_TRAIN)
+    print("phase 24 (b), (c) (rwkv / mamba blocks and the frontend stubs on meshes): the "
+          "ranks' results")
     serving_report(get_config, cells, [r["serve"] for r in ranks], P24_STEPS, card)
     launches = {}
     for i, c in enumerate(cells):
@@ -4004,8 +4056,423 @@ def recurrent_mesh_phase(get_config, card: str, sync) -> dict:
         check(launches.get(name, 0) > 0, f"phase 24: no {name} launch on a rank of a mesh")
     for name in ("wkv6_bwd_kernel", "mamba_scan_bwd_kernel"):
         check(train.get(name, 0) > 0, f"phase 24: no {name} launch on a rank of a mesh")
-    print(f"  phase 24: {time.perf_counter() - t_phase:.1f} s")
     return {"kernels": kernels, "launches": launches, "train_launches": train}
+
+
+def p25_by_layer(records) -> dict:
+    """{tag: (top router logits [T, K + 1], experts [T, K + 1])} (numpy) of
+    a one-rank run's routing log, which routes every token in one record a
+    layer: the first record of each tag (remat's recompute routes again)."""
+    out = {}
+    for tag, _, vals, idx in records:
+        out.setdefault(tag, (vals.numpy(), idx.numpy()))
+    return out
+
+
+def p25_routing(mesh, cfg, records, ref: dict, Tg: int, S: int, where: str) -> dict:
+    """This rank's MoE choices (``records``: the routing log of its groups)
+    against the one-rank run's (:func:`p25_by_layer`), gathered over the
+    ranks.  A flipped choice moves its token by O(1), its group's other
+    tokens through capacity, and through attention the later positions of
+    its sequence (``S`` positions, groups of ``Tg`` tokens) in every later
+    layer: a (layer, token) lies downstream of a flip at an earlier layer
+    in its group or at an earlier or the same position of its sequence.  A
+    flip not downstream of another is primary, and only rounding can have
+    caused it: its one-rank gap to the nearer neighbouring logit must lie
+    below tau (P25_ROUTE_TOL), and the top logits of the tokens downstream
+    of no flip that chose alike must have moved by at most tol x their
+    scale (tau's premise).  Returns the choices equal and in all, the
+    flips (primary and downstream), the largest primary gap, tau, the
+    largest move and the scale, the (token, layer) pairs downstream of a
+    flip (exempt from tau) and in all, the largest one-rank gap of a flip
+    downstream of another, and the groups that hold a flip."""
+    import numpy as np
+    import torch.distributed as dist
+
+    K = cfg.moe.top_k
+    tol = P25_ROUTE_TOL[cfg.param_dtype]
+    zmax = max(float(np.abs(v[:, 0]).max()) for v, _ in ref.values() if len(v))
+    tau = 2 * tol * zmax
+    mine = {}
+    for tag, first, vals, idx in records:       # remat's recompute routes again
+        if len(idx):
+            mine.setdefault((int(tag[3:]), first), (vals.numpy(), idx.numpy()))
+    equal, total, flips = 0, 0, []
+    for (layer, first), (_, idx) in mine.items():
+        logits, want = ref[f"blk{layer}"]
+        diff = idx[:, :K] != want[first:first + len(idx), :K]
+        equal += int((~diff).sum())
+        total += diff.size
+        for t, j in zip(*np.nonzero(diff)):
+            z = logits[first + t]
+            gap = min(z[j - 1] - z[j] if j else np.inf, z[j] - z[j + 1])
+            flips.append((layer, int(first + t), int(j), float(gap)))
+    every = [None] * mesh.size
+    dist.all_gather_object(every, (equal, total, flips))
+    equal, total = sum(e for e, _, _ in every), sum(t for _, t, _ in every)
+    flips = [f for _, _, fl in every for f in fl]
+
+    def downstream(layer: int, tokens):
+        out = np.zeros(len(tokens), dtype=bool)
+        for fl, t, _, _ in flips:
+            if fl < layer:
+                out |= (((tokens // S == t // S) & (tokens % S >= t % S))
+                        | (tokens // Tg == t // Tg))
+        return out
+
+    primary = [f for f in flips if not downstream(f[0], np.array([f[1]]))[0]]
+    moved, exempt, pairs = 0.0, 0, 0
+    for (layer, first), (vals, idx) in mine.items():
+        logits, want = ref[f"blk{layer}"]
+        tokens = np.arange(first, first + len(idx))
+        below = downstream(layer, tokens)
+        exempt += int(below.sum())
+        pairs += len(idx)
+        keep = (idx == want[first:first + len(idx)]).all(axis=1) & ~below
+        if keep.any():
+            moved = max(moved, float(np.abs(vals - logits[first:first + len(idx)])[keep].max()))
+    every = [None] * mesh.size
+    dist.all_gather_object(every, (moved, exempt, pairs))
+    moved = max(m for m, _, _ in every)
+    exempt, pairs = sum(e for _, e, _ in every), sum(n for _, _, n in every)
+    bad = [f for f in primary if f[3] >= tau]
+    check(moved <= tol * zmax, f"{where}: a router logit downstream of no flip moved "
+                               f"{moved:.3e} from the one-rank run's, over {tol} x its scale "
+                               f"{zmax:.3e}")
+    check(not bad, f"{where}: MoE choices downstream of no flip differ from the one-rank "
+                   f"run's at a logit gap of tau {tau:.3e} or more (layer, token, k, gap): "
+                   f"{bad[:5]}")
+    return {"equal": equal, "total": total, "flips": len(flips), "primary": len(primary),
+            "max_gap": max((f[3] for f in primary), default=0.0), "tau": tau, "moved": moved,
+            "down_gap": max((f[3] for f in flips if f not in primary), default=0.0),
+            "scale": zmax, "exempt": exempt, "pairs": pairs,
+            "groups": sorted({t // Tg for _, t, _, _ in flips})}
+
+
+def p25_clean(groups: list, Tg: int, rows: slice, S: int, dev):
+    """[rows, S] True where a token of the global rows ``rows`` (``S``
+    positions each) lies in none of the flipped dispatch ``groups``."""
+    import torch
+
+    tok = (torch.arange(rows.start, rows.stop, device=dev)[:, None] * S
+           + torch.arange(S, device=dev)[None, :])
+    flipped = torch.tensor(groups, dtype=torch.int64, device=dev)
+    return ~torch.isin(tok // Tg, flipped)
+
+
+def serve_cell(world, arch: str, layers: int, B: int, S: int, meshes: list, seed: int,
+               over: dict, tol: float = P21_LOGIT_TOL) -> list:
+    """One rank of a config of phase 21, 24(b) or 25 on each of its
+    ``meshes``, ``[(mesh shape, plans, decode steps)]``, over the same
+    processes.  First the one-rank runs, rank by rank (every rank at once
+    where the card holds them, :func:`one_rank_room`): the whole model from
+    the seed, its prefill and decode steps from the prefill's caches (this
+    rank's rows and vocab columns of the logits on every mesh kept; an MoE
+    config's routing logged), and the rank's shards of the first mesh cut
+    from it (one for each expert placement its plans take, ``ep``), parked
+    on the host until every turn is done where the card cannot hold them
+    beside the whole model (llama4's, 34.3 GiB, and its draw's fp32
+    temporary); a later mesh's shards are cut in turns of their own.  The
+    pieces a rank stores do not depend on the plan's zones, so one shard
+    serves every plan of a placement (its ``shard`` placed anew).  Then per
+    plan: the mesh prefill (wall time, every hand kernel's launches, the
+    allocator's rise, the collectives) and the decode steps from the rank's
+    pieces of the same caches (by the first plan of each placement: decode
+    runs the ISP zone whatever the plan's zones), each against the one-rank
+    logits, and the dry-run's prediction for this rank (``trace_step`` on a
+    meta rank at these coordinates): its collectives, its kernel calls and
+    its peak (the prefill's rise above what the rank held, less its inputs,
+    within ``P23_PEAK_MARGIN`` of the meta step's temporaries).  An MoE
+    config's routing of the prefill and of each decode step is held to the
+    one-rank run's (:func:`p25_routing`) and its logits bound to the tokens
+    of groups that routed alike at every layer.  ``tol``: the logits bound,
+    of the largest one-rank logit.  Returns each mesh's results; raises on
+    any failed check."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_kv_cache, init_params
+    from repro_torch.models.moe import dispatch_shape, routing_log
+    from repro_torch.runtime.serve import build_decode_step, build_prefill_step
+    from repro_torch.runtime.sharding import ShardPlan, rank_shard, shard_caches, shard_model
+
+    dev = world.device
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers, **over)
+    steps = max(n for _, _, n in meshes)
+    args = prefill_args(cfg, B, S, seed + 1)
+    moe = cfg.moe is not None
+    dtoks = torch.randint(0, cfg.vocab, (steps, B, 1),
+                          generator=torch.Generator().manual_seed(seed + 2))
+    grids = [world if tuple(shape) == world.dims else make_mesh(shape, P21_AXES, dev)
+             for shape, _, _ in meshes]
+    cuts = []
+    for grid in grids:
+        place = rank_shard(cfg, ShardPlan(P21_AXES), grid)     # rows and vocab of every plan
+        cuts.append((slice(place.dpi * B // place.dp, (place.dpi + 1) * B // place.dp),
+                     slice(*place.vocab)))
+    eps = [sorted({kw.get("ep", True) for kw in plans.values()}) for _, plans, _ in meshes]
+    Tg, dTg = (dispatch_shape(cfg, B * S)[1], dispatch_shape(cfg, B)[1]) if moe else (0, 0)
+
+    def logged():
+        return routing_log() if moe else contextlib.nullcontext()
+
+    def held(mesh, log, want, tg, seq, rows, where):
+        """(the routing against the one-rank run's, the tokens of ``rows``
+        the logits bound holds): every token where no MoE routes."""
+        if not moe:
+            return None, torch.ones(rows.stop - rows.start, seq, dtype=torch.bool, device=dev)
+        routed = p25_routing(mesh, cfg, log, want, tg, seq, where)
+        return routed, p25_clean(routed["groups"], tg, rows, seq, dev)
+
+    def cut_shards(grid, i):
+        whole = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        return whole, {ep: shard_model(whole, ShardPlan(P21_AXES, ep=ep), grid)
+                       for ep in eps[i]}
+
+    together, park = one_rank_room(cfg, B, S, grids[0], eps[0])
+    t0 = time.perf_counter()
+    for turn in range(1 if together else world.size):
+        if together or turn == world.rank:
+            whole, shards = cut_shards(grids[0], 0)
+            if park:
+                shards = {ep: m.to("cpu") for ep, m in shards.items()}
+            with torch.inference_mode():
+                inputs = ([None] if cfg.frontend == "audio_stub" else []) + [t.to(dev)
+                                                                             for t in args]
+                with logged() as log:
+                    logits, pre = whole(*inputs, collect_cache=True)
+                del inputs
+                route = p25_by_layer(log) if moe else None
+                refs = [logits[rows, :, cols].clone() for rows, cols in cuts]
+                del logits
+                caches = init_kv_cache(cfg, B, S + steps, getattr(torch, cfg.param_dtype), dev)
+                for full, part in zip(caches, pre):
+                    for n in full:
+                        if n in ("k", "v"):
+                            full[n][:, :, :S] = part[n]
+                        else:
+                            full[n].copy_(part[n])
+                del pre
+                start = tuple({n: t.clone() for n, t in c.items()} for c in caches)
+                drefs, droute = [[] for _ in cuts], []
+                for t in range(steps):
+                    with logged() as log:
+                        lg, caches = whole.decode_step(dtoks[t].to(dev),
+                                                       torch.full((B,), S + t, device=dev), caches)
+                    droute.append(p25_by_layer(log) if moe else None)
+                    for d, (rows, cols) in zip(drefs, cuts):
+                        d.append(lg[rows, :, cols].clone())
+                del caches, lg, whole
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    shards = {ep: shard.to(dev) for ep, shard in shards.items()}
+    if world.rank == 0:
+        print(f"    [{arch}: the one-rank runs and the first shards, "
+              + ("every rank at once" if together else "rank by rank")
+              + f", {time.perf_counter() - t0:.1f} s" + (", parked on the host]" if park else "]"),
+              flush=True)
+    results = []
+    for i, ((shape, plans, n_steps), mesh) in enumerate(zip(meshes, grids)):
+        if i:       # the last mesh's shards freed (a plan's model is one of them)
+            del shards, model
+            torch.cuda.empty_cache()
+            together = one_rank_room(cfg, B, S, mesh, eps[i])[0]
+            for turn in range(1 if together else world.size):
+                if together or turn == world.rank:
+                    whole, shards = cut_shards(mesh, i)
+                    del whole
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                dist.barrier()
+        ref, dref = refs[i], drefs[i][:n_steps]
+        rows = cuts[i][0]
+        scale = ref.abs().max().item()
+        dscale = max((d.abs().max().item() for d in dref), default=0.0)
+        out, decoded = {}, {}
+        for name, kw in plans.items():
+            plan = ShardPlan(P21_AXES, **kw)
+            # decode runs the ISP zone whatever the plan's zones: one plan a
+            # placement decodes, the others' steps are its
+            same = decoded.setdefault((plan.ep, plan.shard_kv_cache_time), name)
+            dsteps = n_steps if same == name else 0
+            model = shards[plan.ep]
+            model.shard = rank_shard(cfg, plan, mesh)
+            where = f"{arch} {tuple(mesh.dims)} {name} rank {mesh.rank}"
+            prefill = build_prefill_step(cfg, plan, dev, mesh)
+            torch.cuda.synchronize()
+            dist.barrier()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            mesh.comm.reset()
+            reset_mesh_launches()
+            t0 = time.perf_counter()
+            with logged() as log:
+                local = prefill(model, *args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = mesh_kernel_launches()
+            rise = torch.cuda.max_memory_allocated() - before
+            calls = dict(mesh.comm.calls)
+            stats = mesh.comm.stats()
+            check(bool(torch.isfinite(local).all()), f"{where}: non-finite mesh logits")
+            routed, clean = held(mesh, log, route, Tg, S, rows, f"{where} prefill")
+            tok_err = (local - ref).abs().amax(dim=-1)
+            err, err_all = torch.where(clean, tok_err, 0).max().item(), tok_err.max().item()
+            del local, tok_err
+            decode = build_decode_step(cfg, plan, B, S + steps, dev, mesh)
+            state = shard_caches(start, model.shard)
+            derr, dcalls, dlaunches, droutes = 0.0, None, None, []
+            dist.barrier()
+            t0 = time.perf_counter()
+            for t in range(dsteps):
+                mesh.comm.reset()
+                reset_mesh_launches()
+                with logged() as log:
+                    lg, state = decode(model, dtoks[t], torch.full((B,), S + t), state)
+                if t == 0:
+                    dcalls, dlaunches = dict(mesh.comm.calls), mesh_kernel_launches()
+                routed_t, keep = held(mesh, log, droute[t], dTg, 1, rows, f"{where} decode {t}")
+                droutes.append(routed_t)
+                derr = max(derr, torch.where(keep, (lg - dref[t]).abs().amax(dim=-1),
+                                             0).max().item())
+            torch.cuda.synchronize()
+            dwall = time.perf_counter() - t0
+            del state
+            t0 = time.perf_counter()
+            meta = make_mesh(mesh.dims, mesh.axis_names, meta=True, coords=mesh.coords)
+            pred = dryrun.trace_step(cfg, S, B, "prefill", plan, meta)
+            pcalls = dict(meta.comm.calls)
+            if dsteps:
+                meta = make_mesh(mesh.dims, mesh.axis_names, meta=True, coords=mesh.coords)
+                dpred = dryrun.trace_step(cfg, S + steps, B, "decode", plan, meta)
+                check(dlaunches == dpred["kernel_calls"], f"{where}: decode launches "
+                                                          f"{dlaunches}, the dry-run's "
+                                                          f"{dpred['kernel_calls']}")
+                check(derr <= tol * dscale,
+                      f"{where}: decode logits max abs err {derr} > {tol} x {dscale}")
+                check(dcalls == dict(meta.comm.calls),
+                      f"{where}: decode collectives {dcalls} vs the dry-run's {meta.comm.calls}")
+            meta_s = time.perf_counter() - t0
+            check(launches == pred["kernel_calls"],
+                  f"{where}: kernel launches {launches}, the dry-run's {pred['kernel_calls']}")
+            check(err <= tol * scale,
+                  f"{where}: prefill logits max abs err {err} > {tol} x {scale}"
+                  + (" on the tokens of groups that routed alike" if moe else ""))
+            check(calls == pcalls,
+                  f"{where}: prefill collectives {calls} vs the dry-run's {pcalls}")
+            mem = pred["memory_analysis"]
+            in_bytes = sum(t.nbytes for t in args)
+            check(rise - in_bytes <= (1 + P23_PEAK_MARGIN) * mem["temp_size_bytes"],
+                  f"{where}: prefill rise {rise} B less inputs {in_bytes} B over the meta "
+                  f"step's temporaries {mem['temp_size_bytes']} B x {1 + P23_PEAK_MARGIN}")
+            out[name] = {"wall_s": wall, "decode_s": dwall, "meta_s": meta_s,
+                         "decode_steps": dsteps, "decode_as": same,
+                         "launches": launches, "err": err, "err_all": err_all, "scale": scale,
+                         "decode_err": derr, "decode_scale": dscale, "tol": tol,
+                         "masked": int((~clean).sum()), "routing": routed,
+                         "decode_routing": droutes, "bytes_by_kind": stats["bytes_by_kind"],
+                         "count_by_kind": stats["count_by_kind"], "rise": rise,
+                         "pred_temp": mem["temp_size_bytes"], "pred_peak": mem["peak_bytes"],
+                         "args": mem["argument_size_bytes"]}
+        results.append(out)
+    del shards, model
+    torch.cuda.empty_cache()
+    return results
+
+
+def p25_rank(world, configs: list, train_cells: list) -> dict:
+    """One rank of phase 25: each serving config on its meshes over the
+    same processes (:func:`serve_cell`), then each train cell
+    (:func:`p23_cell`, one step, its routing held)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+
+    out = {"serve": [], "train": []}
+    for arch, layers, B, S, meshes, seed, over in configs:
+        tol = P25_TOL[over.get("param_dtype", "bfloat16")]
+        out["serve"] += serve_cell(world, arch, layers, B, S, meshes, seed, over, tol)
+        torch.cuda.empty_cache()
+    for i, (arch, layers, B, S, shape, plans, over) in enumerate(train_cells):
+        mesh = world if tuple(shape) == world.dims else make_mesh(shape, P21_AXES, world.device)
+        out["train"].append(p23_cell(mesh, arch, layers, B, S, plans, 260 + i, 1, over,
+                                     routing=True,
+                                     grad_tol=P25_TOL[over.get("param_dtype", "bfloat16")]))
+        torch.cuda.empty_cache()
+    return out
+
+
+def p25_route_line(routes: list) -> str:
+    """The routing agreement of one step over the ranks (each rank's
+    :func:`p25_routing` result holds every rank's flips)."""
+    r = routes[0]
+    return (f"{r['equal']} / {r['total']} (token, layer, k) choices equal the one-rank run's "
+            f"({r['equal'] / max(r['total'], 1):.6f}); {r['flips']} flipped, {r['primary']} "
+            f"downstream of no other flip, their largest one-rank gap {r['max_gap']:.3e} below "
+            f"tau {r['tau']:.3e}; {r['exempt']} / {r['pairs']} (token, layer) pairs downstream "
+            f"of a flip, exempt from tau ({r['exempt'] / max(r['pairs'], 1):.6f}), the largest "
+            f"gap of a flip there {r['down_gap']:.3e}; top logits "
+            f"downstream of no flip moved {r['moved']:.3e} at most (scale {r['scale']:.3e})")
+
+
+def moe_mesh_phase(get_config, card: str):
+    """Phase 25, a phase of :func:`mesh_phases`: (a)-(c) the serving steps of granite-moe-1b-a400m,
+    jamba-v0.1-52b with its experts and llama4-maverick on (data, model)
+    meshes of 4 ranks sharing the card over gloo; (d) one mesh train step
+    of granite-moe.  Returns one rank's launches of the flash and scan
+    kernels on its mesh (prefill: granite-moe and jamba WSP on (1, 4);
+    training: (d)'s (1, 4) step)."""
+    print("phase 25: MoE on (data, model) meshes of "
+          f"{P21_WORLD[0] * P21_WORLD[1]} ranks sharing one card over gloo")
+    cells, configs = [], []
+    for arch, layers, B, S, shape, names, steps, over in P25_CELLS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers, **over)
+        plans = mesh_plan_kwargs(cfg, B, S, shape[1], names)
+        cells.append((arch, layers, B, S, shape, plans, steps, over))
+        if configs and configs[-1][:4] == (arch, layers, B, S) and configs[-1][6] == over:
+            configs[-1][4].append((shape, plans, steps))
+        else:
+            configs.append((arch, layers, B, S, [(shape, plans, steps)], 250 + len(configs),
+                            over))
+    ranks = yield "phase 25", p25_rank, (configs, P25_TRAIN)
+    print("phase 25 (MoE on (data, model) meshes): the ranks' results")
+    serve = [r["serve"] for r in ranks]
+    launches = {}
+    for i, (arch, layers, B, S, shape, plans, steps, over) in enumerate(cells):
+        serving_report(get_config, [(arch, layers, B, S, shape, plans, None, over)],
+                       [[r[i]] for r in serve], steps, card)
+        print(f"  {arch} {shape} routing, threshold P25_ROUTE_TOL "
+              f"{P25_ROUTE_TOL[over.get('param_dtype', 'bfloat16')]}:")
+        for name in plans:
+            per = [r[i][name] for r in serve]
+            print(f"    {name} prefill: {p25_route_line([p['routing'] for p in per])}; logits "
+                  f"bound held on all but {sum(p['masked'] for p in per)} tokens (their groups "
+                  f"flipped), max abs err on all {max(p['err_all'] for p in per):.3e}; the meta "
+                  f"traces {max(p['meta_s'] for p in per):.1f} s")
+            for t in range(per[0]["decode_steps"]):
+                print(f"    {name} decode {t}: "
+                      + p25_route_line([p["decode_routing"][t] for p in per]))
+        if shape == (1, 4) and "WSP" in plans:
+            launches[arch] = serve[0][i]["WSP"]["launches"]
+    train_report(get_config, P25_TRAIN, [r["train"] for r in ranks], 1, card, "(d)")
+    train = {}
+    for i, (arch, _, _, _, shape, plans, _) in enumerate(P25_TRAIN):
+        for name in plans:
+            per = [r["train"][i]["plans"][name] for r in ranks]
+            print(f"    (d) {arch} {shape} {name} first forward's routing: "
+                  + p25_route_line([p["routing"] for p in per]))
+            if shape == (1, 4):
+                train = per[0]["launches"]
+    flash = launches["granite-moe-1b-a400m"].get("flash_attention_kernel", 0)
+    scan = launches["jamba-v0.1-52b"].get("mamba_scan_kernel", 0)
+    check(flash > 0 and scan > 0 and train.get("flash_attention_bwd_kernel", 0) > 0,
+          f"phase 25: kernels that did not launch on a rank of a mesh: flash {flash}, scan "
+          f"{scan}, flash backward {train}")
+    return {"flash": flash, "scan": scan, "flash_bwd": train["flash_attention_bwd_kernel"]}
 
 
 def main() -> int:
@@ -4058,6 +4525,7 @@ def main() -> int:
         qmatmul_kernel.launches = 0
 
     # ------------------------------------------------------------ phase 1
+    print(f"[phase 1 starts {time.perf_counter() - T_START:.1f} s into the run]", flush=True)
     smi = nvidia_smi_line()
     card = f"[{smi}]"
     print(f"phase 1: python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -4168,6 +4636,7 @@ def main() -> int:
           f"bf16 flash backward kernels at hd 256 without mma.sync (HMMA): {mma_bwd}")
 
     # ------------------------------------------------------------ phase 2
+    print(f"[phase 2 starts {time.perf_counter() - T_START:.1f} s into the run]", flush=True)
     print("phase 2: flash_attention kernel vs plain version on the card")
     results = {}
     for name, B, H, KV, S, hd, causal, window, cap, dt in FA_CASES:
@@ -4212,6 +4681,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phase 3
+    print(f"[phase 3 starts {time.perf_counter() - T_START:.1f} s into the run]", flush=True)
     cfg = get_config("granite-3-8b")
     print(f"phase 3: {cfg.name} full width and depth ({cfg.n_layers} layers), bf16")
     t0 = time.perf_counter()
@@ -4258,6 +4728,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phase 4
+    print(f"[phase 4 starts {time.perf_counter() - T_START:.1f} s into the run]", flush=True)
     cfg4 = dataclasses.replace(cfg, n_layers=4, param_dtype="float32")
     print(f"phase 4: prefill vs decode, {cfg.name} full width, fp32, TF32 off")
     print(f"  reduced: n_layers {cfg.n_layers}→{cfg4.n_layers}")
@@ -4283,6 +4754,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phase 5
+    print(f"[phase 5 starts {time.perf_counter() - T_START:.1f} s into the run]", flush=True)
     gcfg = get_config("gemma2-9b")
     cfg5 = dataclasses.replace(gcfg, n_layers=2)
     print(f"phase 5: {gcfg.name} full width, bf16, layers {cfg5.block_kinds()}")
@@ -4299,6 +4771,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phase 6
+    print(f"[phase 6 starts {time.perf_counter() - T_START:.1f} s into the run]", flush=True)
     print("phase 6: wkv6 kernel vs plain version on the card (fp32)")
     wkv_results = {}
     for name, B, H, S, hd, strong in WKV_CASES:
@@ -4348,6 +4821,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phase 7
+    print(f"[phase 7 starts {time.perf_counter() - T_START:.1f} s into the run]", flush=True)
     rcfg = get_config("rwkv6-3b")
     print(f"phase 7: {rcfg.name} full width and depth ({rcfg.n_layers} layers), bf16")
     t0 = time.perf_counter()
@@ -4395,6 +4869,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phase 8
+    print(f"[phase 8 starts {time.perf_counter() - T_START:.1f} s into the run]", flush=True)
     cfg8 = dataclasses.replace(rcfg, n_layers=4, param_dtype="float32")
     print(f"phase 8: prefill vs decode, {rcfg.name} full width, fp32, TF32 off")
     print(f"  reduced: n_layers {rcfg.n_layers}→{cfg8.n_layers}")
@@ -4427,6 +4902,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phase 9
+    print(f"[phase 9 starts {time.perf_counter() - T_START:.1f} s into the run]", flush=True)
     print("phase 9: mamba_scan kernel vs plain version on the card")
     mamba_results = {}
     for name, B, S, di, N, dt_name, model_layout in MAMBA_CASES:
@@ -4489,6 +4965,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phase 10
+    print(f"[phase 10 starts {time.perf_counter() - T_START:.1f} s into the run]", flush=True)
     jcfg = get_config("jamba-v0.1-52b")
     cfg10 = dataclasses.replace(jcfg, n_layers=16)
     n_mamba = cfg10.block_kinds().count("mamba")
@@ -4541,6 +5018,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phase 11
+    print(f"[phase 11 starts {time.perf_counter() - T_START:.1f} s into the run]", flush=True)
     cfg11 = dataclasses.replace(jcfg, n_layers=8, param_dtype="float32")
     print(f"phase 11: prefill vs decode, {jcfg.name} full width, fp32, TF32 off")
     print(f"  reduced: n_layers {jcfg.n_layers}→{cfg11.n_layers}")
@@ -4581,6 +5059,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phase 12
+    print(f"[phase 12 starts {time.perf_counter() - T_START:.1f} s into the run]", flush=True)
     gcfg = get_config("granite-moe-1b-a400m")
     print(f"phase 12: {gcfg.name} full width and depth ({gcfg.n_layers} layers, "
           f"{gcfg.moe.n_experts} experts top-{gcfg.moe.top_k}), bf16")
@@ -4627,6 +5106,7 @@ def main() -> int:
           + f" {card}")
 
     # ------------------------------------------------------------ phase 13
+    print(f"[phase 13 starts {time.perf_counter() - T_START:.1f} s into the run]", flush=True)
     M, N, K = QMM_MAIN
     print(f"phase 13: qmatmul, granite-3-8b FFN up-projection M={M} K={K} N={N} "
           "(B=4 x S=2048 prefill), bf16 activation and weight quantized per row and column")
@@ -4695,16 +5175,19 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phase 14
+    print(f"[phase 14 starts {time.perf_counter() - T_START:.1f} s into the run]", flush=True)
     all_kernels = (flash_attention_kernel, flash_attention_bwd_kernel, wkv6_kernel,
                    wkv6_bwd_kernel, mamba_scan_kernel, mamba_scan_bwd_kernel, qmatmul_kernel)
     facade_launches = facade_phase(get_config, card, granite_prefill_ms, reset_launches,
                                    all_kernels)
 
     # ------------------------------------------------------------ phase 15
+    print(f"[phase 15 starts {time.perf_counter() - T_START:.1f} s into the run]", flush=True)
     training = training_phase(get_config, card, reset_launches, all_kernels, cuda_ms,
                               cuda_ms_median, sync)
 
     # ------------------------------------------------------------ phase 16
+    print(f"[phase 16 starts {time.perf_counter() - T_START:.1f} s into the run]", flush=True)
     print("phase 16: the configs first run on the card: "
           + ", ".join(a for a, _ in A16_ARCHS) + f"; bf16 prefill B={PREFILL_B} x "
           f"S={PREFILL_S} and decode at full width, fp32 prefill vs decode at reduced depth")
@@ -4717,6 +5200,7 @@ def main() -> int:
                                sync)
 
     # ------------------------------------------------------------ phase 17
+    print(f"[phase 17 starts {time.perf_counter() - T_START:.1f} s into the run]", flush=True)
     print("phase 17: the frontend stubs at full size: " + ", ".join(FRONTEND_ARCHS)
           + f"; bf16 prefill B={PREFILL_B} x S={PREFILL_S} positions and decode, fp32 "
           "prefill vs decode at reduced depth, the train launcher as a process")
@@ -4730,14 +5214,17 @@ def main() -> int:
         launcher_training(arch, card, reset_launches, all_kernels, sync)
 
     # ------------------------------------------------------------ phase 18
+    print(f"[phase 18 starts {time.perf_counter() - T_START:.1f} s into the run]", flush=True)
     rwkv_training = wkv6_training_phase(get_config, card, reset_launches, all_kernels, cuda_ms,
                                         cuda_ms_median, sync)
 
     # ------------------------------------------------------------ phase 19
+    print(f"[phase 19 starts {time.perf_counter() - T_START:.1f} s into the run]", flush=True)
     jamba_training = mamba_training_phase(get_config, card, reset_launches, all_kernels,
                                           cuda_ms, cuda_ms_median, sync)
 
     # ------------------------------------------------------------ phase 20
+    print(f"[phase 20 starts {time.perf_counter() - T_START:.1f} s into the run]", flush=True)
     def per_step(launches: dict, steps: int) -> dict:
         return {f"{k}_kernel": n // steps for k, n in launches.items() if n}
 
@@ -4748,17 +5235,17 @@ def main() -> int:
         "jamba_period_dense": per_step(jamba_training["train"]["launches"], JAMBA_TRAIN_STEPS),
     })
 
-    # ------------------------------------------------------------ phase 21
-    mesh_launches = mesh_phase(get_config, card, sync)
-
     # ------------------------------------------------------------ phase 22
+    print(f"[phase 22 starts {time.perf_counter() - T_START:.1f} s into the run]", flush=True)
     pipeline_launches = pipeline_phase(get_config, card)
 
-    # ------------------------------------------------------------ phase 23
-    mesh_train = mesh_train_phase(get_config, card, sync)
-
-    # ------------------------------------------------------------ phase 24
-    recurrent = recurrent_mesh_phase(get_config, card, sync)
+    # ------------------------------------------------ phases 21, 23, 24, 25
+    # one set of 4 rank processes on (data, model) meshes for all four
+    print(f"[phases 21, 23, 24, 25 start {time.perf_counter() - T_START:.1f} s into the run]",
+          flush=True)
+    mesh_launches, mesh_train, recurrent, moe_mesh = mesh_phases([
+        mesh_phase(get_config, card, sync), mesh_train_phase(get_config, card, sync),
+        recurrent_mesh_phase(get_config, card, sync), moe_mesh_phase(get_config, card)])
 
     # ------------------------------------------------------------ result
     main_case = results[MAIN_PATH_CASE]
@@ -4771,6 +5258,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
         "launches": launches, "facade_launches": facade_launches["flash_attention"],
         "mesh_launches": mesh_launches, "pipeline_launches": pipeline_launches,
+        "moe_mesh_launches": moe_mesh["flash"],
         **{k: main_case[k] for k in keys},
     }, {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -4779,6 +5267,7 @@ def main() -> int:
         "launches": training["train"]["launches"]["flash_attention_bwd"],
         "facade_launches": facade_launches["flash_attention_bwd"],
         "mesh_train_launches": mesh_train["mesh_train_launches"],
+        "moe_mesh_train_launches": moe_mesh["flash_bwd"],
         "offset_ms": mesh_train["bwd"]["ms"], "offset_bound_ms": mesh_train["bwd"]["bound_ms"],
         **{k: training["bwd"][k] for k in keys},
     }, {
@@ -4804,6 +5293,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/mamba/kernel.py:61",
         "launches": mamba_launches, "facade_launches": facade_launches["mamba_scan"],
         "mesh_launches": recurrent["launches"]["mamba_scan_kernel"],
+        "moe_mesh_launches": moe_mesh["scan"],
         "rank_ms": recurrent["kernels"]["mamba_scan"][1],
         **{k: mamba_case[k] for k in keys},
     }, {
@@ -4831,27 +5321,6 @@ def main() -> int:
     return 0
 
 
-def phase21_card() -> int:
-    """``python3 chip_smoke.py --phase-21``: phase 21 alone (the flash
-    library built first)."""
-    import torch
-
-    if not torch.cuda.is_available():
-        print("torch.cuda.is_available() is False: this smoke run needs a GPU", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(SRC))
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import _build
-
-    smi = nvidia_smi_line()
-    print(smi)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"flash_attention.cu built in {_build.build('flash_attention.cu'):.3f} s")
-    mesh_phase(get_config, f"[{smi}]", torch.cuda.synchronize)
-    print(f"total wall time {time.perf_counter() - T_START:.1f} s")
-    return 0
-
-
 def phase22_card() -> int:
     """``python3 chip_smoke.py --phase-22``: phase 22 alone (the flash
     forward and backward libraries built first)."""
@@ -4875,32 +5344,10 @@ def phase22_card() -> int:
     return 0
 
 
-def phase23_card() -> int:
-    """``python3 chip_smoke.py --phase-23``: phase 23 alone (the flash
-    forward and backward libraries built first)."""
-    import torch
-
-    if not torch.cuda.is_available():
-        print("torch.cuda.is_available() is False: this smoke run needs a GPU", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(SRC))
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import _build
-
-    smi = nvidia_smi_line()
-    print(smi)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    with ThreadPoolExecutor(2) as pool:
-        took = list(pool.map(_build.build, ("flash_attention.cu", "flash_attention_bwd.cu")))
-    print(f"flash_attention.cu, flash_attention_bwd.cu built in {took[0]:.3f}, {took[1]:.3f} s")
-    mesh_train_phase(get_config, f"[{smi}]", torch.cuda.synchronize)
-    print(f"total wall time {time.perf_counter() - T_START:.1f} s")
-    return 0
-
-
-def phase24_card() -> int:
-    """``python3 chip_smoke.py --phase-24``: phase 24 alone (the flash,
-    WKV-6 and scan libraries built first)."""
+def mesh_phases_card(numbers: list[int]) -> int:
+    """``python3 chip_smoke.py --phase-21 [--phase-23] [--phase-24]
+    [--phase-25]``: those phases alone, in that order, over one set of rank
+    processes (:func:`mesh_phases`), the kernels they launch built first."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4914,22 +5361,26 @@ def phase24_card() -> int:
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    sources = KERNEL_SOURCES[:-1]
+    flash = ("flash_attention.cu", "flash_attention_bwd.cu")
+    needs = {21: flash[:1], 23: flash, 24: KERNEL_SOURCES[:-1], 25: (*flash, "mamba_scan.cu")}
+    sources = [k for k in KERNEL_SOURCES if any(k in needs[n] for n in numbers)]
     with ThreadPoolExecutor(len(sources)) as pool:
         took = dict(zip(sources, pool.map(_build.build, sources)))
     print("built " + ", ".join(f"{k} {v:.3f} s" for k, v in took.items()))
-    recurrent_mesh_phase(get_config, f"[{smi}]", torch.cuda.synchronize)
+    card, sync = f"[{smi}]", torch.cuda.synchronize
+    phases = {21: lambda: mesh_phase(get_config, card, sync),
+              23: lambda: mesh_train_phase(get_config, card, sync),
+              24: lambda: recurrent_mesh_phase(get_config, card, sync),
+              25: lambda: moe_mesh_phase(get_config, card)}
+    mesh_phases([phases[n]() for n in numbers])
     print(f"total wall time {time.perf_counter() - T_START:.1f} s")
     return 0
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--phase-24"]:
-        sys.exit(phase24_card())
-    if sys.argv[1:2] == ["--phase-23"]:
-        sys.exit(phase23_card())
-    if sys.argv[1:2] == ["--phase-21"]:
-        sys.exit(phase21_card())
+    MESH_FLAGS = {f"--phase-{n}": n for n in (21, 23, 24, 25)}
+    if sys.argv[1:] and all(a in MESH_FLAGS for a in sys.argv[1:]):
+        sys.exit(mesh_phases_card(sorted({MESH_FLAGS[a] for a in sys.argv[1:]})))
     if sys.argv[1:2] == ["--phase-22"]:
         sys.exit(phase22_card())
     if sys.argv[1:2] == ["--phase-20"]:

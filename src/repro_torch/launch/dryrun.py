@@ -32,10 +32,12 @@ its peak, and its collectives recorded on the meta route
 roofline's collective term.  A train cell runs the rank's step
 (``runtime/train.py``): its shard, its optimizer pieces
 (``runtime/sharding.TrainLayout``), the global batch, and the backward's
-collectives recorded beside the forward's.  A cell the rank-local
-execution does not cover (MoE: ROADMAP A13c-3; a model axis that would
-split inside an rwkv head, as 16 ranks over rwkv6-3b's 40: A13c-6) is
-reported as skipped.  ``--multi-pod`` raises (ROADMAP A13c-4).
+collectives recorded beside the forward's; an MoE cell's all-to-alls and
+expert-bank gathers among them.  A cell the rank-local execution does not
+cover (Adafactor on a mesh, llama4-maverick's train cells: ROADMAP
+A13c-3b; a model axis that would split inside an rwkv head, as 16 ranks
+over rwkv6-3b's 40: A13c-6) is reported as skipped.  ``--multi-pod``
+raises (ROADMAP A13c-4).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-3-8b --shape train_4k

@@ -20,7 +20,8 @@ under ``torch.utils.checkpoint`` with ``cfg.remat`` as on one rank, and
 gathering the vocabulary.
 
 ``attn``, ``local`` and ``mamba`` blocks take a dense or an MoE FFN (MoE on
-the layers ``cfg.is_moe_block`` names); ``rwkv`` blocks carry their own
+the layers ``cfg.is_moe_block`` names; on a mesh, a data-only one too, the
+rank's block of the dispatch groups, ``models/moe.py``); ``rwkv`` blocks carry their own
 channel mix.  The frontend stubs stand in for an encoder (SigLIP, EnCodec)
 as in the reference: ``audio_stub`` prefills take frame embeddings and no
 tokens, ``vision_stub`` prefills take patch embeddings placed ahead of the
@@ -84,14 +85,22 @@ class _FfnBlock(nn.Module):
         self.moe = _frozen_dict(params["moe"]) if "moe" in params else None
         self.ffn = None if self.moe is not None else _frozen_dict(params["ffn"])
 
-    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, x: torch.Tensor, shard=None, tag: str = "") -> torch.Tensor:
+        """The FFN of one rank, or of a rank of a data-only mesh (``shard``:
+        its MoE takes its block of the global dispatch groups)."""
         h2 = rmsnorm(x, self.ln2, self.cfg.norm_eps)
         if self.moe is not None:
-            return x + moe_ffn(self.moe, h2, self.cfg)
+            return x + moe_ffn(self.moe, h2, self.cfg, shard, tag=tag)
         return x + ffn(self.ffn, h2, self.cfg.ffn_gated)
 
-    def _ffn_mesh(self, x: torch.Tensor, partition: str, shard, tag: str) -> torch.Tensor:
+    def _ffn_mesh(self, x: torch.Tensor, partition: str, shard, tag: str,
+                  seq: int | None = None) -> torch.Tensor:
+        """The FFN on a model axis: ``x`` the whole sequence (ISP) or this
+        rank's positions of ``seq`` (WSP)."""
         h2 = rmsnorm(x, self.ln2, self.cfg.norm_eps)
+        if self.moe is not None:
+            return x + moe_ffn(self.moe, h2, self.cfg, shard, seq if partition == "WSP" else None,
+                               tag)
         mlp = ffn_isp if partition == "ISP" else ffn_wsp
         return x + mlp(self.ffn, h2, self.cfg.ffn_gated, shard, tag)
 
@@ -104,18 +113,19 @@ class AttnBlock(_FfnBlock):
         self.window = cfg.window if kind == "local" else 0
         self.attn = _frozen_dict(params["attn"])
 
-    def prefill(self, x, positions, plain_attention=False, from_offsets=None):
+    def prefill(self, x, positions, plain_attention=False, from_offsets=None, shard=None,
+                tag=""):
         h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
         a, (k, v) = attention_prefill(self.attn, h, self.cfg, positions, self.window,
                                       plain=plain_attention, from_offsets=from_offsets)
-        return self._ffn(x + a), {"k": k, "v": v}
+        return self._ffn(x + a, shard, tag), {"k": k, "v": v}
 
-    def decode(self, x, position, cache):
+    def decode(self, x, position, cache, shard=None, tag=""):
         """``cache``: this layer's ``{"k", "v"}`` [B, T, KV, hd], written in place."""
         h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
         a, _ = attention_decode(self.attn, h, self.cfg, cache["k"], cache["v"], position,
                                 self.window)
-        return self._ffn(x + a)
+        return self._ffn(x + a, shard, tag)
 
     def prefill_mesh(self, x, partition, shard, plain_attention=False, tag="", seq=None):
         """One rank's layer on a model axis: ``x`` is the whole sequence
@@ -123,7 +133,7 @@ class AttnBlock(_FfnBlock):
         h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
         attend = attention_prefill_isp if partition == "ISP" else attention_prefill_wsp
         x = x + attend(self.attn, h, self.cfg, shard, self.window, plain_attention, tag)
-        return self._ffn_mesh(x, partition, shard, tag)
+        return self._ffn_mesh(x, partition, shard, tag, seq)
 
     def decode_mesh(self, x, position, cache, shard, tag=""):
         """One rank's decode step of the layer (ISP; the cache sharded on
@@ -154,10 +164,11 @@ class RwkvBlock(nn.Module):
         f, st2 = rwkv_channel_mix(self.rwkv, h2, state, shard, tag, wsp_seq)
         return x + f, {**st, **st2}
 
-    def prefill(self, x, positions, plain_attention=False, from_offsets=None):
+    def prefill(self, x, positions, plain_attention=False, from_offsets=None, shard=None,
+                tag=""):
         return self._run(x, None)          # position-free, as in the reference
 
-    def decode(self, x, position, cache):
+    def decode(self, x, position, cache, shard=None, tag=""):
         """``cache``: this layer's ``{"S", "shift", "shift_ffn"}``, written in place."""
         x, st = self._run(x, cache)
         for n, t in st.items():
@@ -185,18 +196,19 @@ class MambaBlock(_FfnBlock):
         super().__init__(cfg, params)
         self.mamba = _frozen_dict(params["mamba"])
 
-    def prefill(self, x, positions, plain_attention=False, from_offsets=None):
+    def prefill(self, x, positions, plain_attention=False, from_offsets=None, shard=None,
+                tag=""):
         h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
         a, st = mamba_prefill(self.mamba, h, self.cfg)     # position-free
-        return self._ffn(x + a), st
+        return self._ffn(x + a, shard, tag), st
 
-    def decode(self, x, position, cache):
+    def decode(self, x, position, cache, shard=None, tag=""):
         """``cache``: this layer's ``{"h", "conv"}``, written in place."""
         h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
         a, st = mamba_decode(self.mamba, h, self.cfg, cache)
         for n, t in st.items():
             cache[n].copy_(t)
-        return self._ffn(x + a)
+        return self._ffn(x + a, shard, tag)
 
     def prefill_mesh(self, x, partition, shard, plain_attention=False, tag="", seq=None):
         """One rank's layer on a model axis: its channels, on the whole
@@ -205,7 +217,7 @@ class MambaBlock(_FfnBlock):
         h = rmsnorm(x, self.ln1, self.cfg.norm_eps)
         a, _ = mamba_prefill(self.mamba, h, self.cfg, shard, tag,
                              seq if partition == "WSP" else None)
-        return self._ffn_mesh(x + a, partition, shard, tag)
+        return self._ffn_mesh(x + a, partition, shard, tag, seq)
 
     def decode_mesh(self, x, position, cache, shard, tag=""):
         """One rank's decode step: its channels of ``h`` and ``conv``."""
@@ -340,11 +352,13 @@ class DecoderLM(nn.Module):
         per_slot = [[] for _ in range(P)]
         remat = self.cfg.remat and torch.is_grad_enabled() and not collect_cache
         for layer, blk in enumerate(self.blocks):
-            if remat:
-                x, cache = checkpoint(blk.prefill, x, positions, plain_attention, from_offsets,
-                                      use_reentrant=False)
+            if remat:   # on a data-only mesh the whole block again, its collectives too
+                with set_checkpoint_early_stop(sh is None):
+                    x, cache = checkpoint(blk.prefill, x, positions, plain_attention,
+                                          from_offsets, sh, f"blk{layer}", use_reentrant=False)
             else:
-                x, cache = blk.prefill(x, positions, plain_attention, from_offsets)
+                x, cache = blk.prefill(x, positions, plain_attention, from_offsets, sh,
+                                       f"blk{layer}")
             if collect_cache:
                 per_slot[layer % P].append(cache)
         caches = None
@@ -461,7 +475,8 @@ class DecoderLM(nn.Module):
         x = embed(token, self.embed)
         for layer, blk in enumerate(self.blocks):
             r, pi = divmod(layer, P)
-            x = blk.decode(x, position, {n: t[r] for n, t in caches[pi].items()})
+            x = blk.decode(x, position, {n: t[r] for n, t in caches[pi].items()}, sh,
+                           f"blk{layer}")
         return self._logits(x), caches
 
 

@@ -7,14 +7,14 @@ itself, through one :class:`Collectives` per mesh, which counts every
 call and its bytes by kind, axis and tag as it goes (a bounded tally, so a
 serving loop may run on with it).  The bytes are the reference's
 measure: those of each op's *result* (an all-gather's gathered tensor, an
-all-reduce's tensor, a reduce-scatter's shard, a collective-permute's
-received tensor), in the result's dtype.
+all-reduce's tensor, a reduce-scatter's shard, an all-to-all's received
+blocks, a collective-permute's received tensor), in the result's dtype.
 
 Routes:
 
 * ``"dist"``: ``torch.distributed`` over the mesh axis's process group.
   With ``stage`` (gloo and tensors on a card) each call moves its tensor to
-  the host and back; gloo has no reduce-scatter, so that one runs as an
+  page-locked host memory and back; gloo has no reduce-scatter, so that one runs as an
   all-reduce and keeps this rank's block (recorded as the reduce-scatter it
   stands for).  An all-reduce of 16-bit floats sums in fp32.
 * ``"meta"``: records and returns a meta tensor of the result's shape; sends
@@ -40,7 +40,9 @@ lies (Megatron's f / g pairs, and their sequence-parallel forms):
   is the same on every rank, as after the WSP -> ISP transition);
 * :func:`scatter_sum`: reduce-scatter forward, all-gather backward;
 * :func:`own_block`: this rank's block forward, all-gather backward (a
-  replicated tensor cut into the ranks' positions).
+  replicated tensor cut into the ranks' positions);
+* :func:`all_to_all`: all-to-all forward, the all-to-all back backward
+  (its split and concatenated dims swapped: MoE's dispatch and combine).
 
 Each backward's collective is recorded under its forward's tag with
 ``":grad"`` appended.
@@ -58,11 +60,12 @@ def _nbytes(shape, dtype: torch.dtype) -> int:
 
 
 class Collectives:
-    """All-reduce, all-gather, reduce-scatter and permute over the axes of
-    one rank's mesh, whose coordinate on each axis is ``index``; ``calls``
-    maps ``(kind, axis, tag)`` to ``[calls, bytes]`` since the last
-    :meth:`reset` (kind ``"all-gather"``, ``"all-reduce"``,
-    ``"reduce-scatter"`` or ``"collective-permute"``; tag the caller's)."""
+    """All-reduce, all-gather, reduce-scatter, all-to-all and permute over
+    the axes of one rank's mesh, whose coordinate on each axis is ``index``;
+    ``calls`` maps ``(kind, axis, tag)`` to ``[calls, bytes]`` since the
+    last :meth:`reset` (kind ``"all-gather"``, ``"all-reduce"``,
+    ``"reduce-scatter"``, ``"all-to-all"`` or ``"collective-permute"``; tag
+    the caller's)."""
 
     def __init__(self, sizes: dict[str, int], groups: dict, route: str = "dist",
                  stage: bool = False, index: dict[str, int] | None = None):
@@ -101,7 +104,21 @@ class Collectives:
         tally[1] += _nbytes(shape, dtype)
 
     def _host(self, x: torch.Tensor) -> torch.Tensor:
-        return x.cpu() if self.stage else x
+        """``x`` itself, or with ``stage`` a copy in page-locked host memory
+        (the card's copy engines move it without an extra host pass)."""
+        if not self.stage:
+            return x
+        out = self._empty(x.shape, x.dtype, x)
+        out.copy_(x)
+        return out
+
+    def _empty(self, shape, dtype, like: torch.Tensor) -> torch.Tensor:
+        """A buffer the backend sends from or receives into: on ``like``'s
+        device (a card's under NCCL), or with ``stage`` in page-locked host
+        memory."""
+        if self.stage:
+            return torch.empty(shape, dtype=dtype, pin_memory=True)
+        return torch.empty(shape, dtype=dtype, device=like.device)
 
     def _back(self, y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         return y.to(like.device, non_blocking=False) if self.stage else y
@@ -144,10 +161,11 @@ class Collectives:
         # 16-bit floats travel as their bytes (every backend gathers uint8)
         raw = src.is_floating_point() and src.element_size() == 2 and src.dim() > 0
         view = src.view(torch.uint8) if raw else src
-        parts = [torch.empty_like(view) for _ in range(n)]
+        parts = [self._empty(view.shape, view.dtype, x) for _ in range(n)]
         dist.all_gather(parts, view, group=self.groups[axis])
-        out = torch.cat(parts, dim=dim)
-        return self._back(out.view(src.dtype) if raw else out, x)
+        # joined on x's device (with ``stage`` the parts cross back one by one)
+        parts = [self._back(p.view(src.dtype) if raw else p, x) for p in parts]
+        return torch.cat(parts, dim=dim)
 
     def reduce_scatter(self, x: torch.Tensor, dim: int = 0, axis: str = "model",
                        tag: str = "") -> torch.Tensor:
@@ -179,6 +197,41 @@ class Collectives:
             dist.reduce_scatter_tensor(out, moved, group=group)
             out = out.movedim(0, dim).contiguous()
         return self._back(out, x).to(x.dtype)
+
+    def all_to_all(self, x: torch.Tensor, split_dim: int, concat_dim: int, axis: str = "model",
+                   tag: str = "") -> torch.Tensor:
+        """``x`` cut into ``n`` equal blocks along ``split_dim``, block ``j``
+        sent to the axis's rank ``j``; the blocks arriving from ranks ``0 ..
+        n - 1`` concatenated along ``concat_dim`` (a new tensor, ``split_dim``
+        ``n`` times narrower, ``concat_dim`` ``n`` times wider).  Every rank
+        sends and receives blocks of one shape: a caller with uneven parts
+        pads them.  Recorded with the bytes of the result."""
+        n = self._size(axis)
+        if n == 1:
+            return x
+        split_dim, concat_dim = split_dim % x.dim(), concat_dim % x.dim()
+        if x.shape[split_dim] % n:
+            raise ValueError(f"all-to-all of {tuple(x.shape)} split along dim {split_dim} over "
+                             f"{n} ranks: the dim is no multiple of the ranks")
+        block = list(x.shape)
+        block[split_dim] //= n
+        shape = list(block)
+        shape[concat_dim] *= n
+        self._record("all-to-all", axis, tag, shape, x.dtype)
+        if self.route == "meta":
+            return x.new_empty(shape)
+        # the blocks to send side by side on a leading dim, in the ranks' order
+        # (arranged on x's device; with ``stage`` only the contiguous blocks
+        # cross to the host and back)
+        send = x.unflatten(split_dim, (n, block[split_dim])).movedim(split_dim, 0).contiguous()
+        send = self._host(send)
+        # 16-bit floats travel as their bytes, as all_gather sends them
+        raw = send.is_floating_point() and send.element_size() == 2
+        view = send.view(torch.uint8) if raw else send
+        recv = self._empty(view.shape, view.dtype, x)
+        dist.all_to_all_single(recv, view, group=self.groups[axis])
+        recv = self._back(recv.view(send.dtype) if raw else recv, x)
+        return torch.cat(list(recv.unbind(0)), dim=concat_dim)
 
     def permute(self, x: torch.Tensor, axis: str, pairs, tag: str = "") -> torch.Tensor | None:
         """``jax.lax.ppermute`` over ``axis``: for each ``(src, dst)`` of
@@ -212,8 +265,7 @@ class Collectives:
         works, buf = [], None
         if src is not None:
             shape = (*x.shape[:-1], 2 * x.shape[-1]) if raw else x.shape
-            buf = torch.empty(shape, dtype=torch.uint8 if raw else x.dtype,
-                              device="cpu" if self.stage else x.device)
+            buf = self._empty(shape, torch.uint8 if raw else x.dtype, x)
             works.append(dist.irecv(buf, src=dist.get_global_rank(group, src), group=group))
         if dst is not None:
             out = self._host(x.detach()).contiguous()
@@ -295,6 +347,19 @@ class _OwnBlock(torch.autograd.Function):
         return comm.all_gather(g, dim=dim, axis=axis, tag=_grad_tag(tag)), None, None, None, None
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, split_dim, concat_dim, axis, tag):
+        ctx.args = (comm, split_dim, concat_dim, axis, tag)
+        return comm.all_to_all(x, split_dim, concat_dim, axis=axis, tag=tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, split_dim, concat_dim, axis, tag = ctx.args
+        return (comm.all_to_all(g, concat_dim, split_dim, axis=axis, tag=_grad_tag(tag)),
+                None, None, None, None, None)
+
+
 def sum_over(comm: Collectives, x: torch.Tensor, axis: str = "model", tag: str = "") -> torch.Tensor:
     """All-reduce (sum) of ``x`` over ``axis``; its gradient passes through
     unchanged (each rank receives the whole gradient of the sum)."""
@@ -340,3 +405,13 @@ def own_block(comm: Collectives, x: torch.Tensor, dim: int, axis: str = "model",
         raise ValueError(f"block of {tuple(x.shape)} along dim {dim} over {n} ranks: the dim "
                          "is no multiple of the ranks")
     return _OwnBlock.apply(x, comm, dim % x.dim(), axis, tag)
+
+
+def all_to_all(comm: Collectives, x: torch.Tensor, split_dim: int, concat_dim: int,
+               axis: str = "model", tag: str = "") -> torch.Tensor:
+    """:meth:`Collectives.all_to_all` of ``x``; its gradient goes back by the
+    all-to-all with the two dims swapped (each block's gradient returns to
+    the rank that sent the block)."""
+    if comm.sizes.get(axis, 1) == 1:
+        return x
+    return _AllToAll.apply(x, comm, split_dim % x.dim(), concat_dim % x.dim(), axis, tag)

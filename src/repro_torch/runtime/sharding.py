@@ -35,20 +35,29 @@ its kv heads over the whole time axis.  Mamba's ``in_proj`` (``[d, 2 d_inner]``,
 read as ``[x | z]``) is stored as the reference stores it, ``d_inner``
 columns a rank, but the rank's columns are its block of the x half and of
 the z half (:class:`Spans`), so that its channels are local; its AdamW
-moments cover the same columns.  The rank-local execution covers ``attn``
-/ ``local`` / ``rwkv`` / ``mamba`` blocks with a dense FFN and both
-frontend stubs on a model axis above 1 (rwkv heads whole on a rank), and
-every config but MoE on a data-only mesh; MoE raises (ROADMAP A13c-3), and
-so does a model axis that would split inside an rwkv head (A13c-6: the
-reference splits there and replicates ``u``).
+moments cover the same columns.  The rank-local execution covers every
+block kind (``attn`` / ``local`` / ``rwkv`` / ``mamba``, with a dense or an
+MoE FFN) and both frontend stubs, on a model axis above 1 (rwkv heads whole
+on a rank) and on a data-only mesh; a model axis that would split inside an
+rwkv head raises (A13c-6: the reference splits there and replicates ``u``).
+MoE's expert banks are stored as ``_moe_specs`` stores them: with
+``plan.ep`` a rank's experts over ``model`` and, FSDP-style, its block of
+the second-to-last dim over ``data`` (whole where ``data`` does not divide
+it, as :func:`sanitize_pspecs` drops the entry), also on a data-only mesh;
+without ``ep`` the expert ``d_ff`` over ``model``.  ``models/moe.py`` runs
+the dispatch groups of ``moe:groups`` rank-locally.
 
 The train step's state on a mesh (:class:`TrainLayout`): a rank keeps its
-parameter pieces whole over ``data`` and its pieces of each AdamW moment
-by the reference's optimizer specs (:func:`opt_pspecs`, then
-:func:`sanitize_pspecs`, then :func:`zero_shard`, as its
-``build_train_step`` places them).  A ``data`` entry on a stacked leaf's
-repeat axis means whole layers' moments live on one data rank.
-:func:`shard_opt_state` cuts a whole ``OptState`` into those pieces.
+parameter pieces whole over ``data`` (the expert banks under ``ep``
+excepted) and its pieces of each AdamW moment by the reference's optimizer
+specs (:func:`opt_pspecs`, then :func:`sanitize_pspecs`, then
+:func:`zero_shard`, as its ``build_train_step`` places them), except that a
+leaf whose parameter spec already names ``data`` (the expert banks) keeps
+its moments on the parameter's own piece: the reference adds a second
+``data`` entry there and raises (ROADMAP C-ref-5), ``zero_shard``'s own
+rule skips such a leaf.  A ``data`` entry on a stacked leaf's repeat axis
+means whole layers' moments live on one data rank.  :func:`shard_opt_state`
+cuts a whole ``OptState`` into those pieces.
 """
 from __future__ import annotations
 
@@ -384,8 +393,11 @@ class RankShard:
     splits over the plan's data axes into ``dp`` parts (this one's is
     ``dpi``).  On the model axis the rank holds query heads ``heads``, the
     kv heads ``kv_heads`` they read, vocab rows ``vocab`` of the embedding
-    (columns of the head) and FFN columns ``ff``; of a recurrent block its
-    block of the rwkv heads or of mamba's channels (:meth:`part`).
+    (columns of the head), FFN columns ``ff`` and, under ``plan.ep``, the
+    experts ``experts``; of a recurrent block its block of the rwkv heads or
+    of mamba's channels (:meth:`part`).  ``data`` is the mesh's ``data``
+    axis (size, this rank's coordinate), over which the expert banks are
+    cut under ``plan.ep`` (:meth:`piece_box`).
     """
 
     cfg: ModelConfig
@@ -399,6 +411,8 @@ class RankShard:
     kv_heads: tuple[int, int] = (0, 0)
     vocab: tuple[int, int] = (0, 0)
     ff: tuple[int, int] = (0, 0)
+    experts: tuple[int, int] = (0, 0)
+    data: tuple[int, int] = (1, 0)
 
     @property
     def comm(self):
@@ -445,6 +459,14 @@ class RankShard:
         (``shard_kv_cache_time``), else the whole ``max_len``."""
         return self.chunk(max_len) if self.plan.shard_kv_cache_time else max_len
 
+    def piece_box(self, group: str, name: str, shape, r: int | None = None,
+                  q: int | None = None) -> tuple:
+        """The (lo, hi) a dim of the piece of a layer of leaf ``name`` of
+        ``group`` (whole per-layer ``shape``) that this rank holds, or model
+        rank ``r`` and data rank ``q`` of this mesh (:func:`_piece_box`)."""
+        return _piece_box(self.cfg, self.m, self.r if r is None else r, group, name, shape,
+                          self.plan.ep, (self.data[0], self.data[1] if q is None else q))
+
     def rows(self, x: torch.Tensor | None) -> torch.Tensor | None:
         """This rank's rows of a global batch-major tensor."""
         if x is None or self.dp == 1:
@@ -490,9 +512,10 @@ class RankShard:
         norm weights of WSP layers and, after a WSP last zone, the final
         norm's (each rank saw its positions), a kv head's wk / wv where
         ranks share it (each rank's query heads, or only the rank whose
-        copy the WSP gather took), and rwkv's leaves that every rank holds
+        copy the WSP gather took), rwkv's leaves that every rank holds
         whole and uses on its own heads (``mu``, ``w0``, ``w_lora_a``,
-        ``ln_x``)."""
+        ``ln_x``), and the MoE router (each rank routes its own dispatch
+        groups)."""
         if self.m == 1:
             return grads
         flat = model.flat_params()
@@ -502,6 +525,8 @@ class RankShard:
             if self.partition(layer) == WSP:
                 parts += [(index[id(blk.ln1)], False), (index[id(blk.ln2)], False)]
             attn, rwkv = getattr(blk, "attn", None), getattr(blk, "rwkv", None)
+            if getattr(blk, "moe", None) is not None:
+                parts.append((index[id(blk.moe["router"])], False))
             if attn is not None and self.shared_kv():
                 parts += [(index[id(attn[n])], True) for n in ("wk", "wv")]
             if rwkv is not None:
@@ -555,19 +580,17 @@ def _mesh_layout(cfg: ModelConfig, plan: ShardPlan, mesh) -> tuple[int, int, int
 
 def rank_shard(cfg: ModelConfig, plan: ShardPlan, mesh) -> RankShard:
     """This rank's :class:`RankShard`; raises ``NotImplementedError`` for a
-    config or mesh the rank-local execution does not cover (ROADMAP A13c-3,
-    A13c-6) and ``ValueError`` for dims the mesh does not divide, naming
-    them."""
+    mesh the rank-local execution does not cover (ROADMAP A13c-6) and
+    ``ValueError`` for dims the mesh does not divide, naming them."""
     m, r, dp, dpi = _mesh_layout(cfg, plan, mesh)
-    if mesh.size > 1 and cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name} on a {tuple(mesh.shape.items())} mesh: MoE's capacity dispatch is "
-            "global in the reference (moe:groups), so it runs on one rank only until "
-            "ROADMAP A13c-3")
+    data = (mesh.shape.get("data", 1), mesh.index("data") if "data" in mesh.shape else 0)
+    E = cfg.moe.n_experts if cfg.moe is not None else 0
     if m == 1:
-        return RankShard(cfg, plan, mesh, 1, 0, dp, dpi)
+        return RankShard(cfg, plan, mesh, 1, 0, dp, dpi, experts=(0, E), data=data)
     kinds = set(cfg.block_pattern)
     dims = [("padded vocab", cfg.padded_vocab), ("d_ff", cfg.d_ff)]
+    if cfg.moe is not None:
+        dims.append(("MoE n_experts", E) if plan.ep else ("MoE d_ff", cfg.moe.d_ff or cfg.d_ff))
     if "rwkv" in kinds:
         heads = cfg.d_model // cfg.rwkv_head_dim
         if heads % m:
@@ -588,7 +611,8 @@ def rank_shard(cfg: ModelConfig, plan: ShardPlan, mesh) -> RankShard:
     for name, n in dims:
         if n % m:
             raise ValueError(f"{cfg.name}: {name} {n} does not split over {m} model ranks")
-    return RankShard(cfg, plan, mesh, m, r, dp, dpi, *_model_spans(cfg, m, r))
+    return RankShard(cfg, plan, mesh, m, r, dp, dpi, *_model_spans(cfg, m, r),
+                     experts=_span(E, m, r) if plan.ep else (0, E), data=data)
 
 
 def _model_spans(cfg: ModelConfig, m: int, r: int) -> tuple:
@@ -611,15 +635,23 @@ def _width(span) -> int:
     return sum(hi - lo for lo, hi in span) if isinstance(span, Spans) else span[1] - span[0]
 
 
-def _piece_box(cfg: ModelConfig, m: int, r: int, group: str, name: str, shape) -> tuple:
+def _piece_box(cfg: ModelConfig, m: int, r: int, group: str, name: str, shape,
+               ep: bool, data: tuple[int, int]) -> tuple:
     """(lo, hi) a dim (or :class:`Spans`) of model rank ``r``'s piece of a
     layer of the leaf ``name`` of ``group`` (``"attn"``, ``"ffn"``,
-    ``"rwkv"``, ``"mamba"``, ``"blocks"`` for a block's norms, ``""`` at the
-    top), ``shape`` the whole leaf's per-layer shape: the one rule that cuts
-    a model over the ``model`` axis (:func:`_local_params`,
+    ``"moe"``, ``"rwkv"``, ``"mamba"``, ``"blocks"`` for a block's norms,
+    ``""`` at the top), ``shape`` the whole leaf's per-layer shape: the one
+    rule that cuts a model over the mesh (:func:`_local_params`,
     :class:`TrainLayout`).  rwkv's ``mu``, ``w0``, ``w_lora_a`` and ``ln_x``
-    are whole on every rank, as the reference's specs replicate them."""
+    and the MoE router are whole on every rank, as the reference's specs
+    replicate them.  Under ``ep`` an expert bank (``[E, d, f]`` or ``[E, f,
+    d]``) is cut to the rank's experts and, over the ``data`` axis of
+    ``data = (size, this rank's coordinate)``, to its block of dim 1 where
+    the size divides it (:func:`_moe_specs`, :func:`sanitize_pspecs`)."""
     full = [(0, n) for n in shape]
+    bank = group == "moe" and name != "router"
+    if bank and ep and data[0] > 1 and shape[1] % data[0] == 0:
+        full[1] = _span(shape[1], *data)
     if m == 1:
         return tuple(full)
     hd = cfg.head_dim
@@ -635,6 +667,10 @@ def _piece_box(cfg: ModelConfig, m: int, r: int, group: str, name: str, shape) -
              ("rwkv", "u"): (0, _span(cfg.d_model // cfg.rwkv_head_dim, m, r)),
              ("mamba", "in_proj"): (1, Spans((ch, (di + ch[0], di + ch[1])))),
              ("mamba", "conv_w"): (1, ch), ("mamba", "dt_proj"): (1, ch)}
+    if bank:
+        eff = cfg.moe.d_ff or cfg.d_ff
+        rules[("moe", name)] = ((0, _span(cfg.moe.n_experts, m, r)) if ep else
+                                (1 if name == "w2" else 2, _span(eff, m, r)))
     rules.update({("rwkv", n): (1, cols) for n in ("wr", "wk", "wv", "wg", "w_lora_b", "cm_r")})
     rules.update({("mamba", n): (0, ch) for n in ("conv_b", "x_proj", "dt_bias", "A_log", "D",
                                                   "out_proj")})
@@ -648,11 +684,13 @@ def _local_params(model, sh: RankShard) -> dict:
     """The params dict ``DecoderLM`` takes, cut to this rank's pieces by
     :func:`_piece_box` (on a model axis every leaf a copy, so the whole
     model can be freed and a shard's training leaves it as it was; a
-    data-only shard holds the whole model's tensors themselves)."""
+    data-only shard holds the whole model's tensors themselves, its blocks
+    of the expert banks excepted)."""
     def cut(t, group, name):
-        if sh.m == 1:
+        box = sh.piece_box(group, name, t.shape)
+        if sh.m == 1 and box == tuple((0, n) for n in t.shape):
             return t
-        return _narrow(t, _piece_box(sh.cfg, sh.m, sh.r, group, name, t.shape)).clone()
+        return _narrow(t, box).clone()
 
     blocks = []
     for blk in model.blocks:
@@ -761,12 +799,22 @@ def _block(n: int, entry, mesh) -> tuple[int, int]:
 def train_specs(cfg: ModelConfig, plan: ShardPlan, mesh):
     """(the whole parameter tree's leaves with their shapes, on meta; the
     optimizer state's specs): the reference's ``build_train_step``
-    placement, ``sanitize(opt_pspecs)`` then ``zero_shard`` under ZeRO."""
+    placement, ``sanitize(opt_pspecs)`` then ``zero_shard`` under ZeRO,
+    except that an AdamW moment of a leaf whose parameter spec names
+    ``data`` (an expert bank under ``ep``) takes the parameter's spec, as
+    ``zero_shard``'s own rule leaves such a leaf (the reference's
+    ``opt_pspecs`` adds a second ``data`` entry: ROADMAP C-ref-5)."""
     shapes = init_params(cfg, None, "meta").param_tree()
     p_specs = sanitize_pspecs(param_pspecs(cfg, plan, mesh), shapes, mesh)
     opt_shapes = OptState(step=torch.empty((), device="meta"), m=shapes, v=shapes)
     o_specs = sanitize_pspecs(opt_pspecs(cfg, plan, mesh, p_specs, cfg.optimizer), opt_shapes,
                               mesh)
+    if cfg.optimizer == "adamw":
+        def own(o, p):
+            return p if any(e == "data" or (isinstance(e, tuple) and "data" in e)
+                            for e in p) else o
+        o_specs = OptState(step=o_specs.step, m=map_specs(own, o_specs.m, p_specs),
+                           v=map_specs(own, o_specs.v, p_specs))
     if plan.zero:
         o_specs = zero_shard(o_specs, opt_shapes, mesh)
     return shapes, o_specs
@@ -817,6 +865,7 @@ class _Leaf:
     box: tuple            # this rank's moment piece, likewise
     data_dim: int | None  # the dim the moments split over ``data``
     axes: frozenset       # the mesh axes the moments split over
+    fsdp: bool = False    # the parameter piece is cut over ``data`` too (an expert bank)
 
     @property
     def moment_shape(self) -> tuple:
@@ -839,7 +888,9 @@ class TrainLayout:
     * :meth:`reduce_grads`: the parameter pieces' gradients, made whole over
       ``model`` where they are partial (:meth:`RankShard.partial_grads`),
       reduced over ``data`` into the moment pieces (reduce-scatter on the
-      dim the moments split over ``data``, else all-reduce);
+      dim the moments split over ``data``, else all-reduce; an expert
+      bank's piece, cut over ``data`` as its moments are, comes summed from
+      its FSDP gather's transpose);
     * :meth:`grad_norm_sq`: the global gradient's squared norm, each element
       counted once (a piece's sum added over the axes its leaf splits on);
     * :meth:`param_views`: views of the parameter elements the moments cover;
@@ -854,8 +905,8 @@ class TrainLayout:
     def __init__(self, cfg: ModelConfig, plan: ShardPlan, mesh, shard: RankShard):
         if cfg.optimizer != "adamw":
             raise NotImplementedError(
-                f"{cfg.name}: {cfg.optimizer} on a mesh (its only config, llama4-maverick, is "
-                "MoE): ROADMAP A13c-3")
+                f"{cfg.name}: {cfg.optimizer} on a mesh (factored statistics summed over the "
+                "axes a leaf splits on): ROADMAP A13c-3b")
         self.cfg, self.plan, self.mesh, self.shard = cfg, plan, mesh, shard
         shapes, o_specs = train_specs(cfg, plan, mesh)
         self.o_specs = o_specs
@@ -866,22 +917,22 @@ class TrainLayout:
             entries = list(spec) + [None] * (len(shape) - len(spec))
             if any(e not in (None, "data", "model") for e in entries):
                 raise NotImplementedError(f"{key}: moment spec {spec} (multi-pod: ROADMAP A13c-4)")
-            layer = _piece_box(cfg, shard.m, shard.r, *_leaf_names(key),
-                               shape[1:] if stacked else shape)
+            layer = shard.piece_box(*_leaf_names(key), shape[1:] if stacked else shape)
             piece = ((0, shape[0]),) + layer if stacked else layer
             # a dim the piece holds as spans: the moments cover the same columns
             box = tuple(p if isinstance(p, Spans) and e == "model" else _block(n, e, mesh)
                         for n, e, p in zip(shape, entries, piece))
             data_dim = entries.index("data") if "data" in entries else None
+            fsdp = data_dim is not None and piece[data_dim] != (0, shape[data_dim])
             for d, (b, p) in enumerate(zip(box, piece)):
                 inside = (b == p if isinstance(p, Spans) else
                           p[0] <= b[0] and b[1] <= p[1]
-                          and (d != data_dim or p == (0, shape[d])))
+                          and (d != data_dim or p == (0, shape[d]) or b == p))
                 if not inside:
                     raise ValueError(f"{key}: the moment piece {box} is not inside the rank's "
                                      f"parameter piece {piece}")
             self.leaves.append(_Leaf(key, stacked, shape, piece, box, data_dim,
-                                     frozenset(e for e in entries if e)))
+                                     frozenset(e for e in entries if e), fsdp))
 
     @property
     def comm(self):
@@ -896,9 +947,10 @@ class TrainLayout:
         return torch.stack(layers) if lf.stacked else layers[0]
 
     def _model_box(self, lf: _Leaf) -> tuple:
-        """The moment box widened to the whole dim it splits over ``data``:
-        the region the rank holds once ``data`` is gathered."""
-        return tuple((0, n) if d == lf.data_dim else b
+        """The moment box widened to the whole dim it splits over ``data``
+        (unless the parameter piece splits there too): the region the rank
+        holds once ``data`` is gathered."""
+        return tuple((0, n) if d == lf.data_dim and not lf.fsdp else b
                      for d, (b, n) in enumerate(zip(lf.box, lf.shape)))
 
     # -------------------------------------------------------- the step
@@ -912,7 +964,9 @@ class TrainLayout:
         out = []
         for lf, layers in zip(self.leaves, self._per_leaf(grads), strict=True):
             t = _narrow(self._joined(lf, layers), lf.local(lf.box), skip=lf.data_dim)
-            if lf.data_dim is None:
+            if lf.fsdp:
+                out.append(t)
+            elif lf.data_dim is None:
                 out.append(self.comm.all_reduce(t, axis="data", tag="grad"))
             else:
                 out.append(self.comm.reduce_scatter(t, dim=lf.data_dim, axis="data", tag="grad"))
@@ -963,7 +1017,7 @@ class TrainLayout:
         comm = self.comm
         for lf, layers in zip(self.leaves, self._per_leaf(model.flat_params())):
             model_box = lf.local(self._model_box(lf))
-            if lf.data_dim is not None and comm.sizes.get("data", 1) > 1:
+            if lf.data_dim is not None and not lf.fsdp and comm.sizes.get("data", 1) > 1:
                 view = self._views(lf, layers)
                 t = self._joined(lf, pytree.leaf_layers(view))
                 full = comm.all_gather(t, dim=lf.data_dim, axis="data", tag="zero")
@@ -987,23 +1041,28 @@ class TrainLayout:
         """(leaf, the whole leaf) of every parameter leaf in order, gathered
         one at a time (a stacked leaf as ``[R, ...]``): the model ranks'
         pieces all-gathered and placed by :func:`_piece_box` (ranks that
-        share a kv head hold the same columns).  Every rank walks every leaf."""
+        share a kv head hold the same columns; an expert bank's pieces also
+        over ``data``).  Every rank walks every leaf."""
         m = self.shard.m
         for lf, layers in zip(self.leaves, self._per_leaf(model.flat_params())):
             t = self._joined(lf, [p.detach() for p in layers])
-            if m == 1:
+            if m == 1 and not lf.fsdp:
                 yield lf, t
                 continue
             parts = self.comm.all_gather(t[None], dim=0, axis="model", tag="ckpt")
+            if lf.fsdp:
+                parts = self.comm.all_gather(parts[None], dim=0, axis="data", tag="ckpt")
             out = t.new_empty(lf.shape)
-            for r in range(m):
-                _place(out, self._piece_of(lf, r), parts[r])
+            for q in range(len(parts) if lf.fsdp else 1):
+                for r in range(m):
+                    _place(out, self._piece_of(lf, r, q), parts[q][r] if lf.fsdp else parts[r])
             yield lf, out
 
-    def _piece_of(self, lf: _Leaf, r: int) -> tuple:
-        """Model rank ``r``'s parameter piece of ``lf`` (whole-leaf coordinates)."""
-        box = _piece_box(self.cfg, self.shard.m, r, *_leaf_names(lf.key),
-                         lf.shape[1:] if lf.stacked else lf.shape)
+    def _piece_of(self, lf: _Leaf, r: int, q: int | None = None) -> tuple:
+        """Model rank ``r``'s (and data rank ``q``'s) parameter piece of ``lf``
+        (whole-leaf coordinates)."""
+        box = self.shard.piece_box(*_leaf_names(lf.key), lf.shape[1:] if lf.stacked else lf.shape,
+                                   r, q)
         return ((0, lf.shape[0]),) + box if lf.stacked else box
 
     def whole_moments(self, pieces):

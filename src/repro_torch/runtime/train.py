@@ -17,7 +17,11 @@ plan rank-locally through collectives with gradients, the vocab-parallel
 loss of its rows, the gradients summed over ``model`` where each rank
 holds a part, reduced over ``data`` into the rank's moment pieces (ZeRO),
 clipped by the global norm with each element counted once, AdamW on those
-pieces, and the updated elements all-gathered back.  A step that fails on
+pieces, and the updated elements all-gathered back.  MoE layers run their
+dispatch groups rank-locally (``models/moe.py``): the all-to-alls and the
+expert banks' FSDP gathers differentiate through their transposes, the
+router's gradient is summed over ``model`` and an expert bank's arrives
+summed over ``data`` on the rank's piece, where its moments are.  A step that fails on
 one rank leaves the others waiting in a collective (ROADMAP).
 
 Dtypes follow the reference: with ``cfg.accum_steps == 1`` gradients stay
@@ -150,8 +154,9 @@ def _build_mesh_step(cfg, plan, base_lr, warmup, total_steps, max_grad_norm, com
                                   "reference compresses its accumulation buffers under "
                                   "GSPMD): ROADMAP A13c-5")
     if cfg.optimizer != "adamw":
-        raise NotImplementedError(f"{cfg.name}: {cfg.optimizer} on a mesh (its only config, "
-                                  "llama4-maverick, is MoE): ROADMAP A13c-3")
+        raise NotImplementedError(f"{cfg.name}: {cfg.optimizer} on a mesh (factored "
+                                  "statistics summed over the axes a leaf splits on): "
+                                  "ROADMAP A13c-3b")
     dev = _device(None, mesh)
     _, update_fn = make_optimizer(cfg.optimizer)
     lr = cosine_schedule(base_lr, warmup, total_steps)

@@ -14,7 +14,10 @@ activation all-gather) and their bytes to a count from the shapes.  A
 data-only (2, 1) mesh runs rwkv6-3b by batch split.  The plain
 ``attention_ref`` with ``q_offset`` is held to the reference's attention
 sliced to those rows, its gradient to ``jax.grad`` of the reference's
-attention restricted to them, and MoE on a mesh raises (ROADMAP A13c-3).
+attention restricted to them, and what lies outside the slices built so
+far raises, naming its ROADMAP item: llama4-maverick's Adafactor step on a
+mesh (A13c-3b), int8 gradient compression on a mesh (A13c-5), a multi-pod
+mesh (A13c-4).  MoE on a mesh is ``tests/test_torch_multirank_moe.py``'s.
 """
 import dataclasses
 import functools
@@ -41,8 +44,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.launch import dryrun
 from repro_torch.launch.hlo_analysis import collective_stats
 from repro_torch.launch.mesh import make_mesh, run_ranks
-from repro_torch.models.model import init_params
-from repro_torch.runtime.sharding import ShardPlan, shard_model
+from repro_torch.runtime.sharding import ShardPlan
+from repro_torch.runtime.train import build_train_step
 from torch_parity import serve_cases_on_rank, serve_rows_on_rank
 
 TOL = dict(rtol=1e-4, atol=1e-4)        # tests/test_torch_model.py's
@@ -309,14 +312,28 @@ def test_offset_backward_meta_route_counts_the_visible_pairs(offset, n, window, 
     assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
 
 
-@pytest.mark.parametrize("arch,shape", [("granite-moe-1b-a400m", (2, 1)),
-                                        ("granite-moe-1b-a400m", (1, 2)),
-                                        ("jamba-v0.1-52b", (1, 2))])
-def test_outside_this_slice_raises_naming_a13c(arch, shape):
-    cfg = get_smoke_config(arch)
-    mesh = make_mesh(shape, AXES, meta=True)
-    with pytest.raises(NotImplementedError, match="A13c"):
-        shard_model(init_params(cfg, None, "meta"), ShardPlan(AXES), mesh)
+def _adafactor_mesh_step():
+    cfg = get_smoke_config("llama4-maverick-400b-a17b")
+    build_train_step(cfg, ShardPlan(AXES), device="meta", mesh=make_mesh((1, 2), AXES, meta=True))
+
+
+def _compressed_mesh_step():
+    cfg = get_smoke_config("granite-3-8b")
+    build_train_step(cfg, ShardPlan(AXES), compress=True, device="meta",
+                     mesh=make_mesh((2, 1), AXES, meta=True))
+
+
+def _multi_pod_dryrun():
+    dryrun.main(["--arch", "granite-3-8b", "--shape", "prefill_32k", "--multi-pod"])
+
+
+@pytest.mark.parametrize("run,item", [(_adafactor_mesh_step, "A13c-3b"),
+                                      (_compressed_mesh_step, "A13c-5"),
+                                      (_multi_pod_dryrun, "A13c-4")],
+                         ids=["adafactor-mesh-step", "compress-on-a-mesh", "multi-pod"])
+def test_outside_this_slice_raises_naming_a13c(run, item):
+    with pytest.raises(NotImplementedError, match=item):
+        run()
 
 
 # ------------------------------------------------------------ the dry-run

@@ -150,6 +150,55 @@ def serve_rows_on_rank(mesh, arch, params, tokens, caches, dtoks, max_len):
     return calls, gather_logits(logits, model.shard).numpy(), np.stack(dec)
 
 
+def moe_cases_on_rank(mesh, payload, plans, max_len):
+    """The prefill step and the first decode step of every MoE case of
+    ``payload`` (``{name: (arch, MoE config overrides, params, tokens,
+    caches, decode tokens, plan names)}``, the reference's numpy arrays)
+    under each of its plans on this rank.  Returns per (name, plan) what
+    ``serve_cases_on_rank`` returns for those steps, the routing each
+    step's MoE layers chose on this rank (``models.moe.routing_log``) and
+    the shapes of the rank's pieces of the first MoE block's leaves."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.models.moe import routing_log
+    from repro_torch.runtime.serve import build_decode_step, build_prefill_step
+    from repro_torch.runtime.sharding import ShardPlan, gather_logits, shard_caches, shard_model
+
+    def log(records):
+        return [(tag, first, v.numpy(), i.numpy()) for tag, first, v, i in records]
+
+    out = {}
+    for name, (arch, moe_over, params, tokens, caches, dtoks, names) in payload.items():
+        cfg = get_smoke_config(arch)
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe_over))
+        whole = params_from_jax(cfg, params, "cpu")
+        B, S = tokens.shape
+        for plan_name in names:
+            plan = ShardPlan(AXES, **plans[plan_name])
+            model = shard_model(whole, plan, mesh)
+            prefill = build_prefill_step(cfg, plan, "cpu", mesh)
+            mesh.comm.reset()
+            with routing_log() as records:
+                local = prefill(model, torch.from_numpy(tokens))
+            res = {"local_shape": tuple(local.shape), "calls": dict(mesh.comm.calls),
+                   "logits": gather_logits(local, model.shard).numpy(),
+                   "routing": log(records)}
+            blk = next(b for b in model.blocks if getattr(b, "moe", None) is not None)
+            res["expert_shapes"] = {n: tuple(t.shape) for n, t in blk.moe.items()}
+            decode = build_decode_step(cfg, plan, B, max_len, "cpu", mesh)
+            state = shard_caches(_caches(caches), model.shard)
+            mesh.comm.reset()
+            with routing_log() as records:
+                lg, state = decode(model, torch.from_numpy(dtoks[0]), torch.full((B,), S), state)
+            res["decode_calls"] = dict(mesh.comm.calls)
+            res["decode_routing"] = log(records)
+            res["decode"] = gather_logits(lg, model.shard).numpy()
+            out[(name, plan_name)] = res
+    return out
+
+
 # What a rank of tests/test_torch_pipeline.py runs: the merged pipeline on a
 # (stage, data) mesh.
 
@@ -237,15 +286,16 @@ def prefill_on_rank(mesh, arch, params, tokens):
 # What a rank of tests/test_torch_train_mesh.py runs: the train step on a
 # (data, model) mesh.
 
-def train_on_rank(mesh, payload, cases, steps, hyper, resync=None):
+def train_on_rank(mesh, payload, cases, steps, hyper, resync=None, save=None):
     """For each ``(name, arch, plan keywords, config overrides)`` of
     ``cases``: ``steps`` train steps of the smoke ``arch`` on this rank
     from the reference's weights (``payload[arch]``: (params, batches) as
     numpy), AdamW from zero moments.  ``resync[name][s]``: whole (params,
     m, v) leaves (in order) the rank's state is cut from before step ``s``.
-    Returns per case the losses, grad norms, the whole parameters and
-    moments after each step (gathered), the rank's moment piece shapes and
-    the first step's recorded collectives."""
+    ``save[name]``: a directory the state after the last step is
+    checkpointed into.  Returns per case the losses, grad norms, the whole
+    parameters and moments after each step (gathered), the rank's moment
+    piece shapes and the first step's recorded collectives."""
     import torch
 
     from repro_torch import tree
@@ -285,8 +335,34 @@ def train_on_rank(mesh, payload, cases, steps, hyper, resync=None):
             res["m"].append([t.numpy().copy() for _, t in layout.whole_moments(opt.m)])
             res["v"].append([t.numpy().copy() for _, t in layout.whole_moments(opt.v)])
             res["step"] = int(opt.step)
+        if name in (save or {}):
+            from repro_torch.ckpt import save_checkpoint
+
+            save_checkpoint(save[name], steps, (model, opt))
         out[name] = res
     return out
+
+
+def restore_on_rank(mesh, arch, plan_kw, directory, step):
+    """A fresh shard of the smoke ``arch`` and zero AdamW pieces on this
+    rank, restored from the checkpoint of ``step`` in ``directory``;
+    returns its whole parameters, moments (m, v) and step count."""
+    import torch
+
+    from repro_torch.ckpt import restore_checkpoint
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.runtime.sharding import ShardPlan, shard_model, train_layout
+
+    cfg = get_smoke_config(arch)
+    model = shard_model(init_params(cfg, torch.Generator().manual_seed(1), "cpu"),
+                        ShardPlan(AXES, **plan_kw), mesh).train_params()
+    layout = train_layout(model)
+    opt = layout.zero_moments("cpu")
+    restore_checkpoint(directory, step, (model, opt))
+    return ([t.detach().numpy().copy() for _, t in layout.whole_params(model)],
+            [t.numpy().copy() for _, t in layout.whole_moments(opt.m)],
+            [t.numpy().copy() for _, t in layout.whole_moments(opt.v)], int(opt.step))
 
 
 def ckpt_on_rank(mesh, arch, dirs, steps, fail_at, every):
